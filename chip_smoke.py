@@ -6,21 +6,42 @@
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: compiles the CUDA kernel from the sources in this checkout;
-3. kernel vs plain: ``fused_step`` against ``fused_step_reference`` on the
-   card, in float32, on random heterogeneous problems with all four border
-   kinds (orders 1-3, both axes orders, elastic3d, one acoustic3d case, on
-   a ragged and a tile-multiple shape); per-component normalized max error
-   under 2e-6;
-4. main path: ``Engine(elastic3d_explosion, n=256, nsteps=300)`` on the
-   card (256x256x128 grid) resolves to the fused kernel, launches it once
-   per step, gives finite fields, motion at the free surface and non-zero
-   detector traces, and agrees with the plain torch path (normalized error
-   under 1e-4 after 300 float32 steps); both paths' points/s are printed.
+2. build: compiles the CUDA kernels from the sources in this checkout
+   (one nvcc per source, in parallel);
+3. kernel vs plain, on the card, in float32, on random heterogeneous
+   problems with all four border kinds; per-component normalized max error
+   under 2e-6, the damage aux stream to rtol 1e-5, atol 1e-6:
+   - ``fused_step`` against ``fused_step_reference`` (orders 1-3, both axes
+     orders, elastic3d, one acoustic3d case, a ragged and a tile-multiple
+     shape);
+   - ``fused_step_2d`` against ``fused_step_2d_reference`` (orders 1-4, both
+     axes orders, elastic2d and acoustic2d, a ragged and a tile-multiple
+     shape);
+   - both fused kernels with Maxwell and damage correctors folded into
+     their epilogue, over 3 steps (the damage must become non-zero);
+   - ``sweep_stage`` against ``solver.gcm.stage`` on each axis of a 3D and
+     a 2D problem, orders 1-4;
+4. the 3D main path: ``Engine(elastic3d_explosion, n=256, nsteps=300)``
+   (256x256x128) resolves to the fused kernel, launches it once per step,
+   gives finite fields, motion at the free surface and non-zero traces, and
+   agrees with the plain torch path (normalized error under 1e-4);
+5. the 2D path: ``Engine(elastic2d_viscoelastic, n=2048, nsteps=1600)``
+   (2048x2048) resolves to ``fused_step_2d``, once per step, with the
+   Maxwell corrector run after the source (not folded); finite, non-zero
+   traces; after 300 steps it agrees with the torch path (under 1e-4);
+6. the folded corrector path: source-free ``elastic3d_layered`` at n=256
+   with Maxwell and damage correctors for 100 steps folds them into the
+   fused kernel; the damage is non-zero; state and damage agree with the
+   torch path with unfolded correctors (under 1e-4);
+7. the per-sweep path: ``kernel="sweep"`` on ``elastic3d_explosion`` n=256
+   for 100 steps launches ``sweep_stage`` once per axis and step and agrees
+   with the fused path (under 1e-4).
 
-The line before the last is a JSON object with the kernel's launches,
-error and times; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Each path's points/s and each kernel's ms against its plain version's at
+the path's own shape are printed. The line before the last is a JSON object
+with the kernels' launches on their main paths, errors and times; the last
+line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}``.
 """
 
 import dataclasses
@@ -37,6 +58,11 @@ import torch
 #: surface exactly at rest; by step ~250 the P wave has arrived there
 NSTEPS = 300
 N_MAIN = 256
+#: 2D viscoelastic section: 2048x2048 points; by 1600 steps (~0.195 s) the
+#: P wave has passed the receiver at 0.75 L
+N_2D, NSTEPS_2D, NSTEPS_2D_CMP = 2048, 1600, 300
+NSTEPS_VISCO = NSTEPS_SWEEP = 100
+PATH_TOL = 1e-4
 BORDER_SET = (
     ((0, 0), "free", None),
     ((0, 1), "absorbing", None),
@@ -54,8 +80,27 @@ def _norm_err(got, want):
     return ((got - want).abs().reshape(c, -1).amax(1) / scale).max().item()
 
 
+def _np_err(got, want):
+    return _norm_err(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def _mat_as(mat, dtype):
+    """Material fields cast to ``dtype``."""
+    return dataclasses.replace(mat, **{
+        f.name: getattr(mat, f.name).to(dtype)
+        for f in dataclasses.fields(mat)})
+
+
+def _borders(dim):
+    from gcm_tpu_torch.task import BorderSpec
+
+    return {f: BorderSpec(k, value=v if v is None else v[:dim])
+            for f, k, v in BORDER_SET if f[0] < dim}
+
+
 def _problem(rng, shape, name):
-    """Random heterogeneous medium and smooth random state (float32)."""
+    """Random heterogeneous medium and smooth random state (float32):
+    (model, state, material fields, compact stack, dt)."""
     from gcm_tpu_torch.materials import MaterialFields
     from gcm_tpu_torch.models.spec import get_model
     from gcm_tpu_torch.ops.fused import stack_mats
@@ -73,7 +118,7 @@ def _problem(rng, shape, name):
     mat = MaterialFields.from_arrays(rho, lam, mu, device="cuda")
     dt = 0.6 / float(np.sqrt((lam + 2 * mu) / rho).max())
     u = torch.tensor(u0, dtype=torch.float32, device="cuda")
-    return model, u, stack_mats(model, mat), dt
+    return model, u, mat, stack_mats(model, mat), dt
 
 
 def _time_ms(fn, reps):
@@ -87,6 +132,162 @@ def _time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def _hold_on_path_state(tag, kernel, plain, args, kw=None):
+    """One kernel step on a main path's own state, against its plain
+    version. Such a state can be badly conditioned for float32: near a
+    source the stress over the impedance exceeds the largest velocity many
+    times over, and then the velocities of both float32 versions carry
+    round-off of ~1e-6 of their maximum. So the kernel is held to the plain
+    step in float64: its normalized error there must stay under 2e-6, or
+    under twice the float32 plain step's own. Returns the kernel's output
+    and its normalized and max abs error against the float32 plain step."""
+    kw = kw or {}
+
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else x
+
+    def first(r):
+        return r[0] if isinstance(r, tuple) else r
+
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    exact = first(plain(*map(f64, args), **{k: f64(v) for k, v in kw.items()}))
+    err_k = _norm_err(first(got).double(), exact)
+    err_p = _norm_err(first(want).double(), exact)
+    _check(err_k < max(2e-6, 2 * err_p),
+           f"{tag}: error vs the float64 plain step {err_k:.3e}, float32 "
+           f"plain's own {err_p:.3e}")
+    print(f"{tag}: normalized error vs float64 plain {err_k:.3e} (float32 "
+          f"plain {err_p:.3e}), vs float32 plain "
+          f"{_norm_err(first(got), first(want)):.3e}")
+    return got, want, (first(got) - first(want)).abs().max().item()
+
+
+class Counts:
+    """The kernels' launch counters: zeroed just before a main path, read
+    just after it."""
+
+    def __init__(self):
+        from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d
+        from gcm_tpu_torch.ops.sweep import sweep_stage
+
+        self.fns = {"fused_step": fused_step, "fused_step_2d": fused_step_2d,
+                    "sweep_stage": sweep_stage}
+
+    def zero(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self):
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+
+def _warm(task, kernels):
+    """Two steps of each path, so first-launch costs stay out of the runs."""
+    from gcm_tpu_torch.engine import Engine
+
+    for kern in kernels:
+        Engine(dataclasses.replace(task, kernel=kern, time=dataclasses.replace(
+            task.time, nsteps=2)), device="cuda").run()
+
+
+def kernels_vs_plain():
+    """Phase 3: every kernel against its plain version on small problems."""
+    from gcm_tpu_torch.ops.fused import (
+        fold_corrector_specs, fused_step, fused_step_2d,
+        fused_step_2d_reference, fused_step_reference)
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+    from gcm_tpu_torch.solver.gcm import stage
+
+    rng = np.random.default_rng(0)
+    h3 = (10.0, 12.0, 9.0)
+
+    def hold(tag, got, want):
+        err = _norm_err(got, want)
+        _check(err < 2e-6, f"{tag}: err {err:.3e}")
+        return err
+
+    worst = 0.0
+    cases = [("elastic3d", shape, order, axes)
+             for shape in ((24, 40, 56), (64, 64, 32))
+             for order in (1, 2, 3)
+             for axes in ((0, 1, 2), (2, 1, 0))]
+    cases.append(("acoustic3d", (24, 40, 56), 2, (2, 1, 0)))
+    for name, shape, order, axes in cases:
+        model, u, _, ms, dt = _problem(rng, shape, name)
+        args = (model, u, ms, dt, h3, order, _borders(3), axes)
+        got = fused_step(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, hold(f"fused_step {name} {shape} order {order} "
+                                f"axes {axes}", got,
+                                fused_step_reference(*args)))
+    print(f"fused_step vs plain: {len(cases)} cases, worst normalized error "
+          f"{worst:.3e} (limit 2e-6)")
+
+    worst, n2 = 0.0, 0
+    for shape in ((37, 61), (64, 128)):
+        for name in ("elastic2d", "acoustic2d"):
+            for order in (1, 2, 3, 4):
+                for axes in ((0, 1), (1, 0)):
+                    model, u, _, ms, dt = _problem(rng, shape, name)
+                    args = (model, u, ms, dt, h3[:2], order, _borders(2),
+                            axes)
+                    got = fused_step_2d(*args)
+                    torch.cuda.synchronize()
+                    worst = max(worst, hold(
+                        f"fused_step_2d {name} {shape} order {order} axes "
+                        f"{axes}", got, fused_step_2d_reference(*args)))
+                    n2 += 1
+    print(f"fused_step_2d vs plain: {n2} cases, worst normalized error "
+          f"{worst:.3e} (limit 2e-6)")
+
+    for name, shape, kernel in (("elastic3d", (24, 40, 56), fused_step),
+                                ("elastic2d", (37, 61), fused_step_2d)):
+        model, u, _, ms, dt = _problem(rng, shape, name)
+        dim = model.dim
+        specs, naux = fold_corrector_specs(
+            (MaxwellCorrector(tau=40 * dt),
+             DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+        _check(specs is not None and naux == 1, "correctors did not fold")
+        got, gaux = u, torch.zeros((1,) + shape, device="cuda")
+        want, waux = u, gaux
+        for n in range(3):
+            axes = tuple(range(dim))[::(-1 if n % 2 else 1)]
+            rest = (ms, dt, h3[:dim], 2, _borders(dim), axes)
+            got, gaux = kernel(model, got, *rest, correctors=specs, aux=gaux)
+            want, waux = fused_step_reference(model, want, *rest,
+                                              correctors=specs, aux=waux)
+        torch.cuda.synchronize()
+        _check(gaux.max().item() > 1e-4, f"{name}: damage stayed zero")
+        err = hold(f"{kernel.__name__} with folded correctors", got, want)
+        torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+        print(f"{kernel.__name__} with folded Maxwell + damage, 3 steps "
+              f"{name} {shape}: normalized error {err:.3e}, damage max "
+              f"{gaux.max().item():.4g}, aux max abs error "
+              f"{(gaux - waux).abs().max().item():.3e} (rtol 1e-5, atol 1e-6)")
+
+    worst, ns = 0.0, 0
+    for name, shape in (("elastic3d", (24, 40, 56)), ("elastic2d", (37, 61))):
+        for order in (1, 2, 3, 4):
+            model, u, mat, _, dt = _problem(rng, shape, name)
+            for axis in range(model.dim):
+                args = (model, u, mat, dt, h3[:model.dim], axis, order,
+                        _borders(model.dim))
+                got = sweep_stage(*args)
+                torch.cuda.synchronize()
+                worst = max(worst, hold(f"sweep_stage {name} axis {axis} "
+                                        f"order {order}", got, stage(*args)))
+                ns += 1
+    print(f"sweep_stage vs plain: {ns} cases, worst normalized error "
+          f"{worst:.3e} (limit 2e-6)")
 
 
 def main() -> int:
@@ -106,9 +307,14 @@ def main() -> int:
 
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.ops import _build
-    from gcm_tpu_torch.ops.fused import fused_step, fused_step_reference
+    from gcm_tpu_torch.ops.fused import (
+        fused_step, fused_step_2d, fused_step_2d_reference,
+        fused_step_reference)
+    from gcm_tpu_torch.ops.sweep import sweep_stage
     from gcm_tpu_torch.scenarios import get_scenario
-    from gcm_tpu_torch.task import BorderSpec
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+    from gcm_tpu_torch.solver.gcm import cfl_dt, stage
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -116,93 +322,194 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
 
     # ---- 3. kernel vs plain on the card
-    borders = {f: BorderSpec(k, value=v) for f, k, v in BORDER_SET}
-    rng = np.random.default_rng(0)
-    cases = [("elastic3d", shape, order, axes)
-             for shape in ((24, 40, 56), (64, 64, 32))
-             for order in (1, 2, 3)
-             for axes in ((0, 1, 2), (2, 1, 0))]
-    cases.append(("acoustic3d", (24, 40, 56), 2, (2, 1, 0)))
-    worst = 0.0
-    for name, shape, order, axes in cases:
-        model, u, ms, dt = _problem(rng, shape, name)
-        h = (10.0, 12.0, 9.0)
-        got = fused_step(model, u, ms, dt, h, order, borders, axes)
-        torch.cuda.synchronize()
-        want = fused_step_reference(model, u, ms, dt, h, order, borders, axes)
-        err = _norm_err(got, want)
-        if not err < 2e-6:
-            raise AssertionError(f"fused_step vs plain: {name} {shape} "
-                                 f"order {order} axes {axes}: err {err:.3e}")
-        worst = max(worst, err)
-    print(f"kernel vs plain: {len(cases)} cases, worst normalized error "
-          f"{worst:.3e} (limit 2e-6)")
+    kernels_vs_plain()
+    counts = Counts()
+    result = {}
 
-    # ---- 4. main path: warm both paths up, then drive the fused path
+    # ---- 4. the 3D main path
     task = get_scenario("elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS)
-    for kern in ("auto", "torch"):
-        Engine(dataclasses.replace(task, kernel=kern,
-                                   time=dataclasses.replace(task.time,
-                                                            nsteps=2)),
-               device="cuda").run()
+    _warm(task, ("auto", "torch"))
     eng = Engine(task, device="cuda")
-    fused_step.launches = 0
+    counts.zero()
     res = eng.run()
-    launches = fused_step.launches
-    if res.kernel != "fused":
-        raise AssertionError(f"main path resolved to {res.kernel!r}")
-    if launches != NSTEPS:
-        raise AssertionError(f"{launches} kernel launches in {NSTEPS} steps")
+    launched = counts.read()
+    _check(res.kernel == "fused", f"3D path resolved to {res.kernel!r}")
+    _check(launched == {"fused_step": NSTEPS, "fused_step_2d": 0,
+                        "sweep_stage": 0}, f"3D path launches {launched}")
     shape = (eng.model.ncomp,) + task.grid.shape
-    if res.u.shape != shape or not np.isfinite(res.u).all():
-        raise AssertionError("final state is not finite or has wrong shape")
+    _check(res.u.shape == shape and np.isfinite(res.u).all(),
+           "final state is not finite or has wrong shape")
     vz_surface = np.abs(res.u[eng.model.comp("vz"), :, :, 0]).max()
-    if not vz_surface > 0:
-        raise AssertionError("no motion at the free surface")
-    if res.traces is None or not np.abs(res.traces).max() > 0:
-        raise AssertionError("detector traces are zero")
-
+    _check(vz_surface > 0, "no motion at the free surface")
+    _check(res.traces is not None and np.abs(res.traces).max() > 0,
+           "detector traces are zero")
     res_t = Engine(dataclasses.replace(task, kernel="torch"),
                    device="cuda").run()
-    path_err = _norm_err(torch.from_numpy(res.u), torch.from_numpy(res_t.u))
-    if not path_err < 1e-4:
-        raise AssertionError(f"fused vs torch path: err {path_err:.3e}")
-    print(f"main path {task.name} {task.grid.shape} x {NSTEPS} steps: "
+    path_err = _np_err(res.u, res_t.u)
+    _check(path_err < PATH_TOL, f"fused vs torch path: err {path_err:.3e}")
+    print(f"3D path {task.name} {task.grid.shape} x {NSTEPS} steps: "
           f"fused {res.points_per_second:.6g} points/s, torch "
           f"{res_t.points_per_second:.6g} points/s; fused vs torch "
           f"normalized error {path_err:.3e} (limit 1e-4); |vz| at z=0 "
-          f"{vz_surface:.3e}; card {card}")
+          f"{vz_surface:.3e}; {launched['fused_step']} fused_step launches")
 
-    # one step on the main path's own state: error and time of both versions
-    u = eng.u
-    args = (eng.model, u, eng._mstack, eng.dt, task.grid.h, task.order,
+    # one step on the path's own state: error and time of both versions
+    u3, ms3 = eng.u, eng._mstack
+    args = (eng.model, u3, ms3, eng.dt, task.grid.h, task.order,
             task.borders, (0, 1, 2))
-    got = fused_step(*args)
-    want = fused_step_reference(*args)
-    max_abs = (got - want).abs().max().item()
-    step_err = _norm_err(got, want)
-    if not step_err < 2e-6:
-        raise AssertionError(f"fused_step vs plain on the main path's "
-                             f"state: err {step_err:.3e}")
+    *_, max_abs = _hold_on_path_state("fused_step on the 3D state",
+                                      fused_step, fused_step_reference, args)
     ms = _time_ms(lambda: fused_step(*args), 20)
     plain_ms = _time_ms(lambda: fused_step_reference(*args), 5)
-    print(f"fused_step at {tuple(u.shape)}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; normalized error {step_err:.3e}")
+    print(f"fused_step at {tuple(u3.shape)}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    result["fused_step"] = dict(launches=launched["fused_step"],
+                                max_abs_err=max_abs, ms=ms,
+                                plain_ms=plain_ms)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_step",
-        "route": "cuda",
-        "source": "gcm_tpu_torch/csrc/fused_step.cu",
-        "replaces": "gcm_tpu/ops/pallas_fused.py:1162",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # the per-sweep kernel alone on the 3D path's state, each axis
+    sw_ms, sw_plain, sw_err = [], [], 0.0
+    for axis in range(3):
+        a = (eng.model, u3, eng.mat, eng.dt, task.grid.h, axis, task.order,
+             task.borders)
+        *_, max_abs = _hold_on_path_state(
+            f"sweep_stage on the 3D state, axis {axis}", sweep_stage,
+            lambda model, u, mat, *rest: stage(
+                model, u, _mat_as(mat, u.dtype), *rest), a)
+        sw_err = max(sw_err, max_abs)
+        sw_ms.append(_time_ms(lambda: sweep_stage(*a), 20))
+        sw_plain.append(_time_ms(lambda: stage(*a), 5))
+        print(f"sweep_stage at {tuple(u3.shape)} axis {axis}: kernel "
+              f"{sw_ms[-1]:.4f} ms, plain {sw_plain[-1]:.4f} ms")
+    del eng, res_t, u3, ms3, args
+
+    # ---- 5. the 2D viscoelastic path
+    task2 = get_scenario("elastic2d_viscoelastic", n=N_2D, nsteps=NSTEPS_2D)
+    _warm(task2, ("auto", "torch"))
+    eng2 = Engine(task2, device="cuda")
+    _check(eng2._fold_specs is None, "2D path with a source folded")
+    counts.zero()
+    res2 = eng2.run()
+    launched2 = counts.read()
+    _check(res2.kernel == "fused", f"2D path resolved to {res2.kernel!r}")
+    _check(launched2 == {"fused_step": 0, "fused_step_2d": NSTEPS_2D,
+                         "sweep_stage": 0}, f"2D path launches {launched2}")
+    _check(np.isfinite(res2.u).all() and np.isfinite(res2.traces).all(),
+           "2D path: state or traces not finite")
+    _check(np.abs(res2.traces).max() > 0, "2D path: traces are zero")
+    cmp2 = dataclasses.replace(task2, time=dataclasses.replace(
+        task2.time, nsteps=NSTEPS_2D_CMP))
+    r2f = Engine(cmp2, device="cuda").run()
+    r2t = Engine(dataclasses.replace(cmp2, kernel="torch"),
+                 device="cuda").run()
+    err2 = _np_err(r2f.u, r2t.u)
+    _check(err2 < PATH_TOL, f"2D fused vs torch: err {err2:.3e}")
+    print(f"2D path {task2.name} {task2.grid.shape} x {NSTEPS_2D} steps: "
+          f"fused {res2.points_per_second:.6g} points/s, "
+          f"{launched2['fused_step_2d']} fused_step_2d launches, Maxwell "
+          f"after the source; receiver |v|max "
+          f"{np.abs(res2.traces[:, 0, :2]).max():.4e}; after "
+          f"{NSTEPS_2D_CMP} steps fused {r2f.points_per_second:.6g} vs torch "
+          f"{r2t.points_per_second:.6g} points/s, normalized error "
+          f"{err2:.3e} (limit 1e-4)")
+    args2 = (eng2.model, eng2.u, eng2._mstack, eng2.dt, task2.grid.h,
+             task2.order, task2.borders, (0, 1))
+    *_, max_abs = _hold_on_path_state("fused_step_2d on the 2D state",
+                                      fused_step_2d, fused_step_2d_reference,
+                                      args2)
+    ms2 = _time_ms(lambda: fused_step_2d(*args2), 50)
+    plain2 = _time_ms(lambda: fused_step_2d_reference(*args2), 10)
+    print(f"fused_step_2d at {tuple(eng2.u.shape)}: kernel {ms2:.4f} ms, "
+          f"plain {plain2:.4f} ms")
+    result["fused_step_2d"] = dict(launches=launched2["fused_step_2d"],
+                                   max_abs_err=max_abs, ms=ms2,
+                                   plain_ms=plain2)
+    del eng2, r2f, r2t, args2
+
+    # ---- 6. the folded corrector path (source-free 3D layered)
+    base = get_scenario("elastic3d_layered", n=N_MAIN, nsteps=NSTEPS_VISCO)
+    dt = cfl_dt(base.material_fields(), base.grid.h, base.time.cfl)
+    task6 = dataclasses.replace(base, correctors=(
+        MaxwellCorrector(tau=50 * dt),
+        DamageCorrector(threshold=5e5, rate=0.1 / dt)))
+    _warm(task6, ("auto", "torch"))
+    eng6 = Engine(task6, device="cuda")
+    _check(eng6._fold_specs is not None and eng6._fold_naux == 1,
+           "source-free visco path did not fold its correctors")
+    counts.zero()
+    res6 = eng6.run()
+    launched6 = counts.read()
+    _check(launched6 == {"fused_step": NSTEPS_VISCO, "fused_step_2d": 0,
+                         "sweep_stage": 0}, f"visco path launches {launched6}")
+    dmg = eng6.aux["damage"].cpu().numpy()
+    _check(dmg.max() > 0, "visco path: damage stayed zero")
+    eng6t = Engine(dataclasses.replace(task6, kernel="torch"), device="cuda")
+    res6t = eng6t.run()
+    err6 = _np_err(res6.u, res6t.u)
+    dmg_t = eng6t.aux["damage"].cpu().numpy()
+    derr6 = float(np.abs(dmg - dmg_t).max() / max(np.abs(dmg_t).max(), 1e-30))
+    _check(err6 < PATH_TOL and derr6 < PATH_TOL,
+           f"visco folded vs torch: state {err6:.3e}, damage {derr6:.3e}")
+    print(f"visco path {task6.name} {task6.grid.shape} x {NSTEPS_VISCO} "
+          f"steps, Maxwell + damage folded: fused {res6.points_per_second:.6g}"
+          f" points/s, torch (unfolded) {res6t.points_per_second:.6g} "
+          f"points/s; normalized error state {err6:.3e}, damage {derr6:.3e} "
+          f"(limit 1e-4); damage max {dmg.max():.4g}, damaged share "
+          f"{(dmg > 0).mean():.4g}")
+    damage = eng6.aux["damage"].unsqueeze(0).contiguous()
+    args6 = (eng6.model, eng6.u, eng6._mstack, eng6.dt, task6.grid.h,
+             task6.order, task6.borders, (0, 1, 2))
+    kw6 = dict(correctors=eng6._fold_specs, aux=damage)
+    (_, gaux), (_, waux), _ = _hold_on_path_state(
+        "fused_step + folded Maxwell/damage on the visco state", fused_step,
+        fused_step_reference, args6, kw6)
+    torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+    ms6 = _time_ms(lambda: fused_step(*args6, **kw6), 20)
+    plain6 = _time_ms(lambda: fused_step_reference(*args6, **kw6), 5)
+    print(f"fused_step + folded Maxwell/damage at {tuple(eng6.u.shape)}: "
+          f"kernel {ms6:.4f} ms, plain {plain6:.4f} ms")
+    del eng6, eng6t, gaux, waux, args6, kw6, damage
+
+    # ---- 7. the per-sweep path
+    task7 = dataclasses.replace(get_scenario(
+        "elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_SWEEP), kernel="sweep")
+    _warm(task7, ("sweep",))
+    eng7 = Engine(task7, device="cuda")
+    counts.zero()
+    res7 = eng7.run()
+    launched7 = counts.read()
+    _check(res7.kernel == "sweep", f"sweep path resolved to {res7.kernel!r}")
+    _check(launched7 == {"fused_step": 0, "fused_step_2d": 0,
+                         "sweep_stage": 3 * NSTEPS_SWEEP},
+           f"sweep path launches {launched7}")
+    res7f = Engine(dataclasses.replace(task7, kernel="fused"),
+                   device="cuda").run()
+    err7 = _np_err(res7.u, res7f.u)
+    _check(err7 < PATH_TOL, f"sweep vs fused path: err {err7:.3e}")
+    print(f"sweep path {task7.name} {task7.grid.shape} x {NSTEPS_SWEEP} "
+          f"steps: sweep {res7.points_per_second:.6g} points/s, fused "
+          f"{res7f.points_per_second:.6g} points/s; normalized error "
+          f"{err7:.3e} (limit 1e-4); {launched7['sweep_stage']} sweep_stage "
+          f"launches")
+    result["sweep_stage"] = dict(
+        launches=launched7["sweep_stage"], max_abs_err=sw_err,
+        ms=float(np.mean(sw_ms)), plain_ms=float(np.mean(sw_plain)))
+
+    sources = {
+        "fused_step": ("gcm_tpu_torch/csrc/fused_step.cu",
+                       "gcm_tpu/ops/pallas_fused.py:1162"),
+        "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
+                          "gcm_tpu/ops/pallas_fused.py:1035"),
+        "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",
+                        "gcm_tpu/ops/pallas_stage.py:366"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **result[name]} for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

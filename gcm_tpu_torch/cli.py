@@ -2,7 +2,7 @@
 
 Commands:
   list
-  run <scenario> [--n N] [--nsteps K] [--kernel auto|torch|fused]
+  run <scenario> [--n N] [--nsteps K] [--kernel auto|torch|fused|sweep]
                  [--device cuda|cpu]
 
 ``run`` prints one JSON summary line: the resolved kernel, points per
@@ -24,9 +24,11 @@ def _build_parser():
     r.add_argument("scenario")
     r.add_argument("--n", type=int, default=None, help="grid resolution")
     r.add_argument("--nsteps", type=int, default=None)
-    r.add_argument("--kernel", default=None, choices=["auto", "torch", "fused"],
+    r.add_argument("--kernel", default=None,
+                   choices=["auto", "torch", "fused", "sweep"],
                    help="compute path (default: the task's 'auto' = the "
-                        "fused CUDA kernel for 3D on a CUDA device)")
+                        "fused CUDA kernel for 2D and 3D on a CUDA device; "
+                        "'sweep' = one per-sweep kernel launch per axis)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     return p

@@ -1,13 +1,13 @@
 """Carry state of the JAX reference across to the port, through numpy.
 
 Both packages then start from identical parameters: the six leaves of a
-``gcm_tpu`` ``MaterialFields`` and a state array, handed over as numpy
-arrays (``np.asarray`` of the JAX arrays).
+``gcm_tpu`` ``MaterialFields``, a state array and an engine's corrector aux
+fields, handed over as numpy arrays (``np.asarray`` of the JAX arrays).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,3 +34,12 @@ def state_from_numpy(u: np.ndarray, device="cpu",
                      dtype=torch.float32) -> torch.Tensor:
     """A state array ``[ncomp, *spatial]`` as a contiguous tensor."""
     return _tensor(u, device, dtype)
+
+
+def aux_from_numpy(aux: Mapping[str, np.ndarray], device="cpu",
+                   dtype: Optional[torch.dtype] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """An engine's corrector aux fields (e.g. ``{"damage": d}``) as tensors,
+    in the arrays' own dtype unless ``dtype`` is given."""
+    return {k: torch.tensor(np.asarray(v), device=device, dtype=dtype)
+            for k, v in aux.items()}

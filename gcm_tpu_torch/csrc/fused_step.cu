@@ -2,17 +2,20 @@
 //
 // Replaces the Pallas TPU kernel gcm_tpu/ops/pallas_fused.py::fused_step
 // (body _make_fused_kernel, sweep math _sweep_window, border algebra
-// _bc_incoming). Its plain PyTorch version is
-// gcm_tpu_torch/ops/fused.py::fused_step_reference (= solver.gcm.step on
-// materials derived from the compact stack), which it must match.
+// _bc_incoming, folded correctors _corrector_epilogue). Its plain PyTorch
+// version is gcm_tpu_torch/ops/fused.py::fused_step_reference
+// (= solver.gcm.step on materials derived from the compact stack, then the
+// plain corrector epilogue), which it must match. The sweep, the border
+// algebra and the epilogue are shared with the 2D kernel (gcm_common.cuh).
 //
 // What bounds it on an H100: memory. Per grid point and step it must read
 // the 9 state components and the 4 compact material fields (cp, cs, rho,
 // kappa) and write 9 components: (9+4)*4 = 52 bytes in, 36 bytes out, about
-// 88 bytes against 3.35 TB/s, or ~38 Gpoints/s at the roofline. The
-// arithmetic (three sweeps of Lagrange interpolation and pair algebra, a
-// few hundred flops per point) is far below the 67 TFLOP/s f32 rate.
-// On top come the re-reads of the halo that each tile recomputes.
+// 88 bytes against 3.35 TB/s, or ~38 Gpoints/s at the roofline (a damage
+// corrector adds 4 bytes in and 4 out). The arithmetic (three sweeps of
+// Lagrange interpolation and pair algebra, a few hundred flops per point)
+// is far below the 67 TFLOP/s f32 rate. On top come the re-reads of the
+// halo that each tile recomputes.
 //
 // What the design does about it:
 // - One block owns a TX x TY x TZ output tile. The three sweeps of the step
@@ -38,247 +41,57 @@
 // - Materials are read from global memory at each cell (L2-resident reuse
 //   across the three sweeps); impedances z = rho*c and 0.5/z are derived in
 //   registers, as the compact TPU layout derives them in VMEM.
+// - Folded correctors run on each output cell in registers just before its
+//   store, so a viscoelastic or damage step stays one pass over memory.
 // Speed work left for later: cp.async/TMA staging of the first sweep's
 // window, tile shape tuning, register-resident per-cell arrays.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gcm_common.cuh"
 
 namespace {
 
-constexpr int MAXC = 9;   // components of the largest 3D model (elastic3d)
-constexpr int MAXP = 3;   // pairs per sweep
-constexpr int MAXZ = 2;   // zero-speed invariants per sweep
 constexpr int TX = 8, TY = 8, TZ = 16;
 constexpr int NTHREADS = 256;
-
-}  // namespace
-
-// Mirrors ctypes structure _Params in gcm_tpu_torch/ops/fused.py (all
-// fields 4 bytes wide, so there is no padding to agree on).
-struct GcmFusedParams {
-    int n[3];                    // nx, ny, nz
-    int ncomp;
-    int nm;                      // material stack height
-    int sign;                    // +1 elastic, -1 acoustic
-    int axes[3];                 // sweep order
-    int rho_idx;                 // stack row of rho
-    int kappa_idx;               // stack row of kappa, -1 if none
-    int npairs[3];               // per physical axis
-    int pair_sigma[3][MAXP];
-    int pair_vel[3][MAXP];
-    int pair_c[3][MAXP];         // stack row of the pair's wave speed
-    int nzeros[3];
-    int zero_comp[3][MAXZ];
-    int zero_src[3][MAXZ];
-    int bc_kind[3][2];           // -1 none, 0 absorbing, 1 free,
-                                 // 2 fixed_force, 3 fixed_velocity
-    float bc_val[3][2][MAXP];    // BorderSpec.pair_value per pair
-    float dtoh[3];               // dt / h per axis
-};
-
-namespace {
-
-template <int ORDER>
-struct Stencil {
-    // offsets relative to the direction sign: order 1 {0,1}, 2 {-1,0,1},
-    // 3 {-1,0,1,2}, 4 {-2,..,2}
-    static constexpr int NP = ORDER + 1;
-    static constexpr int LO = ORDER == 1 ? 0 : (ORDER == 4 ? -2 : -1);
-    static constexpr int R = ORDER >= 3 ? 2 : 1;
-
-    // ops/interp.py::stencil_weights, term for term
-    __device__ static void weights(float t, float* w) {
-        if constexpr (ORDER == 1) {
-            w[0] = 1.0f - t;
-            w[1] = t;
-        } else if constexpr (ORDER == 2) {
-            w[0] = 0.5f * t * (t - 1.0f);
-            w[1] = 1.0f - t * t;
-            w[2] = 0.5f * t * (t + 1.0f);
-        } else if constexpr (ORDER == 3) {
-            w[0] = -t * (t - 1.0f) * (t - 2.0f) / 6.0f;
-            w[1] = (t + 1.0f) * (t - 1.0f) * (t - 2.0f) / 2.0f;
-            w[2] = -(t + 1.0f) * t * (t - 2.0f) / 2.0f;
-            w[3] = (t + 1.0f) * t * (t - 1.0f) / 6.0f;
-        } else {
-            w[0] = (t + 1.0f) * t * (t - 1.0f) * (t - 2.0f) / 24.0f;
-            w[1] = -(t + 2.0f) * t * (t - 1.0f) * (t - 2.0f) / 6.0f;
-            w[2] = (t + 2.0f) * (t + 1.0f) * (t - 1.0f) * (t - 2.0f) / 4.0f;
-            w[3] = -(t + 2.0f) * (t + 1.0f) * t * (t - 2.0f) / 6.0f;
-            w[4] = (t + 2.0f) * (t + 1.0f) * t * (t - 1.0f) / 24.0f;
-        }
-    }
-};
-
-// A box of cells in global coordinates (may reach outside the domain).
-struct Region {
-    int o[3];
-    int e[3];
-    int vol;
-};
-
-// Reads the state from global memory at clamped coordinates.
-struct GlobalSrc {
-    const float* __restrict__ u;
-    int n0, n1, n2;
-    long long N;
-    __device__ float ld(int c, int x, int y, int z) const {
-        x = min(max(x, 0), n0 - 1);
-        y = min(max(y, 0), n1 - 1);
-        z = min(max(z, 0), n2 - 1);
-        return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
-    }
-};
-
-// Reads a previous sweep's result from shared memory; every cell a sweep
-// touches lies inside the source region by construction.
-struct SharedSrc {
-    const float* s;
-    Region r;
-    __device__ float ld(int c, int x, int y, int z) const {
-        return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
-                 + (z - r.o[2])];
-    }
-};
-
-__device__ __forceinline__ float bc_incoming(int kind, float value, float out,
-                                             int sign, float z, int side) {
-    // ops/pallas_fused.py::_bc_incoming
-    if (kind == 0) return 0.0f;
-    if (kind == 1) return -out;
-    if (kind == 2) return 2.0f * value - out;
-    float s = side == 0 ? -1.0f : 1.0f;
-    return out + s * 2.0f * (float)sign * z * value;
-}
-
-// One characteristic sweep along physical axis a over region `reg`, reading
-// `src` and writing either a shared buffer (all cells) or the global output
-// (in-domain cells only).
-template <int ORDER, class Src, bool TO_GLOBAL>
-__device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
-                      const float* __restrict__ m, long long N,
-                      const Region& reg, float* __restrict__ dst) {
-    using S = Stencil<ORDER>;
-    const int C = p.ncomp;
-    for (int idx = threadIdx.x; idx < reg.vol; idx += blockDim.x) {
-        const int k = idx % reg.e[2];
-        const int j = (idx / reg.e[2]) % reg.e[1];
-        const int i = idx / (reg.e[2] * reg.e[1]);
-        const int gx = reg.o[0] + i, gy = reg.o[1] + j, gz = reg.o[2] + k;
-        if (TO_GLOBAL && (gx >= p.n[0] || gy >= p.n[1] || gz >= p.n[2]))
-            continue;
-        const int cx = min(max(gx, 0), p.n[0] - 1);
-        const int cy = min(max(gy, 0), p.n[1] - 1);
-        const int cz = min(max(gz, 0), p.n[2] - 1);
-        // position along the sweep axis, and the unit step along it
-        const int ga = a == 0 ? gx : (a == 1 ? gy : gz);
-        const int na = a == 0 ? p.n[0] : (a == 1 ? p.n[1] : p.n[2]);
-        const int sx = a == 0, sy = a == 1, sz = a == 2;
-        const long long moff = ((long long)cx * p.n[1] + cy) * p.n[2] + cz;
-
-        float old[MAXC], nw[MAXC];
-        for (int c = 0; c < C; ++c) {
-            old[c] = src.ld(c, gx, gy, gz);
-            nw[c] = old[c];
-        }
-        const float rho = __ldg(m + p.rho_idx * N + moff);
-        for (int q = 0; q < p.npairs[a]; ++q) {
-            const int sg = p.pair_sigma[a][q];
-            const int vl = p.pair_vel[a][q];
-            const float c = __ldg(m + p.pair_c[a][q] * N + moff);
-            const float z = rho * c;
-            const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
-            float w[S::NP];
-            S::weights(c * p.dtoh[a], w);
-            float Ap = 0.f, Bp = 0.f, Am = 0.f, Bm = 0.f;
-#pragma unroll
-            for (int t = 0; t < S::NP; ++t) {
-                const int o = t + S::LO;
-                const int px = gx + o * sx, py = gy + o * sy, pz = gz + o * sz;
-                const int mx = gx - o * sx, my = gy - o * sy, mz = gz - o * sz;
-                Ap += w[t] * src.ld(sg, px, py, pz);
-                Bp += w[t] * src.ld(vl, px, py, pz);
-                Am += w[t] * src.ld(sg, mx, my, mz);
-                Bm += w[t] * src.ld(vl, mx, my, mz);
-            }
-            const float szb = (float)p.sign * z;
-            float wl = Ap + szb * Bp;
-            float wr = Am - szb * Bm;
-            if (ga == 0 && p.bc_kind[a][0] >= 0)
-                wr = bc_incoming(p.bc_kind[a][0], p.bc_val[a][0][q], wl,
-                                 p.sign, z, 0);
-            if (ga == na - 1 && p.bc_kind[a][1] >= 0)
-                wl = bc_incoming(p.bc_kind[a][1], p.bc_val[a][1][q], wr,
-                                 p.sign, z, 1);
-            nw[sg] = 0.5f * (wl + wr);
-            nw[vl] = z > 0.0f ? (float)p.sign * (wl - wr) * rz : old[vl];
-        }
-        if (p.kappa_idx >= 0) {
-            const float kap = __ldg(m + p.kappa_idx * N + moff);
-            for (int q = 0; q < p.nzeros[a]; ++q) {
-                const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
-                nw[zc] = old[zc] + kap * (nw[zs] - old[zs]);
-            }
-        }
-        if (TO_GLOBAL) {
-            const long long off = ((long long)gx * p.n[1] + gy) * p.n[2] + gz;
-            for (int c = 0; c < C; ++c) dst[c * N + off] = nw[c];
-        } else {
-            for (int c = 0; c < C; ++c) dst[c * reg.vol + idx] = nw[c];
-        }
-    }
-}
-
-// Region of the output of the s-th sweep (0-based): axes already swept,
-// and the current one, cover the tile; the others keep an R halo.
-__host__ __device__ inline Region sweep_region(const int* axes, int s,
-                                               const int* t0, int R) {
-    const int T[3] = {TX, TY, TZ};
-    Region r;
-    r.vol = 1;
-    for (int d = 0; d < 3; ++d) {
-        bool done = false;
-        for (int q = 0; q <= s; ++q) done = done || axes[q] == d;
-        r.o[d] = done ? t0[d] : t0[d] - R;
-        r.e[d] = done ? T[d] : T[d] + 2 * R;
-        r.vol *= r.e[d];
-    }
-    return r;
-}
 
 template <int ORDER>
 __global__ void __launch_bounds__(NTHREADS)
 fused_step_kernel(const float* __restrict__ u, const float* __restrict__ m,
-                  float* __restrict__ out, GcmFusedParams p) {
+                  const float* __restrict__ aux_in, float* __restrict__ out,
+                  float* __restrict__ aux_out, GcmFusedParams p) {
     extern __shared__ float smem[];
     constexpr int R = Stencil<ORDER>::R;
+    const int T[3] = {TX, TY, TZ};
     const int t0[3] = {(int)blockIdx.z * TX, (int)blockIdx.y * TY,
                        (int)blockIdx.x * TZ};
     const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
-    const Region r1 = sweep_region(p.axes, 0, t0, R);
-    const Region r2 = sweep_region(p.axes, 1, t0, R);
-    const Region r3 = sweep_region(p.axes, 2, t0, R);
+    const Region r1 = tile_region(p.axes, 1, t0, T, R, 3);
+    const Region r2 = tile_region(p.axes, 2, t0, T, R, 3);
+    const Region r3 = tile_region(p.axes, 3, t0, T, R, 3);
     float* s1 = smem;
     float* s2 = smem + p.ncomp * r1.vol;
 
     const GlobalSrc gsrc{u, p.n[0], p.n[1], p.n[2], N};
-    sweep<ORDER, GlobalSrc, false>(p, p.axes[0], gsrc, m, N, r1, s1);
+    sweep<ORDER, GlobalSrc, false>(p, p.axes[0], gsrc, m, N, r1, s1, nullptr,
+                                   nullptr);
     __syncthreads();
     const SharedSrc src1{s1, r1};
-    sweep<ORDER, SharedSrc, false>(p, p.axes[1], src1, m, N, r2, s2);
+    sweep<ORDER, SharedSrc, false>(p, p.axes[1], src1, m, N, r2, s2, nullptr,
+                                   nullptr);
     __syncthreads();
     const SharedSrc src2{s2, r2};
-    sweep<ORDER, SharedSrc, true>(p, p.axes[2], src2, m, N, r3, out);
+    sweep<ORDER, SharedSrc, true>(p, p.axes[2], src2, m, N, r3, out, aux_in,
+                                  aux_out);
 }
 
 template <int ORDER>
-cudaError_t launch(const float* u, const float* m, float* out,
-                   const GcmFusedParams& p, cudaStream_t stream) {
+cudaError_t launch(const float* u, const float* m, const float* aux_in,
+                   float* out, float* aux_out, const GcmFusedParams& p,
+                   cudaStream_t stream) {
     constexpr int R = Stencil<ORDER>::R;
+    const int T[3] = {TX, TY, TZ};
     const int t0[3] = {0, 0, 0};
-    const Region r1 = sweep_region(p.axes, 0, t0, R);
-    const Region r2 = sweep_region(p.axes, 1, t0, R);
+    const Region r1 = tile_region(p.axes, 1, t0, T, R, 3);
+    const Region r2 = tile_region(p.axes, 2, t0, T, R, 3);
     const size_t smem = sizeof(float) * (size_t)p.ncomp * (r1.vol + r2.vol);
     cudaError_t err = cudaFuncSetAttribute(
         fused_step_kernel<ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -286,7 +99,8 @@ cudaError_t launch(const float* u, const float* m, float* out,
     if (err != cudaSuccess) return err;
     const dim3 grid((p.n[2] + TZ - 1) / TZ, (p.n[1] + TY - 1) / TY,
                     (p.n[0] + TX - 1) / TX);
-    fused_step_kernel<ORDER><<<grid, NTHREADS, smem, stream>>>(u, m, out, p);
+    fused_step_kernel<ORDER><<<grid, NTHREADS, smem, stream>>>(
+        u, m, aux_in, out, aux_out, p);
     return cudaGetLastError();
 }
 
@@ -295,19 +109,21 @@ cudaError_t launch(const float* u, const float* m, float* out,
 extern "C" {
 
 // Launches one fused step on `stream` (a cudaStream_t) of device `device`.
-// Returns the CUDA error code of the launch (0 on success); the caller
-// allocates `out` and checks shapes, types and contiguity.
-int gcm_fused_step(const float* u, const float* mstack, float* out,
-                   const GcmFusedParams* params, int order, int device,
-                   void* stream) {
+// `aux_in`/`aux_out` hold one field per damage corrector of the epilogue
+// (null without). Returns the CUDA error code of the launch (0 on success);
+// the caller allocates the outputs and checks shapes, types and contiguity.
+int gcm_fused_step(const float* u, const float* mstack, const float* aux_in,
+                   float* out, float* aux_out, const GcmFusedParams* params,
+                   int order, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
+    const GcmFusedParams& p = *params;
     switch (order) {
-        case 1: return (int)launch<1>(u, mstack, out, *params, s);
-        case 2: return (int)launch<2>(u, mstack, out, *params, s);
-        case 3: return (int)launch<3>(u, mstack, out, *params, s);
-        case 4: return (int)launch<4>(u, mstack, out, *params, s);
+        case 1: return (int)launch<1>(u, mstack, aux_in, out, aux_out, p, s);
+        case 2: return (int)launch<2>(u, mstack, aux_in, out, aux_out, p, s);
+        case 3: return (int)launch<3>(u, mstack, aux_in, out, aux_out, p, s);
+        case 4: return (int)launch<4>(u, mstack, aux_in, out, aux_out, p, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

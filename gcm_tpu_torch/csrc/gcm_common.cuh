@@ -1,0 +1,265 @@
+// Device code shared by the port's CUDA kernels (sm_90a): the parameter
+// block of the fused steps, Lagrange stencil weights, the border algebra,
+// one characteristic sweep over a box of cells, and the folded ODE
+// corrector epilogue.
+//
+// The device functions sit in an anonymous namespace: each kernel source
+// compiles its own copy, and the sources link into one library without
+// clashing symbols.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int MAXC = 9;      // components of the largest model (elastic3d)
+constexpr int MAXP = 3;      // pairs per sweep
+constexpr int MAXZ = 2;      // zero-speed invariants per sweep
+constexpr int MAXSPEC = 4;   // folded correctors per step
+
+// Mirrors ctypes structure _Params in gcm_tpu_torch/ops/fused.py (all
+// fields 4 bytes wide, so there is no padding to agree on). A 2D grid is
+// n = {nx, ny, 1} with the first two entries of `axes` used.
+struct GcmFusedParams {
+    int n[3];                    // nx, ny, nz
+    int ncomp;
+    int nm;                      // material stack height
+    int sign;                    // +1 elastic, -1 acoustic
+    int axes[3];                 // sweep order
+    int rho_idx;                 // stack row of rho
+    int kappa_idx;               // stack row of kappa, -1 if none
+    int npairs[3];               // per physical axis
+    int pair_sigma[3][MAXP];
+    int pair_vel[3][MAXP];
+    int pair_c[3][MAXP];         // stack row of the pair's wave speed
+    int nzeros[3];
+    int zero_comp[3][MAXZ];
+    int zero_src[3][MAXZ];
+    int bc_kind[3][2];           // -1 none, 0 absorbing, 1 free,
+                                 // 2 fixed_force, 3 fixed_velocity
+    float bc_val[3][2][MAXP];    // BorderSpec.pair_value per pair
+    float dtoh[3];               // dt / h per axis
+    // folded ODE correctors (ops/fused.py::fold_corrector_specs), applied
+    // to each output cell before its store; nspec = 0 turns them off
+    int nspec;
+    int spec_kind[MAXSPEC];      // 0 Maxwell, 1 damage
+    float spec_a[MAXSPEC];       // Maxwell: exp(-dt/tau); damage: threshold
+    float spec_b[MAXSPEC];       // damage: rate
+    float dt;
+    int ndiag;                   // normal-stress components
+    int diag[3];
+    int nshear;                  // shear-stress components
+    int shear[3];
+};
+
+namespace {
+
+template <int ORDER>
+struct Stencil {
+    // offsets relative to the direction sign: order 1 {0,1}, 2 {-1,0,1},
+    // 3 {-1,0,1,2}, 4 {-2,..,2}
+    static constexpr int NP = ORDER + 1;
+    static constexpr int LO = ORDER == 1 ? 0 : (ORDER == 4 ? -2 : -1);
+    static constexpr int R = ORDER >= 3 ? 2 : 1;
+
+    // ops/interp.py::stencil_weights, term for term
+    __device__ static void weights(float t, float* w) {
+        if constexpr (ORDER == 1) {
+            w[0] = 1.0f - t;
+            w[1] = t;
+        } else if constexpr (ORDER == 2) {
+            w[0] = 0.5f * t * (t - 1.0f);
+            w[1] = 1.0f - t * t;
+            w[2] = 0.5f * t * (t + 1.0f);
+        } else if constexpr (ORDER == 3) {
+            w[0] = -t * (t - 1.0f) * (t - 2.0f) / 6.0f;
+            w[1] = (t + 1.0f) * (t - 1.0f) * (t - 2.0f) / 2.0f;
+            w[2] = -(t + 1.0f) * t * (t - 2.0f) / 2.0f;
+            w[3] = (t + 1.0f) * t * (t - 1.0f) / 6.0f;
+        } else {
+            w[0] = (t + 1.0f) * t * (t - 1.0f) * (t - 2.0f) / 24.0f;
+            w[1] = -(t + 2.0f) * t * (t - 1.0f) * (t - 2.0f) / 6.0f;
+            w[2] = (t + 2.0f) * (t + 1.0f) * (t - 1.0f) * (t - 2.0f) / 4.0f;
+            w[3] = -(t + 2.0f) * (t + 1.0f) * t * (t - 2.0f) / 6.0f;
+            w[4] = (t + 2.0f) * (t + 1.0f) * t * (t - 1.0f) / 24.0f;
+        }
+    }
+};
+
+// A box of cells in global coordinates (may reach outside the domain).
+struct Region {
+    int o[3];
+    int e[3];
+    int vol;
+};
+
+// Reads the state from global memory at clamped coordinates.
+struct GlobalSrc {
+    const float* __restrict__ u;
+    int n0, n1, n2;
+    long long N;
+    __device__ float ld(int c, int x, int y, int z) const {
+        x = min(max(x, 0), n0 - 1);
+        y = min(max(y, 0), n1 - 1);
+        z = min(max(z, 0), n2 - 1);
+        return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
+    }
+};
+
+// Reads a previous sweep's result from shared memory; every cell a sweep
+// touches lies inside the source region by construction.
+struct SharedSrc {
+    const float* s;
+    Region r;
+    __device__ float ld(int c, int x, int y, int z) const {
+        return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
+                 + (z - r.o[2])];
+    }
+};
+
+__device__ __forceinline__ float bc_incoming(int kind, float value, float out,
+                                             int sign, float z, int side) {
+    // ops/pallas_fused.py::_bc_incoming
+    if (kind == 0) return 0.0f;
+    if (kind == 1) return -out;
+    if (kind == 2) return 2.0f * value - out;
+    float s = side == 0 ? -1.0f : 1.0f;
+    return out + s * 2.0f * (float)sign * z * value;
+}
+
+// The folded correctors on one output cell's components `c`, in corrector
+// order (ops/pallas_fused.py::_corrector_epilogue, term for term); the q-th
+// damage corrector reads and writes aux field q at flat offset `off`.
+__device__ __forceinline__ void corrector_epilogue(
+        const GcmFusedParams& p, float* c, const float* __restrict__ aux_in,
+        float* __restrict__ aux_out, long long N, long long off) {
+    int q = 0;
+    for (int s = 0; s < p.nspec; ++s) {
+        if (p.spec_kind[s] == 0) {
+            if (p.ndiag == 0) continue;
+            const float decay = p.spec_a[s];
+            float sum = 0.0f;
+            for (int i = 0; i < p.ndiag; ++i) sum += c[p.diag[i]];
+            const float mean = sum / (float)p.ndiag;
+            for (int i = 0; i < p.ndiag; ++i)
+                c[p.diag[i]] = mean + (c[p.diag[i]] - mean) * decay;
+            for (int i = 0; i < p.nshear; ++i) c[p.shear[i]] *= decay;
+        } else {
+            const float thr = p.spec_a[s], rate = p.spec_b[s];
+            const float d = aux_in[q * N + off];
+            float smax = c[p.diag[0]];
+            for (int i = 1; i < p.ndiag; ++i) smax = fmaxf(smax, c[p.diag[i]]);
+            const float over = fmaxf(smax - thr, 0.0f) / thr;
+            const float d_new =
+                fminf(fmaxf(d + rate * over * p.dt, 0.0f), 1.0f);
+            // incremental degradation (solver/correctors.py::DamageCorrector)
+            const float f =
+                fminf((1.0f - d_new) / fmaxf(1.0f - d, 1e-12f), 1.0f);
+            for (int i = 0; i < p.ndiag; ++i) c[p.diag[i]] *= f;
+            for (int i = 0; i < p.nshear; ++i) c[p.shear[i]] *= f;
+            aux_out[q * N + off] = d_new;
+            ++q;
+        }
+    }
+}
+
+// One characteristic sweep along physical axis a over region `reg`, reading
+// `src` and writing either a shared buffer (all cells) or the global output
+// (in-domain cells only, after the folded correctors).
+template <int ORDER, class Src, bool TO_GLOBAL>
+__device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
+                      const float* __restrict__ m, long long N,
+                      const Region& reg, float* __restrict__ dst,
+                      const float* __restrict__ aux_in,
+                      float* __restrict__ aux_out) {
+    using S = Stencil<ORDER>;
+    const int C = p.ncomp;
+    for (int idx = threadIdx.x; idx < reg.vol; idx += blockDim.x) {
+        const int k = idx % reg.e[2];
+        const int j = (idx / reg.e[2]) % reg.e[1];
+        const int i = idx / (reg.e[2] * reg.e[1]);
+        const int gx = reg.o[0] + i, gy = reg.o[1] + j, gz = reg.o[2] + k;
+        if (TO_GLOBAL && (gx >= p.n[0] || gy >= p.n[1] || gz >= p.n[2]))
+            continue;
+        const int cx = min(max(gx, 0), p.n[0] - 1);
+        const int cy = min(max(gy, 0), p.n[1] - 1);
+        const int cz = min(max(gz, 0), p.n[2] - 1);
+        // position along the sweep axis, and the unit step along it
+        const int ga = a == 0 ? gx : (a == 1 ? gy : gz);
+        const int na = p.n[a];
+        const int sx = a == 0, sy = a == 1, sz = a == 2;
+        const long long moff = ((long long)cx * p.n[1] + cy) * p.n[2] + cz;
+
+        float old[MAXC], nw[MAXC];
+        for (int c = 0; c < C; ++c) {
+            old[c] = src.ld(c, gx, gy, gz);
+            nw[c] = old[c];
+        }
+        const float rho = __ldg(m + p.rho_idx * N + moff);
+        for (int q = 0; q < p.npairs[a]; ++q) {
+            const int sg = p.pair_sigma[a][q];
+            const int vl = p.pair_vel[a][q];
+            const float c = __ldg(m + p.pair_c[a][q] * N + moff);
+            const float z = rho * c;
+            const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
+            float w[S::NP];
+            S::weights(c * p.dtoh[a], w);
+            float Ap = 0.f, Bp = 0.f, Am = 0.f, Bm = 0.f;
+#pragma unroll
+            for (int t = 0; t < S::NP; ++t) {
+                const int o = t + S::LO;
+                const int px = gx + o * sx, py = gy + o * sy, pz = gz + o * sz;
+                const int mx = gx - o * sx, my = gy - o * sy, mz = gz - o * sz;
+                Ap += w[t] * src.ld(sg, px, py, pz);
+                Bp += w[t] * src.ld(vl, px, py, pz);
+                Am += w[t] * src.ld(sg, mx, my, mz);
+                Bm += w[t] * src.ld(vl, mx, my, mz);
+            }
+            const float szb = (float)p.sign * z;
+            float wl = Ap + szb * Bp;
+            float wr = Am - szb * Bm;
+            if (ga == 0 && p.bc_kind[a][0] >= 0)
+                wr = bc_incoming(p.bc_kind[a][0], p.bc_val[a][0][q], wl,
+                                 p.sign, z, 0);
+            if (ga == na - 1 && p.bc_kind[a][1] >= 0)
+                wl = bc_incoming(p.bc_kind[a][1], p.bc_val[a][1][q], wr,
+                                 p.sign, z, 1);
+            nw[sg] = 0.5f * (wl + wr);
+            nw[vl] = z > 0.0f ? (float)p.sign * (wl - wr) * rz : old[vl];
+        }
+        if (p.kappa_idx >= 0) {
+            const float kap = __ldg(m + p.kappa_idx * N + moff);
+            for (int q = 0; q < p.nzeros[a]; ++q) {
+                const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
+                nw[zc] = old[zc] + kap * (nw[zs] - old[zs]);
+            }
+        }
+        if (TO_GLOBAL) {
+            const long long off = ((long long)gx * p.n[1] + gy) * p.n[2] + gz;
+            if (p.nspec > 0) corrector_epilogue(p, nw, aux_in, aux_out, N, off);
+            for (int c = 0; c < C; ++c) dst[c * N + off] = nw[c];
+        } else {
+            for (int c = 0; c < C; ++c) dst[c * reg.vol + idx] = nw[c];
+        }
+    }
+}
+
+// Box of the output of the first `nswept` sweeps of the tile at t0 with
+// extents T: the axes already swept cover the tile, the others keep an R
+// halo. Axes at or past `dim` have extent 1 and no halo.
+__host__ __device__ inline Region tile_region(const int* axes, int nswept,
+                                              const int* t0, const int* T,
+                                              int R, int dim) {
+    Region r;
+    r.vol = 1;
+    for (int d = 0; d < 3; ++d) {
+        bool done = d >= dim;
+        for (int q = 0; q < nswept; ++q) done = done || axes[q] == d;
+        r.o[d] = done ? t0[d] : t0[d] - R;
+        r.e[d] = done ? T[d] : T[d] + 2 * R;
+        r.vol *= r.e[d];
+    }
+    return r;
+}
+
+}  // namespace

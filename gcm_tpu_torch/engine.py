@@ -1,33 +1,37 @@
 """Engine: builds a Task into device state and runs the time loop.
 
 Counterpart of ``gcm_tpu/engine.py`` (single body, one device): owns the
-state, computes the static CFL dt once, sequences the symmetrized splitting
-steps, injects sources and records detector traces on the device. The
-JAX engine's ``lax.scan`` becomes a plain Python loop with the same parity
-rule (reversed axes on odd step indices).
+state and the corrector aux fields, computes the static CFL dt once,
+sequences the symmetrized splitting steps, injects sources, runs the ODE
+correctors and records detector traces on the device. The JAX engine's
+``lax.scan`` becomes a plain Python loop with the same parity rule
+(reversed axes on odd step indices).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gcm_tpu_torch.models.spec import Model, get_model
-from gcm_tpu_torch.ops.fused import fused_step, stack_mats
+from gcm_tpu_torch.ops.fused import (
+    fold_corrector_specs, fused_step, fused_step_2d, stack_mats,
+)
+from gcm_tpu_torch.ops.sweep import sweep_step
 from gcm_tpu_torch.solver.gcm import axes_order, cfl_dt, step as solver_step
 from gcm_tpu_torch.task import Task, apply_initial
 
 
 def resolve_kernel(kernel: str, dim: int, device) -> str:
-    """Resolve Task.kernel="auto": the fused CUDA kernel for 3D tasks on a
-    CUDA device, the plain torch step elsewhere."""
+    """Resolve Task.kernel="auto": the fused CUDA kernel for 2D and 3D tasks
+    on a CUDA device, the plain torch step elsewhere."""
     if kernel != "auto":
         return kernel
-    if torch.device(device).type == "cuda" and dim == 3:
+    if torch.device(device).type == "cuda" and dim in (2, 3):
         return "fused"
     return "torch"
 
@@ -56,9 +60,10 @@ class Engine:
         self.dtype = dtype
         #: resolved compute path ("auto" -> device-dependent)
         self.kernel = resolve_kernel(task.kernel, self.model.dim, self.device)
-        if self.kernel == "fused" and (self.model.dim != 3
-                                       or dtype != torch.float32):
-            raise ValueError("kernel='fused' runs 3D tasks in float32")
+        if self.kernel in ("fused", "sweep") and (
+                self.model.dim not in (2, 3) or dtype != torch.float32):
+            raise ValueError(f"kernel={self.kernel!r} runs 2D and 3D tasks "
+                             "in float32")
 
         self.mat = task.material_fields(device=self.device, dtype=dtype)
         self.dt = cfl_dt(self.mat, task.grid.h, task.time.cfl)
@@ -66,6 +71,23 @@ class Engine:
         #: compact material stack of the fused kernel, built once
         self._mstack = (stack_mats(self.model, self.mat)
                         if self.kernel == "fused" else None)
+        self._fused_fn = fused_step if self.model.dim == 3 else fused_step_2d
+
+        # corrector aux state (the "damage" field), and the folding rule of
+        # the JAX engine: sources land after the step and before the
+        # correctors, so the kernel's epilogue takes them only source-free;
+        # one shared "damage" field means at most one damage corrector
+        self.aux: Dict[str, torch.Tensor] = {}
+        for corr in task.correctors:
+            self.aux.update(corr.init_aux(self.model, task.grid.shape,
+                                          device=self.device))
+        self._fold_specs = None
+        self._fold_naux = 0
+        if self._mstack is not None and task.correctors and not task.sources:
+            specs, naux = fold_corrector_specs(task.correctors, self.dt)
+            if specs is not None and naux <= 1:
+                self._fold_specs = specs
+                self._fold_naux = naux
 
         u0 = np.zeros((self.model.ncomp,) + task.grid.shape, dtype=np.float64)
         apply_initial(u0, self.model, task.grid, task.initial)
@@ -101,20 +123,33 @@ class Engine:
 
     # ------------------------------------------------------------------ step
 
-    def _one_step(self, u: torch.Tensor, n: int) -> torch.Tensor:
+    def _one_step(self, u: torch.Tensor, aux: Dict[str, torch.Tensor],
+                  n: int):
         task, model = self.task, self.model
-        axes = axes_order(model.dim, n, task.symmetrize_stages)
+        args = (self.dt, task.grid.h, task.order, task.borders,
+                axes_order(model.dim, n, task.symmetrize_stages))
+        if self._fold_specs is not None:
+            # correctors applied in the kernel's epilogue; nothing follows
+            if not self._fold_naux:
+                return self._fused_fn(model, u, self._mstack, *args,
+                                      correctors=self._fold_specs), aux
+            u, astack = self._fused_fn(model, u, self._mstack, *args,
+                                       correctors=self._fold_specs,
+                                       aux=aux["damage"].unsqueeze(0))
+            return u, {**aux, "damage": astack[0]}
         if self.kernel == "fused":
-            u = fused_step(model, u, self._mstack, self.dt, task.grid.h,
-                           task.order, task.borders, axes)
+            u = self._fused_fn(model, u, self._mstack, *args)
+        elif self.kernel == "sweep":
+            u = sweep_step(model, u, self.mat, *args)
         else:
-            u = solver_step(model, u, self.mat, self.dt, task.grid.h,
-                            task.order, task.borders, axes)
+            u = solver_step(model, u, self.mat, *args)
         if len(self._src_flat):
             # every source lands after the sweep, as in the JAX engine;
             # index_add_ accumulates repeated nodes like sequential adds
             u.view(-1).index_add_(0, self._src_flat, self._src_amps[n])
-        return u
+        for corr in task.correctors:
+            u, aux = corr(model, u, aux, self.dt)
+        return u, aux
 
     def _detect(self, u: torch.Tensor) -> torch.Tensor:
         """Receiver values ``[npoints, ncomp]`` in one gather."""
@@ -130,18 +165,18 @@ class Engine:
             traces = torch.empty((nsteps, len(self._det_flat),
                                   self.model.ncomp),
                                  device=self.device, dtype=self.dtype)
-        u = self.u
+        u, aux = self.u, self.aux
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = _time.perf_counter()
         for n in range(nsteps):
-            u = self._one_step(u, n)
+            u, aux = self._one_step(u, aux, n)
             if traces is not None:
                 traces[n] = self._detect(u)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
-        self.u = u
+        self.u, self.aux = u, aux
 
         npts = int(np.prod(self.task.grid.shape))
         return RunResult(

@@ -2,9 +2,10 @@
 
 ``nvcc`` compiles the sources into a shared library with a plain C interface
 under ``build/kernels/`` at the root of the checkout, at first use and never
-at import. The file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads the library already
-built. A failed build raises with the compiler's output.
+at import: one ``nvcc -c`` per ``.cu`` file, all started together, then one
+link. The file name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one loads the library already built. A
+failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from typing import Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
 
 _lib = None
 
@@ -43,7 +45,7 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -59,16 +61,27 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(lib, out)
     return out, log
 
 
@@ -77,14 +90,25 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()[0]))
-    vp = ctypes.c_void_p
-    lib.gcm_fused_step.argtypes = [vp, vp, vp, vp, ctypes.c_int,
-                                   ctypes.c_int, vp]
-    lib.gcm_fused_step.restype = ctypes.c_int
-    lib.gcm_error_string.argtypes = [ctypes.c_int]
+    _lib = bind(ctypes.CDLL(str(build()[0])))
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of every entry point."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("gcm_fused_step", "gcm_fused_step_2d"):
+        fn = getattr(lib, name)
+        # u, mstack, aux_in, out, aux_out, params, order, device, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
+        fn.restype = i32
+    # u, out, params, order, device, stream
+    lib.gcm_sweep_stage.argtypes = [vp, vp, vp, i32, i32, vp]
+    lib.gcm_sweep_stage.restype = i32
+    lib.gcm_error_string.argtypes = [i32]
     lib.gcm_error_string.restype = ctypes.c_char_p
-    lib.gcm_params_size.argtypes = []
-    lib.gcm_params_size.restype = ctypes.c_int
-    _lib = lib
+    for name in ("gcm_params_size", "gcm_sweep_params_size"):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = i32
     return lib

@@ -1,26 +1,37 @@
-"""The fused full 3D step: every splitting sweep of a step in one kernel.
+"""The fused full steps: every splitting sweep of a step in one kernel.
 
-Counterpart of ``gcm_tpu/ops/pallas_fused.py::fused_step`` (material stack
-helpers and the single-step contract). The kernel is CUDA C++ for Hopper,
-``csrc/fused_step.cu``; ``fused_step_reference`` is its plain PyTorch
-version (the port's ``solver.gcm.step`` on materials derived from the
-compact stack exactly as the kernel derives them).
+Counterpart of ``gcm_tpu/ops/pallas_fused.py::fused_step`` and
+``fused_step_2d`` (material stack helpers, the folded ODE correctors and the
+single-step contract). The kernels are CUDA C++ for Hopper,
+``csrc/fused_step.cu`` (3D) and ``csrc/fused_step_2d.cu`` (2D), sharing
+their sweep and epilogue (``csrc/gcm_common.cuh``). ``fused_step_reference``
+is the plain PyTorch version of both (the port's ``solver.gcm.step`` on
+materials derived from the compact stack exactly as the kernels derive
+them, then ``corrector_epilogue_reference``); ``fused_step_2d_reference``
+names it for the 2D kernel.
 
-``fused_step`` launches the kernel for a CUDA tensor and runs the plain
-version for a CPU tensor; for a CUDA tensor it launches or raises, it
-never falls back. ``fused_step.launches`` counts the kernel launches.
+``fused_step`` and ``fused_step_2d`` launch their kernel for a CUDA tensor
+and run the plain version for a CPU tensor; for a CUDA tensor they launch or
+raise, they never fall back. ``fused_step.launches`` and
+``fused_step_2d.launches`` count the kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
+from gcm_tpu_torch.solver.correctors import (
+    DamageCorrector, MaxwellCorrector, _diag_stress_indices,
+    _shear_stress_indices,
+)
 from gcm_tpu_torch.solver.gcm import step
 from gcm_tpu_torch.task import BorderSpec
 
@@ -28,7 +39,7 @@ Borders = Dict[Tuple[int, int], BorderSpec]
 
 _Z_EPS = 1e-30
 _BC_CODES = {"absorbing": 0, "free": 1, "fixed_force": 2, "fixed_velocity": 3}
-_MAXC, _MAXP, _MAXZ = 9, 3, 2
+_MAXC, _MAXP, _MAXZ, _MAXSPEC = 9, 3, 2, 4
 
 
 # --------------------------------------------------------------- material stack
@@ -78,32 +89,110 @@ def derive_window_mats(model: Model,
     return out
 
 
+# --------------------------------------------------------------- correctors
+
+def fold_corrector_specs(correctors, dt: float):
+    """Static in-kernel descriptors of the ODE correctors, or ``(None, 0)``
+    if any corrector cannot be folded (per-node Maxwell tau, unknown types).
+
+    Returns ``(specs, naux)``: ``("maxwell", exp(-dt/tau))`` with the decay
+    computed on the host in double, ``("damage", threshold, rate)``; each
+    damage corrector consumes and produces one aux field, in corrector
+    order."""
+    specs = []
+    naux = 0
+    for c in correctors:
+        if isinstance(c, MaxwellCorrector) and np.ndim(c.tau) == 0:
+            specs.append(("maxwell", math.exp(-dt / float(c.tau))))
+        elif isinstance(c, DamageCorrector):
+            specs.append(("damage", float(c.threshold), float(c.rate)))
+            naux += 1
+        else:
+            return None, 0
+    return tuple(specs), naux
+
+
+def corrector_epilogue_reference(model: Model, specs, u: torch.Tensor,
+                                 aux: Optional[torch.Tensor], dt: float
+                                 ) -> Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]:
+    """Plain version of the kernels' epilogue: the folded correctors on a
+    whole state, in spec order (``_corrector_epilogue`` of the JAX package,
+    term for term). ``aux`` stacks one field per damage spec; returns the
+    new state and the new aux stack (None when ``aux`` is None)."""
+    if not specs:
+        return u, (None if aux is None else aux.clone())
+    diag = _diag_stress_indices(model)
+    shear = _shear_stress_indices(model)
+    comps = list(u.unbind(0))
+    aux_out = []
+    qi = 0
+    for spec in specs:
+        if spec[0] == "maxwell":
+            decay = spec[1]
+            if diag:
+                mean = sum(comps[i] for i in diag) / len(diag)
+                for i in diag:
+                    comps[i] = mean + (comps[i] - mean) * decay
+                for i in shear:
+                    comps[i] = comps[i] * decay
+        else:
+            thr, rate = spec[1], spec[2]
+            d = aux[qi]
+            qi += 1
+            smax = comps[diag[0]]
+            for i in diag[1:]:
+                smax = torch.maximum(smax, comps[i])
+            over = torch.clamp(smax - thr, min=0.0) / thr
+            d_new = torch.clamp(d + rate * over * dt, 0.0, 1.0)
+            # incremental degradation, as solver.correctors.DamageCorrector
+            factor = torch.clamp(
+                (1.0 - d_new) / torch.clamp(1.0 - d, min=1e-12), max=1.0)
+            for i in diag + shear:
+                comps[i] = comps[i] * factor
+            aux_out.append(d_new)
+    new_aux = None if aux is None else (torch.stack(aux_out) if aux_out
+                                        else aux.clone())
+    return torch.stack(comps), new_aux
+
+
 # -------------------------------------------------------------- plain version
 
 def fused_step_reference(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                          dt: float, h: Sequence[float], order: int,
                          borders: Optional[Borders] = None,
-                         axes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the port's ``solver.gcm.step``
-    on c/z/kappa derived from the compact stack as the kernel derives them
-    (waves or zeros a model lacks read as zero fields it never uses)."""
+                         axes: Optional[Sequence[int]] = None,
+                         correctors=None, aux: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the fused kernels (2D and 3D): the port's
+    ``solver.gcm.step`` on c/z/kappa derived from the compact stack as the
+    kernels derive them (waves or zeros a model lacks read as zero fields
+    it never uses), then the folded correctors ``correctors`` (specs of
+    ``fold_corrector_specs``). Returns the new state, or ``(state, aux)``
+    when ``aux`` is given."""
     mats = derive_window_mats(
         model, dict(zip(mat_layout(model), mstack.unbind(0))))
     zero = torch.zeros_like(mats["rho"])
     mf = MaterialFields(cp=mats["cp"], cs=mats.get("cs", zero),
                         zp=mats["zp"], zs=mats.get("zs", zero),
                         kappa=mats.get("kappa", zero), rho=mats["rho"])
-    return step(model, u, mf, dt, h, order, borders, axes)
+    out = step(model, u, mf, dt, h, order, borders, axes)
+    out, new_aux = corrector_epilogue_reference(model, correctors or (), out,
+                                                aux, dt)
+    return out if aux is None else (out, new_aux)
 
 
-# ------------------------------------------------------------------- kernel
+#: the 2D kernel's plain version: the same dimension-generic step
+fused_step_2d_reference = fused_step_reference
+
+
+# ------------------------------------------------------------------- kernels
 
 def _i(n: int):
     return ctypes.c_int * n
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``GcmFusedParams`` in csrc/fused_step.cu."""
+    """Mirror of ``GcmFusedParams`` in csrc/gcm_common.cuh."""
 
     _fields_ = [
         ("n", _i(3)), ("ncomp", ctypes.c_int), ("nm", ctypes.c_int),
@@ -114,21 +203,29 @@ class _Params(ctypes.Structure):
         ("zero_comp", _i(_MAXZ) * 3), ("zero_src", _i(_MAXZ) * 3),
         ("bc_kind", _i(2) * 3), ("bc_val", (ctypes.c_float * _MAXP * 2) * 3),
         ("dtoh", ctypes.c_float * 3),
+        ("nspec", ctypes.c_int), ("spec_kind", _i(_MAXSPEC)),
+        ("spec_a", ctypes.c_float * _MAXSPEC),
+        ("spec_b", ctypes.c_float * _MAXSPEC), ("dt", ctypes.c_float),
+        ("ndiag", ctypes.c_int), ("diag", _i(3)),
+        ("nshear", ctypes.c_int), ("shear", _i(3)),
     ]
 
 
 def _params(model: Model, shape, dt: float, h: Sequence[float],
-            borders: Optional[Borders], axes: Sequence[int]) -> _Params:
+            borders: Optional[Borders], axes: Sequence[int],
+            specs) -> _Params:
     names = mat_layout(model)
     p = _Params()
-    p.n[:] = list(shape)
+    p.n[:] = list(shape) + [1] * (3 - len(shape))
     p.ncomp = model.ncomp
     p.nm = len(names)
     p.sign = model.sign
-    p.axes[:] = list(axes)
+    p.axes[:] = list(axes) + [-1] * (3 - len(axes))
     p.rho_idx = names.index("rho")
     p.kappa_idx = names.index("kappa") if "kappa" in names else -1
     for a in range(3):
+        p.bc_kind[a][:] = [-1, -1]
+    for a in range(model.dim):
         st = model.stage(a)
         p.npairs[a] = len(st.pairs)
         p.nzeros[a] = len(st.zeros)
@@ -146,14 +243,23 @@ def _params(model: Model, shape, dt: float, h: Sequence[float],
                 p.bc_val[a][side][k] = (0.0 if bc is None else
                                         bc.pair_value(pair.traction_axis, st.axis))
         p.dtoh[a] = float(dt / h[a])
+    p.nspec = len(specs)
+    for s, spec in enumerate(specs):
+        p.spec_kind[s] = 0 if spec[0] == "maxwell" else 1
+        p.spec_a[s] = spec[1]
+        p.spec_b[s] = spec[2] if spec[0] == "damage" else 0.0
+    p.dt = float(dt)
+    diag, shear = _diag_stress_indices(model), _shear_stress_indices(model)
+    p.ndiag, p.nshear = len(diag), len(shear)
+    p.diag[:len(diag)] = diag
+    p.shear[:len(shear)] = shear
     return p
 
 
-def _check(model: Model, u: torch.Tensor, mstack: torch.Tensor, order: int,
-           axes: Tuple[int, ...]) -> None:
-    """Raise on anything the kernel does not take."""
-    if model.dim != 3 or u.ndim != 4:
-        raise ValueError("fused_step runs 3D models on [C, nx, ny, nz] state")
+def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
+           order: int, axes: Tuple[int, ...], specs,
+           aux: Optional[torch.Tensor]) -> None:
+    """Raise on anything the kernels do not take."""
     if u.shape[0] != model.ncomp or model.ncomp > _MAXC:
         raise ValueError(f"state has {u.shape[0]} components, "
                          f"{model.name} has {model.ncomp}")
@@ -164,48 +270,103 @@ def _check(model: Model, u: torch.Tensor, mstack: torch.Tensor, order: int,
     if tuple(mstack.shape) != (nm,) + tuple(u.shape[1:]):
         raise ValueError(f"mstack shape {tuple(mstack.shape)} is not the "
                          f"compact stack {(nm,) + tuple(u.shape[1:])}")
-    if u.dtype != torch.float32 or mstack.dtype != torch.float32:
-        raise TypeError("fused_step's kernel takes float32 state and stack")
-    if mstack.device != u.device:
-        raise ValueError("u and mstack lie on different devices")
-    if not (u.is_contiguous() and mstack.is_contiguous()):
-        raise ValueError("fused_step's kernel takes contiguous tensors")
+    tensors = [u, mstack] + ([aux] if aux is not None else [])
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the fused kernels take float32 state, stack and aux")
+    if any(t.device != u.device for t in tensors):
+        raise ValueError("u, mstack and aux lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the fused kernels take contiguous tensors")
     if order not in (1, 2, 3, 4):
         raise ValueError(f"unsupported interpolation order {order}")
-    if sorted(axes) != [0, 1, 2]:
-        raise ValueError(f"axes {axes} is not an order of the three axes")
+    if sorted(axes) != list(range(dim)):
+        raise ValueError(f"axes {axes} is not an order of the {dim} axes")
+    if len(specs) > _MAXSPEC:
+        raise ValueError(f"at most {_MAXSPEC} folded correctors")
+    if any(s[0] == "damage" for s in specs) and not _diag_stress_indices(model):
+        raise ValueError(f"{model.name} has no normal stresses to damage")
+
+
+def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
+           mstack: torch.Tensor, dt: float, h: Sequence[float], order: int,
+           borders: Optional[Borders], axes: Optional[Sequence[int]],
+           correctors, aux: Optional[torch.Tensor]):
+    """Shared body of ``fused_step`` and ``fused_step_2d``: the plain
+    version for a CPU tensor, else checks and one launch of ``entry``.
+    Returns the new state and aux stack, and whether a kernel launched."""
+    if model.dim != dim or u.ndim != dim + 1:
+        raise ValueError(f"this fused step runs {dim}D models on "
+                         f"[C, {dim} spatial axes] state")
+    axes = tuple(axes) if axes is not None else tuple(range(dim))
+    specs = tuple(correctors) if correctors else ()
+    ndamage = sum(s[0] == "damage" for s in specs)
+    if ndamage and aux is None:
+        raise ValueError("damage correctors need the aux array")
+    if aux is not None and aux.shape[0] != ndamage:
+        raise ValueError(f"aux holds {aux.shape[0]} fields for {ndamage} "
+                         "damage correctors")
+    if u.device.type == "cpu":
+        res = fused_step_reference(model, u, mstack, dt, h, order, borders,
+                                   axes, specs, aux)
+        return (res if aux is not None else (res, None)), False
+    if u.device.type != "cuda":
+        raise ValueError(f"the fused kernels have no build for device "
+                         f"{u.device}")
+    _check(model, dim, u, mstack, order, axes, specs, aux)
+    lib = _build.load()
+    params = _params(model, u.shape[1:], dt, h, borders, axes, specs)
+    if ctypes.sizeof(params) != lib.gcm_params_size():
+        raise RuntimeError("GcmFusedParams layout differs from its binding")
+    out = torch.empty_like(u)
+    aux_out = torch.empty_like(aux) if aux is not None else None
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = getattr(lib, entry)(
+        u.data_ptr(), mstack.data_ptr(),
+        aux.data_ptr() if aux is not None else None, out.data_ptr(),
+        aux_out.data_ptr() if aux_out is not None else None,
+        ctypes.addressof(params), order, u.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
+                           f"{err} ({lib.gcm_error_string(err).decode()})")
+    return (out, aux_out), True
 
 
 def fused_step(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                dt: float, h: Sequence[float], order: int,
                borders: Optional[Borders] = None,
-               axes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """One full 3D time step: sweeps along ``axes`` (default (0, 1, 2)).
+               axes: Optional[Sequence[int]] = None,
+               correctors=None, aux: Optional[torch.Tensor] = None):
+    """One full 3D time step: sweeps along ``axes`` (default (0, 1, 2)),
+    then the folded ``correctors`` (specs of ``fold_corrector_specs``) on
+    each output cell; ``aux`` stacks one float32 field per damage spec.
 
     ``mstack`` is ``stack_mats(model, mat)``, built once at setup. A CUDA
     tensor goes through the CUDA kernel; a CPU tensor runs
-    ``fused_step_reference``. Returns a new state tensor."""
-    axes = tuple(axes) if axes is not None else (0, 1, 2)
-    if u.device.type == "cpu":
-        return fused_step_reference(model, u, mstack, dt, h, order, borders,
-                                    axes)
-    if u.device.type != "cuda":
-        raise ValueError(f"fused_step has no kernel for device {u.device}")
-    _check(model, u, mstack, order, axes)
-    lib = _build.load()
-    params = _params(model, u.shape[1:], dt, h, borders, axes)
-    if ctypes.sizeof(params) != lib.gcm_params_size():
-        raise RuntimeError("GcmFusedParams layout differs from its binding")
-    out = torch.empty_like(u)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = lib.gcm_fused_step(u.data_ptr(), mstack.data_ptr(), out.data_ptr(),
-                             ctypes.addressof(params), order, u.device.index,
-                             stream)
-    if err != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error "
-                           f"{err} ({lib.gcm_error_string(err).decode()})")
-    fused_step.launches += 1
-    return out
+    ``fused_step_reference``. Returns a new state tensor, or ``(state,
+    aux)`` when ``aux`` is given."""
+    (out, new_aux), launched = _fused(3, "gcm_fused_step", model, u, mstack,
+                                      dt, h, order, borders, axes,
+                                      correctors, aux)
+    if launched:
+        fused_step.launches += 1
+    return out if aux is None else (out, new_aux)
+
+
+def fused_step_2d(model: Model, u: torch.Tensor, mstack: torch.Tensor,
+                  dt: float, h: Sequence[float], order: int,
+                  borders: Optional[Borders] = None,
+                  axes: Optional[Sequence[int]] = None,
+                  correctors=None, aux: Optional[torch.Tensor] = None):
+    """One full 2D time step, the contract of ``fused_step`` on ``[C, nx,
+    ny]`` state (any extents). A CUDA tensor goes through the CUDA kernel;
+    a CPU tensor runs ``fused_step_2d_reference``."""
+    (out, new_aux), launched = _fused(2, "gcm_fused_step_2d", model, u,
+                                      mstack, dt, h, order, borders, axes,
+                                      correctors, aux)
+    if launched:
+        fused_step_2d.launches += 1
+    return out if aux is None else (out, new_aux)
 
 
 fused_step.launches = 0
+fused_step_2d.launches = 0

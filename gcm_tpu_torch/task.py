@@ -20,9 +20,10 @@ Axis = int          # 0, 1, 2
 Side = int          # 0 = low face, 1 = high face
 Face = Tuple[Axis, Side]
 
-#: compute paths: "auto" resolves to the fused CUDA kernel for 3D tasks on
-#: a CUDA device and to the plain torch step elsewhere
-KERNELS = ("auto", "torch", "fused")
+#: compute paths: "auto" resolves to the fused CUDA kernel for 2D and 3D
+#: tasks on a CUDA device and to the plain torch step elsewhere; "sweep"
+#: takes the per-sweep CUDA kernel, one launch per axis
+KERNELS = ("auto", "torch", "fused", "sweep")
 
 
 # ---------------------------------------------------------------- geometry
@@ -366,7 +367,8 @@ class Task:
     snapshots: SnapshotSpec = SnapshotSpec()
     detectors: Optional[DetectorSpec] = None
     symmetrize_stages: bool = True     # reverse axis order on odd steps
-    kernel: str = "auto"               # "auto" | "torch" | "fused"
+    correctors: Tuple = ()             # ODE correctors (solver.correctors)
+    kernel: str = "auto"               # "auto" | "torch" | "fused" | "sweep"
     mat_dtype: str = "f32"
     scan_unroll: int = 1
     temporal_block: bool = False

@@ -1,4 +1,4 @@
-"""The CUDA kernel of the port on the card (marked ``gpu``).
+"""The CUDA kernels of the port on the card (marked ``gpu``).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -7,9 +7,12 @@ installed, without the repository's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Inputs are random heterogeneous problems made from a seeded numpy
-generator, with all four border kinds; the kernel is held to its plain
-version, ``fused_step_reference``, with the per-component normalized max
-error of 2e-6 that the JAX package holds its TPU kernel to.
+generator, with all four border kinds; each kernel is held to its plain
+version (``fused_step_reference``, ``fused_step_2d_reference``,
+``solver.gcm.stage``) with the per-component normalized max error of 2e-6
+that the JAX package holds its TPU kernels to, and the damage aux stream to
+rtol 1e-5, atol 1e-6 (the atol absorbs threshold-crossing knife-edges in
+``max(smax - threshold, 0)``), as tests/test_pallas_fused.py holds it.
 """
 
 import dataclasses
@@ -21,8 +24,13 @@ import torch
 from gcm_tpu_torch.engine import Engine
 from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import get_model
-from gcm_tpu_torch.ops.fused import fused_step, fused_step_reference, stack_mats
+from gcm_tpu_torch.ops.fused import (
+    fold_corrector_specs, fused_step, fused_step_2d, fused_step_2d_reference,
+    fused_step_reference, stack_mats)
+from gcm_tpu_torch.ops.sweep import sweep_stage
 from gcm_tpu_torch.scenarios import get_scenario
+from gcm_tpu_torch.solver.correctors import DamageCorrector, MaxwellCorrector
+from gcm_tpu_torch.solver.gcm import stage
 from gcm_tpu_torch.task import BorderSpec
 
 BORDERS = {
@@ -42,7 +50,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def card_problem(seed, name, shape, device):
+def borders(dim):
+    """BORDERS cut to ``dim`` axes."""
+    return {f: BorderSpec(b.kind, value=b.value if b.value is None
+                          else b.value[:dim])
+            for f, b in BORDERS.items() if f[0] < dim}
+
+
+def card_problem(seed, name, shape, device, with_mat=False):
     rng = np.random.default_rng(seed)
     model = get_model(name)
     rho = 1000.0 * (1.0 + 0.5 * rng.random(shape))
@@ -55,7 +70,7 @@ def card_problem(seed, name, shape, device):
     mat = MaterialFields.from_arrays(rho, lam, mu, device=device)
     dt = 0.6 / float(np.sqrt((lam + 2 * mu) / rho).max())
     u = torch.tensor(u0, dtype=torch.float32, device=device)
-    return model, u, stack_mats(model, mat), dt
+    return model, u, (mat if with_mat else stack_mats(model, mat)), dt
 
 
 def norm_err(got, want):
@@ -108,3 +123,119 @@ def test_engine_takes_the_kernel_on_card(cuda):
     assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
     np.testing.assert_allclose(got.traces, want.traces, rtol=1e-4,
                                atol=1e-5 * np.abs(want.traces).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 61), (64, 128)])
+@pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
+@pytest.mark.parametrize("axes", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_2d_kernel_matches_plain_on_card(cuda, order, axes, name, shape):
+    model, u, ms, dt = card_problem(order, name, shape, cuda)
+    h = (10.0, 12.0)
+    before = fused_step_2d.launches
+    got = fused_step_2d(model, u, ms, dt, h, order, borders(2), axes)
+    torch.cuda.synchronize()
+    assert fused_step_2d.launches == before + 1
+    want = fused_step_2d_reference(model, u, ms, dt, h, order, borders(2),
+                                   axes)
+    assert norm_err(got, want) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("elastic3d", (12, 16, 24)),
+                                        ("elastic2d", (37, 61))])
+def test_folded_correctors_match_plain_on_card(cuda, name, shape):
+    """Maxwell + damage folded into the kernels' epilogue, three steps."""
+    model, u, ms, dt = card_problem(0, name, shape, cuda)
+    dim = model.dim
+    kernel = fused_step if dim == 3 else fused_step_2d
+    corr = (MaxwellCorrector(tau=40 * dt),
+            DamageCorrector(threshold=2e5, rate=0.5 / dt))
+    specs, naux = fold_corrector_specs(corr, dt)
+    assert naux == 1
+    h = (10.0, 11.0, 9.0)[:dim]
+    got, gaux = u, torch.zeros((1,) + shape, device=cuda)
+    want, waux = u, gaux
+    for n in range(3):
+        axes = tuple(range(dim))[::(-1 if n % 2 else 1)]
+        got, gaux = kernel(model, got, ms, dt, h, 2, borders(dim), axes,
+                           correctors=specs, aux=gaux)
+        want, waux = fused_step_reference(model, want, ms, dt, h, 2,
+                                          borders(dim), axes,
+                                          correctors=specs, aux=waux)
+    torch.cuda.synchronize()
+    assert gaux.max().item() > 1e-4
+    assert norm_err(got, want) < 2e-6
+    torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("elastic3d", (24, 40, 56)),
+                                        ("acoustic3d", (3, 5, 7)),
+                                        ("elastic2d", (37, 61)),
+                                        ("acoustic2d", (64, 128))])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_sweep_kernel_matches_plain_on_card(cuda, order, name, shape):
+    model, u, mat, dt = card_problem(order, name, shape, cuda, with_mat=True)
+    h = (10.0, 12.0, 9.0)[:model.dim]
+    for axis in range(model.dim):
+        before = sweep_stage.launches
+        got = sweep_stage(model, u, mat, dt, h, axis, order,
+                          borders(model.dim))
+        torch.cuda.synchronize()
+        assert sweep_stage.launches == before + 1
+        want = stage(model, u, mat, dt, h, axis, order, borders(model.dim))
+        assert norm_err(got, want) < 2e-6
+
+
+@pytest.mark.gpu
+def test_engine_2d_takes_the_kernel_once_a_step(cuda):
+    task = get_scenario("elastic2d_viscoelastic", n=64, nsteps=7)
+    before = fused_step_2d.launches
+    eng = Engine(task, device=cuda)
+    got = eng.run()
+    assert got.kernel == "fused" and eng._fold_specs is None
+    assert fused_step_2d.launches == before + 7
+    want = Engine(dataclasses.replace(task, kernel="torch"),
+                  device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
+
+
+@pytest.mark.gpu
+def test_engine_sweep_path_takes_the_kernel_per_axis(cuda):
+    task = dataclasses.replace(get_scenario("elastic3d_explosion", n=32,
+                                            nsteps=5), kernel="sweep")
+    before = sweep_stage.launches
+    got = Engine(task, device=cuda).run()
+    assert got.kernel == "sweep"
+    assert sweep_stage.launches == before + 3 * 5
+    want = Engine(dataclasses.replace(task, kernel="torch"),
+                  device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
+
+
+@pytest.mark.gpu
+def test_2d_and_sweep_kernels_reject_what_they_do_not_take(cuda):
+    model, u, ms, dt = card_problem(0, "elastic2d", (8, 8), cuda)
+    h = (1.0, 1.0)
+    with pytest.raises(TypeError):
+        fused_step_2d(model, u.double(), ms, dt, h, 2)
+    with pytest.raises(ValueError):
+        fused_step_2d(model, u.transpose(1, 2), ms, dt, h, 2)
+    with pytest.raises(ValueError):
+        fused_step_2d(model, u, ms, dt, h, 2, axes=(0, 0))
+    with pytest.raises(TypeError):
+        fused_step_2d(model, u, ms, dt, h, 2,
+                      correctors=(("damage", 1.0, 1.0),),
+                      aux=torch.zeros((1, 8, 8), dtype=torch.float64,
+                                      device=cuda))
+    model, u, mat, dt = card_problem(0, "elastic2d", (8, 8), cuda,
+                                     with_mat=True)
+    with pytest.raises(TypeError):
+        sweep_stage(model, u.double(), mat, dt, h, 0, 2)
+    with pytest.raises(ValueError):
+        sweep_stage(model, u, mat, dt, h, 2, 2)
+    with pytest.raises(TypeError):
+        sweep_stage(model, u, dataclasses.replace(mat, cp=mat.cp.double()),
+                    dt, h, 0, 2)

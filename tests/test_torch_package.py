@@ -4,7 +4,7 @@
 - ``chip_smoke.py`` refuses to run without a CUDA device, and, alone in a
   directory, without the package: non-zero exit, no result line.
 - ``python -m gcm_tpu_torch`` lists scenarios and runs one on the CPU,
-  printing its JSON summary.
+  printing its JSON summary, on any ``--kernel`` path.
 """
 
 import json
@@ -23,6 +23,8 @@ sys.modules["jax"] = None
 import gcm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gcm_tpu_torch.__path__,
                                                "gcm_tpu_torch.")]
+assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors"} \\
+    <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -40,7 +42,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14
+    assert int(proc.stdout.split()[-1]) >= 16
 
 
 def _assert_refused(proc):
@@ -65,7 +67,9 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
 def test_cli_list_and_run_on_cpu():
     proc = _run(["-m", "gcm_tpu_torch", "list"])
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["elastic3d_explosion", "elastic3d_layered"]
+    assert proc.stdout.split() == ["acoustic1d", "elastic2d_ps",
+                                   "elastic2d_viscoelastic",
+                                   "elastic3d_explosion", "elastic3d_layered"]
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
                  "--n", "12", "--nsteps", "2", "--device", "cpu"])
     assert proc.returncode == 0, proc.stderr
@@ -75,3 +79,12 @@ def test_cli_list_and_run_on_cpu():
     assert summary["nsteps"] == 2
     assert summary["shape"] == [12, 12, 8]
     assert summary["points_per_second"] > 0 and summary["dt"] > 0
+
+
+def test_cli_runs_the_sweep_path_on_cpu():
+    proc = _run(["-m", "gcm_tpu_torch", "run", "elastic2d_viscoelastic",
+                 "--n", "16", "--nsteps", "3", "--kernel", "sweep",
+                 "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["kernel"] == "sweep" and summary["shape"] == [16, 16]
