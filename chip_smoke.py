@@ -35,7 +35,17 @@ Phases, each of which raises (exit code != 0) on failure:
    torch path with unfolded correctors (under 1e-4);
 7. the per-sweep path: ``kernel="sweep"`` on ``elastic3d_explosion`` n=256
    for 100 steps launches ``sweep_stage`` once per axis and step and agrees
-   with the fused path (under 1e-4).
+   with the fused path (under 1e-4);
+8. the simplex path: ``simplex_sweep`` against ``simplex_sweep_reference``
+   on random heterogeneous jittered meshes (3D elastic orders 1 and 2, a
+   fluid, 2D elastic; the four uniform border kinds and per-node borders;
+   every axis in both axis orders; under 2e-6 per sweep), then
+   ``SimplexEngine.from_task(simplex3d_layered(n=65))`` (274,625 nodes)
+   until the P wave has reached the surface receivers: it resolves to
+   ``"simplex"``, launches the kernel 3 times a step, gives finite fields
+   and non-zero receiver traces, and after 100 steps agrees with
+   ``kernel="torch"`` (under 1e-4). The host setup (Delaunay, foot tables)
+   is timed and printed on its own.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed. The line before the last is a JSON object
@@ -63,6 +73,14 @@ N_MAIN = 256
 N_2D, NSTEPS_2D, NSTEPS_2D_CMP = 2048, 1600, 300
 NSTEPS_VISCO = NSTEPS_SWEEP = 100
 PATH_TOL = 1e-4
+#: the simplex path: simplex3d_layered on bench.py's production mesh, 65^3 =
+#: 274,625 nodes over L = 150 m. Its Ricker source (f0 = 40 Hz) peaks at
+#: t0 = 1.2/f0 = 0.03 s at z = L/3 = 50 m; the P wave then crosses 50 m of
+#: sandstone at 3300 m/s (0.015 s) and 50 m of sediments at 2100 m/s
+#: (0.024 s) to the receivers at z = 150 m, about 0.07 s in all. So the path
+#: runs T_SIMPLEX = 0.08 s of simulated time: ceil(0.08 / dt) steps of the
+#: engine's own dt = 0.6 h_min / 5200 m/s, several hundred (printed).
+N_SIMPLEX, T_SIMPLEX, NSTEPS_SIMPLEX_CMP = 65, 0.08, 100
 BORDER_SET = (
     ((0, 0), "free", None),
     ((0, 1), "absorbing", None),
@@ -175,10 +193,12 @@ class Counts:
 
     def __init__(self):
         from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d
+        from gcm_tpu_torch.ops.simplex import simplex_sweep
         from gcm_tpu_torch.ops.sweep import sweep_stage
 
         self.fns = {"fused_step": fused_step, "fused_step_2d": fused_step_2d,
-                    "sweep_stage": sweep_stage}
+                    "sweep_stage": sweep_stage,
+                    "simplex_sweep": simplex_sweep}
 
     def zero(self):
         for fn in self.fns.values():
@@ -290,6 +310,161 @@ def kernels_vs_plain():
           f"{worst:.3e} (limit 2e-6)")
 
 
+def _simplex_problem(rng, n, dim, name, order, fluid=False):
+    """Random heterogeneous medium on a jittered box mesh of n^dim nodes,
+    its foot tables, and a random float32 state on the card:
+    (grid, model, material fields, tables, state)."""
+    from scipy.spatial import cKDTree
+
+    from gcm_tpu_torch.grids.simplex import SimplexGrid, build_foot_tables
+    from gcm_tpu_torch.materials import MaterialFields
+    from gcm_tpu_torch.models.spec import get_model
+
+    grid = SimplexGrid.box((0.0,) * dim, (1.0,) * dim, (n,) * dim,
+                           jitter=0.1, seed=n)
+    N = grid.npoints
+    model = get_model(name)
+    rho = 2500.0 * (1.0 + 0.2 * rng.random(N))
+    mu = np.zeros(N) if fluid else 1e9 * (0.5 + rng.random(N))
+    lam = 1e9 * (1.0 + rng.random(N))
+    mat = MaterialFields.from_arrays(rho, lam, mu, device="cuda")
+    d, _ = cKDTree(grid.points).query(grid.points, k=2)
+    dt = 0.7 * float(d[:, 1].min()) / mat.max_cp()
+    waves = {"p": mat.cp.double().cpu().numpy()}
+    if not fluid:
+        waves["s"] = mat.cs.double().cpu().numpy()
+    tables = build_foot_tables(grid, waves, dt, order=order)
+    u0 = rng.standard_normal((model.ncomp, N))
+    u0[model.dim:] *= 1e6
+    return (grid, model, mat, tables,
+            torch.tensor(u0, dtype=torch.float32, device="cuda"))
+
+
+def _simplex_borders(grid, dim):
+    """The four uniform border kinds, and per-node borders: free top,
+    fixed_force on the low x side, fixed_velocity on the high one,
+    absorbing elsewhere."""
+    from gcm_tpu_torch.solver.simplex_gcm import build_node_borders
+    from gcm_tpu_torch.task import AreaLayer, BorderSpec
+
+    node = build_node_borders(grid, [
+        (AreaLayer(axis=dim - 1, lo=0.99, hi=1.01), BorderSpec("free")),
+        (AreaLayer(axis=0, lo=-0.01, hi=0.01),
+         BorderSpec("fixed_force", value=(2e5, 1e5, -1e5)[:dim])),
+        (AreaLayer(axis=0, lo=0.99, hi=1.01),
+         BorderSpec("fixed_velocity", value=(0.1, -0.2, 0.3)[:dim]))])
+    return ["absorbing", "free",
+            BorderSpec("fixed_force", value=(1e5, -2e5, 3e5)[:dim]),
+            BorderSpec("fixed_velocity", value=(0.1, 0.2, -0.3)[:dim]), node]
+
+
+def simplex_kernel_vs_plain():
+    """Phase 8, first part: ``simplex_sweep`` against its plain version,
+    each sweep of both axis orders from the plain version's state."""
+    from gcm_tpu_torch.ops.simplex import (
+        build_simplex_plan, simplex_sweep, simplex_sweep_reference)
+
+    rng = np.random.default_rng(1)
+    cases = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
+             (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
+             (12, 2, "elastic2d", 1, False)]
+    worst, nsweeps = 0.0, 0
+    for n, dim, name, order, fluid in cases:
+        grid, model, mat, tables, u0 = _simplex_problem(rng, n, dim, name,
+                                                        order, fluid)
+        for border in _simplex_borders(grid, dim):
+            plan = build_simplex_plan(model, mat, tables, border, "cuda")
+            for axes in (tuple(range(dim)), tuple(range(dim))[::-1]):
+                u = u0
+                for a in axes:
+                    got = simplex_sweep(plan, u, a)
+                    torch.cuda.synchronize()
+                    want = simplex_sweep_reference(plan, u, a)
+                    err = _norm_err(got, want)
+                    _check(err < 2e-6, f"simplex_sweep {name} order {order} "
+                           f"fluid {fluid} {border!r:.40} axis {a}: err "
+                           f"{err:.3e}")
+                    worst = max(worst, err)
+                    nsweeps += 1
+                    u = want
+    print(f"simplex_sweep vs plain: {nsweeps} sweeps over {len(cases)} "
+          f"meshes x 5 borders, worst normalized error {worst:.3e} "
+          f"(limit 2e-6)")
+
+
+def simplex_path(counts, result):
+    """Phase 8, second part: the simplex main path at 65^3."""
+    from gcm_tpu_torch.engine_simplex import SimplexEngine
+    from gcm_tpu_torch.ops.simplex import (
+        simplex_sweep, simplex_sweep_reference)
+    from gcm_tpu_torch.scenarios import get_scenario
+    from gcm_tpu_torch.task import TimeSpec
+
+    t0 = time.perf_counter()
+    task = get_scenario("simplex3d_layered", n=N_SIMPLEX)
+    t_mesh = time.perf_counter() - t0
+    task = dataclasses.replace(task, time=TimeSpec(cfl=task.time.cfl,
+                                                   t_end=T_SIMPLEX))
+    t0 = time.perf_counter()
+    eng = SimplexEngine.from_task(task, device="cuda")
+    t_tables = time.perf_counter() - t0
+    grid = task.grid
+    print(f"simplex setup on the host CPU: Delaunay {t_mesh:.1f} s, foot "
+          f"tables and plan {t_tables:.1f} s ({grid.npoints} nodes, "
+          f"{len(grid.cells)} cells, {len(eng.tables)} tables of K="
+          f"{next(iter(eng.tables.values())).ids.shape[1]}); dt {eng.dt:.6g} s, {eng.nsteps} steps for "
+          f"{T_SIMPLEX} s")
+
+    def sibling(kernel, nsteps):
+        """An engine on the same task and tables, with its own state."""
+        return SimplexEngine.from_task(dataclasses.replace(
+            task, kernel=kernel, time=TimeSpec(cfl=task.time.cfl,
+                                               nsteps=nsteps)),
+            device="cuda", tables=eng.tables)
+
+    for kern in ("simplex", "torch"):
+        sibling(kern, 2).run()
+    counts.zero()
+    res = eng.run()
+    launched = counts.read()
+    _check(res.kernel == "simplex", f"simplex path resolved to {res.kernel!r}")
+    _check(launched == {"fused_step": 0, "fused_step_2d": 0, "sweep_stage": 0,
+                        "simplex_sweep": 3 * eng.nsteps},
+           f"simplex path launches {launched}")
+    _check(res.u.shape == (9, grid.npoints) and np.isfinite(res.u).all()
+           and np.isfinite(res.traces).all(),
+           "simplex path: state or traces not finite, or of wrong shape")
+    vmax = np.abs(res.traces[:, :, :3]).max(axis=(0, 2))
+    _check((vmax > 0).all(), f"simplex path: receiver velocities {vmax}")
+    res_k = sibling("simplex", NSTEPS_SIMPLEX_CMP).run()
+    res_t = sibling("torch", NSTEPS_SIMPLEX_CMP).run()
+    err = _np_err(res_k.u, res_t.u)
+    _check(err < PATH_TOL, f"simplex vs torch path: err {err:.3e}")
+    print(f"simplex path {task.name} {grid.npoints} nodes x {eng.nsteps} "
+          f"steps: {res.points_per_second:.6g} points/s, "
+          f"{launched['simplex_sweep']} simplex_sweep launches; receiver "
+          f"max|v| {vmax[0]:.4e}, {vmax[1]:.4e}; after {NSTEPS_SIMPLEX_CMP} "
+          f"steps simplex {res_k.points_per_second:.6g} vs torch "
+          f"{res_t.points_per_second:.6g} points/s, normalized error "
+          f"{err:.3e} (limit 1e-4)")
+
+    # the kernel alone on the path's own state, each axis
+    ms, plain_ms, max_abs = [], [], 0.0
+    for axis in range(3):
+        a = (eng._plan, eng.u, axis)
+        *_, e = _hold_on_path_state(f"simplex_sweep on the 65^3 state, axis "
+                                    f"{axis}", simplex_sweep,
+                                    simplex_sweep_reference, a)
+        max_abs = max(max_abs, e)
+        ms.append(_time_ms(lambda: simplex_sweep(*a), 50))
+        plain_ms.append(_time_ms(lambda: simplex_sweep_reference(*a), 10))
+        print(f"simplex_sweep at {tuple(eng.u.shape)} axis {axis}: kernel "
+              f"{ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms")
+    result["simplex_sweep"] = dict(
+        launches=launched["simplex_sweep"], max_abs_err=max_abs,
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)))
+
+
 def main() -> int:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -339,7 +514,8 @@ def main() -> int:
     launched = counts.read()
     _check(res.kernel == "fused", f"3D path resolved to {res.kernel!r}")
     _check(launched == {"fused_step": NSTEPS, "fused_step_2d": 0,
-                        "sweep_stage": 0}, f"3D path launches {launched}")
+                        "sweep_stage": 0, "simplex_sweep": 0},
+           f"3D path launches {launched}")
     shape = (eng.model.ncomp,) + task.grid.shape
     _check(res.u.shape == shape and np.isfinite(res.u).all(),
            "final state is not finite or has wrong shape")
@@ -397,7 +573,8 @@ def main() -> int:
     launched2 = counts.read()
     _check(res2.kernel == "fused", f"2D path resolved to {res2.kernel!r}")
     _check(launched2 == {"fused_step": 0, "fused_step_2d": NSTEPS_2D,
-                         "sweep_stage": 0}, f"2D path launches {launched2}")
+                         "sweep_stage": 0, "simplex_sweep": 0},
+           f"2D path launches {launched2}")
     _check(np.isfinite(res2.u).all() and np.isfinite(res2.traces).all(),
            "2D path: state or traces not finite")
     _check(np.abs(res2.traces).max() > 0, "2D path: traces are zero")
@@ -444,7 +621,8 @@ def main() -> int:
     res6 = eng6.run()
     launched6 = counts.read()
     _check(launched6 == {"fused_step": NSTEPS_VISCO, "fused_step_2d": 0,
-                         "sweep_stage": 0}, f"visco path launches {launched6}")
+                         "sweep_stage": 0, "simplex_sweep": 0},
+           f"visco path launches {launched6}")
     dmg = eng6.aux["damage"].cpu().numpy()
     _check(dmg.max() > 0, "visco path: damage stayed zero")
     eng6t = Engine(dataclasses.replace(task6, kernel="torch"), device="cuda")
@@ -484,7 +662,8 @@ def main() -> int:
     launched7 = counts.read()
     _check(res7.kernel == "sweep", f"sweep path resolved to {res7.kernel!r}")
     _check(launched7 == {"fused_step": 0, "fused_step_2d": 0,
-                         "sweep_stage": 3 * NSTEPS_SWEEP},
+                         "sweep_stage": 3 * NSTEPS_SWEEP,
+                         "simplex_sweep": 0},
            f"sweep path launches {launched7}")
     res7f = Engine(dataclasses.replace(task7, kernel="fused"),
                    device="cuda").run()
@@ -498,6 +677,11 @@ def main() -> int:
     result["sweep_stage"] = dict(
         launches=launched7["sweep_stage"], max_abs_err=sw_err,
         ms=float(np.mean(sw_ms)), plain_ms=float(np.mean(sw_plain)))
+    del eng7, res7, res7f
+
+    # ---- 8. the simplex path
+    simplex_kernel_vs_plain()
+    simplex_path(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step.cu",
@@ -506,6 +690,8 @@ def main() -> int:
                           "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",
                         "gcm_tpu/ops/pallas_stage.py:366"),
+        "simplex_sweep": ("gcm_tpu_torch/csrc/simplex_sweep.cu",
+                          "gcm_tpu/ops/pallas_simplex.py:411"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -2,9 +2,10 @@
 
 The PyTorch port of ``gcm_tpu``. It mirrors the JAX package's layout (each
 module here has its counterpart of the same path there) and imports torch
-and numpy only. The hot path, one fused 3D time step, is a CUDA C++ kernel
-for Hopper (``csrc/fused_step.cu``) built at first use; every kernel has a
-plain PyTorch version beside it that CPU tensors run.
+and numpy only (and scipy for simplex meshes). The hot paths are CUDA C++
+kernels for Hopper (``csrc/``: the fused 3D and 2D steps, the per-sweep
+kernel and the simplex sweep) built at first use; every kernel has a plain
+PyTorch version beside it that CPU tensors run.
 
 Importing this package builds nothing and starts nothing.
 """

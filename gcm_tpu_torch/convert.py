@@ -1,8 +1,10 @@
 """Carry state of the JAX reference across to the port, through numpy.
 
 Both packages then start from identical parameters: the six leaves of a
-``gcm_tpu`` ``MaterialFields``, a state array and an engine's corrector aux
-fields, handed over as numpy arrays (``np.asarray`` of the JAX arrays).
+``gcm_tpu`` ``MaterialFields`` (structured or per node), a state array, an
+engine's corrector aux fields, and on simplex meshes the foot tables and
+``NodeBorders``, handed over as numpy arrays (``np.asarray`` of the JAX
+arrays).
 """
 
 from __future__ import annotations
@@ -34,6 +36,27 @@ def state_from_numpy(u: np.ndarray, device="cpu",
                      dtype=torch.float32) -> torch.Tensor:
     """A state array ``[ncomp, *spatial]`` as a contiguous tensor."""
     return _tensor(u, device, dtype)
+
+
+def foot_tables_from_numpy(tables: Mapping) -> Dict:
+    """The port's foot tables from a JAX ``build_foot_tables`` dict (same
+    keys): ``ids``, float64 ``weights`` and ``outside`` as numpy arrays;
+    the JAX package's compressed stencils are dropped."""
+    from gcm_tpu_torch.grids.simplex import FootTables
+
+    return {k: FootTables(ids=np.array(t.ids, np.int32),
+                          weights=np.array(t.weights, np.float64),
+                          outside=np.array(t.outside, bool))
+            for k, t in tables.items()}
+
+
+def node_borders_from_numpy(kind: np.ndarray, value: np.ndarray):
+    """The port's NodeBorders from a JAX ``NodeBorders``' ``kind`` and
+    ``value`` arrays."""
+    from gcm_tpu_torch.solver.simplex_gcm import NodeBorders
+
+    return NodeBorders(kind=np.array(kind, np.int32),
+                       value=np.array(value, np.float64))
 
 
 def aux_from_numpy(aux: Mapping[str, np.ndarray], device="cpu",

@@ -1,0 +1,264 @@
+"""Engine for one body on a simplex mesh.
+
+Counterpart of ``gcm_tpu/engine_simplex.py`` (``SimplexEngine``): builds the
+static foot tables host-side once, then runs the symmetrized time loop (axes
+forward on even steps, reversed on odd ones) with sources, ODE correctors
+and detector gathers after each step, in the JAX engine's order. Its
+``lax.scan`` becomes a Python loop. ``kernel="simplex"`` sweeps with the
+CUDA kernel (``ops/simplex.py``), ``kernel="torch"`` with the plain gather
+sweep (``solver/simplex_gcm.py``); ``"auto"`` takes the kernel on a CUDA
+device, whatever the mesh size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gcm_tpu_torch.grids.simplex import (
+    FootTables, SimplexGrid, build_foot_tables,
+)
+from gcm_tpu_torch.materials import IsotropicMaterial, MaterialFields
+from gcm_tpu_torch.models.spec import get_model
+from gcm_tpu_torch.ops.simplex import build_simplex_plan, simplex_step
+from gcm_tpu_torch.solver import simplex_gcm
+from gcm_tpu_torch.solver.simplex_gcm import NodeBorders, build_node_borders
+from gcm_tpu_torch.task import SIMPLEX_KERNELS, BorderSpec
+
+
+def resolve_simplex_kernel(kernel: str, device) -> str:
+    """Resolve ``"auto"``: the simplex sweep kernel on a CUDA device, the
+    plain torch sweep elsewhere. There is no minimum mesh size."""
+    if kernel not in SIMPLEX_KERNELS:
+        raise ValueError(f"unknown simplex kernel {kernel!r} "
+                         f"(expected one of {SIMPLEX_KERNELS})")
+    if kernel != "auto":
+        return kernel
+    return "simplex" if torch.device(device).type == "cuda" else "torch"
+
+
+@dataclasses.dataclass
+class SimplexRunResult:
+    u: np.ndarray                        # final state [ncomp, npoints]
+    nsteps: int
+    dt: float
+    wall_seconds: float
+    points_per_second: float
+    traces: Optional[np.ndarray]         # [nsteps, npoints_det, ncomp]
+    kernel: str                          # resolved compute path
+
+
+class SimplexEngine:
+    """Engine over one simplex body on one device.
+
+    ``border_kind``: one condition for the whole hull (a kind string or a
+    task.BorderSpec). ``borders``: per-area conditions instead, a sequence
+    of ``(Area-or-node-mask, BorderSpec)`` over ``border_kind`` as the
+    default. ``sources`` inject at the node nearest each source position;
+    ``detector_points`` record the nearest node's state every step.
+    ``tables``: foot tables already built for this grid, material and dt
+    (another engine's ``tables``), instead of building them.
+    """
+
+    def __init__(
+        self,
+        grid: SimplexGrid,
+        model_name: str,
+        material: "IsotropicMaterial | MaterialFields",
+        cfl: float = 0.8,
+        border_kind: "str | BorderSpec" = "absorbing",
+        u0: Optional[np.ndarray] = None,
+        dtype=torch.float32,
+        borders: Optional[Sequence[Tuple[object, BorderSpec]]] = None,
+        sources: Sequence[object] = (),
+        detector_points: Optional[Sequence[Sequence[float]]] = None,
+        correctors: Sequence[object] = (),
+        nsteps: Optional[int] = None,
+        name: str = "simplex",
+        order: int = 1,
+        kernel: str = "auto",
+        device="cpu",
+        tables: Optional[Dict[Tuple, FootTables]] = None,
+    ):
+        from scipy.spatial import cKDTree
+
+        self.grid = grid
+        self.model = get_model(model_name)
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.name = name
+        self.kernel = resolve_simplex_kernel(kernel, self.device)
+        if self.kernel == "simplex" and (self.device.type != "cuda"
+                                         or dtype != torch.float32):
+            raise ValueError("kernel='simplex' runs float32 on a CUDA device")
+        self.mat = _material_fields(material, grid.npoints, self.device, dtype)
+        # characteristic length: minimum nearest-neighbour distance
+        tree = cKDTree(grid.points)
+        d, _ = tree.query(grid.points, k=2)
+        self.dt = cfl * float(d[:, 1].min()) / self.mat.max_cp()
+        if borders is not None:
+            default = (BorderSpec(border_kind) if isinstance(border_kind, str)
+                       else border_kind)
+            self.border_kind = build_node_borders(grid, borders, default)
+        else:
+            self.border_kind = border_kind
+        self.tables = (tables if tables is not None else
+                       _foot_tables(grid, self.mat, self.dt, order))
+        if self.kernel == "simplex":
+            self._plan = build_simplex_plan(self.model, self.mat, self.tables,
+                                            self.border_kind, self.device,
+                                            dtype)
+        else:
+            self._plan = None
+            self._dev_tables = {
+                k: FootTables(
+                    ids=torch.as_tensor(t.ids, device=self.device).long(),
+                    weights=torch.as_tensor(t.weights, device=self.device
+                                            ).to(dtype),
+                    outside=torch.as_tensor(t.outside, device=self.device))
+                for k, t in self.tables.items()}
+            if isinstance(self.border_kind, NodeBorders):
+                self._dev_border = NodeBorders(
+                    kind=torch.as_tensor(self.border_kind.kind,
+                                         device=self.device),
+                    value=torch.as_tensor(self.border_kind.value,
+                                          device=self.device))
+            else:
+                self._dev_border = self.border_kind
+        self.u = torch.as_tensor(
+            u0 if u0 is not None
+            else np.zeros((self.model.ncomp, grid.npoints)),
+            device=self.device).to(dtype)
+        # nearest-node sources and detectors, reusing the dt tree
+        self._srcs = []
+        for src in sources:
+            _, node = tree.query(np.asarray(src.position)[None, :], k=1)
+            for cname in src.components:
+                self._srcs.append((int(node[0]), self.model.comp(cname), src))
+        self._src_flat = torch.as_tensor(
+            np.asarray([c * grid.npoints + n for n, c, _ in self._srcs],
+                       np.int64), device=self.device)
+        self._det_idx = None
+        if detector_points is not None:
+            _, nodes = tree.query(np.asarray(detector_points), k=1)
+            self._det_idx = torch.as_tensor(np.asarray(nodes, np.int64),
+                                            device=self.device)
+        # ODE corrector aux state, updated after each step
+        self.correctors = tuple(correctors)
+        self.aux: Dict[str, torch.Tensor] = {}
+        for corr in self.correctors:
+            self.aux.update(corr.init_aux(self.model, (grid.npoints,),
+                                          device=self.device))
+        self.nsteps = nsteps
+        self.task = None
+
+    @classmethod
+    def from_task(cls, task, device="cpu", dtype=torch.float32,
+                  tables: Optional[Dict[Tuple, FootTables]] = None
+                  ) -> "SimplexEngine":
+        """Build from a :class:`gcm_tpu_torch.task.SimplexTask`:
+        materials and initial conditions by Area, per-area borders,
+        sources, detectors, correctors and the task's step count."""
+        model = get_model(task.model)
+        eng = cls(
+            task.grid, task.model,
+            task.material_fields(device=device, dtype=dtype),
+            cfl=task.time.cfl,
+            border_kind=task.border_default,
+            u0=task.initial_state(model),
+            dtype=dtype,
+            borders=(task.borders or None),
+            sources=task.sources,
+            detector_points=(task.detectors.points
+                             if task.detectors is not None else None),
+            correctors=task.correctors,
+            name=task.name,
+            order=task.order,
+            kernel=task.kernel,
+            device=device,
+            tables=tables,
+        )
+        eng.nsteps = task.time.steps_for(eng.dt)
+        eng.task = task
+        return eng
+
+    def _step(self, u: torch.Tensor, axes) -> torch.Tensor:
+        if self._plan is not None:
+            return simplex_step(self._plan, u, axes)
+        return simplex_gcm.simplex_step(self.model, u, self.mat,
+                                        self._dev_tables, self._dev_border,
+                                        axes)
+
+    def run(self, nsteps: Optional[int] = None) -> SimplexRunResult:
+        """Run ``nsteps`` steps (default: the task's) from the current
+        state."""
+        nsteps = self.nsteps if nsteps is None else nsteps
+        if nsteps is None:
+            raise ValueError("nsteps not given and engine has no task")
+        model = self.model
+        axes_fwd = tuple(range(model.dim))
+        # every step's source amplitudes, in float64, cast once
+        times = (np.arange(nsteps, dtype=np.float64) + 1.0) * self.dt
+        amps = (np.stack([np.broadcast_to(s.wavelet(times) * self.dt, nsteps)
+                          for _, _, s in self._srcs], axis=1)
+                if self._srcs else np.zeros((nsteps, 0)))
+        amps = torch.as_tensor(amps, device=self.device).to(self.dtype)
+        traces = None
+        if self._det_idx is not None:
+            traces = torch.empty((nsteps, len(self._det_idx), model.ncomp),
+                                 device=self.device, dtype=self.dtype)
+        u, aux = self.u, self.aux
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = _time.perf_counter()
+        for n in range(nsteps):
+            u = self._step(u, axes_fwd if n % 2 == 0 else axes_fwd[::-1])
+            if len(self._src_flat):
+                # sources land after the sweeps, before the correctors
+                u.view(-1).index_add_(0, self._src_flat, amps[n])
+            for corr in self.correctors:
+                u, aux = corr(model, u, aux, self.dt)
+            if traces is not None:
+                traces[n] = u[:, self._det_idx].T
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = _time.perf_counter() - t0
+        self.u, self.aux = u, aux
+        return SimplexRunResult(
+            u=u.cpu().numpy(),
+            nsteps=nsteps,
+            dt=self.dt,
+            wall_seconds=wall,
+            points_per_second=self.grid.npoints * nsteps / max(wall, 1e-12),
+            traces=traces.cpu().numpy() if traces is not None else None,
+            kernel=self.kernel,
+        )
+
+
+def _material_fields(material, npoints: int, device,
+                     dtype) -> MaterialFields:
+    """Per-node fields pass through (moved to the device and dtype); a
+    constant isotropic material is spread over the nodes."""
+    if isinstance(material, MaterialFields):
+        return dataclasses.replace(material, **{
+            f.name: getattr(material, f.name).to(device=device, dtype=dtype)
+            for f in dataclasses.fields(material)})
+    if not isinstance(material, IsotropicMaterial):
+        raise NotImplementedError(
+            "orthotropic media are not ported to gcm_tpu_torch yet")
+    return MaterialFields.uniform(material, (npoints,), device=device,
+                                  dtype=dtype)
+
+
+def _foot_tables(grid: SimplexGrid, mat: MaterialFields, dt: float,
+                 order: int = 1) -> Dict[Tuple, FootTables]:
+    """One table per (axis, wave, direction), uncompressed."""
+    waves = {"p": mat.cp.cpu().double().numpy()}
+    cs = mat.cs.cpu().double().numpy()
+    if float(cs.max()) > 0:
+        waves["s"] = cs
+    return build_foot_tables(grid, waves, dt, order=order)

@@ -105,9 +105,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # u, out, params, order, device, stream
     lib.gcm_sweep_stage.argtypes = [vp, vp, vp, i32, i32, vp]
     lib.gcm_sweep_stage.restype = i32
+    # u, out, params, device, stream
+    lib.gcm_simplex_sweep.argtypes = [vp, vp, vp, i32, vp]
+    lib.gcm_simplex_sweep.restype = i32
     lib.gcm_error_string.argtypes = [i32]
     lib.gcm_error_string.restype = ctypes.c_char_p
-    for name in ("gcm_params_size", "gcm_sweep_params_size"):
+    for name in ("gcm_params_size", "gcm_sweep_params_size",
+                 "gcm_simplex_params_size"):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = i32

@@ -1,8 +1,12 @@
-"""Named scenarios: the structured single-body configurations.
+"""Named scenarios: the structured single-body configurations and the
+simplex-mesh ones.
 
 Counterpart of ``gcm_tpu/scenarios.py`` (registry, ``acoustic1d``,
 ``elastic2d_ps``, ``elastic3d_layered``, ``elastic3d_explosion``,
-``elastic2d_viscoelastic``), with the same names, defaults and parameters.
+``elastic2d_viscoelastic``, ``simplex2d_canyon_layered``,
+``simplex3d_layered``), with the same names, defaults and parameters. The
+simplex scenarios return a :class:`~gcm_tpu_torch.task.SimplexTask`, run by
+``engine_simplex.SimplexEngine.from_task``.
 """
 
 from __future__ import annotations
@@ -12,8 +16,9 @@ from typing import Callable, Dict
 from gcm_tpu_torch.materials import IsotropicMaterial
 from gcm_tpu_torch.solver.correctors import MaxwellCorrector
 from gcm_tpu_torch.task import (
-    AreaBall, AreaLayer, BorderSpec, DetectorSpec, GridSpec,
-    InitialCondition, MaterialRegion, RickerSource, Task, TimeSpec,
+    AreaBall, AreaBox, AreaHalfSpace, AreaLayer, BorderSpec, DetectorSpec,
+    GridSpec, InitialCondition, MaterialRegion, RickerSource, SimplexTask,
+    SnapshotSpec, Task, TimeSpec,
 )
 
 _REGISTRY: Dict[str, Callable[..., Task]] = {}
@@ -171,4 +176,78 @@ def elastic2d_viscoelastic(n: int = 256, nsteps: int = 200,
         detectors=DetectorSpec(points=((0.75 * L, L / 2),)),
         correctors=(MaxwellCorrector(tau=tau),),
         time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
+    )
+
+
+@register
+def simplex2d_canyon_layered(n: int = 65, nsteps: int = 160) -> SimplexTask:
+    """Layered medium on an unstructured, non-convex mesh: a 2D elastic
+    half-space with a canyon notch cut into the free surface, soft
+    sediments over stiff basement, explosion source at depth, receivers on
+    the canyon rim and on the flat free field."""
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+
+    L, cw, cd = 64.0, 16.0, 8.0
+    x_lo, x_hi = (L - cw) / 2, (L + cw) / 2
+    y_cut = L - cd
+    canyon = AreaBox((x_lo, y_cut), (x_hi, L + 1.0))
+    grid = SimplexGrid.box_minus((0.0, 0.0), (L, L), (n, n), holes=(canyon,))
+
+    sediments = IsotropicMaterial.from_speeds(rho=1900.0, cp=2100.0, cs=900.0)
+    basement = IsotropicMaterial.from_speeds(rho=2700.0, cp=5200.0, cs=3000.0)
+    surface = AreaHalfSpace(point=(0.0, y_cut - 1e-6), normal=(0.0, -1.0))
+    f0 = 120.0
+    return SimplexTask(
+        name="simplex2d_canyon_layered",
+        model="elastic2d",
+        grid=grid,
+        default_material=basement,
+        materials=(MaterialRegion(AreaLayer(axis=1, lo=40.0, hi=L + 1.0),
+                                  sediments),),
+        border_default=BorderSpec("absorbing"),
+        borders=((surface, BorderSpec("free")),),
+        sources=(RickerSource(position=(L / 2, 16.0),
+                              components=("sxx", "syy"),
+                              f0=f0, t0=1.2 / f0, amplitude=1.0e7),),
+        time=TimeSpec(cfl=0.6, nsteps=nsteps),
+        snapshots=SnapshotSpec(every=40),
+        detectors=DetectorSpec(points=(
+            (x_lo, y_cut), (x_hi, y_cut),          # canyon rim
+            (x_lo / 2, L), (L - x_lo / 2, L),      # flat free field
+        )),
+    )
+
+
+@register
+def simplex3d_layered(n: int = 17, nsteps: int = 60,
+                      jitter: float = 0.15) -> SimplexTask:
+    """3D layered heterogeneous elastic medium on a jittered tet mesh with
+    a free surface on top (BASELINE config 3 on the unstructured path)."""
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+
+    L = 150.0
+    grid = SimplexGrid.box((0.0,) * 3, (L,) * 3, (n,) * 3, jitter=jitter)
+    sediments = IsotropicMaterial.from_speeds(rho=1900.0, cp=2100.0, cs=900.0)
+    sandstone = IsotropicMaterial.from_speeds(rho=2300.0, cp=3300.0, cs=1800.0)
+    basement = IsotropicMaterial.from_speeds(rho=2700.0, cp=5200.0, cs=3000.0)
+    top = AreaHalfSpace(point=(0.0, 0.0, L - 1e-6), normal=(0.0, 0.0, -1.0))
+    f0 = 40.0
+    return SimplexTask(
+        name="simplex3d_layered",
+        model="elastic3d",
+        grid=grid,
+        default_material=basement,
+        materials=(
+            MaterialRegion(AreaLayer(axis=2, lo=2 * L / 3, hi=L + 1.0),
+                           sediments),
+            MaterialRegion(AreaLayer(axis=2, lo=L / 3, hi=2 * L / 3),
+                           sandstone),
+        ),
+        border_default=BorderSpec("absorbing"),
+        borders=((top, BorderSpec("free")),),
+        sources=(RickerSource(position=(L / 2, L / 2, L / 3),
+                              components=("sxx", "syy", "szz"),
+                              f0=f0, t0=1.2 / f0, amplitude=1.0e7),),
+        time=TimeSpec(cfl=0.6, nsteps=nsteps),
+        detectors=DetectorSpec(points=((L / 2, L / 2, L), (L / 4, L / 2, L))),
     )

@@ -1,7 +1,8 @@
 """Scenario configuration: grid, materials, initial and border conditions,
-sources, detectors and time settings of one structured body.
+sources, detectors and time settings of one body, on a structured grid
+(``Task``) or a simplex mesh (``SimplexTask``).
 
-Counterpart of ``gcm_tpu/task.py`` (single-body structured part). ``Area``
+Counterpart of ``gcm_tpu/task.py`` (its single-body parts). ``Area``
 shapes rasterize to boolean masks host-side (numpy) when the engine is
 built, so nothing dynamic reaches the stepped loop.
 """
@@ -24,6 +25,9 @@ Face = Tuple[Axis, Side]
 #: tasks on a CUDA device and to the plain torch step elsewhere; "sweep"
 #: takes the per-sweep CUDA kernel, one launch per axis
 KERNELS = ("auto", "torch", "fused", "sweep")
+#: compute paths of a SimplexTask: "auto" resolves to the simplex sweep
+#: kernel on a CUDA device and to the plain torch sweep elsewhere
+SIMPLEX_KERNELS = ("auto", "torch", "simplex")
 
 
 # ---------------------------------------------------------------- geometry
@@ -414,3 +418,80 @@ class Task:
         rho, lam, mu = self.material_arrays()
         return MaterialFields.from_arrays(rho, lam, mu, device=device,
                                           dtype=dtype)
+
+
+# ---------------------------------------------------------------- simplex task
+
+@dataclasses.dataclass(frozen=True)
+class SimplexTask:
+    """One body on an unstructured simplex mesh: the :class:`Task` schema
+    (materials, initial and border conditions by Area, sources, detectors,
+    time, snapshot cadence, ODE correctors) over an explicit
+    :class:`~gcm_tpu_torch.grids.simplex.SimplexGrid`. Areas rasterize
+    through ``Area.contains`` on the node cloud."""
+
+    name: str
+    model: str                          # gcm_tpu_torch.models.get_model key
+    grid: "object"                      # SimplexGrid
+    default_material: IsotropicMaterial
+    materials: Tuple[MaterialRegion, ...] = ()
+    initial: Tuple[InitialCondition, ...] = ()
+    border_default: BorderSpec = dataclasses.field(
+        default_factory=lambda: BorderSpec("absorbing"))
+    borders: Tuple[Tuple[Area, BorderSpec], ...] = ()
+    sources: Tuple = ()
+    time: TimeSpec = TimeSpec()
+    snapshots: SnapshotSpec = SnapshotSpec()
+    detectors: Optional[DetectorSpec] = None
+    correctors: Tuple = ()              # ODE correctors (solver.correctors)
+    #: characteristic interpolation order: 1 = barycentric over the
+    #: containing cell, 2 = least-squares quadratic reconstruction tables
+    order: int = 1
+    kernel: str = "auto"                # "auto" | "torch" | "simplex"
+
+    def __post_init__(self):
+        if self.kernel not in SIMPLEX_KERNELS:
+            raise ValueError(f"unknown simplex kernel {self.kernel!r} "
+                             f"(expected one of {SIMPLEX_KERNELS})")
+
+    @property
+    def is_orthotropic(self) -> bool:
+        mats = (self.default_material,) + tuple(r.material for r in self.materials)
+        return any(not isinstance(m, IsotropicMaterial) for m in mats)
+
+    def material_fields(self, device="cpu",
+                        dtype=torch.float32) -> MaterialFields:
+        """Rasterize regions into per-node fields over the mesh nodes,
+        from float64 parameters as the JAX package rasterizes them."""
+        if self.is_orthotropic:
+            raise NotImplementedError(
+                "orthotropic media are not ported to gcm_tpu_torch yet")
+        pts = np.asarray(self.grid.points)
+        m0 = self.default_material
+        rho = np.full(len(pts), m0.rho, dtype=np.float64)
+        lam = np.full(len(pts), m0.lam, dtype=np.float64)
+        mu = np.full(len(pts), m0.mu, dtype=np.float64)
+        for region in self.materials:
+            msk = region.area.contains(pts)
+            rho[msk] = region.material.rho
+            lam[msk] = region.material.lam
+            mu[msk] = region.material.mu
+        return MaterialFields.from_arrays(rho, lam, mu, device=device,
+                                          dtype=dtype)
+
+    def initial_state(self, model) -> np.ndarray:
+        """Rasterize InitialConditions into a fresh ``u0 [ncomp, N]``;
+        callable values receive the per-node coordinate arrays."""
+        pts = np.asarray(self.grid.points)
+        u0 = np.zeros((model.ncomp, len(pts)), dtype=np.float64)
+        cols = tuple(pts[:, a] for a in range(pts.shape[1]))
+        for ic in self.initial:
+            msk = ic.area.contains(pts)
+            for name, val in ic.values.items():
+                if callable(val):
+                    field = np.broadcast_to(
+                        np.asarray(val(*cols), np.float64), (len(pts),))
+                    u0[model.comp(name)][msk] = field[msk]
+                else:
+                    u0[model.comp(name)][msk] = val
+        return u0

@@ -30,7 +30,7 @@ from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d
 from gcm_tpu_torch.ops.sweep import sweep_stage
 from gcm_tpu_torch.scenarios import get_scenario, list_scenarios
 from gcm_tpu_torch.solver import correctors as tcorr
-from gcm_tpu_torch.task import Task
+from gcm_tpu_torch.task import SimplexTask, Task
 from test_torch_step import norm_err
 
 DTYPES = {"f64": (jnp.float64, torch.float64),
@@ -233,13 +233,38 @@ def test_task_refuses_orthotropic_media():
 
 
 def test_scenarios_and_materials_match_jax():
-    """Every structured single-body scenario of the JAX registry is ported
-    with its name, defaults and parameters."""
-    assert list_scenarios() == ["acoustic1d", "elastic2d_ps",
-                                "elastic2d_viscoelastic",
-                                "elastic3d_explosion", "elastic3d_layered"]
+    """Every structured single-body scenario of the JAX registry, and the
+    two single-body simplex scenarios, are ported with their names,
+    defaults and parameters."""
+    structured = ["acoustic1d", "elastic2d_ps", "elastic2d_viscoelastic",
+                  "elastic3d_explosion", "elastic3d_layered"]
+    simplex = ["simplex2d_canyon_layered", "simplex3d_layered"]
+    assert list_scenarios() == structured + simplex
     assert set(list_scenarios()) <= set(jlist_scenarios())
-    for name in list_scenarios():
+    for name, n in zip(simplex, (9, 5)):
+        t, j = get_scenario(name, n=n), jget_scenario(name, n=n)
+        assert isinstance(t, SimplexTask)
+        assert (t.name, t.model, t.order, t.kernel) == \
+            (j.name, j.model, j.order, j.kernel)
+        np.testing.assert_array_equal(t.grid.points, j.grid.points)
+        np.testing.assert_array_equal(t.grid.cells, j.grid.cells)
+        assert dataclasses.astuple(t.time) == dataclasses.astuple(j.time)
+        assert t.snapshots.every == j.snapshots.every
+        tm = t.material_fields(dtype=torch.float64)
+        jm = j.material_fields(dtype=np.float64)
+        for leaf in ("cp", "cs", "zp", "zs", "kappa", "rho"):
+            np.testing.assert_array_equal(getattr(tm, leaf).numpy(),
+                                          np.asarray(getattr(jm, leaf)))
+        assert t.border_default.kind == j.border_default.kind
+        assert [(type(a).__name__, b.kind) for a, b in t.borders] == \
+            [(type(a).__name__, b.kind) for a, b in j.borders]
+        for (ta, _), (ja, _) in zip(t.borders, j.borders):
+            np.testing.assert_array_equal(ta.contains(t.grid.points),
+                                          ja.contains(j.grid.points))
+        assert [dataclasses.astuple(s) for s in t.sources] == \
+            [dataclasses.astuple(s) for s in j.sources]
+        assert t.detectors.points == j.detectors.points
+    for name in structured:
         t, j = get_scenario(name, n=12), jget_scenario(name, n=12)
         assert isinstance(t, Task)
         assert (t.name, t.model, t.grid.shape, t.grid.h, t.order) == \

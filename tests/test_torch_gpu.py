@@ -7,9 +7,11 @@ installed, without the repository's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Inputs are random heterogeneous problems made from a seeded numpy
-generator, with all four border kinds; each kernel is held to its plain
-version (``fused_step_reference``, ``fused_step_2d_reference``,
-``solver.gcm.stage``) with the per-component normalized max error of 2e-6
+generator, with all four border kinds (and per-node borders on simplex
+meshes); each kernel is held to its plain version
+(``fused_step_reference``, ``fused_step_2d_reference``,
+``solver.gcm.stage``, ``simplex_sweep_reference``) with the per-component
+normalized max error of 2e-6
 that the JAX package holds its TPU kernels to, and the damage aux stream to
 rtol 1e-5, atol 1e-6 (the atol absorbs threshold-crossing knife-edges in
 ``max(smax - threshold, 0)``), as tests/test_pallas_fused.py holds it.
@@ -22,16 +24,21 @@ import pytest
 import torch
 
 from gcm_tpu_torch.engine import Engine
+from gcm_tpu_torch.engine_simplex import SimplexEngine
+from gcm_tpu_torch.grids.simplex import SimplexGrid, build_foot_tables
 from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.fused import (
     fold_corrector_specs, fused_step, fused_step_2d, fused_step_2d_reference,
     fused_step_reference, stack_mats)
+from gcm_tpu_torch.ops.simplex import (
+    build_simplex_plan, simplex_sweep, simplex_sweep_reference)
 from gcm_tpu_torch.ops.sweep import sweep_stage
 from gcm_tpu_torch.scenarios import get_scenario
 from gcm_tpu_torch.solver.correctors import DamageCorrector, MaxwellCorrector
 from gcm_tpu_torch.solver.gcm import stage
-from gcm_tpu_torch.task import BorderSpec
+from gcm_tpu_torch.solver.simplex_gcm import build_node_borders
+from gcm_tpu_torch.task import AreaLayer, BorderSpec
 
 BORDERS = {
     (0, 0): BorderSpec("free"),
@@ -239,3 +246,106 @@ def test_2d_and_sweep_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         sweep_stage(model, u, dataclasses.replace(mat, cp=mat.cp.double()),
                     dt, h, 0, 2)
+
+
+# ------------------------------------------------------------------ simplex
+
+#: (n, dim, model, order, fluid): jittered n^dim box meshes
+SIMPLEX_CASES = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
+                 (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
+                 (12, 2, "elastic2d", 1, False)]
+
+
+def simplex_problem(seed, n, dim, name, order, fluid, device):
+    """Random heterogeneous medium on a jittered box mesh, its foot tables
+    (built on the host) and a random float32 state on ``device``."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    grid = SimplexGrid.box((0.0,) * dim, (1.0,) * dim, (n,) * dim,
+                           jitter=0.1, seed=n)
+    N = grid.npoints
+    model = get_model(name)
+    rho = 2500.0 * (1.0 + 0.2 * rng.random(N))
+    mu = np.zeros(N) if fluid else 1e9 * (0.5 + rng.random(N))
+    lam = 1e9 * (1.0 + rng.random(N))
+    mat = MaterialFields.from_arrays(rho, lam, mu, device=device)
+    d, _ = cKDTree(grid.points).query(grid.points, k=2)
+    dt = 0.7 * float(d[:, 1].min()) / mat.max_cp()
+    waves = {"p": mat.cp.double().cpu().numpy()}
+    if not fluid:
+        waves["s"] = mat.cs.double().cpu().numpy()
+    tables = build_foot_tables(grid, waves, dt, order=order)
+    u0 = rng.standard_normal((model.ncomp, N))
+    u0[model.dim:] *= 1e6
+    return (grid, model, mat, tables,
+            torch.tensor(u0, dtype=torch.float32, device=device))
+
+
+def simplex_border(grid, dim, kind):
+    """A uniform border kind, or per-node borders ("node"): free top,
+    fixed_force on the low x side, fixed_velocity on the high one."""
+    if kind == "node":
+        return build_node_borders(grid, [
+            (AreaLayer(axis=dim - 1, lo=0.99, hi=1.01), BorderSpec("free")),
+            (AreaLayer(axis=0, lo=-0.01, hi=0.01),
+             BorderSpec("fixed_force", value=(2e5, 1e5, -1e5)[:dim])),
+            (AreaLayer(axis=0, lo=0.99, hi=1.01),
+             BorderSpec("fixed_velocity", value=(0.1, -0.2, 0.3)[:dim]))])
+    value = {"fixed_force": (1e5, -2e5, 3e5),
+             "fixed_velocity": (0.1, 0.2, -0.3)}.get(kind)
+    return BorderSpec(kind, value=None if value is None else value[:dim])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("border", ["absorbing", "free", "fixed_force",
+                                    "fixed_velocity", "node"])
+@pytest.mark.parametrize("case", SIMPLEX_CASES,
+                         ids=lambda c: f"{c[2]}-o{c[3]}{'-fluid' * c[4]}")
+def test_simplex_kernel_matches_plain_on_card(cuda, case, border):
+    n, dim, name, order, fluid = case
+    grid, model, mat, tables, u0 = simplex_problem(order, *case, cuda)
+    plan = build_simplex_plan(model, mat, tables,
+                              simplex_border(grid, dim, border), cuda)
+    for axes in (tuple(range(dim)), tuple(range(dim))[::-1]):
+        u = u0
+        for a in axes:
+            before = simplex_sweep.launches
+            got = simplex_sweep(plan, u, a)
+            torch.cuda.synchronize()
+            assert simplex_sweep.launches == before + 1
+            want = simplex_sweep_reference(plan, u, a)
+            assert norm_err(got, want) < 2e-6
+            u = want
+
+
+@pytest.mark.gpu
+def test_simplex_engine_takes_the_kernel_three_times_a_step(cuda):
+    task = get_scenario("simplex3d_layered", n=13, nsteps=9)
+    before = simplex_sweep.launches
+    eng = SimplexEngine.from_task(task, device=cuda)
+    got = eng.run()
+    assert got.kernel == "simplex"
+    assert simplex_sweep.launches == before + 3 * 9
+    want = SimplexEngine.from_task(dataclasses.replace(task, kernel="torch"),
+                                   device=cuda, tables=eng.tables).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
+    np.testing.assert_allclose(got.traces, want.traces, rtol=1e-4,
+                               atol=1e-5 * np.abs(want.traces).max())
+
+
+@pytest.mark.gpu
+def test_simplex_kernel_rejects_what_it_does_not_take(cuda):
+    grid, model, mat, tables, u = simplex_problem(0, *SIMPLEX_CASES[0], cuda)
+    plan = build_simplex_plan(model, mat, tables, "free", cuda)
+    with pytest.raises(TypeError):
+        simplex_sweep(plan, u.double(), 0)
+    with pytest.raises(ValueError):
+        simplex_sweep(plan, u[:, :-1], 0)
+    with pytest.raises(ValueError):
+        simplex_sweep(plan, u.t().contiguous().t(), 0)
+    with pytest.raises(ValueError):
+        simplex_sweep(plan, u, 3)
+    with pytest.raises(TypeError):
+        simplex_sweep(build_simplex_plan(model, mat, tables, "free", "cpu"),
+                      u, 0)

@@ -23,8 +23,10 @@ sys.modules["jax"] = None
 import gcm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gcm_tpu_torch.__path__,
                                                "gcm_tpu_torch.")]
-assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors"} \\
-    <= set(names), names
+assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
+        "gcm_tpu_torch.grids.simplex", "gcm_tpu_torch.grids.locate",
+        "gcm_tpu_torch.solver.simplex_gcm", "gcm_tpu_torch.ops.simplex",
+        "gcm_tpu_torch.engine_simplex"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -42,7 +44,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 16
+    assert int(proc.stdout.split()[-1]) >= 22
 
 
 def _assert_refused(proc):
@@ -69,7 +71,9 @@ def test_cli_list_and_run_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["acoustic1d", "elastic2d_ps",
                                    "elastic2d_viscoelastic",
-                                   "elastic3d_explosion", "elastic3d_layered"]
+                                   "elastic3d_explosion", "elastic3d_layered",
+                                   "simplex2d_canyon_layered",
+                                   "simplex3d_layered"]
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
                  "--n", "12", "--nsteps", "2", "--device", "cpu"])
     assert proc.returncode == 0, proc.stderr
