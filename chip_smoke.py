@@ -46,11 +46,33 @@ Phases, each of which raises (exit code != 0) on failure:
    and non-zero receiver traces, and after 100 steps agrees with
    ``kernel="torch"`` (under 1e-4). The host setup (Delaunay, foot tables)
    is timed and printed on its own.
+9. the SPMD kernels (checked with phase 3, before the paths): the 3D
+   interior and ring kernels against their plain versions on every shard
+   of 2x2 and 4x1 meshes whose shards all lie on cuda:0 (orders 1-3, both
+   axes orders, tile-multiple, ragged and ring-only shards, all four border
+   kinds), each sharded step against the unsharded plain step, Maxwell and
+   damage folded over 3 steps; the 2D kernel likewise in both modes on
+   sx = 2 and 4 (orders 1-4); all under 2e-6;
+10. the sharded 3D path: ``Engine(elastic3d_explosion, n=256,
+   mesh=domain_mesh(3, [cuda:0] * 4, (2, 2)))`` for 100 steps launches
+   ``fused_spmd_interior`` and ``fused_spmd_ring`` 4 times a step each and
+   ``fused_step`` never, and agrees with the unsharded fused path (under
+   2e-6, max difference printed); one step with ``force_spmd`` on a 1x1
+   mesh against ``fused_step``; both kernels on shard 0 timed beside their
+   plain versions; the device idle share under ``torch.profiler``;
+11. the sharded folded-corrector path (``elastic3d_layered`` n=256, Maxwell
+   + damage, 2x2, 50 steps) against the unsharded folded path, the sharded
+   2D path (``elastic2d_viscoelastic`` n=2048 on sx=4, 300 steps, both
+   modes of ``fused_spmd_2d`` once per shard and step) and the sharded
+   per-sweep path (``kernel="sweep"``, n=256, 2x2, 50 steps) against their
+   unsharded paths (under 1e-4).
 
 Each path's points/s and each kernel's ms against its plain version's at
-the path's own shape are printed. The line before the last is a JSON object
-with the kernels' launches on their main paths, errors and times; the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+the path's own shape are printed, and the whole run's seconds. The line
+before the last is a JSON object with the kernels' launches on their main
+paths, errors, times and bounds (the least time for the bytes a call must
+move at 3.35 TB/s or its operations at 67 TFLOP/s, whichever is larger);
+the last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``.
 """
 
@@ -73,6 +95,9 @@ N_MAIN = 256
 N_2D, NSTEPS_2D, NSTEPS_2D_CMP = 2048, 1600, 300
 NSTEPS_VISCO = NSTEPS_SWEEP = 100
 PATH_TOL = 1e-4
+#: the sharded paths, on meshes whose shards lie on cuda:0 together
+NSTEPS_SHARDED, NSTEPS_SHARDED_VISCO = 100, 50
+NSTEPS_SHARDED_2D, NSTEPS_SHARDED_SWEEP = 300, 50
 #: the simplex path: simplex3d_layered on bench.py's production mesh, 65^3 =
 #: 274,625 nodes over L = 150 m. Its Ricker source (f0 = 40 Hz) peaks at
 #: t0 = 1.2/f0 = 0.03 s at z = L/3 = 50 m; the P wave then crosses 50 m of
@@ -196,16 +221,30 @@ class Counts:
         from gcm_tpu_torch.ops.simplex import simplex_sweep
         from gcm_tpu_torch.ops.sweep import sweep_stage
 
+        from gcm_tpu_torch.ops.fused_spmd import (
+            fused_spmd_2d, fused_spmd_interior, fused_spmd_ring)
+
         self.fns = {"fused_step": fused_step, "fused_step_2d": fused_step_2d,
                     "sweep_stage": sweep_stage,
-                    "simplex_sweep": simplex_sweep}
+                    "simplex_sweep": simplex_sweep,
+                    "fused_spmd_interior": fused_spmd_interior,
+                    "fused_spmd_ring": fused_spmd_ring,
+                    "fused_spmd_2d": fused_spmd_2d}
 
     def zero(self):
         for fn in self.fns.values():
             fn.launches = 0
+        self.fns["fused_spmd_2d"].ring_launches = 0
 
     def read(self):
         return {k: fn.launches for k, fn in self.fns.items()}
+
+    def expect(self, tag, launched, **want):
+        """Fail unless the kernels in ``want`` launched that often and
+        every other kernel never."""
+        full = {k: want.get(k, 0) for k in self.fns}
+        _check(launched == full, f"{tag} launches {launched}, expected "
+               f"{full}")
 
 
 def _warm(task, kernels):
@@ -428,9 +467,8 @@ def simplex_path(counts, result):
     res = eng.run()
     launched = counts.read()
     _check(res.kernel == "simplex", f"simplex path resolved to {res.kernel!r}")
-    _check(launched == {"fused_step": 0, "fused_step_2d": 0, "sweep_stage": 0,
-                        "simplex_sweep": 3 * eng.nsteps},
-           f"simplex path launches {launched}")
+    counts.expect("simplex path", launched,
+                  simplex_sweep=3 * eng.nsteps)
     _check(res.u.shape == (9, grid.npoints) and np.isfinite(res.u).all()
            and np.isfinite(res.traces).all(),
            "simplex path: state or traces not finite, or of wrong shape")
@@ -460,12 +498,494 @@ def simplex_path(counts, result):
         plain_ms.append(_time_ms(lambda: simplex_sweep_reference(*a), 10))
         print(f"simplex_sweep at {tuple(eng.u.shape)} axis {axis}: kernel "
               f"{ms[-1]:.4f} ms, plain {plain_ms[-1]:.4f} ms")
+    K = next(iter(eng.tables.values())).ids.shape[1]
+    flops = grid.npoints * sum(len(st.pairs) * (8 * K + 20)
+                               for st in eng.model.stages) / 3
     result["simplex_sweep"] = dict(
         launches=launched["simplex_sweep"], max_abs_err=max_abs,
-        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)))
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        **_bound_entry(B_SIMPLEX * grid.npoints, flops))
+
+
+# ------------------------------------------------------------- sharded paths
+
+#: bytes a point of the fused 3D and 2D steps must move (state in and out,
+#: compact materials; a damage aux in and out adds 8), the per-sweep
+#: kernel's (state in and out, cp cs zp zs kappa) and the simplex sweep's
+#: compulsory streams per node (4 tables of K=4 ids and weights, flags,
+#: materials, state in and out)
+B_FUSED3, B_FUSED2, B_SWEEP, B_SIMPLEX = 88, 56, 92, 216
+#: the published H100 SXM peaks the bounds are taken against
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+#: flops of one pair update at a point (Lagrange weights, four
+#: interpolations of order+1 taps, invariants, reconstruction) by order
+PAIR_FLOPS = {1: 30, 2: 45, 3: 62, 4: 80}
+
+
+def _step_flops(model, order, npts, nsweeps=None):
+    """Operations of a step (or of ``nsweeps`` sweeps) over ``npts`` points:
+    every pair and zero-speed invariant of each sweep, counted as above."""
+    sweeps = model.stages[:nsweeps] if nsweeps else model.stages
+    per = sum(len(st.pairs) * PAIR_FLOPS[order] + 3 * len(st.zeros)
+              for st in sweeps)
+    return per * npts
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _bound_entry(nbytes, flops):
+    """The bound keys of a kernel's JSON entry; no single PyTorch call
+    computes any of these steps, so there is no library time."""
+    bms, by = _bound(nbytes, flops)
+    return dict(bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _spmd_bytes(model, shape, r, which, nm=4):
+    """Bytes one SPMD launch must move on a shard of ``shape`` (C, nxl[,
+    nyl], nz or ny): state in and out and materials of its own cells, and,
+    for the ring, the received slabs and the material stack's halo rows."""
+    from gcm_tpu_torch.ops.fused_spmd import (
+        TILE_2D, TILE_3D, interior_mask)
+
+    C, sp = shape[0], tuple(shape[1:])
+    tile = TILE_3D if len(sp) == 3 else (TILE_2D,)
+    mask = interior_mask(sp, r, tile)
+    inner = int(mask.sum()) * int(np.prod(sp[mask.ndim:]))
+    cells = inner if which == "interior" else int(np.prod(sp)) - inner
+    nbytes = (2 * C + nm) * 4 * cells
+    if which == "ring":
+        ext = [n + 2 * r for n in sp[:-1]] + [sp[-1]]
+        halo = int(np.prod(ext)) - int(np.prod(sp))
+        nbytes += (C + nm) * 4 * halo
+    return nbytes, cells
+
+
+def _idle_share(run_steps, nsteps, step_ms):
+    """Device busy time over the host wall of ``nsteps`` steps under
+    torch.profiler (kernels and copies, overlaps counted once). The
+    profiler slows the host, so the traced idle share is an upper bound;
+    the busy time a step over the untraced step time ``step_ms`` (from the
+    path's own run) estimates the untraced one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    if not spans:
+        print(f"  trace of {nsteps} steps: no device events recorded; idle "
+              "share not measured")
+        return None
+    print(f"  trace of {nsteps} steps: loop wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; untraced step "
+          f"{step_ms:.4f} ms, device busy a step {busy / nsteps:.4f} ms, "
+          f"idle share ~{1 - busy / nsteps / step_ms:.3f}")
+    return 1 - busy / wall
+
+
+def _step_ms(res, task):
+    """A path's untraced wall time a step, from its run's rate."""
+    return float(np.prod(task.grid.shape)) / res.points_per_second * 1e3
+
+
+def spmd_kernels_vs_plain():
+    """The SPMD kernels against their plain versions on the card, one
+    launch each, on random heterogeneous problems whose shards lie on
+    cuda:0 together; then the whole sharded steps against the unsharded
+    plain step."""
+    from gcm_tpu_torch.ops.fused import (
+        fold_corrector_specs, fused_step_reference)
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_interior,
+        fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step,
+        make_fused_spmd_step_2d)
+    from gcm_tpu_torch.parallel.sharding import (
+        domain_mesh, gather_state, shard_state)
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+
+    rng = np.random.default_rng(2)
+    h3 = (10.0, 12.0, 9.0)
+    dev = torch.device("cuda", 0)
+    worst, nk = 0.0, 0
+
+    def hold(tag, got, want, lim=2e-6):
+        err = _norm_err(got, want)
+        _check(err < lim, f"{tag}: err {err:.3e}")
+        return err
+
+    # (global shape, mesh, order, axes): tile-multiple and ragged shards on
+    # 2x2 and 4x1 meshes, and a ring-only one (8-row shards)
+    cases = [((64, 48, 16), (2, 2), o, ax) for o in (1, 2, 3)
+             for ax in ((0, 1, 2), (2, 1, 0))]
+    cases += [((50, 38, 20), (2, 2), 2, (0, 1, 2)),
+              ((50, 38, 20), (2, 2), 3, (2, 1, 0)),
+              ((96, 20, 16), (4, 1), 1, (0, 1, 2)),
+              ((96, 20, 16), (4, 1), 2, (2, 1, 0)),
+              ((32, 16, 16), (4, 1), 2, (0, 1, 2))]
+    for shape, mshape, order, axes in cases:
+        model, u, mat, ms, dt = _problem(rng, shape, "elastic3d")
+        mesh = domain_mesh(3, [dev] * int(np.prod(mshape)), mshape)
+        mext = extended_mstack(model, mat, mesh, order)
+        us = shard_state(u, mesh)
+        slabs = exchange_slabs(us, mesh, stencil_radius(order))
+        bc = _borders(3)
+        for k, uk in enumerate(us):
+            args = (model, uk, mext[k], dt, h3, order, bc, axes)
+            got = fused_spmd_interior(*args, out=torch.zeros_like(uk))
+            want = fused_spmd_interior_reference(
+                *args, out=torch.zeros_like(uk))
+            f = face_flags(mesh, k)
+            ring = fused_spmd_ring(model, uk, mext[k], slabs[k], f,
+                                   torch.zeros_like(uk), dt, h3, order, bc,
+                                   axes)
+            torch.cuda.synchronize()
+            tag = f"{shape} on {mshape} order {order} axes {axes} shard {k}"
+            worst = max(worst, hold(f"fused_spmd_interior {tag}", got, want),
+                        hold(f"fused_spmd_ring {tag}", ring,
+                             fused_spmd_ring_reference(
+                                 model, uk, mext[k], slabs[k], f,
+                                 torch.zeros_like(uk), dt, h3, order, bc,
+                                 axes)))
+            nk += 2
+        step = make_fused_spmd_step(model, mesh, dt, h3, order, bc)
+        hold(f"sharded step {shape} on {mshape} order {order} axes {axes}",
+             gather_state(step(us, mext, axes), mesh),
+             fused_step_reference(model, u, ms, dt, h3, order, bc, axes))
+    print(f"fused_spmd_interior/ring vs plain: {nk} launches over "
+          f"{len(cases)} problems, worst normalized error {worst:.3e} (limit "
+          "2e-6); every sharded step vs the unsharded plain step under 2e-6")
+
+    # Maxwell + damage folded into both launches, 3 steps of the sharded
+    # step against the unsharded plain step with its epilogue
+    shape = (48, 48, 16)
+    model, u, mat, ms, dt = _problem(rng, shape, "elastic3d")
+    specs, naux = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    mesh = domain_mesh(3, [dev] * 4, (2, 2))
+    mext = extended_mstack(model, mat, mesh, 2)
+    step = make_fused_spmd_step(model, mesh, dt, h3, 2, _borders(3),
+                                correctors=specs)
+    got, gaux = shard_state(u, mesh), shard_state(
+        torch.zeros((1,) + shape, device=dev), mesh)
+    want, waux = u, torch.zeros((1,) + shape, device=dev)
+    for n in range(3):
+        axes = (0, 1, 2) if n % 2 == 0 else (2, 1, 0)
+        got, gaux = step(got, mext, axes, aux=gaux)
+        want, waux = fused_step_reference(model, want, ms, dt, h3, 2,
+                                          _borders(3), axes, specs, waux)
+    torch.cuda.synchronize()
+    gaux = gather_state(gaux, mesh)
+    _check(gaux.max().item() > 1e-4, "sharded folded: damage stayed zero")
+    err = hold("sharded step with folded correctors",
+               gather_state(got, mesh), want)
+    torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+    print(f"sharded step with Maxwell + damage folded, 3 steps {shape} on "
+          f"(2, 2): normalized error {err:.3e}, damage max "
+          f"{gaux.max().item():.4g}, aux max abs error "
+          f"{(gaux - waux).abs().max().item():.3e} (rtol 1e-5, atol 1e-6)")
+
+    # the 2D kernel: both modes, sx = 2 and 4, tile-multiple, ragged and
+    # ring-only shards, orders 1-4, both axes orders
+    worst, nk, nc = 0.0, 0, 0
+    for shape, nsh in (((512, 70), 2), ((400, 61), 4), ((64, 40), 4)):
+        for order in (1, 2, 3, 4):
+            for axes in ((0, 1), (1, 0)):
+                model, u, mat, ms, dt = _problem(rng, shape, "elastic2d")
+                mesh = domain_mesh(2, [dev] * nsh)
+                mext = extended_mstack(model, mat, mesh, order)
+                us = shard_state(u, mesh)
+                slabs = exchange_slabs(us, mesh, stencil_radius(order), dim=2)
+                bc = _borders(2)
+                for k, uk in enumerate(us):
+                    f = face_flags(mesh, k)[:2]
+                    for which in ("interior", "ring"):
+                        args = (model, uk, mext[k], dt, h3[:2], order, bc,
+                                axes, which, slabs[k], f)
+                        got = fused_spmd_2d(*args, torch.zeros_like(uk))
+                        torch.cuda.synchronize()
+                        worst = max(worst, hold(
+                            f"fused_spmd_2d {which} {shape}/{nsh} order "
+                            f"{order} axes {axes} shard {k}", got,
+                            fused_spmd_2d_reference(*args,
+                                                    torch.zeros_like(uk))))
+                        nk += 1
+                step = make_fused_spmd_step_2d(model, mesh, dt, h3[:2],
+                                               order, bc)
+                hold(f"sharded 2D step {shape}/{nsh} order {order}",
+                     gather_state(step(us, mext, axes), mesh),
+                     fused_step_reference(model, u, ms, dt, h3[:2], order,
+                                          bc, axes))
+                nc += 1
+    print(f"fused_spmd_2d vs plain: {nk} launches over {nc} problems, worst "
+          f"normalized error {worst:.3e} (limit 2e-6); every sharded 2D step "
+          "vs the unsharded plain step under 2e-6")
+
+
+def sharded_paths(counts, result):
+    """Phases 10-11: the sharded 3D, folded-corrector, 2D and per-sweep
+    paths on meshes whose shards lie on cuda:0 together."""
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.ops.fused import fused_step, stack_mats
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_interior,
+        fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
+    from gcm_tpu_torch.parallel.sharding import domain_mesh, gather_state
+    from gcm_tpu_torch.scenarios import get_scenario
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+    from gcm_tpu_torch.solver.gcm import cfl_dt
+
+    dev = torch.device("cuda", 0)
+    mesh4 = domain_mesh(3, [dev] * 4, (2, 2))
+
+    def short(task, n=2):
+        return dataclasses.replace(task, time=dataclasses.replace(
+            task.time, nsteps=n))
+
+    # ---- 10. the sharded 3D path
+    task = get_scenario("elastic3d_explosion", n=N_MAIN,
+                        nsteps=NSTEPS_SHARDED)
+    Engine(short(task), mesh=mesh4).run()
+    Engine(short(task), device=dev).run()
+    eng = Engine(task, mesh=mesh4)
+    counts.zero()
+    res = eng.run()
+    launched = counts.read()
+    _check(res.kernel == "fused", f"sharded path resolved to {res.kernel!r}")
+    counts.expect("sharded 3D path", launched,
+                  fused_spmd_interior=4 * NSTEPS_SHARDED,
+                  fused_spmd_ring=4 * NSTEPS_SHARDED)
+    _check(np.isfinite(res.u).all() and np.isfinite(res.traces).all(),
+           "sharded 3D path: state or traces not finite")
+    _check(np.abs(res.traces).max() > 0, "sharded 3D path: traces are zero")
+    ref = Engine(task, device=dev).run()
+    err = _np_err(res.u, ref.u)
+    _check(err < 2e-6, f"sharded vs unsharded fused path: err {err:.3e}")
+    terr = float(np.abs(res.traces - ref.traces).max()
+                 / np.abs(ref.traces).max())
+    _check(terr < 2e-6, f"sharded vs unsharded traces: err {terr:.3e}")
+    print(f"sharded 3D path {task.name} {task.grid.shape} on 2x2 shards of "
+          f"cuda:0 x {NSTEPS_SHARDED} steps: {res.points_per_second:.6g} "
+          f"points/s (unsharded fused {ref.points_per_second:.6g}); "
+          f"{launched['fused_spmd_interior']} interior + "
+          f"{launched['fused_spmd_ring']} ring launches, 0 fused_step; vs "
+          f"unsharded: normalized error {err:.3e} (limit 2e-6), max "
+          f"|difference| {np.abs(res.u - ref.u).max():.3e}, traces "
+          f"{terr:.3e}")
+    model, h, order, bc = eng.model, task.grid.h, task.order, task.borders
+    axes = (0, 1, 2)
+
+    def steps(e, n):
+        """n more steps of a sharded engine from its state (traced)."""
+        return lambda: [e._one_step_mesh(e.u, e.aux, i % e.nsteps)
+                        for i in range(n)]
+
+    _idle_share(steps(eng, 20), 20, _step_ms(res, task))
+
+    # one step with force_spmd on a 1x1 mesh, against fused_step
+    mesh1 = domain_mesh(3, [dev], (1, 1))
+    u_glob = gather_state(eng.u, mesh4)
+    one = make_fused_spmd_step(model, mesh1, eng.dt, h, order, bc,
+                               force_spmd=True)
+    counts.zero()
+    got = one([u_glob], extended_mstack(model, eng.mat, mesh1, order),
+              axes)[0]
+    counts.expect("force_spmd 1x1 step", counts.read(), fused_spmd_ring=1,
+                  fused_spmd_interior=1)
+    want = fused_step(model, u_glob, stack_mats(model, eng.mat), eng.dt, h,
+                      order, bc, axes)
+    torch.cuda.synchronize()
+    err1 = _norm_err(got, want)
+    _check(err1 < 2e-6, f"force_spmd 1x1 vs fused_step: err {err1:.3e}")
+    print(f"force_spmd on a 1x1 mesh, one step at {tuple(u_glob.shape)}: "
+          f"vs fused_step normalized error {err1:.3e} (limit 2e-6)")
+    del one, got, want, u_glob
+
+    # each kernel on shard 0 of the path's own state
+    r = stencil_radius(order)
+    u0, m0 = eng.u[0], eng._carry[0]
+    slabs = exchange_slabs(eng.u, mesh4, r)
+    f0 = face_flags(mesh4, 0)
+    iargs = (model, u0, m0, eng.dt, h, order, bc, axes)
+    *_, e_in = _hold_on_path_state(
+        f"fused_spmd_interior on shard 0 {tuple(u0.shape)}",
+        lambda *a: fused_spmd_interior(*a, out=torch.zeros_like(u0)),
+        lambda *a: fused_spmd_interior_reference(
+            *a, out=torch.zeros_like(a[1])), iargs)
+    rargs = (model, u0, m0, slabs[0], f0)
+    rrest = (eng.dt, h, order, bc, axes)
+    *_, e_ring = _hold_on_path_state(
+        f"fused_spmd_ring on shard 0 {tuple(u0.shape)}",
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring(
+            m, u, me, sl, f, torch.zeros_like(u), *rest),
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring_reference(
+            m, u, me, tuple(x.to(u.dtype) for x in sl), f,
+            torch.zeros_like(u), *rest), rargs + rrest)
+    base = torch.zeros_like(u0)
+    t_in = _time_ms(lambda: fused_spmd_interior(*iargs, out=base), 50)
+    p_in = _time_ms(lambda: fused_spmd_interior_reference(*iargs, out=base),
+                    5)
+    t_ring = _time_ms(lambda: fused_spmd_ring(*rargs, base, *rrest), 50)
+    p_ring = _time_ms(lambda: fused_spmd_ring_reference(*rargs, base,
+                                                        *rrest), 5)
+    print(f"fused_spmd_interior at shard {tuple(u0.shape)}: kernel "
+          f"{t_in:.4f} ms, plain {p_in:.4f} ms; fused_spmd_ring: kernel "
+          f"{t_ring:.4f} ms, plain {p_ring:.4f} ms")
+    for name, which, ms, plain, e in (
+            ("fused_spmd_interior", "interior", t_in, p_in, e_in),
+            ("fused_spmd_ring", "ring", t_ring, p_ring, e_ring)):
+        nbytes, cells = _spmd_bytes(model, u0.shape, r, which)
+        bms, by = _bound(nbytes, _step_flops(model, order, cells))
+        result[name] = dict(launches=launched[name], max_abs_err=e, ms=ms,
+                            plain_ms=plain, bound_ms=bms, bound_by=by,
+                            library_ms=None)
+    del eng, res, ref, slabs, base, u0, m0
+
+    # ---- 11. the sharded folded-corrector path
+    base6 = get_scenario("elastic3d_layered", n=N_MAIN,
+                         nsteps=NSTEPS_SHARDED_VISCO)
+    dt6 = cfl_dt(base6.material_fields(), base6.grid.h, base6.time.cfl)
+    task6 = dataclasses.replace(base6, correctors=(
+        MaxwellCorrector(tau=50 * dt6),
+        DamageCorrector(threshold=5e5, rate=0.1 / dt6)))
+    Engine(short(task6), mesh=mesh4).run()
+    eng6 = Engine(task6, mesh=mesh4)
+    _check(eng6._fold_specs is not None and eng6._fold_naux == 1,
+           "sharded visco path did not fold its correctors")
+    counts.zero()
+    res6 = eng6.run()
+    counts.expect("sharded visco path", counts.read(),
+                  fused_spmd_interior=4 * NSTEPS_SHARDED_VISCO,
+                  fused_spmd_ring=4 * NSTEPS_SHARDED_VISCO)
+    eng6u = Engine(task6, device=dev)
+    res6u = eng6u.run()
+    dmg = gather_state(eng6.aux["damage"], mesh4, lead=0).cpu().numpy()
+    dmg_u = eng6u.aux["damage"].cpu().numpy()
+    _check(dmg.max() > 0, "sharded visco path: damage stayed zero")
+    err6 = _np_err(res6.u, res6u.u)
+    derr6 = float(np.abs(dmg - dmg_u).max() / max(np.abs(dmg_u).max(),
+                                                   1e-30))
+    _check(err6 < PATH_TOL and derr6 < PATH_TOL,
+           f"sharded vs unsharded folded: state {err6:.3e}, damage "
+           f"{derr6:.3e}")
+    print(f"sharded visco path {task6.name} {task6.grid.shape} on 2x2 x "
+          f"{NSTEPS_SHARDED_VISCO} steps, Maxwell + damage folded: "
+          f"{res6.points_per_second:.6g} points/s (unsharded "
+          f"{res6u.points_per_second:.6g}); vs unsharded: state "
+          f"{err6:.3e}, damage {derr6:.3e} (limit 1e-4); damage max "
+          f"{dmg.max():.4g}")
+    del eng6, eng6u, res6, res6u
+
+    # ---- 11. the sharded 2D path
+    task2 = get_scenario("elastic2d_viscoelastic", n=N_2D,
+                         nsteps=NSTEPS_SHARDED_2D)
+    mesh2 = domain_mesh(2, [dev] * 4)
+    Engine(short(task2), mesh=mesh2).run()
+    eng2 = Engine(task2, mesh=mesh2)
+    counts.zero()
+    res2 = eng2.run()
+    launched2 = counts.read()
+    counts.expect("sharded 2D path", launched2,
+                  fused_spmd_2d=2 * 4 * NSTEPS_SHARDED_2D)
+    from gcm_tpu_torch.ops.fused_spmd import fused_spmd_2d as f2d
+
+    _check(f2d.ring_launches == 4 * NSTEPS_SHARDED_2D,
+           f"sharded 2D path: {f2d.ring_launches} ring launches")
+    _check(np.isfinite(res2.u).all() and np.abs(res2.u).max() > 0,
+           "sharded 2D path: state not finite or zero")
+    res2u = Engine(task2, device=dev).run()
+    err2 = _np_err(res2.u, res2u.u)
+    _check(err2 < PATH_TOL, f"sharded vs unsharded 2D: err {err2:.3e}")
+    print(f"sharded 2D path {task2.name} {task2.grid.shape} on sx=4 x "
+          f"{NSTEPS_SHARDED_2D} steps: {res2.points_per_second:.6g} points/s "
+          f"(unsharded {res2u.points_per_second:.6g}); "
+          f"{launched2['fused_spmd_2d']} fused_spmd_2d launches "
+          f"({f2d.ring_launches} ring); vs unsharded normalized error "
+          f"{err2:.3e} (limit 1e-4)")
+    _idle_share(steps(eng2, 20), 20, _step_ms(res2, task2))
+    m2, r2 = eng2.model, stencil_radius(task2.order)
+    u2, me2 = eng2.u[1], eng2._carry[1]
+    sl2 = exchange_slabs(eng2.u, mesh2, r2, dim=2)[1]
+    f21 = face_flags(mesh2, 1)[:2]
+    a2 = (m2, u2, me2, eng2.dt, task2.grid.h, task2.order, task2.borders,
+          (0, 1))
+    e2 = 0.0
+    for which in ("interior", "ring"):
+        *_, e = _hold_on_path_state(
+            f"fused_spmd_2d {which} on shard 1 {tuple(u2.shape)}",
+            lambda *a, w=which: fused_spmd_2d(*a, w, sl2, f21,
+                                              torch.zeros_like(u2)),
+            lambda *a, w=which: fused_spmd_2d_reference(
+                *a, w, tuple(x.to(a[1].dtype) for x in sl2), f21,
+                torch.zeros_like(a[1])), a2)
+        e2 = max(e2, e)
+    b2 = torch.zeros_like(u2)
+
+    def both(fn):
+        return lambda: [fn(*a2, w, sl2, f21, b2) for w in ("interior",
+                                                            "ring")]
+
+    t2 = _time_ms(both(fused_spmd_2d), 50)
+    p2 = _time_ms(both(fused_spmd_2d_reference), 10)
+    print(f"fused_spmd_2d (interior + ring) at shard {tuple(u2.shape)}: "
+          f"kernel {t2:.4f} ms, plain {p2:.4f} ms")
+    nb = sum(_spmd_bytes(m2, u2.shape, r2, w)[0] for w in ("interior",
+                                                           "ring"))
+    bms, by = _bound(nb, _step_flops(m2, task2.order, u2[0].numel()))
+    result["fused_spmd_2d"] = dict(
+        launches=launched2["fused_spmd_2d"], max_abs_err=e2, ms=t2,
+        plain_ms=p2, bound_ms=bms, bound_by=by, library_ms=None)
+    del eng2, res2, res2u, u2, me2, sl2, b2
+
+    # ---- 11. the sharded per-sweep path
+    task7 = dataclasses.replace(get_scenario(
+        "elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_SHARDED_SWEEP),
+        kernel="sweep")
+    Engine(short(task7), mesh=mesh4).run()
+    eng7 = Engine(task7, mesh=mesh4)
+    counts.zero()
+    res7 = eng7.run()
+    counts.expect("sharded sweep path", counts.read(),
+                  sweep_stage=3 * 4 * NSTEPS_SHARDED_SWEEP)
+    res7u = Engine(task7, device=dev).run()
+    err7 = _np_err(res7.u, res7u.u)
+    _check(err7 < PATH_TOL, f"sharded vs unsharded sweep: err {err7:.3e}")
+    print(f"sharded sweep path {task7.name} {task7.grid.shape} on 2x2 x "
+          f"{NSTEPS_SHARDED_SWEEP} steps: {res7.points_per_second:.6g} "
+          f"points/s (unsharded sweep {res7u.points_per_second:.6g}); "
+          f"{3 * 4 * NSTEPS_SHARDED_SWEEP} sweep_stage launches; vs "
+          f"unsharded normalized error {err7:.3e} (limit 1e-4)")
+    _idle_share(steps(eng7, 10), 10, _step_ms(res7, task7))
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -502,6 +1022,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain on the card
     kernels_vs_plain()
+    spmd_kernels_vs_plain()
     counts = Counts()
     result = {}
 
@@ -513,9 +1034,7 @@ def main() -> int:
     res = eng.run()
     launched = counts.read()
     _check(res.kernel == "fused", f"3D path resolved to {res.kernel!r}")
-    _check(launched == {"fused_step": NSTEPS, "fused_step_2d": 0,
-                        "sweep_stage": 0, "simplex_sweep": 0},
-           f"3D path launches {launched}")
+    counts.expect("3D path", launched, fused_step=NSTEPS)
     shape = (eng.model.ncomp,) + task.grid.shape
     _check(res.u.shape == shape and np.isfinite(res.u).all(),
            "final state is not finite or has wrong shape")
@@ -543,9 +1062,11 @@ def main() -> int:
     plain_ms = _time_ms(lambda: fused_step_reference(*args), 5)
     print(f"fused_step at {tuple(u3.shape)}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
-    result["fused_step"] = dict(launches=launched["fused_step"],
-                                max_abs_err=max_abs, ms=ms,
-                                plain_ms=plain_ms)
+    npts3 = int(np.prod(task.grid.shape))
+    result["fused_step"] = dict(
+        launches=launched["fused_step"], max_abs_err=max_abs, ms=ms,
+        plain_ms=plain_ms, **_bound_entry(B_FUSED3 * npts3, _step_flops(
+            eng.model, task.order, npts3)))
 
     # the per-sweep kernel alone on the 3D path's state, each axis
     sw_ms, sw_plain, sw_err = [], [], 0.0
@@ -572,9 +1093,7 @@ def main() -> int:
     res2 = eng2.run()
     launched2 = counts.read()
     _check(res2.kernel == "fused", f"2D path resolved to {res2.kernel!r}")
-    _check(launched2 == {"fused_step": 0, "fused_step_2d": NSTEPS_2D,
-                         "sweep_stage": 0, "simplex_sweep": 0},
-           f"2D path launches {launched2}")
+    counts.expect("2D path", launched2, fused_step_2d=NSTEPS_2D)
     _check(np.isfinite(res2.u).all() and np.isfinite(res2.traces).all(),
            "2D path: state or traces not finite")
     _check(np.abs(res2.traces).max() > 0, "2D path: traces are zero")
@@ -602,9 +1121,11 @@ def main() -> int:
     plain2 = _time_ms(lambda: fused_step_2d_reference(*args2), 10)
     print(f"fused_step_2d at {tuple(eng2.u.shape)}: kernel {ms2:.4f} ms, "
           f"plain {plain2:.4f} ms")
-    result["fused_step_2d"] = dict(launches=launched2["fused_step_2d"],
-                                   max_abs_err=max_abs, ms=ms2,
-                                   plain_ms=plain2)
+    npts2 = int(np.prod(task2.grid.shape))
+    result["fused_step_2d"] = dict(
+        launches=launched2["fused_step_2d"], max_abs_err=max_abs, ms=ms2,
+        plain_ms=plain2, **_bound_entry(B_FUSED2 * npts2, _step_flops(
+            eng2.model, task2.order, npts2)))
     del eng2, r2f, r2t, args2
 
     # ---- 6. the folded corrector path (source-free 3D layered)
@@ -620,9 +1141,7 @@ def main() -> int:
     counts.zero()
     res6 = eng6.run()
     launched6 = counts.read()
-    _check(launched6 == {"fused_step": NSTEPS_VISCO, "fused_step_2d": 0,
-                         "sweep_stage": 0, "simplex_sweep": 0},
-           f"visco path launches {launched6}")
+    counts.expect("visco path", launched6, fused_step=NSTEPS_VISCO)
     dmg = eng6.aux["damage"].cpu().numpy()
     _check(dmg.max() > 0, "visco path: damage stayed zero")
     eng6t = Engine(dataclasses.replace(task6, kernel="torch"), device="cuda")
@@ -661,10 +1180,7 @@ def main() -> int:
     res7 = eng7.run()
     launched7 = counts.read()
     _check(res7.kernel == "sweep", f"sweep path resolved to {res7.kernel!r}")
-    _check(launched7 == {"fused_step": 0, "fused_step_2d": 0,
-                         "sweep_stage": 3 * NSTEPS_SWEEP,
-                         "simplex_sweep": 0},
-           f"sweep path launches {launched7}")
+    counts.expect("sweep path", launched7, sweep_stage=3 * NSTEPS_SWEEP)
     res7f = Engine(dataclasses.replace(task7, kernel="fused"),
                    device="cuda").run()
     err7 = _np_err(res7.u, res7f.u)
@@ -676,12 +1192,17 @@ def main() -> int:
           f"launches")
     result["sweep_stage"] = dict(
         launches=launched7["sweep_stage"], max_abs_err=sw_err,
-        ms=float(np.mean(sw_ms)), plain_ms=float(np.mean(sw_plain)))
+        ms=float(np.mean(sw_ms)), plain_ms=float(np.mean(sw_plain)),
+        **_bound_entry(B_SWEEP * npts3, _step_flops(
+            eng7.model, task7.order, npts3) / 3))
     del eng7, res7, res7f
 
     # ---- 8. the simplex path
     simplex_kernel_vs_plain()
     simplex_path(counts, result)
+
+    # ---- 10-11. the sharded paths
+    sharded_paths(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step.cu",
@@ -692,7 +1213,15 @@ def main() -> int:
                         "gcm_tpu/ops/pallas_stage.py:366"),
         "simplex_sweep": ("gcm_tpu_torch/csrc/simplex_sweep.cu",
                           "gcm_tpu/ops/pallas_simplex.py:411"),
+        "fused_spmd_interior": ("gcm_tpu_torch/csrc/fused_spmd.cu",
+                                "gcm_tpu/parallel/fused_spmd.py:230"),
+        "fused_spmd_ring": ("gcm_tpu_torch/csrc/fused_spmd.cu",
+                            "gcm_tpu/parallel/fused_spmd.py:338"),
+        "fused_spmd_2d": ("gcm_tpu_torch/csrc/fused_spmd_2d.cu",
+                          "gcm_tpu/parallel/fused_spmd.py:736"),
     }
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **result[name]} for name, (src, rep) in sources.items()]}))

@@ -4,12 +4,15 @@ Commands:
   list
   run <scenario> [--n N] [--nsteps K]
                  [--kernel auto|torch|fused|sweep|simplex] [--device cuda|cpu]
+                 [--mesh NX[,NY]]
 
 ``run`` prints one JSON summary line: the resolved kernel, points per
 second, steps, dt, grid shape (``npoints`` for a simplex mesh) and device.
 Scenarios whose name starts with ``simplex`` run on
 ``engine_simplex.SimplexEngine``, with the kernels ``auto``, ``torch`` and
-``simplex``.
+``simplex``. ``--mesh NX[,NY]`` splits the grid over NX (x) by NY (y, 3D
+only) shards on the first NX*NY visible cards (raising if there are fewer),
+or, with ``--device cpu``, co-resident on the CPU.
 """
 
 from __future__ import annotations
@@ -36,7 +39,36 @@ def _build_parser():
                         "axis)")
     r.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    r.add_argument("--mesh", default=None, metavar="NX[,NY]",
+                   help="split the grid over NX x NY shards, one per card "
+                        "(all on the CPU with --device cpu)")
     return p
+
+
+def _mesh(spec: str, dim: int, device: str):
+    """The DomainMesh of ``--mesh NX[,NY]``."""
+    import math
+
+    import torch
+
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    shape = tuple(int(v) for v in spec.split(","))
+    if len(shape) > (2 if dim == 3 else 1):
+        raise SystemExit(f"--mesh {spec}: a {dim}D grid splits "
+                         f"{'x and y' if dim == 3 else 'x'} only")
+    n = math.prod(shape)
+    if torch.device(device).type == "cpu":
+        devices = ["cpu"] * n
+    else:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise SystemExit(f"--mesh {spec} needs {n} CUDA devices, torch "
+                             f"sees {count}")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    if dim == 3:
+        return domain_mesh(3, devices, shape + (1,) * (2 - len(shape)))
+    return domain_mesh(dim, devices)
 
 
 def main(argv=None) -> int:
@@ -58,8 +90,14 @@ def main(argv=None) -> int:
     if args.kernel is not None:
         task = dataclasses.replace(task, kernel=args.kernel)
     if args.scenario.startswith("simplex"):
+        if args.mesh:
+            raise SystemExit("--mesh runs structured scenarios only")
         return _run_simplex(task, args.device)
-    res = Engine(task, device=args.device).run()
+    if args.mesh:
+        res = Engine(task, mesh=_mesh(args.mesh, task.grid.dim,
+                                      args.device)).run()
+    else:
+        res = Engine(task, device=args.device).run()
     print(json.dumps({
         "scenario": task.name,
         "kernel": res.kernel,
@@ -68,6 +106,7 @@ def main(argv=None) -> int:
         "dt": res.dt,
         "shape": list(task.grid.shape),
         "device": args.device,
+        "mesh": args.mesh,
         "wall_seconds": res.wall_seconds,
     }))
     return 0

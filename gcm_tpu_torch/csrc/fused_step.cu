@@ -59,40 +59,21 @@ fused_step_kernel(const float* __restrict__ u, const float* __restrict__ m,
                   const float* __restrict__ aux_in, float* __restrict__ out,
                   float* __restrict__ aux_out, GcmFusedParams p) {
     extern __shared__ float smem[];
-    constexpr int R = Stencil<ORDER>::R;
     const int T[3] = {TX, TY, TZ};
     const int t0[3] = {(int)blockIdx.z * TX, (int)blockIdx.y * TY,
                        (int)blockIdx.x * TZ};
     const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
-    const Region r1 = tile_region(p.axes, 1, t0, T, R, 3);
-    const Region r2 = tile_region(p.axes, 2, t0, T, R, 3);
-    const Region r3 = tile_region(p.axes, 3, t0, T, R, 3);
-    float* s1 = smem;
-    float* s2 = smem + p.ncomp * r1.vol;
-
-    const GlobalSrc gsrc{u, p.n[0], p.n[1], p.n[2], N};
-    sweep<ORDER, GlobalSrc, false>(p, p.axes[0], gsrc, m, N, r1, s1, nullptr,
-                                   nullptr);
-    __syncthreads();
-    const SharedSrc src1{s1, r1};
-    sweep<ORDER, SharedSrc, false>(p, p.axes[1], src1, m, N, r2, s2, nullptr,
-                                   nullptr);
-    __syncthreads();
-    const SharedSrc src2{s2, r2};
-    sweep<ORDER, SharedSrc, true>(p, p.axes[2], src2, m, N, r3, out, aux_in,
-                                  aux_out);
+    const GlobalSrc src{u, p.n[0], p.n[1], p.n[2], N};
+    const GlobalMat mat{m, p.n[0], p.n[1], p.n[2], N};
+    step_tile<ORDER>(p, 3, t0, T, src, mat, smem, out, aux_in, aux_out);
 }
 
 template <int ORDER>
 cudaError_t launch(const float* u, const float* m, const float* aux_in,
                    float* out, float* aux_out, const GcmFusedParams& p,
                    cudaStream_t stream) {
-    constexpr int R = Stencil<ORDER>::R;
     const int T[3] = {TX, TY, TZ};
-    const int t0[3] = {0, 0, 0};
-    const Region r1 = tile_region(p.axes, 1, t0, T, R, 3);
-    const Region r2 = tile_region(p.axes, 2, t0, T, R, 3);
-    const size_t smem = sizeof(float) * (size_t)p.ncomp * (r1.vol + r2.vol);
+    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 3);
     cudaError_t err = cudaFuncSetAttribute(
         fused_step_kernel<ORDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

@@ -40,31 +40,20 @@ fused_step_2d_kernel(const float* __restrict__ u, const float* __restrict__ m,
                      const float* __restrict__ aux_in, float* __restrict__ out,
                      float* __restrict__ aux_out, GcmFusedParams p) {
     extern __shared__ float smem[];
-    constexpr int R = Stencil<ORDER>::R;
     const int T[3] = {TX2, TY2, 1};
     const int t0[3] = {(int)blockIdx.y * TX2, (int)blockIdx.x * TY2, 0};
     const long long N = (long long)p.n[0] * p.n[1];
-    const Region r1 = tile_region(p.axes, 1, t0, T, R, 2);
-    const Region r2 = tile_region(p.axes, 2, t0, T, R, 2);
-
-    const GlobalSrc gsrc{u, p.n[0], p.n[1], 1, N};
-    sweep<ORDER, GlobalSrc, false>(p, p.axes[0], gsrc, m, N, r1, smem,
-                                   nullptr, nullptr);
-    __syncthreads();
-    const SharedSrc src1{smem, r1};
-    sweep<ORDER, SharedSrc, true>(p, p.axes[1], src1, m, N, r2, out, aux_in,
-                                  aux_out);
+    const GlobalSrc src{u, p.n[0], p.n[1], 1, N};
+    const GlobalMat mat{m, p.n[0], p.n[1], 1, N};
+    step_tile<ORDER>(p, 2, t0, T, src, mat, smem, out, aux_in, aux_out);
 }
 
 template <int ORDER>
 cudaError_t launch_2d(const float* u, const float* m, const float* aux_in,
                       float* out, float* aux_out, const GcmFusedParams& p,
                       cudaStream_t stream) {
-    constexpr int R = Stencil<ORDER>::R;
     const int T[3] = {TX2, TY2, 1};
-    const int t0[3] = {0, 0, 0};
-    const Region r1 = tile_region(p.axes, 1, t0, T, R, 2);
-    const size_t smem = sizeof(float) * (size_t)p.ncomp * r1.vol;
+    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 2);
     cudaError_t err = cudaFuncSetAttribute(
         fused_step_2d_kernel<ORDER>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

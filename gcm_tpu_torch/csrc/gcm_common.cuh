@@ -106,6 +106,40 @@ struct GlobalSrc {
     }
 };
 
+// Reads one shard's state: its local block (C, n0, n1, n2) inside, and the
+// halo slabs received from its neighbours (parallel/fused_spmd.py::
+// exchange_slabs) up to R cells outside it along x and y. xlo/xhi are
+// (C, R, n1, n2); ylo/yhi are (C, n0 + 2R, R, n2) and span the x-extended
+// range, so they hold the corners and win there. Without y slabs (a 2D
+// shard, split along x only) y clamps; z always clamps.
+struct SlabSrc {
+    const float* __restrict__ u;
+    const float* __restrict__ xlo;
+    const float* __restrict__ xhi;
+    const float* __restrict__ ylo;
+    const float* __restrict__ yhi;
+    int n0, n1, n2, R;
+    long long N;
+    __device__ float ld(int c, int x, int y, int z) const {
+        z = min(max(z, 0), n2 - 1);
+        x = min(max(x, -R), n0 - 1 + R);
+        if (ylo == nullptr) y = min(max(y, 0), n1 - 1);
+        else y = min(max(y, -R), n1 - 1 + R);
+        if (y < 0)
+            return __ldg(ylo + (((long long)c * (n0 + 2 * R) + x + R) * R
+                                + y + R) * n2 + z);
+        if (y >= n1)
+            return __ldg(yhi + (((long long)c * (n0 + 2 * R) + x + R) * R
+                                + y - n1) * n2 + z);
+        if (x < 0)
+            return __ldg(xlo + (((long long)c * R + x + R) * n1 + y) * n2 + z);
+        if (x >= n0)
+            return __ldg(xhi + (((long long)c * R + x - n0) * n1 + y) * n2
+                         + z);
+        return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
+    }
+};
+
 // Reads a previous sweep's result from shared memory; every cell a sweep
 // touches lies inside the source region by construction.
 struct SharedSrc {
@@ -114,6 +148,41 @@ struct SharedSrc {
     __device__ float ld(int c, int x, int y, int z) const {
         return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
                  + (z - r.o[2])];
+    }
+};
+
+// Material stack of the state's own extents (nm, n0, n1, n2), read at
+// clamped coordinates (edge replication).
+struct GlobalMat {
+    const float* __restrict__ m;
+    int n0, n1, n2;
+    long long N;
+    __device__ long long off(int x, int y, int z) const {
+        x = min(max(x, 0), n0 - 1);
+        y = min(max(y, 0), n1 - 1);
+        z = min(max(z, 0), n2 - 1);
+        return ((long long)x * n1 + y) * n2 + z;
+    }
+    __device__ float ld(int row, long long off) const {
+        return __ldg(m + row * N + off);
+    }
+};
+
+// A shard's halo-extended material stack (parallel/fused_spmd.py::
+// extended_mstack): (nm, n0 + 2 e0, n1 + 2 e1, n2), local cell x at x + e0.
+// Coordinates clamp to the extended range, z to the block.
+struct ExtMat {
+    const float* __restrict__ m;
+    int n0, n1, n2, e0, e1;
+    long long N;                 // (n0 + 2 e0) * (n1 + 2 e1) * n2
+    __device__ long long off(int x, int y, int z) const {
+        x = min(max(x, -e0), n0 - 1 + e0) + e0;
+        y = min(max(y, -e1), n1 - 1 + e1) + e1;
+        z = min(max(z, 0), n2 - 1);
+        return ((long long)x * (n1 + 2 * e1) + y) * n2 + z;
+    }
+    __device__ float ld(int row, long long off) const {
+        return __ldg(m + row * N + off);
     }
 };
 
@@ -164,16 +233,19 @@ __device__ __forceinline__ void corrector_epilogue(
 }
 
 // One characteristic sweep along physical axis a over region `reg`, reading
-// `src` and writing either a shared buffer (all cells) or the global output
-// (in-domain cells only, after the folded correctors).
-template <int ORDER, class Src, bool TO_GLOBAL>
+// the state from `src` and the materials from `mat`, and writing either a
+// shared buffer (all cells) or the output of extents p.n (in-block cells
+// only, after the folded correctors). Borders apply on the rows at 0 and
+// p.n[a] - 1 along the sweep axis, for the kinds p.bc_kind gives.
+template <int ORDER, class Src, class Mat, bool TO_GLOBAL>
 __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
-                      const float* __restrict__ m, long long N,
-                      const Region& reg, float* __restrict__ dst,
+                      const Mat& mat, const Region& reg,
+                      float* __restrict__ dst,
                       const float* __restrict__ aux_in,
                       float* __restrict__ aux_out) {
     using S = Stencil<ORDER>;
     const int C = p.ncomp;
+    const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
     for (int idx = threadIdx.x; idx < reg.vol; idx += blockDim.x) {
         const int k = idx % reg.e[2];
         const int j = (idx / reg.e[2]) % reg.e[1];
@@ -181,25 +253,22 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
         const int gx = reg.o[0] + i, gy = reg.o[1] + j, gz = reg.o[2] + k;
         if (TO_GLOBAL && (gx >= p.n[0] || gy >= p.n[1] || gz >= p.n[2]))
             continue;
-        const int cx = min(max(gx, 0), p.n[0] - 1);
-        const int cy = min(max(gy, 0), p.n[1] - 1);
-        const int cz = min(max(gz, 0), p.n[2] - 1);
         // position along the sweep axis, and the unit step along it
         const int ga = a == 0 ? gx : (a == 1 ? gy : gz);
         const int na = p.n[a];
         const int sx = a == 0, sy = a == 1, sz = a == 2;
-        const long long moff = ((long long)cx * p.n[1] + cy) * p.n[2] + cz;
+        const long long moff = mat.off(gx, gy, gz);
 
         float old[MAXC], nw[MAXC];
         for (int c = 0; c < C; ++c) {
             old[c] = src.ld(c, gx, gy, gz);
             nw[c] = old[c];
         }
-        const float rho = __ldg(m + p.rho_idx * N + moff);
+        const float rho = mat.ld(p.rho_idx, moff);
         for (int q = 0; q < p.npairs[a]; ++q) {
             const int sg = p.pair_sigma[a][q];
             const int vl = p.pair_vel[a][q];
-            const float c = __ldg(m + p.pair_c[a][q] * N + moff);
+            const float c = mat.ld(p.pair_c[a][q], moff);
             const float z = rho * c;
             const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
             float w[S::NP];
@@ -228,7 +297,7 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
             nw[vl] = z > 0.0f ? (float)p.sign * (wl - wr) * rz : old[vl];
         }
         if (p.kappa_idx >= 0) {
-            const float kap = __ldg(m + p.kappa_idx * N + moff);
+            const float kap = mat.ld(p.kappa_idx, moff);
             for (int q = 0; q < p.nzeros[a]; ++q) {
                 const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
                 nw[zc] = old[zc] + kap * (nw[zs] - old[zs]);
@@ -260,6 +329,50 @@ __host__ __device__ inline Region tile_region(const int* axes, int nswept,
         r.vol *= r.e[d];
     }
     return r;
+}
+
+// Shared memory of a whole step on one tile of extents T: the outputs of
+// every sweep but the last.
+__host__ inline size_t step_smem_bytes(const GcmFusedParams& p, const int* T,
+                                       int R, int dim) {
+    const int t0[3] = {0, 0, 0};
+    size_t vol = 0;
+    for (int k = 1; k < dim; ++k) vol += tile_region(p.axes, k, t0, T, R, dim).vol;
+    return sizeof(float) * (size_t)p.ncomp * vol;
+}
+
+// A whole step on the output tile at t0 with extents T (dim sweeps along
+// p.axes): the first sweep reads `src`, each later one the shared buffer
+// the one before it wrote, and the last writes `out` (and the aux stream
+// of the folded correctors). Called by every thread of the block.
+template <int ORDER, class Src, class Mat>
+__device__ void step_tile(const GcmFusedParams& p, int dim, const int* t0,
+                          const int* T, const Src& src, const Mat& mat,
+                          float* smem, float* __restrict__ out,
+                          const float* __restrict__ aux_in,
+                          float* __restrict__ aux_out) {
+    constexpr int R = Stencil<ORDER>::R;
+    const Region r1 = tile_region(p.axes, 1, t0, T, R, dim);
+    const Region r2 = tile_region(p.axes, 2, t0, T, R, dim);
+    float* s1 = smem;
+    if (dim == 2) {
+        sweep<ORDER, Src, Mat, false>(p, p.axes[0], src, mat, r1, s1,
+                                      nullptr, nullptr);
+        __syncthreads();
+        sweep<ORDER, SharedSrc, Mat, true>(p, p.axes[1], SharedSrc{s1, r1},
+                                           mat, r2, out, aux_in, aux_out);
+        return;
+    }
+    const Region r3 = tile_region(p.axes, 3, t0, T, R, dim);
+    float* s2 = smem + p.ncomp * r1.vol;
+    sweep<ORDER, Src, Mat, false>(p, p.axes[0], src, mat, r1, s1, nullptr,
+                                  nullptr);
+    __syncthreads();
+    sweep<ORDER, SharedSrc, Mat, false>(p, p.axes[1], SharedSrc{s1, r1}, mat,
+                                        r2, s2, nullptr, nullptr);
+    __syncthreads();
+    sweep<ORDER, SharedSrc, Mat, true>(p, p.axes[2], SharedSrc{s2, r2}, mat,
+                                       r3, out, aux_in, aux_out);
 }
 
 }  // namespace

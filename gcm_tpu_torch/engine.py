@@ -1,11 +1,19 @@
 """Engine: builds a Task into device state and runs the time loop.
 
-Counterpart of ``gcm_tpu/engine.py`` (single body, one device): owns the
-state and the corrector aux fields, computes the static CFL dt once,
-sequences the symmetrized splitting steps, injects sources, runs the ODE
-correctors and records detector traces on the device. The JAX engine's
-``lax.scan`` becomes a plain Python loop with the same parity rule
-(reversed axes on odd step indices).
+Counterpart of ``gcm_tpu/engine.py`` (single body): owns the state and the
+corrector aux fields, computes the static CFL dt once, sequences the
+symmetrized splitting steps, injects sources, runs the ODE correctors and
+records detector traces on the device. The JAX engine's ``lax.scan``
+becomes a plain Python loop with the same parity rule (reversed axes on odd
+step indices).
+
+With ``mesh=`` (a ``parallel.sharding.DomainMesh``) the state, the aux
+fields, the sources and the detectors are held per shard, and a step runs
+across the shards as in the JAX engine's mesh path: the fused kernels'
+interior/ring split with overlapped slab exchange
+(``parallel.fused_spmd``) for ``kernel="fused"``, the per-sweep halo step
+(``parallel.halo``) for ``"sweep"`` (with the CUDA sweep kernel) and
+``"torch"`` (the plain sweep).
 """
 
 from __future__ import annotations
@@ -22,8 +30,27 @@ from gcm_tpu_torch.ops.fused import (
     fold_corrector_specs, fused_step, fused_step_2d, stack_mats,
 )
 from gcm_tpu_torch.ops.sweep import sweep_step
+from gcm_tpu_torch.parallel.fused_spmd import (
+    extended_mstack, extended_mstack_2d, make_fused_spmd_step,
+    make_fused_spmd_step_2d,
+)
+from gcm_tpu_torch.parallel.halo import extend_mats_once, make_spmd_step
+from gcm_tpu_torch.parallel.sharding import (
+    block_shape, gather_state, shard_field, shard_mats, shard_state,
+)
 from gcm_tpu_torch.solver.gcm import axes_order, cfl_dt, step as solver_step
 from gcm_tpu_torch.task import Task, apply_initial
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a torch device; raises if it is a CUDA device and torch
+    sees none (the entry points run on the card unless asked for the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("torch sees no CUDA device; pass device='cpu' to "
+                           "run on the CPU")
+    return device
 
 
 def resolve_kernel(kernel: str, dim: int, device) -> str:
@@ -34,6 +61,11 @@ def resolve_kernel(kernel: str, dim: int, device) -> str:
     if torch.device(device).type == "cuda" and dim in (2, 3):
         return "fused"
     return "torch"
+
+
+def _disagree(device: torch.device, mesh_device: torch.device) -> bool:
+    return device.type != mesh_device.type or (
+        device.index is not None and device.index != (mesh_device.index or 0))
 
 
 @dataclasses.dataclass
@@ -49,14 +81,32 @@ class RunResult:
 
 
 class Engine:
-    """Single-body engine on one device."""
+    """Single-body engine on one device, or on the shards of a mesh.
 
-    def __init__(self, task: Task, device="cpu", dtype=torch.float32):
+    ``device`` defaults to the card (``"cuda"``); without a mesh,
+    ``device="cpu"`` runs the plain versions on the CPU. With ``mesh=`` the
+    shards' devices come from the mesh (a device may hold several shards),
+    ``device`` may be left out and must agree with them if given;
+    ``Engine.u`` and each ``Engine.aux`` entry are then lists of per-shard
+    blocks in mesh order, and ``run()`` returns the gathered global state.
+    """
+
+    def __init__(self, task: Task, device=None, dtype=torch.float32,
+                 mesh=None):
         self.task = task
         self.model: Model = get_model(task.model)
         if self.model.dim != task.grid.dim:
             raise ValueError("model dim != grid dim")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            for d in mesh.devices:
+                check_device(d)
+            if device is not None and any(
+                    _disagree(torch.device(device), d) for d in mesh.devices):
+                raise ValueError(f"device {device} disagrees with the mesh's "
+                                 f"devices {mesh.devices}")
+            device = mesh.devices[0]
+        self.device = check_device("cuda" if device is None else device)
         self.dtype = dtype
         #: resolved compute path ("auto" -> device-dependent)
         self.kernel = resolve_kernel(task.kernel, self.model.dim, self.device)
@@ -70,20 +120,19 @@ class Engine:
         self.nsteps = task.time.steps_for(self.dt)
         #: compact material stack of the fused kernel, built once
         self._mstack = (stack_mats(self.model, self.mat)
-                        if self.kernel == "fused" else None)
+                        if self.kernel == "fused" and mesh is None else None)
         self._fused_fn = fused_step if self.model.dim == 3 else fused_step_2d
 
-        # corrector aux state (the "damage" field), and the folding rule of
-        # the JAX engine: sources land after the step and before the
-        # correctors, so the kernel's epilogue takes them only source-free;
-        # one shared "damage" field means at most one damage corrector
-        self.aux: Dict[str, torch.Tensor] = {}
-        for corr in task.correctors:
-            self.aux.update(corr.init_aux(self.model, task.grid.shape,
-                                          device=self.device))
+        # the folding rule of the JAX engine: sources land after the step
+        # and before the correctors, so the kernel's epilogue takes them only
+        # source-free; one shared "damage" field means at most one damage
+        # corrector (the sharded 2D step folds none, as in JAX)
         self._fold_specs = None
         self._fold_naux = 0
-        if self._mstack is not None and task.correctors and not task.sources:
+        foldable = (self.kernel == "fused" and task.correctors
+                    and not task.sources
+                    and (mesh is None or self.model.dim == 3))
+        if foldable:
             specs, naux = fold_corrector_specs(task.correctors, self.dt)
             if specs is not None and naux <= 1:
                 self._fold_specs = specs
@@ -95,31 +144,162 @@ class Engine:
 
         # sources: flat indices into u, and every step's amplitude evaluated
         # in float64 at once, cast once to the engine dtype
-        shape = (self.model.ncomp,) + task.grid.shape
-        src_flat, amps = [], []
+        src_nodes, amps = [], []
         times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
         for src in task.sources:
             node = task.grid.index_of(src.position)
             for cname in src.components:
-                src_flat.append(np.ravel_multi_index(
-                    (self.model.comp(cname),) + node, shape))
+                src_nodes.append((self.model.comp(cname),) + node)
                 amps.append(np.broadcast_to(
                     np.asarray(src.wavelet(times), np.float64),
                     times.shape) * self.dt)
-        self._src_flat = torch.as_tensor(np.asarray(src_flat, np.int64),
-                                         device=self.device)
         amps = (np.asarray(amps, np.float64).T if amps
                 else np.zeros((self.nsteps, 0)))
+        det_nodes = ([task.grid.index_of(p) for p in task.detectors.points]
+                     if task.detectors is not None else None)
+        if mesh is not None:
+            self._setup_mesh(src_nodes, amps, det_nodes)
+            return
+        shape = (self.model.ncomp,) + task.grid.shape
+        self._src_flat = torch.as_tensor(
+            np.asarray([np.ravel_multi_index(n, shape) for n in src_nodes],
+                       np.int64), device=self.device)
         self._src_amps = torch.as_tensor(amps, device=self.device).to(dtype)
 
         # detectors: flat spatial indices of the receiver nodes
         self._det_flat = None
-        if task.detectors is not None:
-            nodes = [task.grid.index_of(p) for p in task.detectors.points]
+        if det_nodes is not None:
             self._det_flat = torch.as_tensor(
-                np.ravel_multi_index(tuple(np.asarray(nodes).T),
+                np.ravel_multi_index(tuple(np.asarray(det_nodes).T),
                                      task.grid.shape).astype(np.int64),
                 device=self.device)
+
+        # corrector aux state (the "damage" field)
+        self.aux: Dict[str, torch.Tensor] = {}
+        for corr in task.correctors:
+            self.aux.update(corr.init_aux(self.model, task.grid.shape,
+                                          device=self.device))
+
+    # ------------------------------------------------------------- the mesh
+
+    def _setup_mesh(self, src_nodes, amps, det_nodes) -> None:
+        """Per-shard state, aux, materials, step, sources and detectors."""
+        task, model, mesh = self.task, self.model, self.mesh
+        bshape = block_shape(mesh, task.grid.shape)
+        self._block = bshape
+        self.u = shard_state(self.u, mesh)
+        self.aux = {}
+        for corr in task.correctors:
+            for name, f in corr.init_aux(model, task.grid.shape,
+                                         device=self.device).items():
+                self.aux[name] = shard_field(f, mesh, lead=0)
+        args = (model, mesh, self.dt, task.grid.h, task.order, task.borders)
+        if self.kernel == "fused" and model.dim == 3:
+            self._carry = extended_mstack(model, self.mat, mesh, task.order)
+            self._spmd_step = make_fused_spmd_step(
+                *args, correctors=self._fold_specs)
+        elif self.kernel == "fused":
+            self._carry = extended_mstack_2d(model, self.mat, mesh,
+                                             task.order)
+            self._spmd_step = make_fused_spmd_step_2d(*args)
+        else:
+            self._carry = extend_mats_once(shard_mats(self.mat, mesh), mesh,
+                                           model.dim, task.order)
+            self._spmd_step = make_spmd_step(
+                *args, use_kernel=self.kernel == "sweep")
+
+        def place(node):
+            """(shard, local node) of a global spatial node."""
+            i = node[0] // bshape[0]
+            j = node[1] // bshape[1] if "sy" in mesh.axis_names else 0
+            local = (node[0] - i * bshape[0],) + (
+                (node[1] - j * bshape[1],) + tuple(node[2:])
+                if "sy" in mesh.axis_names else tuple(node[1:]))
+            return mesh.index(i, j), local
+
+        # each source node and detector belongs to exactly one shard: its
+        # local flat index there, mapped once
+        cshape = (model.ncomp,) + bshape
+        by_shard: Dict[int, list] = {}
+        for col, (comp, *node) in enumerate(src_nodes):
+            k, local = place(node)
+            by_shard.setdefault(k, []).append(
+                (np.ravel_multi_index((comp,) + local, cshape), col))
+        self._src = {}
+        for k, items in by_shard.items():
+            dev = mesh.devices[k]
+            flat, cols = zip(*items)
+            self._src[k] = (
+                torch.as_tensor(np.asarray(flat, np.int64), device=dev),
+                torch.as_tensor(amps[:, list(cols)], device=dev
+                                ).to(self.dtype))
+        self._det = {}
+        self._ndet = 0 if det_nodes is None else len(det_nodes)
+        for pos, node in enumerate(det_nodes or ()):
+            k, local = place(node)
+            self._det.setdefault(k, ([], []))
+            self._det[k][0].append(np.ravel_multi_index(local, bshape))
+            self._det[k][1].append(pos)
+        self._det = {k: (torch.as_tensor(np.asarray(f, np.int64),
+                                         device=mesh.devices[k]),
+                         np.asarray(p))
+                     for k, (f, p) in self._det.items()}
+
+    def _one_step_mesh(self, us, aux, n: int):
+        task, model = self.task, self.model
+        axes = axes_order(model.dim, n, task.symmetrize_stages)
+        if self._fold_specs is not None:
+            # correctors applied in both kernels' epilogue; nothing follows
+            if not self._fold_naux:
+                return self._spmd_step(us, self._carry, axes), aux
+            us, d = self._spmd_step(
+                us, self._carry, axes,
+                aux=[a.unsqueeze(0) for a in aux["damage"]])
+            return us, {**aux, "damage": [a[0] for a in d]}
+        us = self._spmd_step(us, self._carry, axes)
+        for k, (flat, amps) in self._src.items():
+            us[k].view(-1).index_add_(0, flat, amps[n])
+        if task.correctors:
+            for k in range(len(us)):
+                a = {name: v[k] for name, v in aux.items()}
+                for corr in task.correctors:
+                    us[k], a = corr(model, us[k], a, self.dt)
+                for name, v in a.items():
+                    aux[name][k] = v
+        return us, aux
+
+    def _run_mesh(self) -> RunResult:
+        nsteps, C = self.nsteps, self.model.ncomp
+        traces = {k: torch.empty((nsteps, len(pos), C),
+                                 device=self.mesh.devices[k], dtype=self.dtype)
+                  for k, (_, pos) in self._det.items()}
+        us, aux = list(self.u), {k: list(v) for k, v in self.aux.items()}
+        devs = [d for d in self.mesh.unique_devices() if d.type == "cuda"]
+        for d in devs:
+            torch.cuda.synchronize(d)
+        t0 = _time.perf_counter()
+        for n in range(nsteps):
+            us, aux = self._one_step_mesh(us, aux, n)
+            for k, (flat, _) in self._det.items():
+                traces[k][n] = us[k].reshape(C, -1)[:, flat].T
+        for d in devs:
+            torch.cuda.synchronize(d)
+        wall = _time.perf_counter() - t0
+        self.u, self.aux = us, aux
+        out = None
+        if self.task.detectors is not None:
+            parts = {k: t.cpu().numpy() for k, t in traces.items()}
+            out = np.empty((nsteps, self._ndet, C),
+                           dtype=next(iter(parts.values())).dtype)
+            for k, (_, pos) in self._det.items():
+                out[:, pos] = parts[k]
+        npts = int(np.prod(self.task.grid.shape))
+        return RunResult(
+            u=gather_state(us, self.mesh, device="cpu").numpy(),
+            t=nsteps * self.dt, nsteps=nsteps, dt=self.dt, traces=out,
+            wall_seconds=wall,
+            points_per_second=npts * nsteps / max(wall, 1e-12),
+            kernel=self.kernel)
 
     # ------------------------------------------------------------------ step
 
@@ -159,6 +339,8 @@ class Engine:
 
     def run(self) -> RunResult:
         """Run ``nsteps`` steps from the current state."""
+        if self.mesh is not None:
+            return self._run_mesh()
         nsteps = self.nsteps
         traces = None
         if self._det_flat is not None:

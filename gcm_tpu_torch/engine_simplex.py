@@ -19,6 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gcm_tpu_torch.engine import check_device
 from gcm_tpu_torch.grids.simplex import (
     FootTables, SimplexGrid, build_foot_tables,
 )
@@ -53,7 +54,8 @@ class SimplexRunResult:
 
 
 class SimplexEngine:
-    """Engine over one simplex body on one device.
+    """Engine over one simplex body on one device (default: the card;
+    ``device="cpu"`` runs the plain versions on the CPU).
 
     ``border_kind``: one condition for the whole hull (a kind string or a
     task.BorderSpec). ``borders``: per-area conditions instead, a sequence
@@ -81,14 +83,14 @@ class SimplexEngine:
         name: str = "simplex",
         order: int = 1,
         kernel: str = "auto",
-        device="cpu",
+        device="cuda",
         tables: Optional[Dict[Tuple, FootTables]] = None,
     ):
         from scipy.spatial import cKDTree
 
         self.grid = grid
         self.model = get_model(model_name)
-        self.device = torch.device(device)
+        self.device = check_device(device)
         self.dtype = dtype
         self.name = name
         self.kernel = resolve_simplex_kernel(kernel, self.device)
@@ -157,12 +159,14 @@ class SimplexEngine:
         self.task = None
 
     @classmethod
-    def from_task(cls, task, device="cpu", dtype=torch.float32,
+    def from_task(cls, task, device="cuda", dtype=torch.float32,
                   tables: Optional[Dict[Tuple, FootTables]] = None
                   ) -> "SimplexEngine":
         """Build from a :class:`gcm_tpu_torch.task.SimplexTask`:
         materials and initial conditions by Area, per-area borders,
-        sources, detectors, correctors and the task's step count."""
+        sources, detectors, correctors and the task's step count.
+        ``device`` defaults to the card."""
+        device = check_device(device)
         model = get_model(task.model)
         eng = cls(
             task.grid, task.model,

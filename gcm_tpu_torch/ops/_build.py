@@ -102,6 +102,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # u, mstack, aux_in, out, aux_out, params, order, device, stream
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
         fn.restype = i32
+    # u, mext, aux_in, out, aux_out, xlo, xhi, ylo, yhi, split, ring,
+    # params, order, device, stream
+    lib.gcm_fused_spmd.argtypes = [vp] * 10 + [i32, vp, i32, i32, vp]
+    lib.gcm_fused_spmd.restype = i32
+    # u, mext, out, xlo, xhi, ix0, ix1, ring, params, order, device, stream
+    lib.gcm_fused_spmd_2d.argtypes = [vp] * 5 + [i32] * 3 + [vp, i32, i32,
+                                                              vp]
+    lib.gcm_fused_spmd_2d.restype = i32
+    lib.gcm_fused_spmd_tile.argtypes = [i32]
+    lib.gcm_fused_spmd_tile.restype = i32
+    lib.gcm_fused_spmd_2d_tile.argtypes = []
+    lib.gcm_fused_spmd_2d_tile.restype = i32
     # u, out, params, order, device, stream
     lib.gcm_sweep_stage.argtypes = [vp, vp, vp, i32, i32, vp]
     lib.gcm_sweep_stage.restype = i32

@@ -1,0 +1,325 @@
+"""The fused full step across shards: halo slabs and interior/ring overlap.
+
+Counterpart of ``gcm_tpu/parallel/fused_spmd.py`` (its host side; the
+kernels are ``ops/fused_spmd.py``). One step of one shard is split into an
+**interior** launch (the tiles whose windows stay inside the local block)
+and a **ring** launch (the perimeter tiles, which read the neighbours'
+slabs and write into the interior launch's output). On a card the slab
+copies run on a side stream of each device while the interior launches run
+on the compute stream; the ring launches wait for the copies' event.
+
+- The slabs are exchanged in two corner-complete phases
+  (:func:`exchange_slabs`): x slabs first, then y strips built from the
+  x-extended edge rows, so tile corners are covered. At a true domain face
+  a slab is the replicated edge row. The copies go into buffers allocated
+  once per mesh and block shape.
+- Materials are static: each shard's stack is laid out once, at setup,
+  with an r-deep halo of its neighbours' (or, at domain faces, replicated)
+  materials (:func:`extended_mstack`), so no step moves materials.
+- Border conditions apply inside the kernels, gated by each shard's face
+  flags (:func:`face_flags`).
+
+The TPU's 8-deep 2D slabs (``H2``) and its ``nxl % 8`` rule are gone: slabs
+are r rows deep and shards take any extents of at least r. A sharded state
+is the list of its per-shard blocks (``parallel.sharding``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.models.spec import Model
+from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d, stack_mats
+from gcm_tpu_torch.ops.fused_spmd import (
+    fused_spmd_2d, fused_spmd_interior, fused_spmd_ring, split_3d,
+    tile_split, TILE_2D,
+)
+from gcm_tpu_torch.ops.interp import stencil_radius
+from gcm_tpu_torch.parallel.sharding import DomainMesh, shard_field
+from gcm_tpu_torch.task import BorderSpec
+
+Borders = Dict[Tuple[int, int], BorderSpec]
+
+
+def face_flags(mesh: DomainMesh, k: int) -> Tuple[int, int, int, int]:
+    """(x-lo, x-hi, y-lo, y-hi): 1 where shard k sits on that domain face
+    (an axis the mesh does not split is a face on both sides)."""
+    i, j = mesh.coords(k)
+    nsx, nsy = mesh.axis_size("sx"), mesh.axis_size("sy")
+    return int(i == 0), int(i == nsx - 1), int(j == 0), int(j == nsy - 1)
+
+
+# ------------------------------------------------------------- slab exchange
+
+class SlabExchange:
+    """The halo slabs of one mesh's state, in buffers allocated once.
+
+    ``dim`` 3: per shard ``xlo, xhi`` (C, r, nyl, nz) and ``ylo, yhi`` (C,
+    nxl+2r, r, nz); ``dim`` 2: ``xlo, xhi`` (C, r, ny). Calling it fills
+    them from the shards' blocks; on a card the copies run on a side stream
+    per device, and :meth:`wait` makes each device's current stream wait for
+    them. (A copy between two cards runs where PyTorch runs peer copies,
+    synchronised with both.)
+    """
+
+    def __init__(self, mesh: DomainMesh, shape: Sequence[int], r: int,
+                 dtype: torch.dtype, dim: int):
+        self.mesh, self.r, self.dim = mesh, r, dim
+        C, nxl = shape[0], shape[1]
+        xs = (C, r) + tuple(shape[2:])
+        ys = (C, nxl + 2 * r, r) + tuple(shape[3:])
+        self.slabs = []
+        for dev in mesh.devices:
+            bufs = [torch.empty(xs, dtype=dtype, device=dev) for _ in "lh"]
+            if dim == 3:
+                bufs += [torch.empty(ys, dtype=dtype, device=dev)
+                         for _ in "lh"]
+            self.slabs.append(tuple(bufs))
+        self._devs = [d for d in mesh.unique_devices() if d.type == "cuda"]
+        self._side = {d: torch.cuda.Stream(d) for d in self._devs}
+        self._ev = {d: [torch.cuda.Event() for _ in range(3)]
+                    for d in self._devs}
+
+    def _on(self, k: int):
+        dev = self.mesh.devices[k]
+        return (torch.cuda.stream(self._side[dev]) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _barrier(self, which: int, streams) -> None:
+        """Every side stream waits for event ``which`` of every device,
+        recorded on ``streams[device]``."""
+        for d in self._devs:
+            self._ev[d][which].record(streams(d))
+        for d in self._devs:
+            for d2 in self._devs:
+                self._side[d].wait_event(self._ev[d2][which])
+
+    def _fill_x(self, k: int, blocks) -> None:
+        mesh, r = self.mesh, self.r
+        i, j = mesh.coords(k)
+        u, (xlo, xhi) = blocks[k], self.slabs[k][:2]
+        last = mesh.axis_size("sx") - 1
+        xlo.copy_(u[:, :1] if i == 0 else blocks[mesh.index(i - 1, j)][:, -r:])
+        xhi.copy_(u[:, -1:] if i == last
+                  else blocks[mesh.index(i + 1, j)][:, :r])
+
+    def _fill_y(self, k: int, blocks) -> None:
+        mesh, r = self.mesh, self.r
+        i, j = mesh.coords(k)
+        nxl = blocks[k].shape[1]
+        last = mesh.axis_size("sy") - 1
+        for side, dst in enumerate(self.slabs[k][2:]):
+            # the x-extended strip: the shard's own edge row where it sits
+            # on the domain face, else the neighbour's r rows next to it
+            if j == (0, last)[side]:
+                src, rows = k, (slice(0, 1), slice(-1, None))[side]
+            else:
+                src = mesh.index(i, j + (-1, 1)[side])
+                rows = (slice(-r, None), slice(0, r))[side]
+            xlo, xhi = self.slabs[src][:2]
+            dst[:, :r].copy_(xlo[:, :, rows])
+            dst[:, r:r + nxl].copy_(blocks[src][:, :, rows])
+            dst[:, r + nxl:].copy_(xhi[:, :, rows])
+
+    def __call__(self, blocks: Sequence[torch.Tensor]) -> List[Tuple]:
+        """Fill the slabs from ``blocks`` (one per shard); returns them, one
+        tuple per shard."""
+        cur = torch.cuda.current_stream
+        self._barrier(0, cur)
+        for k in range(self.mesh.size):
+            with self._on(k):
+                self._fill_x(k, blocks)
+        if self.dim == 3:
+            if len(self._devs) > 1:
+                self._barrier(1, lambda d: self._side[d])
+            for k in range(self.mesh.size):
+                with self._on(k):
+                    self._fill_y(k, blocks)
+        for d in self._devs:
+            self._ev[d][2].record(self._side[d])
+        return self.slabs
+
+    def wait(self) -> None:
+        """Make each card's current stream wait for the last fill."""
+        for d in self._devs:
+            torch.cuda.current_stream(d).wait_event(self._ev[d][2])
+
+
+def exchange_slabs(blocks: Sequence[torch.Tensor], mesh: DomainMesh, r: int,
+                   dim: int = 3) -> List[Tuple]:
+    """The corner-complete two-phase halo-slab exchange of a sharded state:
+    per shard ``(xlo, xhi, ylo, yhi)`` (``dim`` 3) or ``(xlo, xhi)`` (2),
+    in new buffers."""
+    ex = SlabExchange(mesh, blocks[0].shape, r, blocks[0].dtype, dim)
+    slabs = ex(blocks)
+    ex.wait()
+    return slabs
+
+
+# ------------------------------------------------------------ material layout
+
+def extended_mstack(model: Model, mat: MaterialFields, mesh: DomainMesh,
+                    order: int) -> List[torch.Tensor]:
+    """Per-shard halo-extended compact stacks ``(nm, nxl+2r, nyl+2r, nz)``
+    (3D) or ``(nm, nxl+2r, ny)`` (2D), built once at setup by the slab
+    exchange of the stacked global materials."""
+    r = stencil_radius(order)
+    blocks = shard_field(stack_mats(model, mat), mesh, lead=1)
+    slabs = exchange_slabs(blocks, mesh, r, dim=model.dim)
+    out = []
+    for m, s in zip(blocks, slabs):
+        mx = torch.cat([s[0], m, s[1]], dim=1)
+        out.append(torch.cat([s[2], mx, s[3]], dim=2) if model.dim == 3
+                   else mx)
+    return out
+
+
+def extended_mstack_2d(model: Model, mat: MaterialFields, mesh: DomainMesh,
+                       order: int) -> List[torch.Tensor]:
+    """The 2D form of :func:`extended_mstack`: x-extended stacks."""
+    if model.dim != 2:
+        raise ValueError("extended_mstack_2d takes a 2D model")
+    return extended_mstack(model, mat, mesh, order)
+
+
+# ------------------------------------------------------------------ the steps
+
+def _crop_once(r: int, dim: int):
+    """The un-extended stack of a 1-shard mesh, cut once per stack."""
+    memo = {}
+
+    def crop(mext):
+        if memo.get("src") is not mext:
+            idx = (slice(None),) + (slice(r, -r),) * (dim - 1)
+            memo["src"], memo["val"] = mext, mext[idx].contiguous()
+        return memo["val"]
+
+    return crop
+
+
+def make_fused_spmd_step(model: Model, mesh: DomainMesh, dt: float,
+                         h: Sequence[float], order: int,
+                         borders: Optional[Borders] = None,
+                         force_spmd: bool = False, correctors=None):
+    """Build ``step(us, mexts, axes[, aux]) -> us [or (us, aux)]``: the
+    fused 3D step across the shards of ``mesh``.
+
+    ``us`` holds the shards' blocks, ``mexts`` their extended stacks
+    (:func:`extended_mstack`, same order), ``aux`` (with damage
+    ``correctors``, specs of ``ops.fused.fold_corrector_specs``) one
+    ``(naux, nxl, nyl, nz)`` stack per shard; the folded correctors run in
+    both launches. ``axes`` is (0, 1, 2) or (2, 1, 0).
+
+    On a one-shard mesh the step is the single-card ``fused_step``;
+    ``force_spmd=True`` keeps the interior/ring split on any mesh.
+    """
+    if model.dim != 3:
+        raise ValueError("fused spmd step supports 3D models only")
+    r = stencil_radius(order)
+    specs = tuple(correctors) if correctors else ()
+    naux = sum(1 for sp in specs if sp[0] == "damage")
+    one = mesh.size == 1 and not force_spmd
+    crop = _crop_once(r, 3)
+    flags = [face_flags(mesh, k) for k in range(mesh.size)]
+    exchanges: Dict[Tuple, SlabExchange] = {}
+
+    def step(us, mexts, axes: Optional[Tuple[int, ...]] = None, aux=None):
+        axes = tuple(axes) if axes is not None else (0, 1, 2)
+        if axes not in ((0, 1, 2), (2, 1, 0)):
+            raise ValueError(f"unsupported axes order {axes}")
+        if naux and aux is None:
+            raise ValueError("damage correctors need the aux array")
+        kw = dict(correctors=specs or None)
+        if one:
+            if naux:
+                u, a = fused_step(model, us[0], crop(mexts[0]), dt, h, order,
+                                  borders, axes, aux=aux[0], **kw)
+                return [u], [a]
+            return [fused_step(model, us[0], crop(mexts[0]), dt, h, order,
+                               borders, axes, **kw)]
+        C, nxl, nyl, nz = us[0].shape
+        if nxl < r or nyl < r:
+            raise ValueError(
+                f"fused spmd step: per-shard extents {nxl}x{nyl} smaller "
+                f"than the stencil radius {r}; use larger shards or the "
+                "per-sweep path")
+        key = (tuple(us[0].shape), us[0].dtype)
+        ex = exchanges.get(key)
+        if ex is None:
+            ex = exchanges[key] = SlabExchange(mesh, us[0].shape, r,
+                                               us[0].dtype, 3)
+        slabs = ex(us)
+        interior = split_3d(nxl, nyl, r)[3] > 0
+        outs, aouts = [], []
+        for k, u in enumerate(us):
+            a = aux[k] if naux else None
+            if interior:
+                res = fused_spmd_interior(model, u, mexts[k], dt, h, order,
+                                          borders, axes, aux=a, **kw)
+            else:   # every tile is on the ring
+                res = (torch.empty_like(u), torch.empty_like(a)) if naux \
+                    else torch.empty_like(u)
+            outs.append(res[0] if naux else res)
+            aouts.append(res[1] if naux else None)
+        ex.wait()
+        for k, u in enumerate(us):
+            fused_spmd_ring(model, u, mexts[k], slabs[k], flags[k], outs[k],
+                            dt, h, order, borders, axes,
+                            aux=aux[k] if naux else None,
+                            base_aux=aouts[k], **kw)
+        return (outs, aouts) if naux else outs
+
+    return step
+
+
+def make_fused_spmd_step_2d(model: Model, mesh: DomainMesh, dt: float,
+                            h: Sequence[float], order: int,
+                            borders: Optional[Borders] = None,
+                            force_spmd: bool = False):
+    """Build ``step(us, mexts, axes) -> us``: the fused 2D step across the
+    shards of a mesh that splits x only (``'sx'``), with ``mexts`` from
+    :func:`extended_mstack_2d`. The same interior/ring overlap as 3D; no
+    correctors are folded, as in the JAX package. On a one-shard mesh the
+    step is ``fused_step_2d`` unless ``force_spmd``."""
+    if model.dim != 2:
+        raise ValueError("make_fused_spmd_step_2d supports 2D models only")
+    if "sy" in mesh.axis_names:
+        raise ValueError("the 2D step splits x ('sx') only")
+    r = stencil_radius(order)
+    one = mesh.size == 1 and not force_spmd
+    crop = _crop_once(r, 2)
+    flags = [face_flags(mesh, k)[:2] for k in range(mesh.size)]
+    exchanges: Dict[Tuple, SlabExchange] = {}
+
+    def step(us, mexts, axes: Optional[Tuple[int, ...]] = None):
+        axes = tuple(axes) if axes is not None else (0, 1)
+        if axes not in ((0, 1), (1, 0)):
+            raise ValueError(f"unsupported axes order {axes}")
+        if one:
+            return [fused_step_2d(model, us[0], crop(mexts[0]), dt, h, order,
+                                  borders, axes)]
+        nxl = us[0].shape[1]
+        if nxl < r:
+            raise ValueError(
+                f"fused 2D spmd step: per-shard nx={nxl} smaller than the "
+                f"stencil radius {r}")
+        key = (tuple(us[0].shape), us[0].dtype)
+        ex = exchanges.get(key)
+        if ex is None:
+            ex = exchanges[key] = SlabExchange(mesh, us[0].shape, r,
+                                               us[0].dtype, 2)
+        slabs = ex(us)
+        interior = tile_split(nxl, TILE_2D, r)[2] > 0
+        outs = [fused_spmd_2d(model, u, mexts[k], dt, h, order, borders, axes,
+                              "interior") if interior else torch.empty_like(u)
+                for k, u in enumerate(us)]
+        ex.wait()
+        return [fused_spmd_2d(model, u, mexts[k], dt, h, order, borders, axes,
+                              "ring", slabs[k], flags[k], outs[k])
+                for k, u in enumerate(us)]
+
+    return step

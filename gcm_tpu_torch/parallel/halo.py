@@ -1,0 +1,184 @@
+"""Explicit halo exchange and the per-sweep sharded step.
+
+Counterpart of ``gcm_tpu/parallel/halo.py``. Each shard runs a sweep on its
+block extended by an r-deep halo of its neighbours' rows (edge-replicated
+at a domain face) and crops the halo off again. Border conditions: the
+sweep runs border-free on the extended block; the shards on a domain face
+then apply the exactly equivalent post-fixup
+(``solver.boundary.apply_borders_post``).
+
+With ``use_kernel=True`` the sweep is the per-sweep CUDA kernel
+(``ops.sweep.sweep_stage``, which runs its plain version on CPU tensors);
+with ``use_kernel=False`` it is the plain ``solver.gcm.stage``, the same
+function the JAX package computes under a mesh with its jnp path (a GSPMD
+program there, a per-shard halo step here).
+
+Materials are static: engines pass per-shard material dicts prepared once
+by :func:`extend_mats_once`, so a step exchanges only the state; plain
+per-shard ``MaterialFields`` are extended at every sweep. A sharded field
+is the list of its per-shard blocks (``parallel.sharding``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.models.spec import Model
+from gcm_tpu_torch.ops.interp import stencil_radius
+from gcm_tpu_torch.ops.sweep import sweep_stage
+from gcm_tpu_torch.parallel.sharding import AXIS_OF, DomainMesh
+from gcm_tpu_torch.solver.boundary import apply_borders_post
+from gcm_tpu_torch.solver.gcm import stage as torch_stage
+from gcm_tpu_torch.task import BorderSpec
+
+Borders = Dict[Tuple[int, int], BorderSpec]
+
+
+def _neighbours(mesh: DomainMesh, name: str, k: int):
+    """(shard before k, shard after k) along mesh axis ``name``; None at a
+    domain face."""
+    i, j = mesh.coords(k)
+    n = mesh.axis_size(name)
+    pos = i if name == "sx" else j
+
+    def at(p):
+        if not 0 <= p < n:
+            return None
+        return mesh.index(p, j) if name == "sx" else mesh.index(i, p)
+
+    return at(pos - 1), at(pos + 1)
+
+
+def halo_exchange(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
+                  name: str, ax: int, r: int) -> List[torch.Tensor]:
+    """Every block extended by r-deep neighbour slabs along tensor axis
+    ``ax`` (the one mesh axis ``name`` splits); a shard on a domain face
+    gets its edge row replicated. Each extended block has ``shape[ax] +
+    2r``."""
+    out = []
+    for k, f in enumerate(blocks):
+        lo_k, hi_k = _neighbours(mesh, name, k)
+        n = f.shape[ax]
+        lo = (f.narrow(ax, 0, 1).expand_as(f.narrow(ax, 0, r))
+              if lo_k is None else blocks[lo_k].narrow(ax, n - r, r))
+        hi = (f.narrow(ax, n - 1, 1).expand_as(f.narrow(ax, 0, r))
+              if hi_k is None else blocks[hi_k].narrow(ax, 0, r))
+        out.append(torch.cat([lo.to(f.device), f, hi.to(f.device)], dim=ax))
+    return out
+
+
+def _crop(f: torch.Tensor, ax: int, r: int) -> torch.Tensor:
+    return f.narrow(ax, r, f.shape[ax] - 2 * r).contiguous()
+
+
+def _spatial_names(dim: int, mesh: DomainMesh) -> Dict[int, Optional[str]]:
+    """The mesh axis that splits each spatial axis (None if unsplit)."""
+    names: Dict[int, Optional[str]] = {a: None for a in range(dim)}
+    for name in mesh.axis_names:
+        if AXIS_OF[name] < max(dim - 1, 1):
+            names[AXIS_OF[name]] = name
+    if not any(names.values()):
+        raise ValueError(f"mesh axes {mesh.axis_names} split no spatial "
+                         f"axis of a {dim}-D grid")
+    return names
+
+
+def extend_mats_once(mats: Sequence[MaterialFields], mesh: DomainMesh,
+                     dim: int, order: int) -> List[Dict]:
+    """Per shard ``{"base": mat, "ax<a>": mat extended along axis a, ...}``
+    for every split axis a: the materials each sweep reads, exchanged once
+    at setup."""
+    r = stencil_radius(order)
+    out = [{"base": m} for m in mats]
+    for a, name in _spatial_names(dim, mesh).items():
+        if name is None:
+            continue
+        leaves = {f.name: halo_exchange([getattr(m, f.name) for m in mats],
+                                        mesh, name, a, r)
+                  for f in dataclasses.fields(MaterialFields)}
+        for k, d in enumerate(out):
+            d[f"ax{a}"] = MaterialFields(**{n: v[k]
+                                            for n, v in leaves.items()})
+    return out
+
+
+def _raw_stage(model: Model, dt: float, h: Sequence[float], order: int,
+               use_kernel: bool):
+    if use_kernel:
+        return lambda u, mat, axis: sweep_stage(model, u, mat, dt, h, axis,
+                                                order, None)
+    return lambda u, mat, axis: torch_stage(model, u, mat, dt, h, axis,
+                                            order, None)
+
+
+def _sweep_all(model: Model, mesh: DomainMesh, raw, names, r: int,
+               us: Sequence[torch.Tensor], mats: Sequence, axis: int
+               ) -> List[torch.Tensor]:
+    """One border-free sweep of every shard along ``axis``."""
+    prepared = isinstance(mats[0], dict)
+    base = [m["base"] if prepared else m for m in mats]
+    name = names.get(axis)
+    if name is None:
+        return [raw(u, m, axis) for u, m in zip(us, base)]
+    exts = halo_exchange(us, mesh, name, axis + 1, r)
+    if prepared:
+        mat_ext = [m[f"ax{axis}"] for m in mats]
+    else:
+        leaves = {f.name: halo_exchange([getattr(m, f.name) for m in base],
+                                        mesh, name, axis, r)
+                  for f in dataclasses.fields(MaterialFields)}
+        mat_ext = [MaterialFields(**{n: v[k] for n, v in leaves.items()})
+                   for k in range(len(us))]
+    return [_crop(raw(e, m, axis), axis + 1, r)
+            for e, m in zip(exts, mat_ext)]
+
+
+def make_spmd_raw_stage(model: Model, mesh: DomainMesh, dt: float,
+                        h: Sequence[float], order: int,
+                        use_kernel: bool = True):
+    """Border-free single sweep across the shards: ``stage(us, mats,
+    axis) -> us`` (``mats`` per shard, plain or from
+    :func:`extend_mats_once`)."""
+    raw = _raw_stage(model, dt, h, order, use_kernel)
+    names = _spatial_names(model.dim, mesh)
+    r = stencil_radius(order)
+
+    def stage(us, mats, axis: int):
+        return _sweep_all(model, mesh, raw, names, r, us, mats, axis)
+
+    return stage
+
+
+def make_spmd_step(model: Model, mesh: DomainMesh, dt: float,
+                   h: Sequence[float], order: int,
+                   borders: Optional[Borders] = None,
+                   use_kernel: bool = False):
+    """Build ``step(us, mats, axes) -> us``: a full step across the shards
+    of ``mesh``, one sweep at a time, each with its halo exchange and the
+    border post-fixup on the shards at the domain faces."""
+    raw = _raw_stage(model, dt, h, order, use_kernel)
+    names = _spatial_names(model.dim, mesh)
+    r = stencil_radius(order)
+
+    def step(us, mats, axes: Optional[Tuple[int, ...]] = None):
+        axes = tuple(range(model.dim)) if axes is None else tuple(axes)
+        base = [m["base"] if isinstance(m, dict) else m for m in mats]
+        for axis in axes:
+            new = _sweep_all(model, mesh, raw, names, r, us, mats, axis)
+            if borders:
+                name = names.get(axis)
+                for k in range(len(us)):
+                    lo_k, hi_k = ((None, None) if name is None
+                                  else _neighbours(mesh, name, k))
+                    if lo_k is None or hi_k is None:   # on a domain face
+                        new[k] = apply_borders_post(
+                            model, us[k], new[k], base[k], axis, borders,
+                            (lo_k is None, hi_k is None))
+            us = new
+        return us
+
+    return step

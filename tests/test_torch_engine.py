@@ -63,7 +63,7 @@ def test_engine_matches_jax_engine(scenario, n, nsteps, dtype):
                 "f32": (jnp.float32, torch.float32)}[dtype]
     want = JEngine(jget_scenario(scenario, n=n, nsteps=nsteps),
                    dtype=jdt).run()
-    got = Engine(get_scenario(scenario, n=n, nsteps=nsteps),
+    got = Engine(get_scenario(scenario, n=n, nsteps=nsteps), device="cpu",
                  dtype=tdt).run()
     assert got.kernel == "torch"
     assert got.u.shape == want.u.shape and got.nsteps == nsteps
@@ -89,13 +89,14 @@ def test_engine_fused_kernel_on_cpu_runs_plain_version():
     no kernel launch."""
     task = get_scenario("elastic3d_explosion", n=12, nsteps=3)
     before = fused_step.launches
-    got = Engine(dataclasses.replace(task, kernel="fused")).run()
+    got = Engine(dataclasses.replace(task, kernel="fused"),
+                 device="cpu").run()
     assert fused_step.launches == before
     assert got.kernel == "fused"
-    want = Engine(task).run()
+    want = Engine(task, device="cpu").run()
     assert norm_err(got.u, want.u) < 2e-6
     with pytest.raises(ValueError, match="float32"):
-        Engine(dataclasses.replace(task, kernel="fused"),
+        Engine(dataclasses.replace(task, kernel="fused"), device="cpu",
                dtype=torch.float64)
 
 
@@ -109,7 +110,8 @@ def test_1d_2d_scenarios_match_jax_engine(scenario, n, nsteps, dtype):
     jdt, tdt = DTYPES[dtype]
     want = JEngine(jget_scenario(scenario, n=n, nsteps=nsteps),
                    dtype=jdt).run()
-    got = Engine(get_scenario(scenario, n=n, nsteps=nsteps), dtype=tdt).run()
+    got = Engine(get_scenario(scenario, n=n, nsteps=nsteps), device="cpu",
+                 dtype=tdt).run()
     assert got.kernel == "torch"
     _assert_runs_agree(got, want, dtype)
 
@@ -118,7 +120,7 @@ def _visco_layered_pair(n, nsteps, seed=0):
     """Source-free elastic3d_layered with Maxwell + damage, for both
     packages, and a common non-zero initial damage field."""
     base = get_scenario("elastic3d_layered", n=n, nsteps=nsteps)
-    dt = Engine(base).dt
+    dt = Engine(base, device="cpu").dt
     task = dataclasses.replace(base, correctors=(
         tcorr.MaxwellCorrector(tau=50 * dt),
         tcorr.DamageCorrector(threshold=5e5, rate=0.1 / dt)))
@@ -145,7 +147,8 @@ def test_correctors_match_jax_engine(dtype, kernel):
     jeng = JEngine(jtask, dtype=jdt)
     jeng.aux = {"damage": jnp.asarray(d0)}
     want = jeng.run()
-    eng = Engine(dataclasses.replace(task, kernel=kernel), dtype=tdt)
+    eng = Engine(dataclasses.replace(task, kernel=kernel), device="cpu",
+                 dtype=tdt)
     assert (eng._fold_specs is not None) == (kernel == "fused")
     eng.aux = aux_from_numpy({"damage": d0})
     before = fused_step.launches
@@ -164,22 +167,23 @@ def test_folding_rule():
     field at most; anything else runs the correctors after the step."""
     task, _, _ = _visco_layered_pair(12, 1)
     fused = dataclasses.replace(task, kernel="fused")
-    eng = Engine(fused)
+    eng = Engine(fused, device="cpu")
     assert eng._fold_specs is not None and eng._fold_naux == 1
     assert set(eng.aux) == {"damage"}
-    assert Engine(task)._fold_specs is None                  # torch path
+    assert Engine(task, device="cpu")._fold_specs is None    # torch path
     two = dataclasses.replace(fused, correctors=fused.correctors
                               + (tcorr.DamageCorrector(1e6, 1.0),))
-    assert Engine(two)._fold_specs is None
+    assert Engine(two, device="cpu")._fold_specs is None
     per_node = dataclasses.replace(fused, correctors=(
         tcorr.MaxwellCorrector(tau=torch.full(task.grid.shape, 0.01)),))
-    assert Engine(per_node)._fold_specs is None
+    assert Engine(per_node, device="cpu")._fold_specs is None
     visco = get_scenario("elastic2d_viscoelastic", n=16, nsteps=1)
-    assert Engine(dataclasses.replace(visco, kernel="fused"))._fold_specs \
-        is None                                              # has a source
+    assert Engine(dataclasses.replace(visco, kernel="fused"),
+                  device="cpu")._fold_specs is None          # has a source
     assert Engine(dataclasses.replace(
-        visco, kernel="fused", sources=()))._fold_specs == (
-            ("maxwell", pytest.approx(np.exp(-Engine(visco).dt / 0.02))),)
+        visco, kernel="fused", sources=()), device="cpu")._fold_specs == (
+            ("maxwell", pytest.approx(np.exp(
+                -Engine(visco, device="cpu").dt / 0.02))),)
 
 
 @pytest.mark.parametrize("kernel", ["fused", "sweep"])
@@ -189,10 +193,10 @@ def test_2d_kernels_on_cpu_run_plain_versions(kernel):
     path's result, and no kernel launch."""
     task = get_scenario("elastic2d_viscoelastic", n=20, nsteps=5)
     before = (fused_step_2d.launches, sweep_stage.launches)
-    got = Engine(dataclasses.replace(task, kernel=kernel)).run()
+    got = Engine(dataclasses.replace(task, kernel=kernel), device="cpu").run()
     assert (fused_step_2d.launches, sweep_stage.launches) == before
     assert got.kernel == kernel
-    assert norm_err(got.u, Engine(task).run().u) < 2e-6
+    assert norm_err(got.u, Engine(task, device="cpu").run().u) < 2e-6
 
 
 def test_resolve_kernel():
@@ -203,12 +207,12 @@ def test_resolve_kernel():
     assert resolve_kernel("auto", 3, "cuda") == "fused"
     assert resolve_kernel("torch", 3, "cuda") == "torch"
     assert resolve_kernel("sweep", 2, "cuda") == "sweep"
-    assert Engine(get_scenario("elastic3d_layered", n=8, nsteps=1)).kernel \
-        == "torch"
+    assert Engine(get_scenario("elastic3d_layered", n=8, nsteps=1),
+                  device="cpu").kernel == "torch"
     for kernel in ("fused", "sweep"):
         with pytest.raises(ValueError, match="2D and 3D"):
             Engine(dataclasses.replace(get_scenario("acoustic1d", n=16),
-                                       kernel=kernel))
+                                       kernel=kernel), device="cpu")
 
 
 @pytest.mark.parametrize("knob,value", [

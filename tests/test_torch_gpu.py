@@ -349,3 +349,186 @@ def test_simplex_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         simplex_sweep(build_simplex_plan(model, mat, tables, "free", "cpu"),
                       u, 0)
+
+
+# -------------------------------------------------------------- sharded
+
+#: (global shape, mesh shape, order, axes): tile-multiple, ragged and
+#: ring-only (8-row) shards on 2x2 and 4x1 meshes
+SPMD_CASES = [((64, 48, 16), (2, 2), 1, (0, 1, 2)),
+              ((64, 48, 16), (2, 2), 2, (2, 1, 0)),
+              ((50, 38, 20), (2, 2), 3, (0, 1, 2)),
+              ((96, 20, 16), (4, 1), 2, (2, 1, 0)),
+              ((32, 16, 16), (4, 1), 2, (0, 1, 2))]
+
+
+def _card_mesh(cuda, dim, shape):
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    n = int(np.prod(shape))
+    return domain_mesh(dim, [cuda] * n, shape if dim == 3 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPMD_CASES, ids=str)
+def test_spmd_kernels_match_plain_on_card(cuda, case):
+    """Interior and ring kernels of every shard (all on one card) against
+    their plain versions, and the sharded step against the unsharded one."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    shape, mshape, order, axes = case
+    model, u, mat, dt = card_problem(order, "elastic3d", shape, cuda,
+                                     with_mat=True)
+    h = (10.0, 12.0, 9.0)
+    mesh = _card_mesh(cuda, 3, mshape)
+    mext = extended_mstack(model, mat, mesh, order)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, fs.stencil_radius(order))
+    for k, uk in enumerate(us):
+        before = (fs.fused_spmd_interior.launches, fs.fused_spmd_ring.launches)
+        args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
+        got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
+        ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
+                                  face_flags(mesh, k), torch.zeros_like(uk),
+                                  *args[3:])
+        torch.cuda.synchronize()
+        assert (fs.fused_spmd_interior.launches,
+                fs.fused_spmd_ring.launches) == (before[0] + 1, before[1] + 1)
+        want = fs.fused_spmd_interior_reference(*args,
+                                                out=torch.zeros_like(uk))
+        assert norm_err(got, want) < 2e-6
+        want = fs.fused_spmd_ring_reference(
+            model, uk, mext[k], slabs[k], face_flags(mesh, k),
+            torch.zeros_like(uk), *args[3:])
+        assert norm_err(ring, want) < 2e-6
+    step = make_fused_spmd_step(model, mesh, dt, h, order, BORDERS)
+    want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
+                                order, BORDERS, axes)
+    assert norm_err(gather_state(step(us, mext, axes), mesh), want) < 2e-6
+
+
+@pytest.mark.gpu
+def test_spmd_folded_correctors_on_card(cuda):
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        extended_mstack, make_fused_spmd_step)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    shape = (48, 48, 16)
+    model, u, mat, dt = card_problem(0, "elastic3d", shape, cuda,
+                                     with_mat=True)
+    for a in range(1, 4):   # a smooth state, off the damage knife-edges
+        u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
+    specs, _ = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    h = (10.0, 10.0, 10.0)
+    mesh = _card_mesh(cuda, 3, (2, 2))
+    mext = extended_mstack(model, mat, mesh, 2)
+    step = make_fused_spmd_step(model, mesh, dt, h, 2, BORDERS,
+                                correctors=specs)
+    got = shard_state(u, mesh)
+    gaux = shard_state(torch.zeros((1,) + shape, device=cuda), mesh)
+    want, waux = u, torch.zeros((1,) + shape, device=cuda)
+    ms = stack_mats(model, mat)
+    for n in range(3):
+        axes = (0, 1, 2) if n % 2 == 0 else (2, 1, 0)
+        got, gaux = step(got, mext, axes, aux=gaux)
+        want, waux = fused_step_reference(model, want, ms, dt, h, 2, BORDERS,
+                                          axes, specs, waux)
+    torch.cuda.synchronize()
+    gaux = gather_state(gaux, mesh)
+    assert gaux.max().item() > 1e-4
+    assert norm_err(gather_state(got, mesh), want) < 2e-6
+    torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,nsh", [((512, 70), 2), ((400, 61), 4),
+                                       ((64, 40), 4)])
+@pytest.mark.parametrize("axes", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_spmd_2d_kernel_matches_plain_on_card(cuda, order, axes, shape, nsh):
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step_2d)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    model, u, mat, dt = card_problem(order, "elastic2d", shape, cuda,
+                                     with_mat=True)
+    h = (10.0, 12.0)
+    mesh = _card_mesh(cuda, 2, (nsh,))
+    mext = extended_mstack(model, mat, mesh, order)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, fs.stencil_radius(order), dim=2)
+    for k, uk in enumerate(us):
+        for which in ("interior", "ring"):
+            args = (model, uk, mext[k], dt, h, order, borders(2), axes,
+                    which, slabs[k], face_flags(mesh, k)[:2])
+            before = fs.fused_spmd_2d.launches
+            got = fs.fused_spmd_2d(*args, torch.zeros_like(uk))
+            torch.cuda.synchronize()
+            assert fs.fused_spmd_2d.launches == before + 1
+            assert norm_err(got, fs.fused_spmd_2d_reference(
+                *args, torch.zeros_like(uk))) < 2e-6
+    step = make_fused_spmd_step_2d(model, mesh, dt, h, order, borders(2))
+    want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
+                                order, borders(2), axes)
+    assert norm_err(gather_state(step(us, mext, axes), mesh), want) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused", "sweep", "torch"])
+def test_sharded_engine_on_card(cuda, kernel):
+    """Engine(mesh=) with four shards on one card: the kernels it launches,
+    and the unsharded engine's result."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+
+    task = dataclasses.replace(get_scenario("elastic3d_explosion", n=64,
+                                            nsteps=6), kernel=kernel)
+    counters = (fs.fused_spmd_interior, fs.fused_spmd_ring, fused_step,
+                sweep_stage)
+    before = [f.launches for f in counters]
+    got = Engine(task, mesh=_card_mesh(cuda, 3, (2, 2))).run()
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert launched == {"fused": [24, 24, 0, 0], "sweep": [0, 0, 0, 72],
+                        "torch": [0, 0, 0, 0]}[kernel]
+    want = Engine(task, device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 2e-6
+    assert np.abs(got.traces - want.traces).max() <= \
+        1e-5 * np.abs(want.traces).max()
+
+
+@pytest.mark.gpu
+def test_sharded_2d_engine_on_card(cuda):
+    from gcm_tpu_torch.ops import fused_spmd as fs
+
+    # 128-row shards: 4 x-tiles of 32, interior and ring both launch
+    task = get_scenario("elastic2d_viscoelastic", n=512, nsteps=5)
+    before = (fs.fused_spmd_2d.launches, fs.fused_spmd_2d.ring_launches)
+    got = Engine(task, mesh=_card_mesh(cuda, 2, (4,))).run()
+    assert (fs.fused_spmd_2d.launches - before[0],
+            fs.fused_spmd_2d.ring_launches - before[1]) == (40, 20)
+    want = Engine(task, device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 2e-6
+
+
+@pytest.mark.gpu
+def test_spmd_kernels_reject_what_they_do_not_take(cuda):
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
+
+    model, u, mat, dt = card_problem(0, "elastic3d", (32, 32, 8), cuda,
+                                     with_mat=True)
+    mext = extended_mstack(model, mat, _card_mesh(cuda, 3, (1, 1)), 2)[0]
+    h = (1.0, 1.0, 1.0)
+    with pytest.raises(TypeError):
+        fs.fused_spmd_interior(model, u.double(), mext, dt, h, 2)
+    with pytest.raises(ValueError):
+        fs.fused_spmd_interior(model, u, mext[:, 1:-1], dt, h, 2)
+    with pytest.raises(ValueError):
+        fs.fused_spmd_interior(model, u, mext, dt, h, 5)
+    with pytest.raises(ValueError):
+        fs.fused_spmd_2d(model, u, mext, dt, h, 2, which="middle")

@@ -4,7 +4,7 @@
 - ``chip_smoke.py`` refuses to run without a CUDA device, and, alone in a
   directory, without the package: non-zero exit, no result line.
 - ``python -m gcm_tpu_torch`` lists scenarios and runs one on the CPU,
-  printing its JSON summary, on any ``--kernel`` path.
+  printing its JSON summary, on any ``--kernel`` path and on a ``--mesh``.
 """
 
 import json
@@ -26,7 +26,9 @@ names = [m.name for m in pkgutil.walk_packages(gcm_tpu_torch.__path__,
 assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.grids.simplex", "gcm_tpu_torch.grids.locate",
         "gcm_tpu_torch.solver.simplex_gcm", "gcm_tpu_torch.ops.simplex",
-        "gcm_tpu_torch.engine_simplex"} <= set(names), names
+        "gcm_tpu_torch.engine_simplex", "gcm_tpu_torch.ops.fused_spmd",
+        "gcm_tpu_torch.parallel.sharding", "gcm_tpu_torch.parallel.halo",
+        "gcm_tpu_torch.parallel.fused_spmd"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -44,7 +46,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 22
+    assert int(proc.stdout.split()[-1]) >= 26
 
 
 def _assert_refused(proc):
@@ -92,3 +94,15 @@ def test_cli_runs_the_sweep_path_on_cpu():
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["kernel"] == "sweep" and summary["shape"] == [16, 16]
+
+
+def test_cli_runs_a_mesh_on_cpu():
+    proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
+                 "--n", "16", "--nsteps", "2", "--kernel", "fused",
+                 "--device", "cpu", "--mesh", "2,2"])
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["kernel"] == "fused" and summary["mesh"] == "2,2"
+    proc = _run(["-m", "gcm_tpu_torch", "run", "elastic2d_ps", "--n", "16",
+                 "--nsteps", "2", "--device", "cpu", "--mesh", "2,2"])
+    assert proc.returncode != 0 and "x only" in proc.stderr

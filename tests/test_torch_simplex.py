@@ -388,7 +388,8 @@ def test_engine_refuses_what_the_port_does_not_run():
     assert resolve_simplex_kernel("auto", "cpu") == "torch"
     assert resolve_simplex_kernel("auto", "cuda") == "simplex"
     with pytest.raises(ValueError):
-        SimplexEngine.from_task(dataclasses.replace(task, kernel="simplex"))
+        SimplexEngine.from_task(dataclasses.replace(task, kernel="simplex"),
+                                device="cpu")
     with pytest.raises(ValueError):
         dataclasses.replace(task, kernel="fused")
     ortho = OrthotropicMaterial.from_isotropic(JIsotropicMaterial(
@@ -396,7 +397,7 @@ def test_engine_refuses_what_the_port_does_not_run():
     with pytest.raises(NotImplementedError):
         dataclasses.replace(task, default_material=ortho).material_fields()
     with pytest.raises(NotImplementedError):
-        SimplexEngine(task.grid, "elastic3d", ortho)
+        SimplexEngine(task.grid, "elastic3d", ortho, device="cpu")
 
 
 def test_cli_runs_a_simplex_scenario_on_cpu():

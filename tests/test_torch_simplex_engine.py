@@ -56,7 +56,7 @@ def test_engine_matches_jax_engine(scenario, n, nsteps, dtype):
     jeng = JSimplexEngine.from_task(jget_scenario(scenario, n=n,
                                                   nsteps=nsteps), dtype=jdt)
     eng = SimplexEngine.from_task(get_scenario(scenario, n=n, nsteps=nsteps),
-                                  dtype=tdt)
+                                  device="cpu", dtype=tdt)
     # a mesh where the two locators agree: same nodes, same operators
     assert np.array_equal(eng.grid.points, jeng.grid.points)
     none = {k: np.zeros(eng.grid.npoints, bool) for k in jeng.tables}
@@ -78,10 +78,11 @@ def test_engine_on_jax_tables_with_a_corrector():
         jtask, correctors=(JMaxwellCorrector(tau=tau),)), dtype=jnp.float64)
     tables = foot_tables_from_numpy(jeng.tables)
     task = dataclasses.replace(task, correctors=(MaxwellCorrector(tau=tau),))
-    eng = SimplexEngine.from_task(task, dtype=torch.float64, tables=tables)
+    eng = SimplexEngine.from_task(task, device="cpu", dtype=torch.float64,
+                                  tables=tables)
     assert eng.tables is tables
     got = eng.run()
     assert_runs_agree(got, jeng.run(), "f64")
-    again = SimplexEngine.from_task(task, dtype=torch.float64,
+    again = SimplexEngine.from_task(task, device="cpu", dtype=torch.float64,
                                     tables=eng.tables).run()
     np.testing.assert_array_equal(again.u, got.u)
