@@ -65,7 +65,28 @@ Phases, each of which raises (exit code != 0) on failure:
    2D path (``elastic2d_viscoelastic`` n=2048 on sx=4, 300 steps, both
    modes of ``fused_spmd_2d`` once per shard and step) and the sharded
    per-sweep path (``kernel="sweep"``, n=256, 2x2, 50 steps) against their
-   unsharded paths (under 1e-4).
+   unsharded paths (under 1e-4);
+12. the slab kernel (checked with phase 3): ``fused_step_slab`` against
+   ``fused_step_slab_reference`` on random heterogeneous problems (orders
+   1-4, the sweep orders (0,1,2), (2,1,0) and the canonical (2,0,1),
+   (1,0,2), one and two steps a pass, float32 and bf16 stacks, all four
+   border kinds, ragged and thinner-than-halo extents; under 2e-6 a step),
+   Maxwell + damage folded at one step a pass; ``fused_step_2d`` with bf16
+   stacks and two steps a pass, ``fused_spmd_2d`` with bf16 stacks;
+13. the contact path: ``MultiBodyEngine(*elastic3d_contact(n=256,
+   nsteps=300), canonical_layout=True)`` (two bodies of 256x256x128)
+   resolves to ``fused_canonical``, launches ``fused_step_slab`` twice a
+   step and ``fused_step`` never, moves the upper body and agrees with the
+   plain multi-body path in the same order (under 1e-4; the bond mask cells
+   that differ are printed); the same with bf16 stacks (100 steps, against
+   the float32 run: a rounding-level deviation), the non-canonical fused
+   path (100 steps, ``fused_step`` per body) and the non-conforming 2D
+   ``elastic2d_basin_refined`` n=1025 (the per-sweep path, ``sweep_stage``)
+   against their plain paths; each slab variant timed at 256x256x128;
+14. the pair-fused body: ``elastic3d_layered`` n=256 without receivers and
+   with ``temporal_block=True`` launches the two-step pass once a pair (100
+   steps, 50 launches) and agrees with the per-step fused path (under
+   1e-4).
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -98,6 +119,19 @@ PATH_TOL = 1e-4
 #: the sharded paths, on meshes whose shards lie on cuda:0 together
 NSTEPS_SHARDED, NSTEPS_SHARDED_VISCO = 100, 50
 NSTEPS_SHARDED_2D, NSTEPS_SHARDED_SWEEP = 300, 50
+#: the contact path, BASELINE config 4 at bench.py's shape: two bodies of
+#: 256x256x128 (16,777,216 points). The lower body's Ricker source peaks at
+#: t0 = 0.12 s, 249 m below the interface (0.062 s at 4000 m/s), so by 300
+#: steps of dt = 0.8 h / 4000 m/s (0.235 s) the wave has crossed it. The
+#: bf16, non-canonical and pair-fused runs take 100 steps; the 2D
+#: non-conforming basin runs at n=1025 (1025^2 + 2049^2 points).
+N_CONTACT, NSTEPS_CONTACT, NSTEPS_CONTACT_SHORT = 256, 300, 100
+N_BASIN, NSTEPS_BASIN, NSTEPS_PAIR = 1025, 100, 100
+#: the bf16-stack contact run against the float32 one after 100 steps: the
+#: stacks round rho, c and kappa by up to 2e-3, which shifts the waves'
+#: arrival; the limit is the CPU tests' bf16 contract
+#: (tests/test_torch_slab.py)
+BF16_PATH_TOL = 3e-2
 #: the simplex path: simplex3d_layered on bench.py's production mesh, 65^3 =
 #: 274,625 nodes over L = 150 m. Its Ricker source (f0 = 40 Hz) peaks at
 #: t0 = 1.2/f0 = 0.03 s at z = L/3 = 50 m; the P wave then crosses 50 m of
@@ -182,15 +216,16 @@ def _check(ok, what):
         raise AssertionError(what)
 
 
-def _hold_on_path_state(tag, kernel, plain, args, kw=None):
-    """One kernel step on a main path's own state, against its plain
-    version. Such a state can be badly conditioned for float32: near a
-    source the stress over the impedance exceeds the largest velocity many
-    times over, and then the velocities of both float32 versions carry
-    round-off of ~1e-6 of their maximum. So the kernel is held to the plain
-    step in float64: its normalized error there must stay under 2e-6, or
-    under twice the float32 plain step's own. Returns the kernel's output
-    and its normalized and max abs error against the float32 plain step."""
+def _hold_on_path_state(tag, kernel, plain, args, kw=None, steps=1):
+    """One kernel launch of ``steps`` steps on a main path's own state,
+    against its plain version. Such a state can be badly conditioned for
+    float32: near a source the stress over the impedance exceeds the
+    largest velocity many times over, and then the velocities of both
+    float32 versions carry round-off of ~1e-6 of their maximum. So the
+    kernel is held to the plain step in float64: its normalized error there
+    must stay under 2e-6 a step, or under twice the float32 plain step's
+    own. Returns the kernel's output and its normalized and max abs error
+    against the float32 plain step."""
     kw = kw or {}
 
     def f64(x):
@@ -203,7 +238,7 @@ def _hold_on_path_state(tag, kernel, plain, args, kw=None):
     exact = first(plain(*map(f64, args), **{k: f64(v) for k, v in kw.items()}))
     err_k = _norm_err(first(got).double(), exact)
     err_p = _norm_err(first(want).double(), exact)
-    _check(err_k < max(2e-6, 2 * err_p),
+    _check(err_k < max(2e-6 * steps, 2 * err_p),
            f"{tag}: error vs the float64 plain step {err_k:.3e}, float32 "
            f"plain's own {err_p:.3e}")
     print(f"{tag}: normalized error vs float64 plain {err_k:.3e} (float32 "
@@ -217,14 +252,17 @@ class Counts:
     just after it."""
 
     def __init__(self):
-        from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d
+        from gcm_tpu_torch.ops.fused import (
+            fused_step, fused_step_2d, fused_step_slab)
         from gcm_tpu_torch.ops.simplex import simplex_sweep
         from gcm_tpu_torch.ops.sweep import sweep_stage
 
         from gcm_tpu_torch.ops.fused_spmd import (
             fused_spmd_2d, fused_spmd_interior, fused_spmd_ring)
 
-        self.fns = {"fused_step": fused_step, "fused_step_2d": fused_step_2d,
+        self.fns = {"fused_step": fused_step,
+                    "fused_step_slab": fused_step_slab,
+                    "fused_step_2d": fused_step_2d,
                     "sweep_stage": sweep_stage,
                     "simplex_sweep": simplex_sweep,
                     "fused_spmd_interior": fused_spmd_interior,
@@ -515,6 +553,9 @@ def simplex_path(counts, result):
 #: compulsory streams per node (4 tables of K=4 ids and weights, flags,
 #: materials, state in and out)
 B_FUSED3, B_FUSED2, B_SWEEP, B_SIMPLEX = 88, 56, 92, 216
+#: the same with a bf16 material stack: the slab step's 36 + 8 + 36 bytes,
+#: the 2D step's 20 + 8 + 20; a two-step pass moves the bytes of one step
+B_SLAB_BF16, B_FUSED2_BF16 = 80, 48
 #: the published H100 SXM peaks the bounds are taken against
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 #: flops of one pair update at a point (Lagrange weights, four
@@ -984,8 +1025,327 @@ def sharded_paths(counts, result):
     _idle_share(steps(eng7, 10), 10, _step_ms(res7, task7))
 
 
+# ------------------------------------------------------------- the slab step
+
+def slab_kernels_vs_plain():
+    """Phase 12: the slab kernel, and the 2D kernels' bf16 and two-step
+    options, against their plain versions on random problems."""
+    from gcm_tpu_torch.ops.fused import (
+        fold_corrector_specs, fused_step_2d, fused_step_2d_reference,
+        fused_step_slab, fused_step_slab_reference)
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack_2d, face_flags)
+    from gcm_tpu_torch.parallel.sharding import domain_mesh, shard_state
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+
+    rng = np.random.default_rng(5)
+    h3 = (10.0, 12.0, 9.0)
+    worst, n = 0.0, 0
+    for shape in ((24, 40, 56), (9, 17, 2)):
+        for order in (1, 2, 3, 4):
+            model, u, _, ms, dt = _problem(rng, shape, "elastic3d")
+            for stack in (ms, ms.to(torch.bfloat16)):
+                for ax in ((0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)):
+                    for seq in ((ax,), (ax, ax[::-1])):
+                        args = (model, u, stack, dt, h3, order, _borders(3))
+                        got = fused_step_slab(*args, axes_seq=seq)
+                        torch.cuda.synchronize()
+                        err = _norm_err(got, fused_step_slab_reference(
+                            *args, axes_seq=seq))
+                        _check(err < 2e-6 * len(seq),
+                               f"fused_step_slab {shape} order {order} "
+                               f"{stack.dtype} {seq}: err {err:.3e}")
+                        worst = max(worst, err / len(seq))
+                        n += 1
+    print(f"fused_step_slab vs plain: {n} launches (orders 1-4, 4 sweep "
+          f"orders, 1 and 2 steps, float32 and bf16 stacks), worst "
+          f"normalized error a step {worst:.3e} (limit 2e-6)")
+
+    shape = (12, 16, 24)
+    model, u, _, ms, dt = _problem(rng, shape, "elastic3d")
+    specs, _ = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    for stack in (ms, ms.to(torch.bfloat16)):
+        got, gaux = u, torch.zeros((1,) + shape, device="cuda")
+        want, waux = u, gaux
+        for k in range(3):
+            axes = (2, 0, 1) if k % 2 == 0 else (1, 0, 2)
+            rest = (stack, dt, h3, 2, _borders(3), axes)
+            got, gaux = fused_step_slab(model, got, *rest, correctors=specs,
+                                        aux=gaux)
+            want, waux = fused_step_slab_reference(
+                model, want, *rest, correctors=specs, aux=waux)
+        torch.cuda.synchronize()
+        _check(gaux.max().item() > 1e-4, "slab folded: damage stayed zero")
+        err = _norm_err(got, want)
+        _check(err < 2e-6, f"slab folded {stack.dtype}: err {err:.3e}")
+        torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+        print(f"fused_step_slab with folded Maxwell + damage, {stack.dtype} "
+              f"stack, 3 canonical-order steps {shape}: normalized error "
+              f"{err:.3e}, aux max abs error "
+              f"{(gaux - waux).abs().max().item():.3e} (rtol 1e-5, atol "
+              "1e-6)")
+
+    worst, n = 0.0, 0
+    for shape in ((37, 61), (5, 3)):
+        for name in ("elastic2d", "acoustic2d"):
+            for order in (1, 2, 3, 4):
+                model, u, _, ms, dt = _problem(rng, shape, name)
+                for stack, k in ((ms.to(torch.bfloat16), 1), (ms, 2),
+                                 (ms.to(torch.bfloat16), 2)):
+                    for ax in ((0, 1), (1, 0)):
+                        seq = (ax,) if k == 1 else (ax, ax[::-1])
+                        args = (model, u, stack, dt, h3[:2], order,
+                                _borders(2))
+                        got = fused_step_2d(*args, axes_seq=seq)
+                        torch.cuda.synchronize()
+                        err = _norm_err(got, fused_step_2d_reference(
+                            *args, axes_seq=seq))
+                        _check(err < 2e-6 * k, f"fused_step_2d {name} "
+                               f"{shape} {stack.dtype} {seq}: {err:.3e}")
+                        worst = max(worst, err / k)
+                        n += 1
+    print(f"fused_step_2d with bf16 stacks and two steps a pass vs plain: "
+          f"{n} launches, worst normalized error a step {worst:.3e} (limit "
+          "2e-6)")
+
+    worst, n = 0.0, 0
+    dev = torch.device("cuda", 0)
+    for order in (1, 2, 3, 4):
+        model, u, mat, _, dt = _problem(rng, (400, 61), "elastic2d")
+        mesh = domain_mesh(2, [dev] * 4)
+        mext = extended_mstack_2d(model, mat, mesh, order, torch.bfloat16)
+        us = shard_state(u, mesh)
+        slabs = exchange_slabs(us, mesh, stencil_radius(order), dim=2)
+        for k, uk in enumerate(us):
+            for which in ("interior", "ring"):
+                args = (model, uk, mext[k], dt, h3[:2], order, _borders(2),
+                        (0, 1), which, slabs[k], face_flags(mesh, k)[:2])
+                got = fused_spmd_2d(*args, torch.zeros_like(uk))
+                torch.cuda.synchronize()
+                err = _norm_err(got, fused_spmd_2d_reference(
+                    *args, torch.zeros_like(uk)))
+                _check(err < 2e-6, f"fused_spmd_2d bf16 {which} order "
+                       f"{order} shard {k}: err {err:.3e}")
+                worst = max(worst, err)
+                n += 1
+    print(f"fused_spmd_2d with bf16 stacks vs plain: {n} launches, worst "
+          f"normalized error {worst:.3e} (limit 2e-6)")
+
+
+def _multi_steps(eng, n):
+    """n more steps of a multi-body engine from its state (traced)."""
+    def run():
+        us, bonded, auxs = eng.us, eng.bonded, eng.auxs
+        for i in range(n):
+            us, bonded, auxs = eng._one_step(us, bonded, auxs, i)
+    return run
+
+
+def _bodies_err(got, want):
+    """The largest per-body normalized error of two multi-body results."""
+    return max(_np_err(got.bodies[k], want.bodies[k]) for k in want.bodies)
+
+
+def contact_paths(counts, result):
+    """Phase 13: the contact paths at full width."""
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.ops.fused import (
+        fused_step_slab, fused_step_slab_reference)
+    from gcm_tpu_torch.scenarios import (
+        elastic2d_basin_refined, elastic3d_contact)
+
+    def bodies_with(bodies, **kw):
+        return {k: dataclasses.replace(t, **kw) for k, t in bodies.items()}
+
+    def plain(bodies, contacts, fwd):
+        """The plain multi-body path in the splitting order ``fwd``."""
+        eng = MultiBodyEngine(bodies_with(bodies, kernel="torch"), contacts,
+                              device="cuda")
+        eng._fwd = fwd
+        return eng.run()
+
+    bodies, contacts = elastic3d_contact(n=N_CONTACT, nsteps=NSTEPS_CONTACT)
+    npts = sum(int(np.prod(t.grid.shape)) for t in bodies.values())
+    short = bodies_with(bodies, time=dataclasses.replace(
+        bodies["upper"].time, nsteps=2))
+    MultiBodyEngine(short, contacts, device="cuda",
+                    canonical_layout=True).run()
+    eng = MultiBodyEngine(bodies, contacts, device="cuda",
+                          canonical_layout=True)
+    counts.zero()
+    res = eng.run()
+    launched = counts.read()
+    _check(res.path == "fused_canonical",
+           f"contact path resolved to {res.path!r}")
+    counts.expect("contact path", launched,
+                  fused_step_slab=2 * NSTEPS_CONTACT)
+    _check(all(np.isfinite(v).all() for v in res.bodies.values()),
+           "contact path: state not finite")
+    v_up = float(np.abs(res.bodies["upper"][:3]).max())
+    _check(v_up > 0, "contact path: the upper body did not move")
+    mask = res.bonded[0]
+    ref = plain(bodies, contacts, eng._fwd)
+    ndiff = int((mask != ref.bonded[0]).sum())
+    err = _bodies_err(res, ref)
+    print(f"contact path {N_CONTACT}x{N_CONTACT}x{N_CONTACT // 2} x 2 "
+          f"bodies ({npts} points) x {NSTEPS_CONTACT} steps, canonical "
+          f"order {eng._fwd}: {res.points_per_second:.6g} points/s, "
+          f"{launched['fused_step_slab']} fused_step_slab launches, 0 "
+          f"fused_step; upper body max|v| {v_up:.4e}; bond mask mean "
+          f"{mask.mean():.6f} ({int((mask < 0.5).sum())} of {mask.size} "
+          f"broken); vs the plain path ({ref.points_per_second:.6g} "
+          f"points/s): normalized error {err:.3e} (limit 1e-4), bond mask "
+          f"cells that differ: {ndiff}")
+    if ndiff:
+        # a cell whose normal traction lies within round-off of the
+        # strength can break in one float32 version and not the other;
+        # the state is then held without fracture, and the masks to a few
+        # cells
+        free = tuple(dataclasses.replace(c, tensile_strength=None)
+                     for c in contacts)
+        got0 = MultiBodyEngine(bodies, free, device="cuda",
+                               canonical_layout=True).run()
+        err0 = _bodies_err(got0, plain(bodies, free, eng._fwd))
+        print(f"  {ndiff} mask cells differ; without fracture the two "
+              f"paths agree to {err0:.3e} (limit 1e-4)")
+        _check(err0 < PATH_TOL and ndiff <= 0.001 * mask.size,
+               f"contact path: {ndiff} mask cells differ, error without "
+               f"fracture {err0:.3e}")
+    else:
+        _check(err < PATH_TOL, f"contact vs plain path: err {err:.3e}")
+    step_ms = npts / res.points_per_second * 1e3
+    _idle_share(_multi_steps(eng, 20), 20, step_ms)
+
+    # the slab variants on the path's own state (the upper body): each
+    # held against its plain version, then timed
+    model = eng.model
+    u, ms = eng.us["upper"], eng._mstacks["upper"]
+    bcs, h = eng._kernel_bcs["upper"], eng.hs["upper"]
+    fwd = eng._fwd
+    pair = (fwd, fwd[::-1])
+    cells = int(np.prod(u.shape[1:]))
+    times = {}
+    for tag, stack, seq, nb in (
+            ("f32 K=1", ms, (fwd,), B_FUSED3),
+            ("bf16 K=1", ms.to(torch.bfloat16), (fwd,), B_SLAB_BF16),
+            ("f32 K=2", ms, pair, B_FUSED3),
+            ("bf16 K=2", ms.to(torch.bfloat16), pair, B_SLAB_BF16)):
+        a = (model, u, stack, eng.dt, h, eng.order, bcs)
+        *_, max_abs = _hold_on_path_state(
+            f"fused_step_slab {tag} on the contact state {tuple(u.shape)}",
+            fused_step_slab, fused_step_slab_reference, a,
+            dict(axes_seq=seq), steps=len(seq))
+        t = _time_ms(lambda: fused_step_slab(*a, axes_seq=seq), 20)
+        p = _time_ms(lambda: fused_step_slab_reference(*a, axes_seq=seq), 3)
+        bms, by = _bound(nb * cells, len(seq) * _step_flops(
+            model, eng.order, cells))
+        times[tag] = (t, p, bms, by, max_abs)
+        print(f"fused_step_slab {tag} at {tuple(u.shape)}: kernel {t:.4f} "
+              f"ms a launch ({t / len(seq):.4f} a step), plain {p:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    t, p, bms, by, max_abs = times["f32 K=1"]
+    result["fused_step_slab"] = dict(
+        launches=launched["fused_step_slab"], max_abs_err=max_abs, ms=t,
+        plain_ms=p, bound_ms=bms, bound_by=by, library_ms=None)
+    f32_short = dataclasses.replace(bodies["upper"].time,
+                                    nsteps=NSTEPS_CONTACT_SHORT)
+    del eng, res, ref, u, ms
+
+    # ---- bf16 stacks on both bodies, against the float32 run
+    b100 = bodies_with(bodies, time=f32_short)
+    r32 = MultiBodyEngine(b100, contacts, device="cuda",
+                          canonical_layout=True).run()
+    counts.zero()
+    r16 = MultiBodyEngine(bodies_with(b100, mat_dtype="bf16"), contacts,
+                          device="cuda", canonical_layout=True).run()
+    counts.expect("bf16 contact path", counts.read(),
+                  fused_step_slab=2 * NSTEPS_CONTACT_SHORT)
+    dev16 = _bodies_err(r16, r32)
+    _check(0.0 < dev16 < BF16_PATH_TOL,
+           f"bf16 vs float32 contact path: deviation {dev16:.3e}")
+    print(f"bf16 contact path x {NSTEPS_CONTACT_SHORT} steps: "
+          f"{r16.points_per_second:.6g} points/s (float32 "
+          f"{r32.points_per_second:.6g}); deviation from the float32 run "
+          f"{dev16:.3e} (material rounding; limit {BF16_PATH_TOL})")
+
+    # ---- the non-canonical fused path: fused_step per body
+    counts.zero()
+    rnc = MultiBodyEngine(b100, contacts, device="cuda").run()
+    counts.expect("non-canonical contact path", counts.read(),
+                  fused_step=2 * NSTEPS_CONTACT_SHORT)
+    _check(rnc.path == "fused", f"non-canonical path: {rnc.path!r}")
+    pnc = plain(b100, contacts, (0, 1, 2))
+    errnc = _bodies_err(rnc, pnc)
+    _check(errnc < PATH_TOL, f"non-canonical vs plain: err {errnc:.3e}")
+    print(f"non-canonical contact path x {NSTEPS_CONTACT_SHORT} steps: "
+          f"{rnc.points_per_second:.6g} points/s, 2 fused_step launches a "
+          f"step; vs plain normalized error {errnc:.3e} (limit 1e-4), mask "
+          f"cells that differ {int((rnc.bonded[0] != pnc.bonded[0]).sum())}")
+    del r32, r16, rnc, pnc
+
+    # ---- the non-conforming 2D basin: the per-sweep path
+    bb, bc = elastic2d_basin_refined(n=N_BASIN, nsteps=NSTEPS_BASIN)
+    MultiBodyEngine(bodies_with(bb, time=dataclasses.replace(
+        bb["basin"].time, nsteps=2)), bc, device="cuda").run()
+    engb = MultiBodyEngine(bb, bc, device="cuda")
+    counts.zero()
+    resb = engb.run()
+    counts.expect("basin path", counts.read(),
+                  sweep_stage=2 * 2 * NSTEPS_BASIN)
+    _check(resb.path == "sweep", f"basin path: {resb.path!r}")
+    refb = plain(bb, bc, (0, 1))
+    errb = _bodies_err(resb, refb)
+    terr = float(np.abs(resb.traces["basin"] - refb.traces["basin"]).max()
+                 / (np.abs(refb.traces["basin"]).max() + 1e-30))
+    _check(errb < PATH_TOL and terr < PATH_TOL,
+           f"basin vs plain: err {errb:.3e}, traces {terr:.3e}")
+    nb_pts = sum(int(np.prod(t.grid.shape)) for t in bb.values())
+    print(f"basin path (non-conforming, h/2) {nb_pts} points x "
+          f"{NSTEPS_BASIN} steps: {resb.points_per_second:.6g} points/s, "
+          f"{4 * NSTEPS_BASIN} sweep_stage launches; vs plain "
+          f"({refb.points_per_second:.6g} points/s) normalized error "
+          f"{errb:.3e}, traces {terr:.3e} (limit 1e-4)")
+    _idle_share(_multi_steps(engb, 10), 10,
+                nb_pts / resb.points_per_second * 1e3)
+
+
+def pair_fused_path(counts):
+    """Phase 14: the pair-fused single body."""
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.scenarios import get_scenario
+
+    task = dataclasses.replace(
+        get_scenario("elastic3d_layered", n=N_MAIN, nsteps=NSTEPS_PAIR),
+        detectors=None)
+    pair = dataclasses.replace(task, temporal_block=True)
+    _warm(pair, ("auto",))
+    eng = Engine(pair, device="cuda")
+    _check(eng._pair_fused, "the pair-fused body was not selected")
+    counts.zero()
+    res = eng.run()
+    counts.expect("pair-fused path", counts.read(),
+                  fused_step_slab=NSTEPS_PAIR // 2)
+    ref = Engine(task, device="cuda").run()
+    err = _np_err(res.u, ref.u)
+    _check(err < PATH_TOL, f"pair-fused vs per-step: err {err:.3e}")
+    print(f"pair-fused path {task.name} {task.grid.shape} x {NSTEPS_PAIR} "
+          f"steps: {res.points_per_second:.6g} points/s ({NSTEPS_PAIR // 2} "
+          f"two-step fused_step_slab launches), per-step fused "
+          f"{ref.points_per_second:.6g} points/s; normalized error "
+          f"{err:.3e} (limit 1e-4)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {name}", flush=True)
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1021,12 +1381,15 @@ def main() -> int:
             print("  " + line.strip())
 
     # ---- 3. kernel vs plain on the card
+    phase("kernels vs plain")
     kernels_vs_plain()
     spmd_kernels_vs_plain()
+    slab_kernels_vs_plain()
     counts = Counts()
     result = {}
 
     # ---- 4. the 3D main path
+    phase("3D path")
     task = get_scenario("elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS)
     _warm(task, ("auto", "torch"))
     eng = Engine(task, device="cuda")
@@ -1085,6 +1448,7 @@ def main() -> int:
     del eng, res_t, u3, ms3, args
 
     # ---- 5. the 2D viscoelastic path
+    phase("2D path")
     task2 = get_scenario("elastic2d_viscoelastic", n=N_2D, nsteps=NSTEPS_2D)
     _warm(task2, ("auto", "torch"))
     eng2 = Engine(task2, device="cuda")
@@ -1121,6 +1485,17 @@ def main() -> int:
     plain2 = _time_ms(lambda: fused_step_2d_reference(*args2), 10)
     print(f"fused_step_2d at {tuple(eng2.u.shape)}: kernel {ms2:.4f} ms, "
           f"plain {plain2:.4f} ms")
+    # the bf16 stack and two steps a pass on the same state
+    ms16 = eng2._mstack.to(torch.bfloat16)
+    for tag, stack, seq, nb in (
+            ("bf16 K=1", ms16, ((0, 1),), B_FUSED2_BF16),
+            ("f32 K=2", eng2._mstack, ((0, 1), (1, 0)), B_FUSED2),
+            ("bf16 K=2", ms16, ((0, 1), (1, 0)), B_FUSED2_BF16)):
+        a2 = args2[:2] + (stack,) + args2[3:7]
+        t = _time_ms(lambda: fused_step_2d(*a2, axes_seq=seq), 50)
+        print(f"fused_step_2d {tag} at {tuple(eng2.u.shape)}: kernel "
+              f"{t:.4f} ms a launch ({t / len(seq):.4f} a step), bound "
+              f"{_bound(nb * eng2.u[0].numel(), 0)[0]:.4f} ms")
     npts2 = int(np.prod(task2.grid.shape))
     result["fused_step_2d"] = dict(
         launches=launched2["fused_step_2d"], max_abs_err=max_abs, ms=ms2,
@@ -1129,6 +1504,7 @@ def main() -> int:
     del eng2, r2f, r2t, args2
 
     # ---- 6. the folded corrector path (source-free 3D layered)
+    phase("folded corrector path")
     base = get_scenario("elastic3d_layered", n=N_MAIN, nsteps=NSTEPS_VISCO)
     dt = cfl_dt(base.material_fields(), base.grid.h, base.time.cfl)
     task6 = dataclasses.replace(base, correctors=(
@@ -1172,6 +1548,7 @@ def main() -> int:
     del eng6, eng6t, gaux, waux, args6, kw6, damage
 
     # ---- 7. the per-sweep path
+    phase("per-sweep path")
     task7 = dataclasses.replace(get_scenario(
         "elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_SWEEP), kernel="sweep")
     _warm(task7, ("sweep",))
@@ -1198,15 +1575,25 @@ def main() -> int:
     del eng7, res7, res7f
 
     # ---- 8. the simplex path
+    phase("simplex path")
     simplex_kernel_vs_plain()
     simplex_path(counts, result)
 
     # ---- 10-11. the sharded paths
+    phase("sharded paths")
     sharded_paths(counts, result)
 
+    # ---- 13-14. the contact paths and the pair-fused body
+    phase("contact paths")
+    contact_paths(counts, result)
+    phase("pair-fused path")
+    pair_fused_path(counts)
+
     sources = {
-        "fused_step": ("gcm_tpu_torch/csrc/fused_step.cu",
+        "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",
                        "gcm_tpu/ops/pallas_fused.py:1162"),
+        "fused_step_slab": ("gcm_tpu_torch/csrc/fused_step_slab.cu",
+                            "gcm_tpu/ops/pallas_fused.py:807"),
         "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                           "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",

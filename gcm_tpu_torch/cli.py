@@ -4,7 +4,7 @@ Commands:
   list
   run <scenario> [--n N] [--nsteps K]
                  [--kernel auto|torch|fused|sweep|simplex] [--device cuda|cpu]
-                 [--mesh NX[,NY]]
+                 [--mesh NX[,NY]] [--canonical-layout|--no-canonical-layout]
 
 ``run`` prints one JSON summary line: the resolved kernel, points per
 second, steps, dt, grid shape (``npoints`` for a simplex mesh) and device.
@@ -13,6 +13,12 @@ Scenarios whose name starts with ``simplex`` run on
 ``simplex``. ``--mesh NX[,NY]`` splits the grid over NX (x) by NY (y, 3D
 only) shards on the first NX*NY visible cards (raising if there are fewer),
 or, with ``--device cpu``, co-resident on the CPU.
+
+The multi-body contact scenarios (``elastic3d_contact``,
+``elastic2d_basin_refined``) run on ``engine_multi.MultiBodyEngine``, in the
+canonical splitting order unless ``--no-canonical-layout`` (as the JAX
+CLI); their summary names the resolved multi-body path, the kernel launches
+of the run, the mean of each bond mask and the material stack's type.
 """
 
 from __future__ import annotations
@@ -42,6 +48,12 @@ def _build_parser():
     r.add_argument("--mesh", default=None, metavar="NX[,NY]",
                    help="split the grid over NX x NY shards, one per card "
                         "(all on the CPU with --device cpu)")
+    r.add_argument("--canonical-layout", action="store_true", default=None,
+                   help="the JAX package's canonical splitting order "
+                        "(Task.canonical_layout); default: on for the "
+                        "multi-body contact scenarios, off elsewhere")
+    r.add_argument("--no-canonical-layout", dest="canonical_layout",
+                   action="store_false", help="the default splitting order")
     return p
 
 
@@ -76,8 +88,12 @@ def main(argv=None) -> int:
     from gcm_tpu_torch.scenarios import get_scenario, list_scenarios
 
     if args.cmd == "list":
+        from gcm_tpu_torch.scenarios import MULTI_SCENARIOS
+
         for name in list_scenarios():
             print(name)
+        for name in sorted(MULTI_SCENARIOS):
+            print(f"{name}  (multi-body; via gcm_tpu_torch.engine_multi)")
         return 0
 
     import dataclasses
@@ -86,9 +102,15 @@ def main(argv=None) -> int:
 
     kw = {k: v for k, v in (("n", args.n), ("nsteps", args.nsteps))
           if v is not None}
+    from gcm_tpu_torch.scenarios import MULTI_SCENARIOS
+
+    if args.scenario in MULTI_SCENARIOS:
+        return _run_contact(args, kw)
     task = get_scenario(args.scenario, **kw)
     if args.kernel is not None:
         task = dataclasses.replace(task, kernel=args.kernel)
+    if args.canonical_layout:
+        task = dataclasses.replace(task, canonical_layout=True)
     if args.scenario.startswith("simplex"):
         if args.mesh:
             raise SystemExit("--mesh runs structured scenarios only")
@@ -107,6 +129,58 @@ def main(argv=None) -> int:
         "shape": list(task.grid.shape),
         "device": args.device,
         "mesh": args.mesh,
+        "wall_seconds": res.wall_seconds,
+    }))
+    return 0
+
+
+def _launch_counters():
+    from gcm_tpu_torch.ops.fused import (
+        fused_step, fused_step_2d, fused_step_slab)
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+
+    return {f.__name__: f for f in (fused_step, fused_step_slab,
+                                    fused_step_2d, sweep_stage)}
+
+
+def _run_contact(args, kw) -> int:
+    import dataclasses
+
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.scenarios import MULTI_SCENARIOS
+
+    if args.mesh:
+        raise SystemExit("--mesh does not run the multi-body scenarios yet")
+    bodies, contacts = MULTI_SCENARIOS[args.scenario](**kw)
+    if args.kernel is not None:
+        bodies = {k: dataclasses.replace(t, kernel=args.kernel)
+                  for k, t in bodies.items()}
+    canon = args.canonical_layout if args.canonical_layout is not None \
+        else True
+    eng = MultiBodyEngine(bodies, contacts, device=args.device,
+                          canonical_layout=canon)
+    counters = _launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    res = eng.run()
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+
+    def mean(m):
+        if isinstance(m, dict):
+            return {s: float(v.mean()) for s, v in m.items()}
+        return float(m.mean())
+
+    print(json.dumps({
+        "scenario": args.scenario,
+        "path": res.path,
+        "kernel": eng.kernel,
+        "launches": {k: v for k, v in launched.items() if v},
+        "points_per_second": res.points_per_second,
+        "nsteps": res.nsteps,
+        "dt": res.dt,
+        "shapes": {k: list(t.grid.shape) for k, t in bodies.items()},
+        "bonded_mean": {str(k): mean(v) for k, v in res.bonded.items()},
+        "mat_dtype": sorted({t.mat_dtype for t in bodies.values()}),
+        "device": args.device,
         "wall_seconds": res.wall_seconds,
     }))
     return 0

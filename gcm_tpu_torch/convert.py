@@ -2,9 +2,10 @@
 
 Both packages then start from identical parameters: the six leaves of a
 ``gcm_tpu`` ``MaterialFields`` (structured or per node), a state array, an
-engine's corrector aux fields, and on simplex meshes the foot tables and
-``NodeBorders``, handed over as numpy arrays (``np.asarray`` of the JAX
-arrays).
+engine's corrector aux fields, on simplex meshes the foot tables and
+``NodeBorders``, and for multi-body runs the contacts' bond masks and
+non-conforming interface maps, handed over as numpy arrays (``np.asarray``
+of the JAX arrays).
 """
 
 from __future__ import annotations
@@ -66,3 +67,33 @@ def aux_from_numpy(aux: Mapping[str, np.ndarray], device="cpu",
     in the arrays' own dtype unless ``dtype`` is given."""
     return {k: torch.tensor(np.asarray(v), device=device, dtype=dtype)
             for k, v in aux.items()}
+
+
+def bonded_from_numpy(bonded: Mapping[int, object], device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> Dict[int, object]:
+    """A multi-body engine's bond masks: per contact index a mask, or for a
+    non-conforming contact the per-side dict ``{"a": .., "b": ..}``."""
+    def one(m):
+        return torch.tensor(np.asarray(m), device=device, dtype=dtype)
+
+    return {int(k): ({s: one(v) for s, v in m.items()}
+                     if isinstance(m, Mapping) else one(m))
+            for k, m in bonded.items()}
+
+
+def interface_maps_from_numpy(maps):
+    """The port's InterfaceMaps from a JAX ``InterfaceMaps`` (or anything
+    with its fields): per side ``lo``, ``span`` and the per-axis tables'
+    ``idx`` and ``w`` arrays, copied."""
+    from gcm_tpu_torch.solver.contact_nc import (
+        AxisMap, InterfaceMaps, SideMaps)
+
+    def side(sm):
+        return SideMaps(lo=tuple(int(v) for v in sm.lo),
+                        span=tuple(int(v) for v in sm.span),
+                        from_other=tuple(
+                            AxisMap(idx=np.array(m.idx, np.int32),
+                                    w=np.array(m.w, np.float64))
+                            for m in sm.from_other))
+
+    return InterfaceMaps(a=side(maps.a), b=side(maps.b))

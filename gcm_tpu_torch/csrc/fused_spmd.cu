@@ -103,8 +103,8 @@ fused_spmd_kernel(const float* __restrict__ u, const float* __restrict__ mext,
     const int t0[3] = {ix * TX, iy * TY, (int)blockIdx.x * TZ};
     const int n0 = p.n[0], n1 = p.n[1], n2 = p.n[2];
     const long long N = (long long)n0 * n1 * n2;
-    const ExtMat mat{mext, n0, n1, n2, R, R,
-                     (long long)(n0 + 2 * R) * (n1 + 2 * R) * n2};
+    const ExtMat<float> mat{mext, n0, n1, n2, R, R,
+                            (long long)(n0 + 2 * R) * (n1 + 2 * R) * n2};
     if constexpr (RING) {
         const SlabSrc src{u, sl.xlo, sl.xhi, sl.ylo, sl.yhi,
                           n0, n1, n2, R, N};

@@ -1,7 +1,8 @@
 // Device code shared by the port's CUDA kernels (sm_90a): the parameter
 // block of the fused steps, Lagrange stencil weights, the border algebra,
-// one characteristic sweep over a box of cells, and the folded ODE
-// corrector epilogue.
+// material stacks stored as float or bf16 (upcast at the load), one
+// characteristic sweep over a box of cells, the folded ODE corrector
+// epilogue, and a whole step (or K steps, temporal blocking) on one tile.
 //
 // The device functions sit in an anonymous namespace: each kernel source
 // compiles its own copy, and the sources link into one library without
@@ -9,6 +10,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +52,8 @@ struct GcmFusedParams {
     int diag[3];
     int nshear;                  // shear-stress components
     int shear[3];
+    int axes_next[3];            // sweep order of the second in-window
+                                 // step (temporal blocking, K = 2)
 };
 
 namespace {
@@ -151,10 +155,37 @@ struct SharedSrc {
     }
 };
 
-// Material stack of the state's own extents (nm, n0, n1, n2), read at
-// clamped coordinates (edge replication).
+// Reads the previous in-window step's result from shared memory at
+// coordinates clamped to the domain [0, n-1]: the out-of-domain halo cells
+// of that step hold don't-care values, and the next step must see its edge
+// replication (the edge_pad of the plain step). A clamped cell lies inside
+// the source region, since the tile's origin lies inside the domain.
+struct ClampedSharedSrc {
+    const float* s;
+    Region r;
+    int n0, n1, n2;
+    __device__ float ld(int c, int x, int y, int z) const {
+        x = min(max(x, 0), n0 - 1);
+        y = min(max(y, 0), n1 - 1);
+        z = min(max(z, 0), n2 - 1);
+        return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
+                 + (z - r.o[2])];
+    }
+};
+
+// One material value, upcast to float right after the load: the stacks are
+// stored as float or as bf16 (half the material stream); all arithmetic
+// stays float.
+__device__ __forceinline__ float mat_load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float mat_load(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+}
+
+// Material stack of the state's own extents (nm, n0, n1, n2) of stored type
+// T, read at clamped coordinates (edge replication).
+template <class T>
 struct GlobalMat {
-    const float* __restrict__ m;
+    const T* __restrict__ m;
     int n0, n1, n2;
     long long N;
     __device__ long long off(int x, int y, int z) const {
@@ -164,15 +195,16 @@ struct GlobalMat {
         return ((long long)x * n1 + y) * n2 + z;
     }
     __device__ float ld(int row, long long off) const {
-        return __ldg(m + row * N + off);
+        return mat_load(m + row * N + off);
     }
 };
 
 // A shard's halo-extended material stack (parallel/fused_spmd.py::
 // extended_mstack): (nm, n0 + 2 e0, n1 + 2 e1, n2), local cell x at x + e0.
 // Coordinates clamp to the extended range, z to the block.
+template <class T>
 struct ExtMat {
-    const float* __restrict__ m;
+    const T* __restrict__ m;
     int n0, n1, n2, e0, e1;
     long long N;                 // (n0 + 2 e0) * (n1 + 2 e1) * n2
     __device__ long long off(int x, int y, int z) const {
@@ -182,7 +214,7 @@ struct ExtMat {
         return ((long long)x * (n1 + 2 * e1) + y) * n2 + z;
     }
     __device__ float ld(int row, long long off) const {
-        return __ldg(m + row * N + off);
+        return mat_load(m + row * N + off);
     }
 };
 
@@ -313,66 +345,106 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
     }
 }
 
-// Box of the output of the first `nswept` sweeps of the tile at t0 with
-// extents T: the axes already swept cover the tile, the others keep an R
-// halo. Axes at or past `dim` have extent 1 and no halo.
-__host__ __device__ inline Region tile_region(const int* axes, int nswept,
+// The flattened sweep sequence of K in-window steps: p.axes, then (K = 2)
+// p.axes_next, dim entries each.
+__host__ __device__ inline void flat_axes(const GcmFusedParams& p, int dim,
+                                          int K, int* ax) {
+    for (int j = 0; j < dim; ++j) {
+        ax[j] = p.axes[j];
+        if (K == 2) ax[dim + j] = p.axes_next[j];
+    }
+}
+
+// Box of the output of the first `nswept` sweeps of the sequence `ax` on
+// the tile at t0 with extents T, in a window with a halo of H = K*R cells
+// on every axis: an axis swept s times keeps a halo of H - s*R. Axes at or
+// past `dim` have extent 1 and no halo.
+__host__ __device__ inline Region tile_region(const int* ax, int nswept,
                                               const int* t0, const int* T,
-                                              int R, int dim) {
+                                              int R, int H, int dim) {
     Region r;
     r.vol = 1;
     for (int d = 0; d < 3; ++d) {
-        bool done = d >= dim;
-        for (int q = 0; q < nswept; ++q) done = done || axes[q] == d;
-        r.o[d] = done ? t0[d] : t0[d] - R;
-        r.e[d] = done ? T[d] : T[d] + 2 * R;
+        int s = 0;
+        for (int q = 0; q < nswept; ++q) s += ax[q] == d;
+        const int halo = d >= dim ? 0 : H - s * R;
+        r.o[d] = t0[d] - halo;
+        r.e[d] = (d >= dim ? 1 : T[d]) + 2 * halo;
         r.vol *= r.e[d];
     }
     return r;
 }
 
-// Shared memory of a whole step on one tile of extents T: the outputs of
-// every sweep but the last.
+// Shared memory of K steps on one tile of extents T: two buffers that the
+// sweeps of the sequence write in turn, the first as large as the first
+// sweep's output, the second as the second's (the regions only shrink).
 __host__ inline size_t step_smem_bytes(const GcmFusedParams& p, const int* T,
-                                       int R, int dim) {
+                                       int R, int dim, int K = 1) {
     const int t0[3] = {0, 0, 0};
-    size_t vol = 0;
-    for (int k = 1; k < dim; ++k) vol += tile_region(p.axes, k, t0, T, R, dim).vol;
+    int ax[6];
+    flat_axes(p, dim, K, ax);
+    size_t vol = tile_region(ax, 1, t0, T, R, K * R, dim).vol;
+    if (K * dim > 2) vol += tile_region(ax, 2, t0, T, R, K * R, dim).vol;
     return sizeof(float) * (size_t)p.ncomp * vol;
 }
 
-// A whole step on the output tile at t0 with extents T (dim sweeps along
-// p.axes): the first sweep reads `src`, each later one the shared buffer
-// the one before it wrote, and the last writes `out` (and the aux stream
-// of the folded correctors). Called by every thread of the block.
-template <int ORDER, class Src, class Mat>
-__device__ void step_tile(const GcmFusedParams& p, int dim, const int* t0,
-                          const int* T, const Src& src, const Mat& mat,
-                          float* smem, float* __restrict__ out,
-                          const float* __restrict__ aux_in,
-                          float* __restrict__ aux_out) {
+// K whole steps (K = 1 or 2, DIM sweeps each, along p.axes then
+// p.axes_next) on the output tile at t0 with extents T: the first sweep
+// reads `src`, each later one the shared buffer the one before it wrote (the
+// first sweep of the second step through ClampedSharedSrc), and the last
+// writes `out` and, after the folded correctors, the aux stream. The sweep
+// loop unrolls at compile time, so the axes, regions and buffers stay in
+// registers. Called by every thread of the block.
+template <int ORDER, int K, int DIM, class Src, class Mat>
+__device__ __forceinline__ void step_tile_n(
+        const GcmFusedParams& p, const int* t0, const int* T, const Src& src,
+        const Mat& mat, float* smem, float* __restrict__ out,
+        const float* __restrict__ aux_in, float* __restrict__ aux_out) {
+    static_assert(K == 1 || K == 2, "one or two steps per window");
     constexpr int R = Stencil<ORDER>::R;
-    const Region r1 = tile_region(p.axes, 1, t0, T, R, dim);
-    const Region r2 = tile_region(p.axes, 2, t0, T, R, dim);
-    float* s1 = smem;
-    if (dim == 2) {
-        sweep<ORDER, Src, Mat, false>(p, p.axes[0], src, mat, r1, s1,
-                                      nullptr, nullptr);
-        __syncthreads();
-        sweep<ORDER, SharedSrc, Mat, true>(p, p.axes[1], SharedSrc{s1, r1},
-                                           mat, r2, out, aux_in, aux_out);
-        return;
-    }
-    const Region r3 = tile_region(p.axes, 3, t0, T, R, dim);
-    float* s2 = smem + p.ncomp * r1.vol;
-    sweep<ORDER, Src, Mat, false>(p, p.axes[0], src, mat, r1, s1, nullptr,
+    constexpr int H = K * R;
+    constexpr int S = K * DIM;
+    int ax[S];
+    flat_axes(p, DIM, K, ax);
+    Region prev = tile_region(ax, 1, t0, T, R, H, DIM);
+    float* const b0 = smem;
+    float* const b1 = smem + p.ncomp * prev.vol;
+    sweep<ORDER, Src, Mat, false>(p, ax[0], src, mat, prev, b0, nullptr,
                                   nullptr);
-    __syncthreads();
-    sweep<ORDER, SharedSrc, Mat, false>(p, p.axes[1], SharedSrc{s1, r1}, mat,
-                                        r2, s2, nullptr, nullptr);
-    __syncthreads();
-    sweep<ORDER, SharedSrc, Mat, true>(p, p.axes[2], SharedSrc{s2, r2}, mat,
-                                       r3, out, aux_in, aux_out);
+#pragma unroll
+    for (int i = 1; i < S; ++i) {
+        __syncthreads();
+        const Region reg = tile_region(ax, i + 1, t0, T, R, H, DIM);
+        const float* in = ((i - 1) & 1) ? b1 : b0;
+        float* dst = (i & 1) ? b1 : b0;
+        if (K > 1 && i % DIM == 0) {
+            const ClampedSharedSrc s{in, prev, p.n[0], p.n[1], p.n[2]};
+            sweep<ORDER, ClampedSharedSrc, Mat, false>(
+                p, ax[i], s, mat, reg, dst, nullptr, nullptr);
+        } else if (i == S - 1) {
+            sweep<ORDER, SharedSrc, Mat, true>(p, ax[i], SharedSrc{in, prev},
+                                               mat, reg, out, aux_in, aux_out);
+        } else {
+            sweep<ORDER, SharedSrc, Mat, false>(p, ax[i], SharedSrc{in, prev},
+                                                mat, reg, dst, nullptr,
+                                                nullptr);
+        }
+        prev = reg;
+    }
+}
+
+// step_tile_n for a grid of `dim` (2 or 3) axes.
+template <int ORDER, int K = 1, class Src, class Mat>
+__device__ __forceinline__ void step_tile(
+        const GcmFusedParams& p, int dim, const int* t0, const int* T,
+        const Src& src, const Mat& mat, float* smem, float* __restrict__ out,
+        const float* __restrict__ aux_in, float* __restrict__ aux_out) {
+    if (dim == 2)
+        step_tile_n<ORDER, K, 2>(p, t0, T, src, mat, smem, out, aux_in,
+                                 aux_out);
+    else
+        step_tile_n<ORDER, K, 3>(p, t0, T, src, mat, smem, out, aux_in,
+                                 aux_out);
 }
 
 }  // namespace

@@ -14,6 +14,13 @@ interior/ring split with overlapped slab exchange
 (``parallel.fused_spmd``) for ``kernel="fused"``, the per-sweep halo step
 (``parallel.halo``) for ``"sweep"`` (with the CUDA sweep kernel) and
 ``"torch"`` (the plain sweep).
+
+The Task knobs of the fused path: ``mat_dtype="bf16"`` stores the material
+stack in bf16 (the kernels upcast at the load); ``canonical_layout`` takes
+the JAX package's canonical splitting order (``solver.gcm.canonical_axes``)
+and runs a 3D body on ``fused_step_slab``, as JAX runs its permuted bodies;
+``temporal_block`` runs each symmetrized pair of steps as one two-step pass
+of the fused kernel when nothing happens between the two (``_pair_fused``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch
 
 from gcm_tpu_torch.models.spec import Model, get_model
 from gcm_tpu_torch.ops.fused import (
-    fold_corrector_specs, fused_step, fused_step_2d, stack_mats,
+    fold_corrector_specs, fused_step, fused_step_2d, fused_step_slab,
+    stack_mats,
 )
 from gcm_tpu_torch.ops.sweep import sweep_step
 from gcm_tpu_torch.parallel.fused_spmd import (
@@ -38,7 +46,9 @@ from gcm_tpu_torch.parallel.halo import extend_mats_once, make_spmd_step
 from gcm_tpu_torch.parallel.sharding import (
     block_shape, gather_state, shard_field, shard_mats, shard_state,
 )
-from gcm_tpu_torch.solver.gcm import axes_order, cfl_dt, step as solver_step
+from gcm_tpu_torch.solver.gcm import (
+    axes_order, canonical_axes, cfl_dt, step as solver_step,
+)
 from gcm_tpu_torch.task import Task, apply_initial
 
 
@@ -118,10 +128,32 @@ class Engine:
         self.mat = task.material_fields(device=self.device, dtype=dtype)
         self.dt = cfl_dt(self.mat, task.grid.h, task.time.cfl)
         self.nsteps = task.time.steps_for(self.dt)
+        #: the splitting order of even steps (reversed on odd ones): the
+        #: canonical order where the task asks for it and it engages (one
+        #: device, as in JAX), else (0, .., dim-1)
+        canon = (canonical_axes(task.grid.shape)
+                 if task.canonical_layout and mesh is None else None)
+        self._fwd = canon or tuple(range(self.model.dim))
+        #: the stored type of the fused kernels' material stacks
+        self._mat_dtype = (torch.bfloat16 if task.mat_dtype == "bf16"
+                           else None)
         #: compact material stack of the fused kernel, built once
-        self._mstack = (stack_mats(self.model, self.mat)
+        self._mstack = (stack_mats(self.model, self.mat,
+                                   dtype=self._mat_dtype)
                         if self.kernel == "fused" and mesh is None else None)
-        self._fused_fn = fused_step if self.model.dim == 3 else fused_step_2d
+        if self.model.dim == 2:
+            self._fused_fn = fused_step_2d
+        else:
+            # canonical bodies run the slab kernel, as the JAX engine runs
+            # its permuted ones; fused_step hands bf16 stacks to it too
+            self._fused_fn = fused_step_slab if canon else fused_step
+        #: a symmetrized pair of steps as one two-step pass (JAX
+        #: ``Engine._build_scan``): only with nothing between the two steps
+        self._pair_fused = (self._mstack is not None
+                            and task.temporal_block
+                            and task.symmetrize_stages and not task.sources
+                            and not task.correctors
+                            and task.detectors is None)
 
         # the folding rule of the JAX engine: sources land after the step
         # and before the correctors, so the kernel's epilogue takes them only
@@ -200,7 +232,7 @@ class Engine:
                 *args, correctors=self._fold_specs)
         elif self.kernel == "fused":
             self._carry = extended_mstack_2d(model, self.mat, mesh,
-                                             task.order)
+                                             task.order, self._mat_dtype)
             self._spmd_step = make_fused_spmd_step_2d(*args)
         else:
             self._carry = extend_mats_once(shard_mats(self.mat, mesh), mesh,
@@ -307,7 +339,7 @@ class Engine:
                   n: int):
         task, model = self.task, self.model
         args = (self.dt, task.grid.h, task.order, task.borders,
-                axes_order(model.dim, n, task.symmetrize_stages))
+                axes_order(model.dim, n, task.symmetrize_stages, self._fwd))
         if self._fold_specs is not None:
             # correctors applied in the kernel's epilogue; nothing follows
             if not self._fold_naux:
@@ -351,10 +383,19 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = _time.perf_counter()
-        for n in range(nsteps):
-            u, aux = self._one_step(u, aux, n)
-            if traces is not None:
-                traces[n] = self._detect(u)
+        if self._pair_fused:
+            pair = (self._fwd, self._fwd[::-1])
+            for n in range(0, nsteps - 1, 2):
+                u = self._fused_fn(self.model, u, self._mstack, self.dt,
+                                   self.task.grid.h, self.task.order,
+                                   self.task.borders, axes_seq=pair)
+            if nsteps % 2:
+                u, aux = self._one_step(u, aux, nsteps - 1)
+        else:
+            for n in range(nsteps):
+                u, aux = self._one_step(u, aux, n)
+                if traces is not None:
+                    traces[n] = self._detect(u)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0

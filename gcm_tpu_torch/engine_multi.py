@@ -1,0 +1,320 @@
+"""Multi-body engine: several Tasks coupled by contact interfaces.
+
+Counterpart of ``gcm_tpu/engine_multi.py`` on one device: the bodies share
+a global dt (the CFL minimum over bodies), the contact and fracture state
+(per-interface bond masks) is carried between steps on the device, and each
+body has its own sources, detectors and corrector aux fields. A step takes
+one of four paths (``MultiBodyEngine.path``):
+
+- ``"fused_canonical"`` / ``"fused"`` (``kernel="fused"``, the default on a
+  CUDA device, when ``solver.multi.fused_contacts_ok`` holds): one fused
+  kernel launch per body and step (``fused_step``, ``fused_step_2d``, or
+  ``fused_step_slab`` for canonical or bf16 bodies), then the contact face
+  rows (``solver.multi.apply_contact_fixups``);
+- ``"sweep"`` (``kernel="sweep"``, or ``"fused"`` on a topology the fused
+  composition cannot serve: non-conforming maps, contacts on two axes of a
+  body): the per-sweep kernel on each body with no borders, then borders
+  and contacts as slab fixups;
+- ``"torch"``: ``solver.multi.step_multi``, the plain semantics of record.
+
+``canonical_layout=True`` takes the JAX package's canonical layout as a
+splitting order: when every contact is conforming and lies on one axis
+``ca != 0`` of a 3D model on the fused path, the steps sweep (ca, rest) and
+its reverse, as the JAX engine sweeps its permuted storage; the port keeps
+the task layout in memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gcm_tpu_torch.engine import check_device, resolve_kernel
+from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.models.spec import get_model
+from gcm_tpu_torch.ops.fused import (
+    fused_step, fused_step_2d, fused_step_slab, stack_mats,
+)
+from gcm_tpu_torch.ops.sweep import sweep_stage
+from gcm_tpu_torch.solver.contact import ContactSpec
+from gcm_tpu_torch.solver.contact_nc import (
+    build_interface_maps, faces_conform, init_bonded_nc,
+)
+from gcm_tpu_torch.solver.gcm import axes_order
+from gcm_tpu_torch.solver.multi import (
+    fused_contacts_ok, step_multi, step_multi_fast, step_multi_fused,
+)
+from gcm_tpu_torch.task import Task, apply_initial
+
+
+@dataclasses.dataclass
+class MultiRunResult:
+    bodies: Dict[str, np.ndarray]      # final state per body
+    bonded: Dict[int, object]          # bond mask (or per-side dict) per contact
+    t: float
+    nsteps: int
+    dt: float
+    wall_seconds: float
+    points_per_second: float           # all bodies' points x steps / wall
+    traces: Optional[Dict[str, np.ndarray]] = None  # body -> [steps, np, nc]
+    path: str = "torch"                # resolved multi-body path
+
+
+class MultiBodyEngine:
+    """Bodies ``{name: Task}`` coupled by ``contacts``. All bodies share the
+    model, order, symmetrization and kernel choice; ``device`` defaults to
+    the card (``"cuda"``), ``device="cpu"`` runs the plain versions on the
+    CPU."""
+
+    def __init__(self, bodies: Dict[str, Task],
+                 contacts: Sequence[ContactSpec], device=None,
+                 dtype=torch.float32, canonical_layout: bool = False,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "MultiBodyEngine(mesh=) is not ported yet: ROADMAP.md queue "
+                "A item 7 (multi-body under a mesh, the canonical-under-mesh "
+                "layout)")
+        names = list(bodies)
+        self.tasks = bodies
+        self.contacts = tuple(contacts)
+        t0 = bodies[names[0]]
+        self.model = get_model(t0.model)
+        self.order = t0.order
+        self.symmetrize = t0.symmetrize_stages
+        self.device = check_device("cuda" if device is None else device)
+        self.dtype = dtype
+        for t in bodies.values():
+            if t.model != t0.model or t.order != t0.order:
+                raise ValueError("bodies must share model and order")
+            if t.kernel != t0.kernel:
+                raise ValueError("bodies must share the kernel choice")
+        self.kernel = resolve_kernel(t0.kernel, self.model.dim, self.device)
+        if self.kernel in ("fused", "sweep") and (
+                self.model.dim not in (2, 3) or dtype != torch.float32):
+            raise ValueError(f"kernel={self.kernel!r} runs 2D and 3D bodies "
+                             "in float32")
+
+        self.mats: Dict[str, MaterialFields] = {}
+        self.us: Dict[str, torch.Tensor] = {}
+        self.hs: Dict[str, Tuple[float, ...]] = {}
+        self.borders = {}
+        dts = []
+        for name, task in bodies.items():
+            mat = task.material_fields(device=self.device, dtype=dtype)
+            self.mats[name] = mat
+            self.hs[name] = task.grid.h
+            self.borders[name] = dict(task.borders)
+            u0 = np.zeros((self.model.ncomp,) + task.grid.shape)
+            apply_initial(u0, self.model, task.grid, task.initial)
+            self.us[name] = torch.as_tensor(u0, device=self.device).to(dtype)
+            dts.append(task.time.cfl * min(task.grid.h) / mat.max_cp())
+        self.dt = float(min(dts))
+        self.nsteps = t0.time.steps_for(self.dt)
+
+        # non-conforming interfaces get static interpolation maps; explicit
+        # lo/span stays on the collocated offset path
+        self.ncmaps: Dict[int, object] = {}
+        for ci, c in enumerate(self.contacts):
+            ga, gb = bodies[c.body_a].grid, bodies[c.body_b].grid
+            if c.span is None and not faces_conform(ga, gb, c.axis):
+                self.ncmaps[ci] = build_interface_maps(ga, gb, c.axis)
+
+        # the canonical splitting order (JAX's canonical storage order):
+        # conforming contacts on one axis ca != 0 of a 3D model, fused path
+        contact_axes = {c.axis for c in self.contacts}
+        self._fwd = tuple(range(self.model.dim))
+        self.canonical = False
+        if (canonical_layout and self.kernel == "fused" and not self.ncmaps
+                and self.model.dim == 3 and len(contact_axes) == 1):
+            ca = next(iter(contact_axes))
+            if ca != 0:
+                self._fwd = (ca,) + tuple(d for d in range(3) if d != ca)
+                self.canonical = True
+
+        # the fused composition: one fused pass per body, contacts as face
+        # rows; else the per-sweep kernel with fixups; else plain torch
+        shapes = {k: t.grid.shape for k, t in bodies.items()}
+        self._fused_multi = None
+        self._raw_stage = None
+        if self.kernel == "fused" and fused_contacts_ok(
+                self.model, shapes, self.contacts, self.order, self.ncmaps):
+            full_faces = set()
+            for c in self.contacts:
+                if c.span is None:
+                    full_faces.add((c.body_a, c.axis, 1))
+                    full_faces.add((c.body_b, c.axis, 0))
+            self._mstacks = {
+                name: stack_mats(self.model, self.mats[name],
+                                 dtype=(torch.bfloat16
+                                        if task.mat_dtype == "bf16" else None))
+                for name, task in bodies.items()}
+            self._kernel_bcs = {
+                name: {f: b for f, b in self.borders[name].items()
+                       if (name,) + f not in full_faces}
+                for name in bodies}
+            if self.model.dim == 2:
+                ffn = fused_step_2d
+            else:
+                # canonical bodies run the slab kernel, as JAX runs its
+                # permuted ones; fused_step hands bf16 stacks to it too
+                ffn = fused_step_slab if self.canonical else fused_step
+
+            def _fused_body(name, u, axes):
+                return ffn(self.model, u, self._mstacks[name], self.dt,
+                           self.hs[name], self.order, self._kernel_bcs[name],
+                           axes)
+
+            self._fused_multi = _fused_body
+        elif self.kernel in ("fused", "sweep"):
+            def _raw(name, u, axis):
+                return sweep_stage(self.model, u, self.mats[name], self.dt,
+                                   self.hs[name], axis, self.order, None)
+
+            self._raw_stage = _raw
+        #: the resolved path
+        self.path = ("fused_canonical" if self._fused_multi and self.canonical
+                     else "fused" if self._fused_multi
+                     else "sweep" if self._raw_stage else "torch")
+
+        # bond masks of fracture-enabled contacts (overlap slab shape; a
+        # non-conforming contact carries one mask per side)
+        self.bonded: Dict[int, object] = {}
+        for ci, c in enumerate(self.contacts):
+            if c.tensile_strength is None:
+                continue
+            if ci in self.ncmaps:
+                self.bonded[ci] = init_bonded_nc(self.ncmaps[ci], dtype,
+                                                 self.device)
+            else:
+                slab = (tuple(c.span) if c.span is not None else tuple(
+                    s for a, s in enumerate(bodies[c.body_a].grid.shape)
+                    if a != c.axis))
+                self.bonded[ci] = torch.ones(slab, dtype=dtype,
+                                             device=self.device)
+
+        # detectors per body: flat spatial indices of the receiver nodes
+        self._det: Dict[str, torch.Tensor] = {}
+        for name, task in bodies.items():
+            if task.detectors is not None:
+                nodes = [task.grid.index_of(p) for p in task.detectors.points]
+                self._det[name] = torch.as_tensor(
+                    np.ravel_multi_index(tuple(np.asarray(nodes).T),
+                                         task.grid.shape).astype(np.int64),
+                    device=self.device)
+
+        # corrector aux state per body, applied after the contact solves
+        self.auxs: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, task in bodies.items():
+            aux: Dict[str, torch.Tensor] = {}
+            for corr in task.correctors:
+                aux.update(corr.init_aux(self.model, task.grid.shape,
+                                         device=self.device))
+            self.auxs[name] = aux
+
+        # sources per body: flat indices into the body's state and every
+        # step's amplitude, evaluated in float64 at once
+        times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
+        self._srcs = {}
+        for name, task in bodies.items():
+            flat, amps = [], []
+            shape = (self.model.ncomp,) + task.grid.shape
+            for src in task.sources:
+                node = task.grid.index_of(src.position)
+                for cname in src.components:
+                    flat.append(np.ravel_multi_index(
+                        (self.model.comp(cname),) + node, shape))
+                    amps.append(np.broadcast_to(
+                        np.asarray(src.wavelet(times), np.float64),
+                        times.shape) * self.dt)
+            if flat:
+                self._srcs[name] = (
+                    torch.as_tensor(np.asarray(flat, np.int64),
+                                    device=self.device),
+                    torch.as_tensor(np.asarray(amps).T,
+                                    device=self.device).to(dtype))
+
+    # ------------------------------------------------------------------ step
+
+    def _one_step(self, us, bonded, auxs, n: int):
+        axes = axes_order(self.model.dim, n, self.symmetrize, self._fwd)
+        if self._fused_multi is not None:
+            us, bonded = step_multi_fused(
+                self.model, us, self.mats, self.dt, self.hs, self.order,
+                self.borders, self.contacts, bonded, self._fused_multi, axes)
+        elif self._raw_stage is not None:
+            us, bonded = step_multi_fast(
+                self.model, us, self.mats, self.borders, self.contacts,
+                bonded, self._raw_stage, axes, self.ncmaps)
+        else:
+            us, bonded = step_multi(
+                self.model, us, self.mats, self.dt, self.hs, self.order,
+                self.borders, self.contacts, bonded, axes, self.ncmaps)
+        us = dict(us)
+        for name, (flat, amps) in self._srcs.items():
+            # a fresh tensor of this step: index_add_ in place accumulates
+            # repeated nodes like sequential adds
+            us[name] = us[name].contiguous()
+            us[name].view(-1).index_add_(0, flat, amps[n])
+        new_auxs = {}
+        for name, task in self.tasks.items():
+            u, aux = us[name], auxs[name]
+            for corr in task.correctors:
+                u, aux = corr(self.model, u, aux, self.dt)
+            us[name] = u
+            new_auxs[name] = aux
+        return us, bonded, new_auxs
+
+    # ------------------------------------------------------------------- run
+
+    def run(self, snapshot_cb=None, snapshot_every: int = 0
+            ) -> MultiRunResult:
+        """Run ``nsteps`` steps from the current state; optionally call
+        ``snapshot_cb(step, {name: np.ndarray})`` every ``snapshot_every``
+        steps, rounded up to a multiple of the symmetrization period (2 when
+        symmetrized), within the whole periods, as the JAX engine fires
+        between its scan chunks; a trailing odd step fires none."""
+        period = 2 if self.symmetrize else 1
+        nsteps = self.nsteps
+        nfull = (nsteps // period) * period
+        every = 0
+        if snapshot_cb is not None and snapshot_every:
+            every = max(period, -(-snapshot_every // period) * period)
+        C = self.model.ncomp
+        traces = {name: torch.empty((nsteps, len(idx), C), device=self.device,
+                                    dtype=self.dtype)
+                  for name, idx in self._det.items()}
+        us, bonded, auxs = dict(self.us), dict(self.bonded), dict(self.auxs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = _time.perf_counter()
+        for n in range(nsteps):
+            us, bonded, auxs = self._one_step(us, bonded, auxs, n)
+            for name, idx in self._det.items():
+                traces[name][n] = us[name].reshape(C, -1)[:, idx].T
+            if every and (n + 1) % every == 0 and n + 1 <= nfull:
+                snapshot_cb(n + 1, {k: v.cpu().numpy()
+                                    for k, v in us.items()})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = _time.perf_counter() - t0
+        self.us, self.bonded, self.auxs = us, bonded, auxs
+        npts = sum(int(np.prod(t.grid.shape)) for t in self.tasks.values())
+
+        def host(v):
+            return ({k: x.cpu().numpy() for k, x in v.items()}
+                    if isinstance(v, dict) else v.cpu().numpy())
+
+        return MultiRunResult(
+            bodies={k: v.cpu().numpy() for k, v in us.items()},
+            bonded={k: host(v) for k, v in bonded.items()},
+            t=nsteps * self.dt, nsteps=nsteps, dt=self.dt,
+            wall_seconds=wall,
+            points_per_second=npts * nsteps / max(wall, 1e-12),
+            traces=({k: t.cpu().numpy() for k, t in traces.items()}
+                    if traces else None),
+            path=self.path)

@@ -97,18 +97,20 @@ def load() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of every entry point."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("gcm_fused_step", "gcm_fused_step_2d"):
+    for name in ("gcm_fused_step_2d", "gcm_fused_step_slab"):
         fn = getattr(lib, name)
-        # u, mstack, aux_in, out, aux_out, params, order, device, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
+        # u, mstack, aux_in, out, aux_out, params, order, mat_bf16, ksteps,
+        # device, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32
     # u, mext, aux_in, out, aux_out, xlo, xhi, ylo, yhi, split, ring,
     # params, order, device, stream
     lib.gcm_fused_spmd.argtypes = [vp] * 10 + [i32, vp, i32, i32, vp]
     lib.gcm_fused_spmd.restype = i32
-    # u, mext, out, xlo, xhi, ix0, ix1, ring, params, order, device, stream
+    # u, mext, out, xlo, xhi, ix0, ix1, ring, params, order, mat_bf16,
+    # device, stream
     lib.gcm_fused_spmd_2d.argtypes = [vp] * 5 + [i32] * 3 + [vp, i32, i32,
-                                                              vp]
+                                                              i32, vp]
     lib.gcm_fused_spmd_2d.restype = i32
     lib.gcm_fused_spmd_tile.argtypes = [i32]
     lib.gcm_fused_spmd_tile.restype = i32

@@ -1,18 +1,24 @@
 """The fused full steps: every splitting sweep of a step in one kernel.
 
-Counterpart of ``gcm_tpu/ops/pallas_fused.py::fused_step`` and
-``fused_step_2d`` (material stack helpers, the folded ODE correctors and the
-single-step contract). The kernels are CUDA C++ for Hopper,
-``csrc/fused_step.cu`` (3D) and ``csrc/fused_step_2d.cu`` (2D), sharing
-their sweep and epilogue (``csrc/gcm_common.cuh``). ``fused_step_reference``
-is the plain PyTorch version of both (the port's ``solver.gcm.step`` on
+Counterpart of ``gcm_tpu/ops/pallas_fused.py::fused_step``,
+``fused_step_slab`` and ``fused_step_2d`` (material stack helpers, the
+folded ODE correctors, bf16 material stacks, ``axes_seq`` temporal blocking
+and the single-step contract). The kernels are CUDA C++ for Hopper,
+``csrc/fused_step_slab.cu`` (3D, float or bf16 stack, one or two steps a
+pass; ``fused_step`` launches its float, one-step form) and
+``csrc/fused_step_2d.cu`` (2D, both options), sharing their sweep and
+epilogue (``csrc/gcm_common.cuh``). ``fused_step_reference`` is the
+plain PyTorch version of one step (the port's ``solver.gcm.step`` on
 materials derived from the compact stack exactly as the kernels derive
-them, then ``corrector_epilogue_reference``); ``fused_step_2d_reference``
-names it for the 2D kernel.
+them, then ``corrector_epilogue_reference``); ``fused_step_slab_reference``
+runs it once per step of a sequence on the upcast stack, and
+``fused_step_2d_reference`` names it for the 2D kernel.
 
-``fused_step`` and ``fused_step_2d`` launch their kernel for a CUDA tensor
-and run the plain version for a CPU tensor; for a CUDA tensor they launch or
-raise, they never fall back. ``fused_step.launches`` and
+``fused_step``, ``fused_step_slab`` and ``fused_step_2d`` launch their
+kernel for a CUDA tensor and run the plain version for a CPU tensor; for a
+CUDA tensor they launch or raise, they never fall back. ``fused_step``
+hands bf16 stacks and two-step sequences to ``fused_step_slab``.
+``fused_step.launches``, ``fused_step_slab.launches`` and
 ``fused_step_2d.launches`` count the kernel launches.
 """
 
@@ -64,15 +70,18 @@ def mat_layout(model: Model) -> List[str]:
     return fields
 
 
-def stack_mats(model: Model, mat: MaterialFields,
-               compact: bool = True) -> torch.Tensor:
+def stack_mats(model: Model, mat: MaterialFields, compact: bool = True,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Stack the compact per-node material fields into one contiguous
-    ``(nm, *spatial)`` tensor. Call once at setup, not per step."""
+    ``(nm, *spatial)`` tensor, rounded to ``dtype`` if given (``torch.
+    bfloat16`` halves the material stream; the kernels upcast at the load).
+    Call once at setup, not per step."""
     if not compact:
         raise NotImplementedError("only the compact stack layout is ported")
     name_map = {"cp": mat.cp, "cs": mat.cs, "rho": mat.rho,
                 "kappa": mat.kappa}
-    return torch.stack([name_map[f] for f in mat_layout(model)]).contiguous()
+    out = torch.stack([name_map[f] for f in mat_layout(model)])
+    return (out if dtype is None else out.to(dtype)).contiguous()
 
 
 def derive_window_mats(model: Model,
@@ -167,8 +176,12 @@ def fused_step_reference(model: Model, u: torch.Tensor, mstack: torch.Tensor,
     ``solver.gcm.step`` on c/z/kappa derived from the compact stack as the
     kernels derive them (waves or zeros a model lacks read as zero fields
     it never uses), then the folded correctors ``correctors`` (specs of
-    ``fold_corrector_specs``). Returns the new state, or ``(state, aux)``
-    when ``aux`` is given."""
+    ``fold_corrector_specs``). A stack of another type (bf16) is upcast to
+    the state's first, so z = rho*c comes from the rounded fields, as in
+    the kernels. Returns the new state, or ``(state, aux)`` when ``aux`` is
+    given."""
+    if mstack.dtype != u.dtype:
+        mstack = mstack.to(u.dtype)
     mats = derive_window_mats(
         model, dict(zip(mat_layout(model), mstack.unbind(0))))
     zero = torch.zeros_like(mats["rho"])
@@ -181,8 +194,54 @@ def fused_step_reference(model: Model, u: torch.Tensor, mstack: torch.Tensor,
     return out if aux is None else (out, new_aux)
 
 
-#: the 2D kernel's plain version: the same dimension-generic step
-fused_step_2d_reference = fused_step_reference
+def norm_axes_seq(axes: Optional[Sequence[int]],
+                  axes_seq: Optional[Sequence[Sequence[int]]],
+                  dim: int) -> Tuple[Tuple[int, ...], ...]:
+    """The (axes, axes_seq) pair as one validated sequence of sweep orders,
+    one per step of a pass (``_norm_axes_seq`` of the JAX package). Each
+    entry may be any order of the ``dim`` axes: the port runs the
+    canonical splitting order as axes, not as a storage permutation."""
+    if axes_seq is None:
+        seq = (tuple(axes) if axes is not None else tuple(range(dim)),)
+    else:
+        if axes is not None:
+            raise ValueError("pass either axes or axes_seq, not both")
+        seq = tuple(tuple(a) for a in axes_seq)
+    if not seq:
+        raise ValueError("axes_seq holds no step")
+    for ax in seq:
+        if sorted(ax) != list(range(dim)):
+            raise ValueError(f"axes {ax} is not an order of the {dim} axes")
+    return seq
+
+
+def fused_step_slab_reference(model: Model, u: torch.Tensor,
+                              mstack: torch.Tensor, dt: float,
+                              h: Sequence[float], order: int,
+                              borders: Optional[Borders] = None,
+                              axes: Optional[Sequence[int]] = None,
+                              axes_seq=None, correctors=None,
+                              aux: Optional[torch.Tensor] = None):
+    """Plain version of the slab kernel (and of the 2D kernel's sequences):
+    the stack upcast to the state's type (a bf16 stack keeps its rounding),
+    ``fused_step_reference`` once per entry of ``axes_seq`` (or the one
+    ``axes``), and the folded correctors after the last step, which only a
+    single-step sequence takes. Returns the new state, or ``(state, aux)``
+    when ``aux`` is given."""
+    seq = norm_axes_seq(axes, axes_seq, model.dim)
+    specs = tuple(correctors) if correctors else ()
+    if specs and len(seq) > 1:
+        raise ValueError("folded correctors require a single step per pass "
+                         "(len(axes_seq) == 1)")
+    ms = mstack.to(u.dtype)
+    for ax in seq[:-1]:
+        u = fused_step_reference(model, u, ms, dt, h, order, borders, ax)
+    return fused_step_reference(model, u, ms, dt, h, order, borders, seq[-1],
+                                specs, aux)
+
+
+#: the 2D kernel's plain version: the same dimension-generic steps
+fused_step_2d_reference = fused_step_slab_reference
 
 
 # ------------------------------------------------------------------- kernels
@@ -208,6 +267,7 @@ class _Params(ctypes.Structure):
         ("spec_b", ctypes.c_float * _MAXSPEC), ("dt", ctypes.c_float),
         ("ndiag", ctypes.c_int), ("diag", _i(3)),
         ("nshear", ctypes.c_int), ("shear", _i(3)),
+        ("axes_next", _i(3)),
     ]
 
 
@@ -221,6 +281,7 @@ def _params(model: Model, shape, dt: float, h: Sequence[float],
     p.nm = len(names)
     p.sign = model.sign
     p.axes[:] = list(axes) + [-1] * (3 - len(axes))
+    p.axes_next[:] = [-1, -1, -1]
     p.rho_idx = names.index("rho")
     p.kappa_idx = names.index("kappa") if "kappa" in names else -1
     for a in range(3):
@@ -257,9 +318,9 @@ def _params(model: Model, shape, dt: float, h: Sequence[float],
 
 
 def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
-           order: int, axes: Tuple[int, ...], specs,
-           aux: Optional[torch.Tensor]) -> None:
-    """Raise on anything the kernels do not take."""
+           order: int, specs, aux: Optional[torch.Tensor]) -> None:
+    """Raise on anything the kernels do not take (the sweep orders are
+    checked by ``norm_axes_seq``)."""
     if u.shape[0] != model.ncomp or model.ncomp > _MAXC:
         raise ValueError(f"state has {u.shape[0]} components, "
                          f"{model.name} has {model.ncomp}")
@@ -271,16 +332,16 @@ def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
         raise ValueError(f"mstack shape {tuple(mstack.shape)} is not the "
                          f"compact stack {(nm,) + tuple(u.shape[1:])}")
     tensors = [u, mstack] + ([aux] if aux is not None else [])
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the fused kernels take float32 state, stack and aux")
+    if any(t.dtype != torch.float32 for t in tensors if t is not mstack) \
+            or mstack.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("the fused kernels take float32 state and aux and a "
+                        "float32 or bfloat16 stack")
     if any(t.device != u.device for t in tensors):
         raise ValueError("u, mstack and aux lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the fused kernels take contiguous tensors")
     if order not in (1, 2, 3, 4):
         raise ValueError(f"unsupported interpolation order {order}")
-    if sorted(axes) != list(range(dim)):
-        raise ValueError(f"axes {axes} is not an order of the {dim} axes")
     if len(specs) > _MAXSPEC:
         raise ValueError(f"at most {_MAXSPEC} folded correctors")
     if any(s[0] == "damage" for s in specs) and not _diag_stress_indices(model):
@@ -290,15 +351,23 @@ def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
 def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
            mstack: torch.Tensor, dt: float, h: Sequence[float], order: int,
            borders: Optional[Borders], axes: Optional[Sequence[int]],
-           correctors, aux: Optional[torch.Tensor]):
-    """Shared body of ``fused_step`` and ``fused_step_2d``: the plain
-    version for a CPU tensor, else checks and one launch of ``entry``.
+           axes_seq, correctors, aux: Optional[torch.Tensor]):
+    """Shared body of the fused wrappers: the plain version for a CPU
+    tensor, else checks and one launch of ``entry`` (``gcm_fused_step_slab``
+    or ``gcm_fused_step_2d``: a float or bf16 stack, one or two steps).
     Returns the new state and aux stack, and whether a kernel launched."""
     if model.dim != dim or u.ndim != dim + 1:
         raise ValueError(f"this fused step runs {dim}D models on "
                          f"[C, {dim} spatial axes] state")
-    axes = tuple(axes) if axes is not None else tuple(range(dim))
+    seq = norm_axes_seq(axes, axes_seq, dim)
+    if len(seq) > 2:
+        raise ValueError("the fused kernels run one or two steps a pass")
     specs = tuple(correctors) if correctors else ()
+    if specs and len(seq) > 1:
+        # split-step semantics apply the correctors after every step; the
+        # epilogue runs once a pass
+        raise ValueError("folded correctors require a single step per pass "
+                         "(len(axes_seq) == 1)")
     ndamage = sum(s[0] == "damage" for s in specs)
     if ndamage and aux is None:
         raise ValueError("damage correctors need the aux array")
@@ -306,15 +375,19 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         raise ValueError(f"aux holds {aux.shape[0]} fields for {ndamage} "
                          "damage correctors")
     if u.device.type == "cpu":
-        res = fused_step_reference(model, u, mstack, dt, h, order, borders,
-                                   axes, specs, aux)
+        res = fused_step_slab_reference(model, u, mstack, dt, h, order,
+                                        borders, axes_seq=seq,
+                                        correctors=specs, aux=aux)
         return (res if aux is not None else (res, None)), False
     if u.device.type != "cuda":
         raise ValueError(f"the fused kernels have no build for device "
                          f"{u.device}")
-    _check(model, dim, u, mstack, order, axes, specs, aux)
+    _check(model, dim, u, mstack, order, specs, aux)
+    bf16 = mstack.dtype == torch.bfloat16
     lib = _build.load()
-    params = _params(model, u.shape[1:], dt, h, borders, axes, specs)
+    params = _params(model, u.shape[1:], dt, h, borders, seq[0], specs)
+    if len(seq) == 2:
+        params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():
         raise RuntimeError("GcmFusedParams layout differs from its binding")
     out = torch.empty_like(u)
@@ -324,7 +397,8 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         u.data_ptr(), mstack.data_ptr(),
         aux.data_ptr() if aux is not None else None, out.data_ptr(),
         aux_out.data_ptr() if aux_out is not None else None,
-        ctypes.addressof(params), order, u.device.index, stream)
+        ctypes.addressof(params), order, int(bf16), len(seq), u.device.index,
+        stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({lib.gcm_error_string(err).decode()})")
@@ -335,20 +409,48 @@ def fused_step(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                dt: float, h: Sequence[float], order: int,
                borders: Optional[Borders] = None,
                axes: Optional[Sequence[int]] = None,
-               correctors=None, aux: Optional[torch.Tensor] = None):
+               correctors=None, aux: Optional[torch.Tensor] = None,
+               axes_seq=None):
     """One full 3D time step: sweeps along ``axes`` (default (0, 1, 2)),
     then the folded ``correctors`` (specs of ``fold_corrector_specs``) on
     each output cell; ``aux`` stacks one float32 field per damage spec.
 
-    ``mstack`` is ``stack_mats(model, mat)``, built once at setup. A CUDA
-    tensor goes through the CUDA kernel; a CPU tensor runs
+    ``mstack`` is ``stack_mats(model, mat)``, built once at setup. A bf16
+    stack, or an ``axes_seq`` of two steps, goes to :func:`fused_step_slab`
+    (as the JAX package routes bf16 stacks to its slab kernel). A CUDA
+    tensor goes through the slab kernel's float, one-step form
+    (``csrc/fused_step_slab.cu``), counted here; a CPU tensor runs
     ``fused_step_reference``. Returns a new state tensor, or ``(state,
     aux)`` when ``aux`` is given."""
-    (out, new_aux), launched = _fused(3, "gcm_fused_step", model, u, mstack,
-                                      dt, h, order, borders, axes,
-                                      correctors, aux)
+    if mstack.dtype == torch.bfloat16 or (axes_seq is not None
+                                          and len(axes_seq) > 1):
+        return fused_step_slab(model, u, mstack, dt, h, order, borders, axes,
+                               axes_seq, correctors, aux)
+    (out, new_aux), launched = _fused(3, "gcm_fused_step_slab", model, u,
+                                      mstack, dt, h, order, borders, axes,
+                                      axes_seq, correctors, aux)
     if launched:
         fused_step.launches += 1
+    return out if aux is None else (out, new_aux)
+
+
+def fused_step_slab(model: Model, u: torch.Tensor, mstack: torch.Tensor,
+                    dt: float, h: Sequence[float], order: int,
+                    borders: Optional[Borders] = None,
+                    axes: Optional[Sequence[int]] = None, axes_seq=None,
+                    correctors=None, aux: Optional[torch.Tensor] = None):
+    """One pass of ``len(axes_seq)`` (1 or 2) full 3D steps, the sweeps of
+    step k along ``axes_seq[k]`` (or one step along ``axes``), on a float32
+    or bf16 ``mstack``; the folded ``correctors`` only with one step. Any
+    extents. A CUDA tensor goes through the CUDA kernel
+    (``csrc/fused_step_slab.cu``); a CPU tensor runs
+    ``fused_step_slab_reference``. Returns the new state, or ``(state,
+    aux)`` when ``aux`` is given."""
+    (out, new_aux), launched = _fused(3, "gcm_fused_step_slab", model, u,
+                                      mstack, dt, h, order, borders, axes,
+                                      axes_seq, correctors, aux)
+    if launched:
+        fused_step_slab.launches += 1
     return out if aux is None else (out, new_aux)
 
 
@@ -356,17 +458,20 @@ def fused_step_2d(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                   dt: float, h: Sequence[float], order: int,
                   borders: Optional[Borders] = None,
                   axes: Optional[Sequence[int]] = None,
-                  correctors=None, aux: Optional[torch.Tensor] = None):
+                  correctors=None, aux: Optional[torch.Tensor] = None,
+                  axes_seq=None):
     """One full 2D time step, the contract of ``fused_step`` on ``[C, nx,
-    ny]`` state (any extents). A CUDA tensor goes through the CUDA kernel;
-    a CPU tensor runs ``fused_step_2d_reference``."""
+    ny]`` state (any extents), or two steps a pass with ``axes_seq``, on a
+    float32 or bf16 stack. A CUDA tensor goes through the CUDA kernel; a
+    CPU tensor runs ``fused_step_2d_reference``."""
     (out, new_aux), launched = _fused(2, "gcm_fused_step_2d", model, u,
                                       mstack, dt, h, order, borders, axes,
-                                      correctors, aux)
+                                      axes_seq, correctors, aux)
     if launched:
         fused_step_2d.launches += 1
     return out if aux is None else (out, new_aux)
 
 
 fused_step.launches = 0
+fused_step_slab.launches = 0
 fused_step_2d.launches = 0

@@ -244,8 +244,13 @@ def _check(model: Model, dim: int, u: torch.Tensor, mext: torch.Tensor,
         raise ValueError(f"at most {_MAXSPEC} folded correctors")
     if any(s[0] == "damage" for s in specs) and not _diag_stress_indices(model):
         raise ValueError(f"{model.name} has no normal stresses to damage")
+    if mext.dtype not in ((torch.float32, torch.bfloat16) if dim == 2
+                          else (torch.float32,)):
+        raise TypeError(f"the {dim}D SPMD kernel takes a "
+                        f"{'float32 or bfloat16' if dim == 2 else 'float32'}"
+                        " stack")
     for t in [u, mext] + [t for t in tensors if t is not None]:
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and t is not mext:
             raise TypeError("the SPMD kernels take float32 tensors")
         if t.device != u.device:
             raise ValueError("the shard's tensors lie on different devices")
@@ -379,8 +384,8 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
     the ring x-tiles (``"ring"``, reading ``slabs`` = (xlo, xhi), each (C,
     r, ny), with x borders gated by ``flags`` = (x-lo, x-hi face)) of one
     shard's block (C, nxl, ny), materials from its x-extended stack ``mext``
-    (nm, nxl+2r, ny). Writes those tiles of ``base`` (allocated if None) in
-    place and returns it."""
+    (nm, nxl+2r, ny; float32 or bf16). Writes those tiles of ``base``
+    (allocated if None) in place and returns it."""
     if which not in ("interior", "ring"):
         raise ValueError(f"which={which!r} is not 'interior' or 'ring'")
     ring = which == "ring"
@@ -403,7 +408,8 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
     err = lib.gcm_fused_spmd_2d(
         u.data_ptr(), mext.data_ptr(), base.data_ptr(),
         *([s.data_ptr() for s in slabs] if ring else [None, None]),
-        ix0, ix1, int(ring), ctypes.addressof(params), order, u.device.index,
+        ix0, ix1, int(ring), ctypes.addressof(params), order,
+        int(mext.dtype == torch.bfloat16), u.device.index,
         torch.cuda.current_stream(u.device).cuda_stream)
     _raise(lib, "fused_spmd_2d", err)
     fused_spmd_2d.launches += 1

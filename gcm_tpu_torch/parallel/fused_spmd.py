@@ -163,10 +163,13 @@ def exchange_slabs(blocks: Sequence[torch.Tensor], mesh: DomainMesh, r: int,
 # ------------------------------------------------------------ material layout
 
 def extended_mstack(model: Model, mat: MaterialFields, mesh: DomainMesh,
-                    order: int) -> List[torch.Tensor]:
+                    order: int,
+                    dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
     """Per-shard halo-extended compact stacks ``(nm, nxl+2r, nyl+2r, nz)``
     (3D) or ``(nm, nxl+2r, ny)`` (2D), built once at setup by the slab
-    exchange of the stacked global materials."""
+    exchange of the stacked global materials, rounded to ``dtype`` if given
+    (bf16 only in 2D: the 3D SPMD kernels keep float32 stacks, as in
+    JAX)."""
     r = stencil_radius(order)
     blocks = shard_field(stack_mats(model, mat), mesh, lead=1)
     slabs = exchange_slabs(blocks, mesh, r, dim=model.dim)
@@ -175,15 +178,20 @@ def extended_mstack(model: Model, mat: MaterialFields, mesh: DomainMesh,
         mx = torch.cat([s[0], m, s[1]], dim=1)
         out.append(torch.cat([s[2], mx, s[3]], dim=2) if model.dim == 3
                    else mx)
+    if dtype is not None:
+        out = [m.to(dtype).contiguous() for m in out]
     return out
 
 
 def extended_mstack_2d(model: Model, mat: MaterialFields, mesh: DomainMesh,
-                       order: int) -> List[torch.Tensor]:
-    """The 2D form of :func:`extended_mstack`: x-extended stacks."""
+                       order: int,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> List[torch.Tensor]:
+    """The 2D form of :func:`extended_mstack`: x-extended stacks, float32
+    or (``dtype=torch.bfloat16``) bf16."""
     if model.dim != 2:
         raise ValueError("extended_mstack_2d takes a 2D model")
-    return extended_mstack(model, mat, mesh, order)
+    return extended_mstack(model, mat, mesh, order, dtype)
 
 
 # ------------------------------------------------------------------ the steps

@@ -1,17 +1,22 @@
-"""Named scenarios: the structured single-body configurations and the
-simplex-mesh ones.
+"""Named scenarios: the structured single-body configurations, the
+simplex-mesh ones and the multi-body contact ones.
 
 Counterpart of ``gcm_tpu/scenarios.py`` (registry, ``acoustic1d``,
 ``elastic2d_ps``, ``elastic3d_layered``, ``elastic3d_explosion``,
 ``elastic2d_viscoelastic``, ``simplex2d_canyon_layered``,
-``simplex3d_layered``), with the same names, defaults and parameters. The
-simplex scenarios return a :class:`~gcm_tpu_torch.task.SimplexTask`, run by
-``engine_simplex.SimplexEngine.from_task``.
+``simplex3d_layered``, and the unregistered ``elastic3d_contact`` and
+``elastic2d_basin_refined``), with the same names, defaults and parameters.
+The simplex scenarios return a :class:`~gcm_tpu_torch.task.SimplexTask`,
+run by ``engine_simplex.SimplexEngine.from_task``; the contact scenarios
+return ``(bodies, contacts)`` for ``engine_multi.MultiBodyEngine`` and are
+listed in :data:`MULTI_SCENARIOS`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+import numpy as np
 
 from gcm_tpu_torch.materials import IsotropicMaterial
 from gcm_tpu_torch.solver.correctors import MaxwellCorrector
@@ -151,6 +156,95 @@ def elastic3d_explosion(n: int = 128, nsteps: int = 100) -> Task:
             (L[0] / 4, L[1] / 2, 0.0),
         )),
     )
+
+
+def elastic3d_contact(n: int = 64, nsteps: int = 80):
+    """BASELINE config 4: two 3D elastic bodies bonded along z with a finite
+    tensile strength (fracture), an explosion source in the lower body, a
+    free surface on top. Returns (bodies dict, contacts) for
+    MultiBodyEngine."""
+    from gcm_tpu_torch.solver.contact import ContactSpec
+
+    rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
+    soft = IsotropicMaterial.from_speeds(rho=2000.0, cp=2500.0, cs=1200.0)
+    L = 1000.0
+    nz = max(n // 2, 8)
+    h = L / (n - 1)
+    hz = h
+    grid = GridSpec(shape=(n, n, nz), h=(h, h, hz))
+    f0 = 10.0
+    # body "upper": z in [0, (nz-1)hz] with free surface at z=0
+    upper = Task(
+        name="upper", model="elastic3d", grid=grid, default_material=soft,
+        borders={**{(a, s): BorderSpec("absorbing") for a in (0, 1, 2)
+                    for s in (0, 1)},
+                 (2, 0): BorderSpec("free")},
+        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
+    )
+    # body "lower": continues downward, explosion source inside
+    lower = Task(
+        name="lower", model="elastic3d", grid=grid, default_material=rock,
+        borders={(a, s): BorderSpec("absorbing") for a in (0, 1, 2)
+                 for s in (0, 1)},
+        sources=(RickerSource(
+            position=(L / 2, L / 2, (nz - 1) * hz / 2),
+            components=("sxx", "syy", "szz"),
+            f0=f0, t0=1.2 / f0, amplitude=1.0e10,
+        ),),
+        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
+    )
+    contacts = (ContactSpec("upper", "lower", axis=2, kind="bonded",
+                            tensile_strength=1.0e5, broken_kind="free"),)
+    return {"upper": upper, "lower": lower}, contacts
+
+
+def elastic2d_basin_refined(n: int = 65, nsteps: int = 240):
+    """Non-conforming multi-body: a coarse bedrock half coupled to a basin
+    half meshed at HALF the spacing (h against h/2 interface maps,
+    solver.contact_nc), with a soft sediment layer in the fine body.
+    Returns (bodies dict, contacts) for MultiBodyEngine."""
+    from gcm_tpu_torch.solver.contact import ContactSpec
+
+    rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
+    sediment = IsotropicMaterial.from_speeds(rho=1800.0, cp=1800.0, cs=700.0)
+    L = 1000.0               # each half is L wide, L tall
+    h = L / (n - 1)
+    f0 = 8.0
+    borders = {(a, s): BorderSpec("absorbing") for a in (0, 1)
+               for s in (0, 1)}
+    borders_free_top = {**borders, (1, 1): BorderSpec("free")}
+    bedrock = Task(
+        name="bedrock", model="elastic2d",
+        grid=GridSpec(shape=(n, n), h=(h, h), origin=(0.0, 0.0)),
+        default_material=rock,
+        borders=dict(borders_free_top),
+        sources=(RickerSource(
+            position=(L / 2, L / 3), components=("sxx", "syy"),
+            f0=f0, t0=1.2 / f0, amplitude=1.0e9,
+        ),),
+        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
+    )
+    nb = 2 * (n - 1) + 1     # h/2 spacing over the same extent
+    basin = Task(
+        name="basin", model="elastic2d",
+        grid=GridSpec(shape=(nb, nb), h=(h / 2, h / 2), origin=(L, 0.0)),
+        default_material=rock,
+        materials=(MaterialRegion(
+            AreaLayer(axis=1, lo=0.7 * L, hi=L), sediment),),
+        borders=dict(borders_free_top),
+        detectors=DetectorSpec(points=tuple(
+            (L + x, L) for x in np.linspace(0.1 * L, 0.9 * L, 9))),
+        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
+    )
+    contacts = (ContactSpec("bedrock", "basin", axis=0, kind="bonded"),)
+    return {"bedrock": bedrock, "basin": basin}, contacts
+
+
+#: the multi-body scenarios, by name (not in the single-body registry)
+MULTI_SCENARIOS: Dict[str, Callable] = {
+    "elastic3d_contact": elastic3d_contact,
+    "elastic2d_basin_refined": elastic2d_basin_refined,
+}
 
 
 @register

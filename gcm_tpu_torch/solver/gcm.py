@@ -70,9 +70,32 @@ def step(model: Model, u: torch.Tensor, mat: MaterialFields, dt: float,
     return u
 
 
-def axes_order(dim: int, step_index: int, symmetrize: bool) -> Tuple[int, ...]:
-    """Splitting axis order for a given step (reversed on odd steps)."""
-    fwd = tuple(range(dim))
+def axes_order(dim: int, step_index: int, symmetrize: bool,
+               fwd: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """Splitting axis order for a given step: ``fwd`` (default (0, .., dim-1)),
+    reversed on odd steps."""
+    fwd = tuple(fwd) if fwd is not None else tuple(range(dim))
     if symmetrize and (step_index % 2 == 1):
         return fwd[::-1]
     return fwd
+
+
+def canonical_axes(shape: Sequence[int]) -> Optional[Tuple[int, ...]]:
+    """The splitting order of the JAX package's canonical layout of a 2D or
+    3D grid (``gcm_tpu/engine.py``, ``Engine.__init__``), or None where it
+    does not engage: when the last axis is not a multiple of 128 and
+    another is, that axis goes last, the others keep their order; a 2D grid
+    also needs its new first axis a multiple of 8. The JAX engine stores the
+    state in this order and sweeps it forward; the port sweeps the task
+    layout in this order, the same splitting."""
+    dim = len(shape)
+    if dim not in (2, 3):
+        return None
+    aligned = [j for j in range(dim) if shape[j] % 128 == 0]
+    if shape[-1] % 128 == 0 or not aligned:
+        return None
+    j = aligned[-1]
+    perm = tuple(d for d in range(dim) if d != j) + (j,)
+    if dim == 2 and shape[perm[0]] % 8 != 0:
+        return None
+    return perm

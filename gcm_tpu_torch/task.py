@@ -347,11 +347,11 @@ class DetectorSpec:
 
 # ---------------------------------------------------------------- task
 
-#: knobs of the JAX Task that exist only to work around TPU constraints;
-#: the port keeps the fields so a task carries over, and refuses any value
-#: other than the default
-_TPU_ONLY_DEFAULTS = {"canonical_layout": False, "scan_unroll": 1,
-                      "mat_dtype": "f32", "temporal_block": False}
+#: material stack types of the fused kernels
+MAT_DTYPES = ("f32", "bf16")
+#: knobs of the JAX Task that only tune XLA: the port keeps the field so a
+#: task carries over, and refuses any value other than the default
+_XLA_ONLY_DEFAULTS = {"scan_unroll": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,16 +373,27 @@ class Task:
     symmetrize_stages: bool = True     # reverse axis order on odd steps
     correctors: Tuple = ()             # ODE correctors (solver.correctors)
     kernel: str = "auto"               # "auto" | "torch" | "fused" | "sweep"
+    #: material stack of the fused kernels: "bf16" halves the material
+    #: stream; the kernels upcast at the load and compute in float32
     mat_dtype: str = "f32"
     scan_unroll: int = 1
+    #: run a symmetrized pair of fused steps as one two-step pass when
+    #: nothing happens between them (no sources, correctors or detectors)
     temporal_block: bool = False
+    #: the JAX package's canonical layout, as a splitting order: the axes
+    #: it would store in order (the last 128-aligned axis last when the
+    #: last axis is not aligned), and that order reversed on odd steps; the
+    #: port keeps the task layout in memory
     canonical_layout: bool = False
 
     def __post_init__(self):
         if self.kernel not in KERNELS:
             raise ValueError(f"unknown kernel {self.kernel!r} "
                              f"(expected one of {KERNELS})")
-        for knob, default in _TPU_ONLY_DEFAULTS.items():
+        if self.mat_dtype not in MAT_DTYPES:
+            raise ValueError(f"unknown mat_dtype {self.mat_dtype!r} "
+                             f"(expected one of {MAT_DTYPES})")
+        for knob, default in _XLA_ONLY_DEFAULTS.items():
             if getattr(self, knob) != default:
                 raise ValueError(
                     f"Task.{knob}={getattr(self, knob)!r} is not supported "

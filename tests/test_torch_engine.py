@@ -221,9 +221,25 @@ def test_resolve_kernel():
     ("mat_dtype", "bf16"), ("temporal_block", True),
 ])
 def test_task_rejects_unknown_kernels_and_tpu_knobs(knob, value):
+    """JAX kernel names and the XLA-only scan_unroll are refused; the
+    fused path's knobs are taken and reach the engine: the stack's type,
+    the pair-fused body, the splitting order."""
     task = get_scenario("elastic3d_layered", n=8, nsteps=1)
-    with pytest.raises(ValueError, match=knob if knob != "kernel" else value):
-        dataclasses.replace(task, **{knob: value})
+    if knob in ("kernel", "scan_unroll"):
+        with pytest.raises(ValueError,
+                           match=knob if knob != "kernel" else value):
+            dataclasses.replace(task, **{knob: value})
+        return
+    # a 128-long x axis: the canonical order moves it last
+    grid = dataclasses.replace(task.grid, shape=(128, 8, 8))
+    task = dataclasses.replace(task, grid=grid, kernel="fused",
+                               detectors=None, **{knob: value})
+    eng = Engine(task, device="cpu")
+    reached = {"canonical_layout": eng._fwd == (1, 2, 0),
+               "mat_dtype": eng._mstack.dtype == torch.bfloat16,
+               "temporal_block": eng._pair_fused}
+    assert reached[knob]
+    assert not any(v for k, v in reached.items() if k != knob)
 
 
 def test_task_refuses_orthotropic_media():

@@ -9,8 +9,9 @@ installed, without the repository's conftest:
 Inputs are random heterogeneous problems made from a seeded numpy
 generator, with all four border kinds (and per-node borders on simplex
 meshes); each kernel is held to its plain version
-(``fused_step_reference``, ``fused_step_2d_reference``,
-``solver.gcm.stage``, ``simplex_sweep_reference``) with the per-component
+(``fused_step_reference``, ``fused_step_slab_reference``,
+``fused_step_2d_reference``, ``solver.gcm.stage``,
+``simplex_sweep_reference``) with the per-component
 normalized max error of 2e-6
 that the JAX package holds its TPU kernels to, and the damage aux stream to
 rtol 1e-5, atol 1e-6 (the atol absorbs threshold-crossing knife-edges in
@@ -30,7 +31,8 @@ from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.fused import (
     fold_corrector_specs, fused_step, fused_step_2d, fused_step_2d_reference,
-    fused_step_reference, stack_mats)
+    fused_step_reference, fused_step_slab, fused_step_slab_reference,
+    stack_mats)
 from gcm_tpu_torch.ops.simplex import (
     build_simplex_plan, simplex_sweep, simplex_sweep_reference)
 from gcm_tpu_torch.ops.sweep import sweep_stage
@@ -532,3 +534,166 @@ def test_spmd_kernels_reject_what_they_do_not_take(cuda):
         fs.fused_spmd_interior(model, u, mext, dt, h, 5)
     with pytest.raises(ValueError):
         fs.fused_spmd_2d(model, u, mext, dt, h, 2, which="middle")
+
+
+# ------------------------------------------------- the slab step (K steps)
+
+SLAB_AXES = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7), (9, 17, 2)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("ksteps", [1, 2])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16, shape):
+    """fused_step_slab against its plain version: every sweep order (each
+    second step reversed), float32 and bf16 stacks, ragged extents and
+    extents thinner than the 2r halo; a K = 2 pass is held to 2e-6 a step."""
+    model, u, ms, dt = card_problem(order + 10 * ksteps, "elastic3d", shape,
+                                    cuda)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    h = (10.0, 12.0, 9.0)
+    for ax in SLAB_AXES:
+        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+        before = fused_step_slab.launches
+        got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
+                              axes_seq=seq)
+        torch.cuda.synchronize()
+        assert fused_step_slab.launches == before + 1
+        want = fused_step_slab_reference(model, u, ms, dt, h, order, BORDERS,
+                                         axes_seq=seq)
+        assert norm_err(got, want) < 2e-6 * ksteps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_slab_kernel_folds_correctors_on_card(cuda, bf16):
+    model, u, ms, dt = card_problem(3, "elastic3d", (12, 16, 24), cuda)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    specs, _ = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    h = (10.0, 11.0, 9.0)
+    got, gaux = u, torch.zeros((1, 12, 16, 24), device=cuda)
+    want, waux = u, gaux
+    for n in range(3):
+        axes = (2, 0, 1) if n % 2 == 0 else (1, 0, 2)
+        got, gaux = fused_step_slab(model, got, ms, dt, h, 2, BORDERS, axes,
+                                    correctors=specs, aux=gaux)
+        want, waux = fused_step_slab_reference(model, want, ms, dt, h, 2,
+                                               BORDERS, axes,
+                                               correctors=specs, aux=waux)
+    torch.cuda.synchronize()
+    assert gaux.max().item() > 1e-4
+    assert norm_err(got, want) < 2e-6
+    torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 61), (5, 3)])
+@pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
+@pytest.mark.parametrize("bf16,ksteps", [(True, 1), (False, 2), (True, 2)])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_2d_kernel_bf16_and_two_steps_on_card(cuda, order, bf16, ksteps,
+                                              name, shape):
+    model, u, ms, dt = card_problem(order, name, shape, cuda)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    h = (10.0, 12.0)
+    for ax in ((0, 1), (1, 0)):
+        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+        before = fused_step_2d.launches
+        got = fused_step_2d(model, u, ms, dt, h, order, borders(2),
+                            axes_seq=seq)
+        torch.cuda.synchronize()
+        assert fused_step_2d.launches == before + 1
+        want = fused_step_2d_reference(model, u, ms, dt, h, order,
+                                       borders(2), axes_seq=seq)
+        assert norm_err(got, want) < 2e-6 * ksteps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_spmd_2d_kernel_takes_bf16_stacks_on_card(cuda, order):
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack_2d, face_flags)
+    from gcm_tpu_torch.parallel.sharding import domain_mesh, shard_state
+
+    model, u, mat, dt = card_problem(order, "elastic2d", (400, 61), cuda,
+                                     with_mat=True)
+    mesh = domain_mesh(2, [cuda] * 4)
+    mext = extended_mstack_2d(model, mat, mesh, order, torch.bfloat16)
+    assert all(m.dtype == torch.bfloat16 for m in mext)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, stencil_radius(order), dim=2)
+    for k, uk in enumerate(us):
+        for which in ("interior", "ring"):
+            args = (model, uk, mext[k], dt, (10.0, 12.0), order, borders(2),
+                    (0, 1), which, slabs[k], face_flags(mesh, k)[:2])
+            got = fs.fused_spmd_2d(*args, torch.zeros_like(uk))
+            torch.cuda.synchronize()
+            want = fs.fused_spmd_2d_reference(*args, torch.zeros_like(uk))
+            assert norm_err(got, want) < 2e-6
+
+
+@pytest.mark.gpu
+def test_engine_knobs_take_the_slab_kernel_on_card(cuda):
+    """temporal_block launches the two-step pass once a pair; canonical and
+    bf16 bodies launch fused_step_slab."""
+    task = dataclasses.replace(get_scenario("elastic3d_layered", n=32,
+                                            nsteps=7), detectors=None)
+    before = (fused_step_slab.launches, fused_step.launches)
+    eng = Engine(dataclasses.replace(task, temporal_block=True), device=cuda)
+    got = eng.run()
+    assert eng._pair_fused
+    # 3 two-step passes on the slab kernel, the odd tail step on fused_step
+    assert (fused_step_slab.launches - before[0],
+            fused_step.launches - before[1]) == (3, 1)
+    want = Engine(task, device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
+    b16 = Engine(dataclasses.replace(task, mat_dtype="bf16"), device=cuda)
+    assert b16._mstack.dtype == torch.bfloat16
+    before = fused_step_slab.launches
+    b16.run()
+    assert fused_step_slab.launches == before + 7
+
+
+@pytest.mark.gpu
+def test_contact_engine_on_card(cuda):
+    """The canonical contact path launches the slab kernel once per body and
+    step, and agrees with the plain multi-body path in the same order. Both
+    start from a common, partly broken bond mask, so the face-row fixups
+    act on crack faces from the first step; at n=32 the interface goes into
+    tension from step ~25 and breaks further by step 32."""
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    nsteps = 32
+    bodies, contacts = elastic3d_contact(n=32, nsteps=nsteps)
+    mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+        np.float32)
+    before = (fused_step_slab.launches, fused_step.launches)
+    eng = MultiBodyEngine(bodies, contacts, device=cuda,
+                          canonical_layout=True)
+    eng.bonded = bonded_from_numpy({0: mask}, device=cuda)
+    got = eng.run()
+    assert got.path == "fused_canonical"
+    assert (fused_step_slab.launches - before[0],
+            fused_step.launches - before[1]) == (2 * nsteps, 0)
+    plain = MultiBodyEngine({k: dataclasses.replace(t, kernel="torch")
+                             for k, t in bodies.items()}, contacts,
+                            device=cuda)
+    plain._fwd = eng._fwd
+    plain.bonded = bonded_from_numpy({0: mask}, device=cuda)
+    want = plain.run()
+    for k in got.bodies:
+        assert norm_err(torch.from_numpy(got.bodies[k]),
+                        torch.from_numpy(want.bodies[k])) < 1e-5
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+    assert got.bonded[0].mean() < mask.mean()      # the interface broke

@@ -4,7 +4,8 @@
 - ``chip_smoke.py`` refuses to run without a CUDA device, and, alone in a
   directory, without the package: non-zero exit, no result line.
 - ``python -m gcm_tpu_torch`` lists scenarios and runs one on the CPU,
-  printing its JSON summary, on any ``--kernel`` path and on a ``--mesh``.
+  printing its JSON summary, on any ``--kernel`` path, on a ``--mesh``, and
+  a multi-body contact scenario in the canonical order.
 """
 
 import json
@@ -28,7 +29,9 @@ assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.solver.simplex_gcm", "gcm_tpu_torch.ops.simplex",
         "gcm_tpu_torch.engine_simplex", "gcm_tpu_torch.ops.fused_spmd",
         "gcm_tpu_torch.parallel.sharding", "gcm_tpu_torch.parallel.halo",
-        "gcm_tpu_torch.parallel.fused_spmd"} <= set(names), names
+        "gcm_tpu_torch.parallel.fused_spmd", "gcm_tpu_torch.solver.contact",
+        "gcm_tpu_torch.solver.contact_nc", "gcm_tpu_torch.solver.multi",
+        "gcm_tpu_torch.engine_multi"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -46,7 +49,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 26
+    assert int(proc.stdout.split()[-1]) >= 30
 
 
 def _assert_refused(proc):
@@ -71,11 +74,12 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
 def test_cli_list_and_run_on_cpu():
     proc = _run(["-m", "gcm_tpu_torch", "list"])
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["acoustic1d", "elastic2d_ps",
-                                   "elastic2d_viscoelastic",
-                                   "elastic3d_explosion", "elastic3d_layered",
-                                   "simplex2d_canyon_layered",
-                                   "simplex3d_layered"]
+    assert [line.split()[0] for line in proc.stdout.splitlines()] == [
+        "acoustic1d", "elastic2d_ps", "elastic2d_viscoelastic",
+        "elastic3d_explosion", "elastic3d_layered",
+        "simplex2d_canyon_layered", "simplex3d_layered",
+        "elastic2d_basin_refined", "elastic3d_contact"]
+    assert proc.stdout.count("(multi-body") == 2
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
                  "--n", "12", "--nsteps", "2", "--device", "cpu"])
     assert proc.returncode == 0, proc.stderr
@@ -106,3 +110,19 @@ def test_cli_runs_a_mesh_on_cpu():
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic2d_ps", "--n", "16",
                  "--nsteps", "2", "--device", "cpu", "--mesh", "2,2"])
     assert proc.returncode != 0 and "x only" in proc.stderr
+
+
+def test_cli_runs_a_contact_scenario_on_cpu():
+    proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_contact", "--n",
+                 "12", "--nsteps", "2", "--kernel", "fused", "--device",
+                 "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["path"] == "fused_canonical"
+    assert summary["bonded_mean"] == {"0": 1.0}
+    assert summary["mat_dtype"] == ["f32"] and summary["launches"] == {}
+    proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_contact", "--n",
+                 "12", "--nsteps", "2", "--kernel", "fused", "--device",
+                 "cpu", "--no-canonical-layout"])
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["path"] == \
+        "fused"
