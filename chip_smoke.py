@@ -86,15 +86,34 @@ Phases, each of which raises (exit code != 0) on failure:
 14. the pair-fused body: ``elastic3d_layered`` n=256 without receivers and
    with ``temporal_block=True`` launches the two-step pass once a pair (100
    steps, 50 launches) and agrees with the per-step fused path (under
-   1e-4).
+   1e-4);
+15. orthotropic media (every layer of a scenario made orthotropic by
+   :func:`_orthotropic`, positive definite): each kernel of the structured
+   paths on random heterogeneous orthotropic stacks (13 rows in 3D, 6 in
+   2D) or views against its plain version (under 2e-6 a step), and one
+   float32 step of each fused kernel against the float64 plain step on the
+   fields (under 3e-6); then ``elastic3d_explosion`` n=256 on the fused
+   path (300 steps, ``fused_step`` only, against ``kernel="torch"``, and the
+   anisotropy of its wavefront after ``NSTEPS_ANISO`` steps), the per-sweep
+   path (100 steps against the fused one), ``elastic2d_viscoelastic``
+   n=2048 (300 steps against ``kernel="torch"``, and 100 on sx=4 shards
+   against the unsharded path), the 2x2 sharded path (100 steps, against
+   the unsharded fused path under 2e-6), the bf16 stack (100 steps, through
+   ``fused_step_slab``, against float32 under ``BF16_PATH_TOL``) and
+   ``elastic3d_contact`` n=256 asked for the canonical layout (300 steps,
+   which stays on ``"fused"`` for orthotropic bodies, against the plain
+   multi-body path); each kernel's orthotropic form timed on its path's
+   state.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
 before the last is a JSON object with the kernels' launches on their main
 paths, errors, times and bounds (the least time for the bytes a call must
-move at 3.35 TB/s or its operations at 67 TFLOP/s, whichever is larger);
-the last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}``.
+move at 3.35 TB/s or its operations at 67 TFLOP/s, whichever is larger),
+and for the kernels of the structured paths the same for their orthotropic
+form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
+``ortho_plain_ms``, ``ortho_bound_ms``); the last line is ``{"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 import dataclasses
@@ -140,6 +159,20 @@ BF16_PATH_TOL = 3e-2
 #: runs T_SIMPLEX = 0.08 s of simulated time: ceil(0.08 / dt) steps of the
 #: engine's own dt = 0.6 h_min / 5200 m/s, several hundred (printed).
 N_SIMPLEX, T_SIMPLEX, NSTEPS_SIMPLEX_CMP = 65, 0.08, 100
+#: the orthotropic paths: the per-sweep, sharded, 2D sharded and bf16 runs
+#: take 100 steps; the contact run takes NSTEPS_CONTACT (300), since the
+#: lower body's wave reaches the interface only after ~250 steps.
+NSTEPS_ORTHO_SHORT = 100
+#: the anisotropy check (the recipe of tests/test_orthotropic.py): the
+#: explosion sits at (1000, 1000, 400) m in the orthotropic sediments, whose
+#: P speed is 2394 m/s along x, 2203 m/s along y and 2100 m/s along z; its
+#: Ricker wavelet (f0 = 8 Hz) passes 2% of its peak at ~0.06 s. After 210
+#: steps (0.222 s at dt = 1.058e-3 s) the region where |v| exceeds 2% of its
+#: largest value on the source's horizontal plane reaches ~250 m from the
+#: source along x, short of the free surface 400 m above it and of every
+#: other face (checked). There reach_x / reach_y must lie within 35% of
+#: sqrt(c11 / c22) = 1.087, and reach_x must exceed reach_y.
+NSTEPS_ANISO, ANISO_FRAC, ANISO_TOL = 210, 0.02, 0.35
 BORDER_SET = (
     ((0, 0), "free", None),
     ((0, 1), "absorbing", None),
@@ -556,6 +589,11 @@ B_FUSED3, B_FUSED2, B_SWEEP, B_SIMPLEX = 88, 56, 92, 216
 #: the same with a bf16 material stack: the slab step's 36 + 8 + 36 bytes,
 #: the 2D step's 20 + 8 + 20; a two-step pass moves the bytes of one step
 B_SLAB_BF16, B_FUSED2_BF16 = 80, 48
+#: the same with the orthotropic stacks (13 fields in 3D, 52 bytes in
+#: float32 and 26 in bf16; 6 in 2D) and views (a 3D sweep reads 3 speeds, 3
+#: impedances and 2 ratios)
+B_FUSED3_ORTHO, B_SLAB_BF16_ORTHO, B_FUSED2_ORTHO, B_SWEEP_ORTHO = (
+    124, 98, 64, 104)
 #: the published H100 SXM peaks the bounds are taken against
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 #: flops of one pair update at a point (Lagrange weights, four
@@ -586,9 +624,10 @@ def _bound_entry(nbytes, flops):
     return dict(bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def _spmd_bytes(model, shape, r, which, nm=4):
+def _spmd_bytes(model, shape, r, which, nm):
     """Bytes one SPMD launch must move on a shard of ``shape`` (C, nxl[,
-    nyl], nz or ny): state in and out and materials of its own cells, and,
+    nyl], nz or ny) with a float32 stack of ``nm`` fields (4 compact, 13 or
+    6 orthotropic): state in and out and materials of its own cells, and,
     for the ring, the received slabs and the material stack's halo rows."""
     from gcm_tpu_torch.ops.fused_spmd import (
         TILE_2D, TILE_3D, interior_mask)
@@ -901,7 +940,7 @@ def sharded_paths(counts, result):
     for name, which, ms, plain, e in (
             ("fused_spmd_interior", "interior", t_in, p_in, e_in),
             ("fused_spmd_ring", "ring", t_ring, p_ring, e_ring)):
-        nbytes, cells = _spmd_bytes(model, u0.shape, r, which)
+        nbytes, cells = _spmd_bytes(model, u0.shape, r, which, m0.shape[0])
         bms, by = _bound(nbytes, _step_flops(model, order, cells))
         result[name] = dict(launches=launched[name], max_abs_err=e, ms=ms,
                             plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -996,8 +1035,8 @@ def sharded_paths(counts, result):
     p2 = _time_ms(both(fused_spmd_2d_reference), 10)
     print(f"fused_spmd_2d (interior + ring) at shard {tuple(u2.shape)}: "
           f"kernel {t2:.4f} ms, plain {p2:.4f} ms")
-    nb = sum(_spmd_bytes(m2, u2.shape, r2, w)[0] for w in ("interior",
-                                                           "ring"))
+    nb = sum(_spmd_bytes(m2, u2.shape, r2, w, me2.shape[0])[0]
+             for w in ("interior", "ring"))
     bms, by = _bound(nb, _step_flops(m2, task2.order, u2[0].numel()))
     result["fused_spmd_2d"] = dict(
         launches=launched2["fused_spmd_2d"], max_abs_err=e2, ms=t2,
@@ -1341,6 +1380,591 @@ def pair_fused_path(counts):
           f"{err:.3e} (limit 1e-4)")
 
 
+# ------------------------------------------------------- orthotropic media
+
+def _orthotropic(m):
+    """The orthotropic medium built on the isotropic ``m``: c33 = lam+2mu,
+    c11 = 1.3 c33, c22 = 1.1 c33, c12 = c13 = c23 = lam, c44 = mu,
+    c55 = 1.15 mu, c66 = 1.3 mu. Its 6x6 Voigt matrix must be positive
+    definite."""
+    from gcm_tpu_torch.materials import OrthotropicMaterial
+    from gcm_tpu_torch.oracle.oracle_ortho import _stiffness_matrix
+
+    c33 = m.lam + 2.0 * m.mu
+    o = OrthotropicMaterial(rho=m.rho, c11=1.3 * c33, c12=m.lam, c13=m.lam,
+                            c22=1.1 * c33, c23=m.lam, c33=c33, c44=m.mu,
+                            c55=1.15 * m.mu, c66=1.3 * m.mu)
+    ev = np.linalg.eigvalsh(_stiffness_matrix(o, 3))
+    _check(ev.min() > 0, f"{o} is not positive definite")
+    return o
+
+
+def _orthoize(task):
+    """``task`` with every material region made :func:`_orthotropic`."""
+    return dataclasses.replace(
+        task, default_material=_orthotropic(task.default_material),
+        materials=tuple(dataclasses.replace(r, material=_orthotropic(
+            r.material)) for r in task.materials))
+
+
+def _ortho_problem(rng, shape, name):
+    """Random heterogeneous orthotropic medium (the recipe of
+    tests/test_fused_variants.py) and random float32 state on the card, dt
+    at Courant number 0.5 on the smallest of (10, 12, 9): (model, state,
+    OrthotropicMaterialFields, orthotropic stack, dt)."""
+    from gcm_tpu_torch.materials import OrthotropicMaterialFields
+    from gcm_tpu_torch.models.spec import get_model
+    from gcm_tpu_torch.ops.fused import stack_mats
+
+    model = get_model(name)
+    ones = np.ones(shape)
+    rho = 2500.0 * (1.0 + 0.2 * rng.random(shape))
+    c = {"c11": 60e9 * (1 + 0.1 * rng.random(shape)), "c22": 45e9 * ones,
+         "c33": 70e9 * (1 + 0.1 * rng.random(shape)), "c12": 12e9 * ones,
+         "c13": 10e9 * ones, "c23": 14e9 * ones, "c44": 18e9 * ones,
+         "c55": 22e9 * (1 + 0.1 * rng.random(shape)), "c66": 16e9 * ones}
+    mat = OrthotropicMaterialFields.from_constants(rho, c, device="cuda")
+    u0 = rng.standard_normal((model.ncomp,) + shape)
+    u0[model.dim:] *= 1e6
+    u = torch.tensor(u0, dtype=torch.float32, device="cuda")
+    ms = stack_mats(model, mat)
+    _check(ms.shape[0] == {3: 13, 2: 6}[model.dim],
+           f"{name}: orthotropic stack of {ms.shape[0]} fields")
+    return model, u, mat, ms, 0.5 * 9.0 / mat.max_cp()
+
+
+def ortho_kernels_vs_plain():
+    """Phase 15, first part: every kernel of the structured paths on
+    orthotropic stacks or views against its plain version on the same
+    inputs (under 2e-6 a step), and one float32 step of each fused kernel
+    against the float64 plain step on the fields (under 3e-6, the JAX
+    limit: the stack's v = sqrt(c/rho) rounds in float32)."""
+    from gcm_tpu_torch.ops.fused import (
+        fused_step, fused_step_2d, fused_step_2d_reference,
+        fused_step_reference, fused_step_slab, fused_step_slab_reference)
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_interior,
+        fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, extended_mstack_2d, face_flags,
+        make_fused_spmd_step, make_fused_spmd_step_2d)
+    from gcm_tpu_torch.parallel.sharding import (
+        domain_mesh, gather_state, shard_state)
+    from gcm_tpu_torch.solver.gcm import stage, step
+
+    rng = np.random.default_rng(6)
+    h3 = (10.0, 12.0, 9.0)
+    dev = torch.device("cuda", 0)
+    worst, nlaunch = {}, {}
+
+    def hold(kernel, tag, got, want, steps=1):
+        err = _norm_err(got, want)
+        _check(err < 2e-6 * steps,
+               f"{kernel} on an orthotropic stack, {tag}: err {err:.3e}")
+        worst[kernel] = max(worst.get(kernel, 0.0), err / steps)
+        nlaunch[kernel] = nlaunch.get(kernel, 0) + 1
+
+    def exact(kernel, tag, got, model, u, mat, dt, h, order, bc, axes):
+        """A float32 kernel step against the float64 plain step."""
+        want = step(model, u.double(), _mat_as(mat, torch.float64), dt, h,
+                    order, bc, axes)
+        err = _norm_err(got.double(), want)
+        _check(err < 3e-6, f"{kernel} orthotropic {tag} vs the float64 "
+               f"plain step: err {err:.3e}")
+        key = kernel + " vs float64"
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for shape in ((24, 40, 56), (64, 64, 32)):
+        for order in (1, 2, 3):
+            for axes in ((0, 1, 2), (2, 1, 0)):
+                model, u, mat, ms, dt = _ortho_problem(rng, shape,
+                                                       "elastic3d")
+                args = (model, u, ms, dt, h3, order, _borders(3), axes)
+                got = fused_step(*args)
+                torch.cuda.synchronize()
+                tag = f"{shape} order {order} axes {axes}"
+                hold("fused_step", tag, got, fused_step_reference(*args))
+                exact("fused_step", tag, got, model, u, mat, dt, h3, order,
+                      _borders(3), axes)
+
+    for shape in ((24, 40, 56), (9, 17, 2)):
+        for order in (1, 2, 3, 4):
+            model, u, mat, ms, dt = _ortho_problem(rng, shape, "elastic3d")
+            for stack in (ms, ms.to(torch.bfloat16)):
+                for ax in ((0, 1, 2), (2, 1, 0), (2, 0, 1)):
+                    for seq in ((ax,), (ax, ax[::-1])):
+                        args = (model, u, stack, dt, h3, order, _borders(3))
+                        got = fused_step_slab(*args, axes_seq=seq)
+                        torch.cuda.synchronize()
+                        tag = f"{shape} order {order} {stack.dtype} {seq}"
+                        hold("fused_step_slab", tag, got,
+                             fused_step_slab_reference(*args, axes_seq=seq),
+                             len(seq))
+                        if stack is ms and len(seq) == 1:
+                            exact("fused_step_slab", tag, got, model, u, mat,
+                                  dt, h3, order, _borders(3), ax)
+
+    for shape in ((37, 61), (64, 128)):
+        for order in (1, 2, 3, 4):
+            model, u, mat, ms, dt = _ortho_problem(rng, shape, "elastic2d")
+            for stack, k in ((ms, 1), (ms.to(torch.bfloat16), 1), (ms, 2),
+                             (ms.to(torch.bfloat16), 2)):
+                for ax in ((0, 1), (1, 0)):
+                    seq = (ax,) if k == 1 else (ax, ax[::-1])
+                    args = (model, u, stack, dt, h3[:2], order, _borders(2))
+                    got = fused_step_2d(*args, axes_seq=seq)
+                    torch.cuda.synchronize()
+                    tag = f"{shape} order {order} {stack.dtype} {seq}"
+                    hold("fused_step_2d", tag, got,
+                         fused_step_2d_reference(*args, axes_seq=seq), k)
+                    if stack is ms and k == 1:
+                        exact("fused_step_2d", tag, got, model, u, mat, dt,
+                              h3[:2], order, _borders(2), ax)
+
+    for name, shape in (("elastic3d", (24, 40, 56)), ("elastic2d", (37, 61))):
+        for order in (1, 2, 3, 4):
+            model, u, mat, _, dt = _ortho_problem(rng, shape, name)
+            for axis in range(model.dim):
+                args = (model, u, mat, dt, h3[:model.dim], axis, order,
+                        _borders(model.dim))
+                got = sweep_stage(*args)
+                torch.cuda.synchronize()
+                hold("sweep_stage", f"{name} axis {axis} order {order}", got,
+                     stage(*args))
+
+    # the SPMD kernels on 2x2 (3D) and sx = 2 (2D) shards of cuda:0
+    for shape, order, axes in (((64, 48, 16), 1, (0, 1, 2)),
+                               ((64, 48, 16), 2, (2, 1, 0)),
+                               ((50, 38, 20), 3, (0, 1, 2)),
+                               ((50, 38, 20), 2, (2, 1, 0))):
+        model, u, mat, ms, dt = _ortho_problem(rng, shape, "elastic3d")
+        mesh = domain_mesh(3, [dev] * 4, (2, 2))
+        mext = extended_mstack(model, mat, mesh, order)
+        _check(all(m.shape[0] == 13 for m in mext),
+               "the orthotropic extended stacks are not 13 fields")
+        us = shard_state(u, mesh)
+        slabs = exchange_slabs(us, mesh, stencil_radius(order))
+        bc = _borders(3)
+        tag = f"{shape} order {order} axes {axes}"
+        for k, uk in enumerate(us):
+            args = (model, uk, mext[k], dt, h3, order, bc, axes)
+            got = fused_spmd_interior(*args, out=torch.zeros_like(uk))
+            rargs = (model, uk, mext[k], slabs[k], face_flags(mesh, k),
+                     torch.zeros_like(uk), dt, h3, order, bc, axes)
+            ring = fused_spmd_ring(*rargs)
+            torch.cuda.synchronize()
+            hold("fused_spmd_interior", f"{tag} shard {k}", got,
+                 fused_spmd_interior_reference(*args,
+                                               out=torch.zeros_like(uk)))
+            hold("fused_spmd_ring", f"{tag} shard {k}", ring,
+                 fused_spmd_ring_reference(*rargs))
+        got = gather_state(make_fused_spmd_step(model, mesh, dt, h3, order,
+                                                bc)(us, mext, axes), mesh)
+        hold("sharded 3D step", tag, got,
+             fused_step_reference(model, u, ms, dt, h3, order, bc, axes))
+        exact("sharded 3D step", tag, got, model, u, mat, dt, h3, order, bc,
+              axes)
+
+    for order in (1, 2, 3, 4):
+        for bf16 in (False, True):
+            model, u, mat, ms, dt = _ortho_problem(rng, (512, 70),
+                                                   "elastic2d")
+            mesh = domain_mesh(2, [dev] * 2)
+            mext = extended_mstack_2d(model, mat, mesh, order,
+                                      torch.bfloat16 if bf16 else None)
+            _check(all(m.shape[0] == 6 for m in mext),
+                   "the orthotropic 2D extended stacks are not 6 fields")
+            us = shard_state(u, mesh)
+            slabs = exchange_slabs(us, mesh, stencil_radius(order), dim=2)
+            bc = _borders(2)
+            tag = f"order {order} bf16 {bf16}"
+            for k, uk in enumerate(us):
+                for which in ("interior", "ring"):
+                    args = (model, uk, mext[k], dt, h3[:2], order, bc,
+                            (0, 1), which, slabs[k], face_flags(mesh, k)[:2])
+                    got = fused_spmd_2d(*args, torch.zeros_like(uk))
+                    torch.cuda.synchronize()
+                    hold("fused_spmd_2d", f"{which} {tag} shard {k}", got,
+                         fused_spmd_2d_reference(*args,
+                                                 torch.zeros_like(uk)))
+            if not bf16:
+                got = gather_state(make_fused_spmd_step_2d(
+                    model, mesh, dt, h3[:2], order, bc)(us, mext, (0, 1)),
+                    mesh)
+                hold("sharded 2D step", tag, got, fused_step_reference(
+                    model, u, ms, dt, h3[:2], order, bc, (0, 1)))
+                exact("sharded 2D step", tag, got, model, u, mat, dt,
+                      h3[:2], order, bc, (0, 1))
+
+    for kernel, n in nlaunch.items():
+        f64 = worst.get(kernel + " vs float64")
+        print(f"{kernel} on orthotropic stacks vs plain: {n} cases, worst "
+              f"normalized error a step {worst[kernel]:.3e} (limit 2e-6)"
+              + ("" if f64 is None else f"; float32 vs the float64 plain "
+                 f"step on the fields {f64:.3e} (limit 3e-6)"))
+
+
+def _ortho_entry(result, name, launches, max_abs, ms, plain_ms, nbytes,
+                 flops):
+    """The orthotropic form's keys in kernel ``name``'s JSON entry."""
+    result[name].update(ortho_launches=launches, ortho_max_abs_err=max_abs,
+                        ortho_ms=ms, ortho_plain_ms=plain_ms,
+                        ortho_bound_ms=_bound(nbytes, flops)[0])
+    print(f"{name} orthotropic: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {result[name]['ortho_bound_ms']:.4f} ms; isotropic kernel "
+          f"{result[name]['ms']:.4f} ms")
+
+
+def ortho_paths(counts, result):
+    """Phase 15, second part: the orthotropic paths at full width, each
+    kernel's orthotropic form held and timed on its path's own state. The
+    kernels are the ones the isotropic phases built and warmed, so no run
+    here is warmed."""
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.materials import OrthotropicMaterialFields
+    from gcm_tpu_torch.ops.fused import (
+        fused_step, fused_step_2d, fused_step_2d_reference,
+        fused_step_reference, fused_step_slab, fused_step_slab_reference)
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_interior,
+        fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs, face_flags
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+    from gcm_tpu_torch.scenarios import elastic3d_contact, get_scenario
+    from gcm_tpu_torch.solver.gcm import stage
+
+    dev = torch.device("cuda", 0)
+
+    def steps_of(task, n, **kw):
+        return dataclasses.replace(task, time=dataclasses.replace(
+            task.time, nsteps=n), **kw)
+
+    # ---- the 3D orthotropic path
+    task = _orthoize(get_scenario("elastic3d_explosion", n=N_MAIN,
+                                  nsteps=NSTEPS))
+    eng = Engine(task, device="cuda")
+    _check(isinstance(eng.mat, OrthotropicMaterialFields)
+           and eng._mstack.shape[0] == 13,
+           "the orthotropic 3D path does not carry a 13-field stack")
+    counts.zero()
+    res = eng.run()
+    launched = counts.read()
+    _check(res.kernel == "fused", f"ortho 3D path resolved to {res.kernel!r}")
+    counts.expect("orthotropic 3D path", launched, fused_step=NSTEPS)
+    _check(np.isfinite(res.u).all() and np.isfinite(res.traces).all(),
+           "orthotropic 3D path: state or traces not finite")
+    vz_surface = np.abs(res.u[eng.model.comp("vz"), :, :, 0]).max()
+    _check(vz_surface > 0 and np.abs(res.traces).max() > 0,
+           "orthotropic 3D path: no motion at the free surface or zero "
+           "traces")
+    res_t = Engine(dataclasses.replace(task, kernel="torch"),
+                   device="cuda").run()
+    err = _np_err(res.u, res_t.u)
+    _check(err < PATH_TOL, f"ortho fused vs torch path: err {err:.3e}")
+    print(f"orthotropic 3D path {task.grid.shape} x {NSTEPS} steps: fused "
+          f"{res.points_per_second:.6g} points/s, torch "
+          f"{res_t.points_per_second:.6g} points/s; normalized error "
+          f"{err:.3e} (limit 1e-4); |vz| at z=0 {vz_surface:.3e}; "
+          f"{launched['fused_step']} fused_step launches")
+    model, h, order, bc = eng.model, task.grid.h, task.order, task.borders
+    npts = int(np.prod(task.grid.shape))
+    flops = _step_flops(model, order, npts)
+    args = (model, eng.u, eng._mstack, eng.dt, h, order, bc, (0, 1, 2))
+    *_, max_abs = _hold_on_path_state("fused_step on the orthotropic 3D "
+                                      "state", fused_step,
+                                      fused_step_reference, args)
+    _ortho_entry(result, "fused_step", launched["fused_step"], max_abs,
+                 _time_ms(lambda: fused_step(*args), 20),
+                 _time_ms(lambda: fused_step_reference(*args), 5),
+                 B_FUSED3_ORTHO * npts, flops)
+
+    # the per-sweep kernel on the same state, through views computed once
+    views = eng._sweep_mat
+    sw_ms, sw_plain, sw_err = [], [], 0.0
+    for axis in range(3):
+        a = (model, eng.u, eng.mat, eng.dt, h, axis, order, bc)
+        *_, e = _hold_on_path_state(
+            f"sweep_stage on the orthotropic 3D state, axis {axis}",
+            lambda m, u, _mat, *rest: sweep_stage(m, u, views, *rest),
+            lambda m, u, mat, *rest: stage(m, u, _mat_as(mat, u.dtype),
+                                           *rest), a)
+        sw_err = max(sw_err, e)
+        sw_ms.append(_time_ms(lambda: sweep_stage(model, eng.u, views,
+                                                  *a[3:]), 20))
+        sw_plain.append(_time_ms(lambda: stage(*a), 5))
+    del eng, res, res_t, args, views
+
+    # ---- anisotropy: the wavefront on the source's horizontal plane
+    ta = steps_of(task, NSTEPS_ANISO)
+    resa = Engine(ta, device="cuda").run()
+    i, j, k = ta.grid.index_of(ta.sources[0].position)
+    vmag = np.sqrt((resa.u[:3].astype(np.float64) ** 2).sum(0))
+    thresh = ANISO_FRAC * vmag[:, :, k].max()
+    faces = max(vmag[(slice(None),) * a + (e,)].max()
+                for a in range(3) for e in (0, -1))
+    _check(faces < thresh, f"anisotropy check: after {NSTEPS_ANISO} steps "
+           f"|v| {faces:.3e} at a border exceeds the front level {thresh:.3e}")
+    reach_x = np.abs(np.nonzero(vmag[:, j, k] > thresh)[0] - i).max()
+    reach_y = np.abs(np.nonzero(vmag[i, :, k] > thresh)[0] - j).max()
+    src = task.default_material      # the last region holding the source
+    for region in task.materials:
+        if region.area.mask(task.grid)[i, j, k]:
+            src = region.material
+    want = float(np.sqrt(src.c11 / src.c22))
+    ratio = reach_x / reach_y
+    _check(reach_x > reach_y and abs(ratio - want) <= ANISO_TOL * want,
+           f"anisotropy: reach x {reach_x}, y {reach_y} cells, ratio "
+           f"{ratio:.4f}, sqrt(c11/c22) {want:.4f}")
+    print(f"orthotropic anisotropy after {NSTEPS_ANISO} steps "
+          f"({NSTEPS_ANISO * resa.dt:.4f} s): the front at {ANISO_FRAC} of "
+          f"max|v| reaches {reach_x} cells along x and {reach_y} along y "
+          f"from the source, ratio {ratio:.4f} against sqrt(c11/c22) "
+          f"{want:.4f} (rtol {ANISO_TOL}); largest |v| on a border "
+          f"{faces / thresh:.3f} of the front level")
+    del resa, vmag
+
+    # ---- the per-sweep orthotropic path, against the fused one
+    t100 = steps_of(task, NSTEPS_ORTHO_SHORT)
+    eng7 = Engine(dataclasses.replace(t100, kernel="sweep"), device="cuda")
+    counts.zero()
+    res7 = eng7.run()
+    launched7 = counts.read()
+    counts.expect("orthotropic sweep path", launched7,
+                  sweep_stage=3 * NSTEPS_ORTHO_SHORT)
+    res_f = Engine(t100, device="cuda").run()
+    err7 = _np_err(res7.u, res_f.u)
+    _check(err7 < PATH_TOL, f"ortho sweep vs fused path: err {err7:.3e}")
+    print(f"orthotropic sweep path x {NSTEPS_ORTHO_SHORT} steps: "
+          f"{res7.points_per_second:.6g} points/s (fused "
+          f"{res_f.points_per_second:.6g}); {launched7['sweep_stage']} "
+          f"sweep_stage launches; vs fused normalized error {err7:.3e} "
+          f"(limit 1e-4)")
+    _ortho_entry(result, "sweep_stage", launched7["sweep_stage"], sw_err,
+                 float(np.mean(sw_ms)), float(np.mean(sw_plain)),
+                 B_SWEEP_ORTHO * npts, flops / 3)
+    del eng7, res7
+
+    # ---- the sharded orthotropic path (2x2 shards of cuda:0)
+    mesh4 = domain_mesh(3, [dev] * 4, (2, 2))
+    eng4 = Engine(t100, mesh=mesh4)
+    _check(all(m.shape[0] == 13 for m in eng4._carry),
+           "the sharded orthotropic path's stacks are not 13 fields")
+    counts.zero()
+    res4 = eng4.run()
+    launched4 = counts.read()
+    counts.expect("orthotropic sharded path", launched4,
+                  fused_spmd_interior=4 * NSTEPS_ORTHO_SHORT,
+                  fused_spmd_ring=4 * NSTEPS_ORTHO_SHORT)
+    err4 = _np_err(res4.u, res_f.u)
+    _check(err4 < 2e-6, f"ortho sharded vs unsharded: err {err4:.3e}")
+    print(f"orthotropic sharded path 2x2 x {NSTEPS_ORTHO_SHORT} steps: "
+          f"{res4.points_per_second:.6g} points/s; "
+          f"{launched4['fused_spmd_interior']} interior + "
+          f"{launched4['fused_spmd_ring']} ring launches, 0 fused_step; vs "
+          f"unsharded fused normalized error {err4:.3e} (limit 2e-6), max "
+          f"|difference| {np.abs(res4.u - res_f.u).max():.3e}")
+    r = stencil_radius(order)
+    u0, m0 = eng4.u[0], eng4._carry[0]
+    slabs = exchange_slabs(eng4.u, mesh4, r)
+    f0 = face_flags(mesh4, 0)
+    iargs = (model, u0, m0, eng4.dt, h, order, bc, (0, 1, 2))
+    *_, e_in = _hold_on_path_state(
+        "fused_spmd_interior on an orthotropic shard",
+        lambda *a: fused_spmd_interior(*a, out=torch.zeros_like(u0)),
+        lambda *a: fused_spmd_interior_reference(
+            *a, out=torch.zeros_like(a[1])), iargs)
+    rargs = (model, u0, m0, slabs[0], f0)
+    rrest = iargs[3:]
+    *_, e_ring = _hold_on_path_state(
+        "fused_spmd_ring on an orthotropic shard",
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring(
+            m, u, me, sl, f, torch.zeros_like(u), *rest),
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring_reference(
+            m, u, me, tuple(x.to(u.dtype) for x in sl), f,
+            torch.zeros_like(u), *rest), rargs + rrest)
+    base = torch.zeros_like(u0)
+    for name, which, e, kern, ref in (
+            ("fused_spmd_interior", "interior", e_in,
+             lambda: fused_spmd_interior(*iargs, out=base),
+             lambda: fused_spmd_interior_reference(*iargs, out=base)),
+            ("fused_spmd_ring", "ring", e_ring,
+             lambda: fused_spmd_ring(*rargs, base, *rrest),
+             lambda: fused_spmd_ring_reference(*rargs, base, *rrest))):
+        nbytes, cells = _spmd_bytes(model, u0.shape, r, which, m0.shape[0])
+        _ortho_entry(result, name, launched4[name], e, _time_ms(kern, 50),
+                     _time_ms(ref, 5), nbytes,
+                     _step_flops(model, order, cells))
+    del eng4, res4, u0, m0, slabs, base
+
+    # ---- the bf16 orthotropic stack, through fused_step_slab
+    eng16 = Engine(dataclasses.replace(t100, mat_dtype="bf16"), device="cuda")
+    counts.zero()
+    res16 = eng16.run()
+    launched16 = counts.read()
+    counts.expect("orthotropic bf16 path", launched16,
+                  fused_step_slab=NSTEPS_ORTHO_SHORT)
+    dev16 = _np_err(res16.u, res_f.u)
+    _check(0.0 < dev16 < BF16_PATH_TOL,
+           f"ortho bf16 vs float32 path: deviation {dev16:.3e}")
+    print(f"orthotropic bf16 path x {NSTEPS_ORTHO_SHORT} steps: "
+          f"{res16.points_per_second:.6g} points/s (float32 "
+          f"{res_f.points_per_second:.6g}); deviation from the float32 run "
+          f"{dev16:.3e} (limit {BF16_PATH_TOL})")
+    ms16 = eng16._mstack
+    for tag, stack, seq in (("bf16 K=1", ms16, ((0, 1, 2),)),
+                            ("bf16 K=2", ms16, ((0, 1, 2), (2, 1, 0)))):
+        a = (model, eng16.u, stack, eng16.dt, h, order, bc)
+        *_, e = _hold_on_path_state(
+            f"fused_step_slab {tag} on the orthotropic bf16 state",
+            fused_step_slab, fused_step_slab_reference, a,
+            dict(axes_seq=seq), steps=len(seq))
+        t = _time_ms(lambda: fused_step_slab(*a, axes_seq=seq), 20)
+        p = _time_ms(lambda: fused_step_slab_reference(*a, axes_seq=seq), 3)
+        if len(seq) == 1:
+            _ortho_entry(result, "fused_step_slab",
+                         launched16["fused_step_slab"], e, t, p,
+                         B_SLAB_BF16_ORTHO * npts, flops)
+        else:
+            print(f"fused_step_slab orthotropic {tag}: kernel {t:.4f} ms a "
+                  f"launch ({t / 2:.4f} a step), plain {p:.4f} ms")
+    del eng16, res16, res_f, ms16
+
+    # ---- the 2D orthotropic path, and on sx = 4 shards
+    task2 = _orthoize(get_scenario("elastic2d_viscoelastic", n=N_2D,
+                                   nsteps=NSTEPS_2D_CMP))
+    eng2 = Engine(task2, device="cuda")
+    _check(eng2._mstack.shape[0] == 6,
+           "the orthotropic 2D path does not carry a 6-field stack")
+    counts.zero()
+    res2 = eng2.run()
+    launched2 = counts.read()
+    counts.expect("orthotropic 2D path", launched2,
+                  fused_step_2d=NSTEPS_2D_CMP)
+    # (its receiver, 250 m from the source, hears the wave only after
+    # ~1000 steps, so the state is checked, not the traces)
+    _check(np.isfinite(res2.u).all() and np.abs(res2.u).max() > 0,
+           "orthotropic 2D path: state not finite or zero")
+    res2t = Engine(dataclasses.replace(task2, kernel="torch"),
+                   device="cuda").run()
+    err2 = _np_err(res2.u, res2t.u)
+    _check(err2 < PATH_TOL, f"ortho 2D fused vs torch: err {err2:.3e}")
+    print(f"orthotropic 2D path {task2.grid.shape} x {NSTEPS_2D_CMP} steps: "
+          f"fused {res2.points_per_second:.6g} points/s, torch "
+          f"{res2t.points_per_second:.6g} points/s; normalized error "
+          f"{err2:.3e} (limit 1e-4); {launched2['fused_step_2d']} "
+          f"fused_step_2d launches")
+    m2, h2, o2, bc2 = eng2.model, task2.grid.h, task2.order, task2.borders
+    npts2 = int(np.prod(task2.grid.shape))
+    args2 = (m2, eng2.u, eng2._mstack, eng2.dt, h2, o2, bc2, (0, 1))
+    *_, e2 = _hold_on_path_state("fused_step_2d on the orthotropic 2D state",
+                                 fused_step_2d, fused_step_2d_reference,
+                                 args2)
+    _ortho_entry(result, "fused_step_2d", launched2["fused_step_2d"], e2,
+                 _time_ms(lambda: fused_step_2d(*args2), 50),
+                 _time_ms(lambda: fused_step_2d_reference(*args2), 10),
+                 B_FUSED2_ORTHO * npts2, _step_flops(m2, o2, npts2))
+    del eng2, res2, res2t, args2
+
+    t2s = steps_of(task2, NSTEPS_ORTHO_SHORT)
+    mesh2 = domain_mesh(2, [dev] * 4)
+    eng2s = Engine(t2s, mesh=mesh2)
+    counts.zero()
+    res2s = eng2s.run()
+    launched2s = counts.read()
+    counts.expect("orthotropic sharded 2D path", launched2s,
+                  fused_spmd_2d=2 * 4 * NSTEPS_ORTHO_SHORT)
+    _check(fused_spmd_2d.ring_launches == 4 * NSTEPS_ORTHO_SHORT,
+           f"ortho sharded 2D: {fused_spmd_2d.ring_launches} ring launches")
+    res2u = Engine(t2s, device="cuda").run()
+    err2s = _np_err(res2s.u, res2u.u)
+    _check(err2s < PATH_TOL, f"ortho sharded vs unsharded 2D: {err2s:.3e}")
+    print(f"orthotropic sharded 2D path on sx=4 x {NSTEPS_ORTHO_SHORT} "
+          f"steps: {res2s.points_per_second:.6g} points/s (unsharded "
+          f"{res2u.points_per_second:.6g}); "
+          f"{launched2s['fused_spmd_2d']} fused_spmd_2d launches; vs "
+          f"unsharded normalized error {err2s:.3e} (limit 1e-4)")
+    r2 = stencil_radius(o2)
+    u2, me2 = eng2s.u[1], eng2s._carry[1]
+    sl2 = exchange_slabs(eng2s.u, mesh2, r2, dim=2)[1]
+    f21 = face_flags(mesh2, 1)[:2]
+    a2 = (m2, u2, me2, eng2s.dt, h2, o2, bc2, (0, 1))
+    e2s = 0.0
+    for which in ("interior", "ring"):
+        *_, e = _hold_on_path_state(
+            f"fused_spmd_2d {which} on an orthotropic 2D shard",
+            lambda *a, w=which: fused_spmd_2d(*a, w, sl2, f21,
+                                              torch.zeros_like(u2)),
+            lambda *a, w=which: fused_spmd_2d_reference(
+                *a, w, tuple(x.to(a[1].dtype) for x in sl2), f21,
+                torch.zeros_like(a[1])), a2)
+        e2s = max(e2s, e)
+    b2 = torch.zeros_like(u2)
+
+    def both(fn):
+        return lambda: [fn(*a2, w, sl2, f21, b2) for w in ("interior",
+                                                            "ring")]
+
+    nb2 = sum(_spmd_bytes(m2, u2.shape, r2, w, me2.shape[0])[0]
+              for w in ("interior", "ring"))
+    _ortho_entry(result, "fused_spmd_2d", launched2s["fused_spmd_2d"], e2s,
+                 _time_ms(both(fused_spmd_2d), 50),
+                 _time_ms(both(fused_spmd_2d_reference), 10), nb2,
+                 _step_flops(m2, o2, u2[0].numel()))
+    del eng2s, res2s, res2u, u2, me2, sl2, b2
+
+    # ---- orthotropic contact: the canonical layout stays off
+    bodies, contacts = elastic3d_contact(n=N_CONTACT, nsteps=NSTEPS_CONTACT)
+    bodies = {k: _orthoize(t) for k, t in bodies.items()}
+    engc = MultiBodyEngine(bodies, contacts, device="cuda",
+                           canonical_layout=True)
+    _check(engc.path == "fused" and engc._fwd == (0, 1, 2)
+           and all(m.shape[0] == 13 for m in engc._mstacks.values()),
+           f"orthotropic contact path {engc.path!r}, order {engc._fwd}")
+    counts.zero()
+    resc = engc.run()
+    counts.expect("orthotropic contact path", counts.read(),
+                  fused_step=2 * NSTEPS_CONTACT)
+    v_up = float(np.abs(resc.bodies["upper"][:3]).max())
+    _check(all(np.isfinite(v).all() for v in resc.bodies.values())
+           and v_up > 0, "orthotropic contact path: state not finite or "
+           "the upper body did not move")
+    plain = {k: dataclasses.replace(t, kernel="torch")
+             for k, t in bodies.items()}
+    refc = MultiBodyEngine(plain, contacts, device="cuda").run()
+    errc = _bodies_err(resc, refc)
+    ndiff = int((resc.bonded[0] != refc.bonded[0]).sum())
+    if ndiff:
+        # as on the isotropic contact path: a cell within round-off of the
+        # strength may break in one version only; then the state is held
+        # without fracture and the masks to 0.1% of the cells
+        free = tuple(dataclasses.replace(c, tensile_strength=None)
+                     for c in contacts)
+        errc = _bodies_err(
+            MultiBodyEngine(bodies, free, device="cuda").run(),
+            MultiBodyEngine(plain, free, device="cuda").run())
+        print(f"  {ndiff} mask cells differ; without fracture the two paths "
+              f"agree to {errc:.3e}")
+    _check(errc < PATH_TOL and ndiff <= 0.001 * resc.bonded[0].size,
+           f"ortho contact vs plain: err {errc:.3e}, {ndiff} mask cells "
+           "differ")
+    npc = sum(int(np.prod(t.grid.shape)) for t in bodies.values())
+    print(f"orthotropic contact path 2 x {bodies['upper'].grid.shape} x "
+          f"{NSTEPS_CONTACT} steps, canonical_layout=True -> path "
+          f"{engc.path!r}, order {engc._fwd}: {resc.points_per_second:.6g} "
+          f"points/s ({npc} points), {2 * NSTEPS_CONTACT} fused_step "
+          f"launches; upper body max|v| {v_up:.4e}; bond mask mean "
+          f"{resc.bonded[0].mean():.6f}; vs the plain path "
+          f"({refc.points_per_second:.6g} points/s) normalized error "
+          f"{errc:.3e} (limit 1e-4), mask cells that differ {ndiff}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1588,6 +2212,12 @@ def main() -> int:
     contact_paths(counts, result)
     phase("pair-fused path")
     pair_fused_path(counts)
+
+    # ---- 15. orthotropic media
+    phase("orthotropic kernels vs plain")
+    ortho_kernels_vs_plain()
+    phase("orthotropic paths")
+    ortho_paths(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

@@ -1,7 +1,8 @@
 """Carry state of the JAX reference across to the port, through numpy.
 
 Both packages then start from identical parameters: the six leaves of a
-``gcm_tpu`` ``MaterialFields`` (structured or per node), a state array, an
+``gcm_tpu`` ``MaterialFields`` (structured or per node) or the ten of an
+``OrthotropicMaterialFields``, a state array, an
 engine's corrector aux fields, on simplex meshes the foot tables and
 ``NodeBorders``, and for multi-body runs the contacts' bond masks and
 non-conforming interface maps, handed over as numpy arrays (``np.asarray``
@@ -15,9 +16,11 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.materials import MaterialFields, OrthotropicMaterialFields
 
 MATERIAL_LEAVES = ("cp", "cs", "zp", "zs", "kappa", "rho")
+ORTHO_LEAVES = ("rho", "c11", "c12", "c13", "c22", "c23", "c33", "c44",
+                "c55", "c66")
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -31,6 +34,15 @@ def material_fields_from_numpy(d: Mapping[str, np.ndarray], device="cpu",
     kappa, rho`` given as numpy arrays (taken as they are, not re-derived)."""
     return MaterialFields(**{k: _tensor(d[k], device, dtype)
                              for k in MATERIAL_LEAVES})
+
+
+def ortho_material_fields_from_numpy(d: Mapping[str, np.ndarray],
+                                     device="cpu", dtype=torch.float32
+                                     ) -> OrthotropicMaterialFields:
+    """The port's OrthotropicMaterialFields from the ten leaves ``rho, c11
+    .. c66`` given as numpy arrays (taken as they are)."""
+    return OrthotropicMaterialFields(**{k: _tensor(d[k], device, dtype)
+                                        for k in ORTHO_LEAVES})
 
 
 def state_from_numpy(u: np.ndarray, device="cpu",

@@ -14,7 +14,9 @@
 // writes 9 components, about 88 bytes against 3.35 TB/s (96 with a damage
 // corrector); the ring launch adds the halo slabs it reads, 2r rows of the
 // shard's x and y faces (C * r * 2 (nyl + nxl + 2r) * nz floats), and the
-// halo extension of the material stack.
+// halo extension of the material stack. An orthotropic extended stack has
+// 13 fields instead of 4 (124 bytes a point), read through the same
+// per-pair and per-zero stack rows of the parameters.
 //
 // What the design does about it:
 // - The shard's block is cut into TX x TY x TZ output tiles (the last ones

@@ -13,7 +13,7 @@
 // shard elastic2d reads 5 state components and 4 material fields and writes
 // 5 components, about 56 bytes against 3.35 TB/s; the ring launch adds its
 // two r-row x slabs (C * 2r * ny floats) and the halo rows of the material
-// stack.
+// stack. An orthotropic stack has 6 fields instead of 4 (64 bytes a point).
 //
 // What the design does about it:
 // - The shard's block (nxl, ny) is cut into TX2 x TY2 tiles; y, the

@@ -16,6 +16,9 @@
 // kappa) and writes 5 components: 36 bytes in, 20 bytes out, 56 bytes
 // against 3.35 TB/s, ~60 Gpoints/s at the roofline (a damage corrector
 // adds 4 bytes in and 4 out); a bf16 stack makes it 20 + 8 + 20 = 48 bytes.
+// The orthotropic stack (v11, v66, v22, rho, k01, k10) has 6 fields: 64
+// bytes a point (52 with bf16), read through the same per-pair and per-zero
+// stack rows of the parameters.
 // Two steps per pass move the same bytes for two steps. Two sweeps of
 // interpolation and pair algebra are far below the f32 rate.
 //

@@ -23,12 +23,16 @@
 // state components and the 4 compact material fields (cp, cs, rho, kappa)
 // and writes 9 components: 36 + 16 + 36 = 88 bytes with a float stack,
 // 36 + 8 + 36 = 80 with a bf16 one, ~38-42 Gpoints/s a pass at 3.35 TB/s (a
-// damage corrector adds 4 bytes in and 4 out). A K = 2 pass moves the same
-// bytes for two steps, so its bound a step is half of that. The arithmetic
-// (three sweeps a step of Lagrange interpolation and pair algebra, a few
-// hundred flops per point, each sweep over a haloed box) stays far below
-// the 67 TFLOP/s f32 rate. On top come the re-reads of the halo that each
-// tile recomputes.
+// damage corrector adds 4 bytes in and 4 out). An orthotropic stack
+// (ops/fused.py::stack_mats_ortho: six per-stiffness speeds v<lbl>, rho and
+// six coupling ratios k<a><b>) has 13 fields, 52 bytes a point: 124 bytes a
+// pass (98 with bf16). Both layouts run the same code: the parameters name
+// the stack row of each pair's speed and of each zero's ratio. A K = 2 pass
+// moves the same bytes for two steps, so its bound a step is half of that.
+// The arithmetic (three sweeps a step of Lagrange interpolation and pair
+// algebra, a few hundred flops per point, each sweep over a haloed box)
+// stays far below the 67 TFLOP/s f32 rate. On top come the re-reads of the
+// halo that each tile recomputes.
 //
 // What the design does about it:
 // - Not the TPU's slab tiling: its full (y, z) plane per x-tile is

@@ -29,7 +29,9 @@ struct GcmFusedParams {
     int sign;                    // +1 elastic, -1 acoustic
     int axes[3];                 // sweep order
     int rho_idx;                 // stack row of rho
-    int kappa_idx;               // stack row of kappa, -1 if none
+    int zero_kappa[3][MAXZ];     // stack row of each zero's coupling ratio
+                                 // (the compact stack's one kappa, or the
+                                 // orthotropic k<a><b>); -1 past nzeros
     int npairs[3];               // per physical axis
     int pair_sigma[3][MAXP];
     int pair_vel[3][MAXP];
@@ -265,8 +267,9 @@ __device__ __forceinline__ void corrector_epilogue(
 }
 
 // One characteristic sweep along physical axis a over region `reg`, reading
-// the state from `src` and the materials from `mat`, and writing either a
-// shared buffer (all cells) or the output of extents p.n (in-block cells
+// the state from `src` and the materials from `mat` (any stack layout: p
+// names each pair's speed row and each zero's ratio row), and writing either
+// a shared buffer (all cells) or the output of extents p.n (in-block cells
 // only, after the folded correctors). Borders apply on the rows at 0 and
 // p.n[a] - 1 along the sweep axis, for the kinds p.bc_kind gives.
 template <int ORDER, class Src, class Mat, bool TO_GLOBAL>
@@ -328,12 +331,10 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
             nw[sg] = 0.5f * (wl + wr);
             nw[vl] = z > 0.0f ? (float)p.sign * (wl - wr) * rz : old[vl];
         }
-        if (p.kappa_idx >= 0) {
-            const float kap = mat.ld(p.kappa_idx, moff);
-            for (int q = 0; q < p.nzeros[a]; ++q) {
-                const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
-                nw[zc] = old[zc] + kap * (nw[zs] - old[zs]);
-            }
+        for (int q = 0; q < p.nzeros[a]; ++q) {
+            const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
+            nw[zc] = old[zc] + mat.ld(p.zero_kappa[a][q], moff) *
+                               (nw[zs] - old[zs]);
         }
         if (TO_GLOBAL) {
             const long long off = ((long long)gx * p.n[1] + gy) * p.n[2] + gz;

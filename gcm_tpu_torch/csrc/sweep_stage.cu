@@ -12,7 +12,10 @@
 // 9 state components, each pair's speed and impedance fields (2 distinct
 // fields of each for the P and S families) and kappa, and writes all 9
 // components: 14*4 = 56 bytes in and 36 out, about 92 bytes per point and
-// sweep, 276 per step of three sweeps against the fused step's 88. The
+// sweep, 276 per step of three sweeps against the fused step's 88. With
+// orthotropic media the views share fewer fields: every pair has its own
+// speed and impedance and every zero its own ratio, 3 + 3 + 2 = 8 fields,
+// 104 bytes a point and sweep. The
 // shifted stencil taps re-read neighbouring cells, which L1/L2 serve.
 //
 // What the design does about it:
@@ -21,8 +24,9 @@
 //   segment; taps along the sweep axis are index-clamped reads (the
 //   reference's edge_pad), so no halo is staged and any extent works.
 // - c, z and kappa are read from the per-axis material fields
-//   (MaterialFields.axis_view) as pallas_stage reads them, not derived from
-//   a stack; B is reconstructed as sign*(wl-wr)/(2*max(z,1e-30)) where
+//   (MaterialFields or OrthotropicMaterialFields .axis_view, computed once
+//   at an engine's setup) as pallas_stage reads them, not derived from a
+//   stack; B is reconstructed as sign*(wl-wr)/(2*max(z,1e-30)) where
 //   z > 0, as pallas_stage does.
 // - The kernel writes the whole new state: components the sweep does not
 //   touch are copied, so a step is a chain of launches on fresh buffers.

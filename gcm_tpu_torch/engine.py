@@ -15,10 +15,16 @@ interior/ring split with overlapped slab exchange
 (``parallel.halo``) for ``"sweep"`` (with the CUDA sweep kernel) and
 ``"torch"`` (the plain sweep).
 
+Isotropic media run on the compact material stack, orthotropic media
+(``OrthotropicMaterial`` regions, ``OrthotropicMaterialFields``) on the
+orthotropic one (``ops.fused.stack_mats``); the per-sweep path computes each
+axis's material view once (``materials.AxisViewCache``).
+
 The Task knobs of the fused path: ``mat_dtype="bf16"`` stores the material
 stack in bf16 (the kernels upcast at the load); ``canonical_layout`` takes
-the JAX package's canonical splitting order (``solver.gcm.canonical_axes``)
-and runs a 3D body on ``fused_step_slab``, as JAX runs its permuted bodies;
+the JAX package's canonical splitting order (``solver.gcm.canonical_axes``,
+isotropic media only, as in JAX) and runs a 3D body on ``fused_step_slab``,
+as JAX runs its permuted bodies;
 ``temporal_block`` runs each symmetrized pair of steps as one two-step pass
 of the fused kernel when nothing happens between the two (``_pair_fused``).
 """
@@ -32,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gcm_tpu_torch.materials import AxisViewCache, MaterialFields
 from gcm_tpu_torch.models.spec import Model, get_model
 from gcm_tpu_torch.ops.fused import (
     fold_corrector_specs, fused_step, fused_step_2d, fused_step_slab,
@@ -130,17 +137,23 @@ class Engine:
         self.nsteps = task.time.steps_for(self.dt)
         #: the splitting order of even steps (reversed on odd ones): the
         #: canonical order where the task asks for it and it engages (one
-        #: device, as in JAX), else (0, .., dim-1)
+        #: device and isotropic media, as in JAX, whose orthotropic stack
+        #: would read a permuted sweep axis as a physical one), else
+        #: (0, .., dim-1)
         canon = (canonical_axes(task.grid.shape)
-                 if task.canonical_layout and mesh is None else None)
+                 if task.canonical_layout and mesh is None
+                 and isinstance(self.mat, MaterialFields) else None)
         self._fwd = canon or tuple(range(self.model.dim))
         #: the stored type of the fused kernels' material stacks
         self._mat_dtype = (torch.bfloat16 if task.mat_dtype == "bf16"
                            else None)
-        #: compact material stack of the fused kernel, built once
+        #: material stack of the fused kernel (compact or orthotropic),
+        #: built once
         self._mstack = (stack_mats(self.model, self.mat,
                                    dtype=self._mat_dtype)
                         if self.kernel == "fused" and mesh is None else None)
+        #: the per-sweep path's materials: each axis's view computed once
+        self._sweep_mat = AxisViewCache(self.mat)
         if self.model.dim == 2:
             self._fused_fn = fused_step_2d
         else:
@@ -352,7 +365,7 @@ class Engine:
         if self.kernel == "fused":
             u = self._fused_fn(model, u, self._mstack, *args)
         elif self.kernel == "sweep":
-            u = sweep_step(model, u, self.mat, *args)
+            u = sweep_step(model, u, self._sweep_mat, *args)
         else:
             u = solver_step(model, u, self.mat, *args)
         if len(self._src_flat):

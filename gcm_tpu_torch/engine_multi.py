@@ -17,11 +17,13 @@ one of four paths (``MultiBodyEngine.path``):
   and contacts as slab fixups;
 - ``"torch"``: ``solver.multi.step_multi``, the plain semantics of record.
 
-``canonical_layout=True`` takes the JAX package's canonical layout as a
-splitting order: when every contact is conforming and lies on one axis
-``ca != 0`` of a 3D model on the fused path, the steps sweep (ca, rest) and
-its reverse, as the JAX engine sweeps its permuted storage; the port keeps
-the task layout in memory.
+Bodies may be isotropic or orthotropic (each body's fused stack is compact
+or orthotropic, ``ops.fused.stack_mats``). ``canonical_layout=True`` takes
+the JAX package's canonical layout as a splitting order: when every contact
+is conforming and lies on one axis ``ca != 0`` of a 3D model on the fused
+path, and every body is isotropic (as in JAX), the steps sweep (ca, rest)
+and its reverse, as the JAX engine sweeps its permuted storage; the port
+keeps the task layout in memory.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from gcm_tpu_torch.engine import check_device, resolve_kernel
-from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.materials import AxisViewCache, MaterialFields
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.fused import (
     fused_step, fused_step_2d, fused_step_slab, stack_mats,
@@ -99,7 +101,7 @@ class MultiBodyEngine:
             raise ValueError(f"kernel={self.kernel!r} runs 2D and 3D bodies "
                              "in float32")
 
-        self.mats: Dict[str, MaterialFields] = {}
+        self.mats: Dict[str, object] = {}
         self.us: Dict[str, torch.Tensor] = {}
         self.hs: Dict[str, Tuple[float, ...]] = {}
         self.borders = {}
@@ -125,12 +127,14 @@ class MultiBodyEngine:
                 self.ncmaps[ci] = build_interface_maps(ga, gb, c.axis)
 
         # the canonical splitting order (JAX's canonical storage order):
-        # conforming contacts on one axis ca != 0 of a 3D model, fused path
+        # conforming contacts on one axis ca != 0 of a 3D model, fused path,
+        # isotropic bodies
         contact_axes = {c.axis for c in self.contacts}
+        iso = all(isinstance(m, MaterialFields) for m in self.mats.values())
         self._fwd = tuple(range(self.model.dim))
         self.canonical = False
         if (canonical_layout and self.kernel == "fused" and not self.ncmaps
-                and self.model.dim == 3 and len(contact_axes) == 1):
+                and self.model.dim == 3 and len(contact_axes) == 1 and iso):
             ca = next(iter(contact_axes))
             if ca != 0:
                 self._fwd = (ca,) + tuple(d for d in range(3) if d != ca)
@@ -171,9 +175,14 @@ class MultiBodyEngine:
 
             self._fused_multi = _fused_body
         elif self.kernel in ("fused", "sweep"):
+            # each body's per-axis views, computed once
+            self._sweep_mats = {k: AxisViewCache(m)
+                                for k, m in self.mats.items()}
+
             def _raw(name, u, axis):
-                return sweep_stage(self.model, u, self.mats[name], self.dt,
-                                   self.hs[name], axis, self.order, None)
+                return sweep_stage(self.model, u, self._sweep_mats[name],
+                                   self.dt, self.hs[name], axis, self.order,
+                                   None)
 
             self._raw_stage = _raw
         #: the resolved path
@@ -248,8 +257,8 @@ class MultiBodyEngine:
                 self.borders, self.contacts, bonded, self._fused_multi, axes)
         elif self._raw_stage is not None:
             us, bonded = step_multi_fast(
-                self.model, us, self.mats, self.borders, self.contacts,
-                bonded, self._raw_stage, axes, self.ncmaps)
+                self.model, us, self._sweep_mats, self.borders,
+                self.contacts, bonded, self._raw_stage, axes, self.ncmaps)
         else:
             us, bonded = step_multi(
                 self.model, us, self.mats, self.dt, self.hs, self.order,

@@ -253,7 +253,8 @@ def _material_fields(material, npoints: int, device,
             for f in dataclasses.fields(material)})
     if not isinstance(material, IsotropicMaterial):
         raise NotImplementedError(
-            "orthotropic media are not ported to gcm_tpu_torch yet")
+            "orthotropic media on simplex meshes are not ported to "
+            "gcm_tpu_torch yet")
     return MaterialFields.uniform(material, (npoints,), device=device,
                                   dtype=dtype)
 

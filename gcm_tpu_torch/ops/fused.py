@@ -31,7 +31,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.materials import (
+    _DIAG_AXIS_OF_COMP, AxisView, MaterialFields, OrthotropicMaterialFields,
+)
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.solver.correctors import (
@@ -70,32 +72,129 @@ def mat_layout(model: Model) -> List[str]:
     return fields
 
 
-def stack_mats(model: Model, mat: MaterialFields, compact: bool = True,
+def _stiff_label(model_dim: int, a: int, t: int) -> str:
+    """Voigt label of the stiffness that drives the (a, t) pair's speed."""
+    if a == t:
+        return f"{a + 1}{a + 1}"
+    if model_dim == 2:
+        return "66"
+    return {(1, 2): "44", (0, 2): "55", (0, 1): "66"}[(min(a, t), max(a, t))]
+
+
+def _zero_axis(zc) -> int:
+    """Spatial axis of a zero-invariant's diagonal stress component."""
+    return _DIAG_AXIS_OF_COMP[zc.comp]
+
+
+def ortho_mat_layout(model: Model) -> List[str]:
+    """Field names of the orthotropic stack: per-stiffness speeds
+    ``v<lbl> = sqrt(c_lbl/rho)``, ``rho``, and per-(sweep, zero) coupling
+    ratios ``k<a><b> = c_ab/c_aa`` (13 fields for elastic3d, 6 for
+    elastic2d). Impedances z<lbl> = rho*v<lbl> and their half-reciprocals
+    are derived where they are used, as for the compact stack."""
+    speeds: List[str] = []
+    kaps: List[str] = []
+    for st in model.stages:
+        for p in st.pairs:
+            name = f"v{_stiff_label(model.dim, st.axis, p.traction_axis)}"
+            if name not in speeds:
+                speeds.append(name)
+        for zc in st.zeros:
+            name = f"k{st.axis}{_zero_axis(zc)}"
+            if name not in kaps:
+                kaps.append(name)
+    return speeds + ["rho"] + kaps
+
+
+def infer_layout(model: Model, nm: int) -> str:
+    """Which material layout a stack of height ``nm`` carries: "compact"
+    or "ortho" (the two have distinct heights for every 2D and 3D model;
+    the JAX package's "derived" isotropic layout is not ported)."""
+    if nm == len(mat_layout(model)):
+        return "compact"
+    if nm == len(ortho_mat_layout(model)):
+        return "ortho"
+    raise ValueError(f"no ported material layout of {model.name} has {nm} "
+                     "fields")
+
+
+def layout_names(model: Model, mode: str) -> List[str]:
+    """The stack's field names of layout ``mode`` ("compact" or "ortho")."""
+    return ortho_mat_layout(model) if mode == "ortho" else mat_layout(model)
+
+
+def stack_mats(model: Model, mat, compact: bool = True,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Stack the compact per-node material fields into one contiguous
-    ``(nm, *spatial)`` tensor, rounded to ``dtype`` if given (``torch.
-    bfloat16`` halves the material stream; the kernels upcast at the load).
-    Call once at setup, not per step."""
+    """Stack per-node material fields into one contiguous ``(nm,
+    *spatial)`` tensor, rounded to ``dtype`` if given (``torch.bfloat16``
+    halves the material stream; the kernels upcast at the load): the
+    compact layout for ``MaterialFields``, the orthotropic one
+    (:func:`stack_mats_ortho`) for ``OrthotropicMaterialFields``. Call once
+    at setup, not per step."""
     if not compact:
         raise NotImplementedError("only the compact stack layout is ported")
+    if isinstance(mat, OrthotropicMaterialFields):
+        return stack_mats_ortho(model, mat, dtype)
     name_map = {"cp": mat.cp, "cs": mat.cs, "rho": mat.rho,
                 "kappa": mat.kappa}
     out = torch.stack([name_map[f] for f in mat_layout(model)])
     return (out if dtype is None else out.to(dtype)).contiguous()
 
 
-def derive_window_mats(model: Model,
-                       mats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Expand compact material fields to the full set: impedances
-    ``z = rho*c`` and half-reciprocals ``r = 0.5/z`` (0 where z == 0)."""
+def stack_mats_ortho(model: Model, mat: OrthotropicMaterialFields,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Stack ``OrthotropicMaterialFields`` into the :func:`ortho_mat_layout`
+    order, computed in the fields' type and rounded to ``dtype`` if
+    given."""
+    rho = mat.rho
+    stiff = {"11": mat.c11, "22": mat.c22, "33": mat.c33,
+             "44": mat.c44, "55": mat.c55, "66": mat.c66}
+    arrs = []
+    for name in ortho_mat_layout(model):
+        if name == "rho":
+            arrs.append(rho)
+        elif name.startswith("v"):
+            arrs.append(torch.sqrt(stiff[name[1:]] / rho))
+        else:  # k<a><b>
+            a, b = int(name[1]), int(name[2])
+            arrs.append(mat._offdiag(a, b) / mat._diag(a))
+    out = torch.stack([torch.broadcast_to(x, rho.shape) for x in arrs])
+    return (out if dtype is None else out.to(dtype)).contiguous()
+
+
+def derive_window_mats(model: Model, mats: Dict[str, torch.Tensor],
+                       mode: str = "compact") -> Dict[str, torch.Tensor]:
+    """Expand compact (``c<w>``) or orthotropic (``v<lbl>``) material fields
+    to the full set: impedances ``z = rho*c`` and half-reciprocals
+    ``r = 0.5/z`` (0 where z == 0)."""
     out = dict(mats)
     rho = mats["rho"]
-    for w in _model_waves(model):
-        z = rho * mats[f"c{w}"]
-        out[f"z{w}"] = z
-        out[f"r{w}"] = torch.where(z > 0, 0.5 / torch.clamp(z, min=_Z_EPS),
-                                   torch.zeros_like(z))
+    keys = ([f"c{w}" for w in _model_waves(model)] if mode == "compact"
+            else [k for k in mats if k.startswith("v")])
+    for ckey in keys:
+        z = rho * mats[ckey]
+        out[f"z{ckey[1:]}"] = z
+        out[f"r{ckey[1:]}"] = torch.where(
+            z > 0, 0.5 / torch.clamp(z, min=_Z_EPS), torch.zeros_like(z))
     return out
+
+
+class _OrthoStackViews:
+    """The per-axis views of an orthotropic stack, for the plain step: per
+    pair the speed ``v<lbl>`` and impedance ``z<lbl>`` of the stiffness
+    that drives it, per zero-speed invariant the ratio ``k<a><b>``."""
+
+    def __init__(self, model: Model, mats: Dict[str, torch.Tensor]):
+        self.model, self.mats = model, mats
+
+    def axis_view(self, axis: int, stage_spec) -> AxisView:
+        lbls = [_stiff_label(self.model.dim, axis, p.traction_axis)
+                for p in stage_spec.pairs]
+        return AxisView(
+            pair_c=[self.mats[f"v{lbl}"] for lbl in lbls],
+            pair_z=[self.mats[f"z{lbl}"] for lbl in lbls],
+            zero_kappa=[self.mats[f"k{axis}{_zero_axis(zc)}"]
+                        for zc in stage_spec.zeros])
 
 
 # --------------------------------------------------------------- correctors
@@ -173,21 +272,28 @@ def fused_step_reference(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                          axes: Optional[Sequence[int]] = None,
                          correctors=None, aux: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the fused kernels (2D and 3D): the port's
-    ``solver.gcm.step`` on c/z/kappa derived from the compact stack as the
-    kernels derive them (waves or zeros a model lacks read as zero fields
-    it never uses), then the folded correctors ``correctors`` (specs of
-    ``fold_corrector_specs``). A stack of another type (bf16) is upcast to
-    the state's first, so z = rho*c comes from the rounded fields, as in
-    the kernels. Returns the new state, or ``(state, aux)`` when ``aux`` is
+    ``solver.gcm.step`` on c/z/kappa derived from the stack as the kernels
+    derive them, then the folded correctors ``correctors`` (specs of
+    ``fold_corrector_specs``). The layout follows the stack's height
+    (:func:`infer_layout`): a compact stack gives isotropic fields (waves
+    or zeros a model lacks read as zero fields it never uses), an
+    orthotropic one per-axis views (c from ``v<lbl>``, z = rho*c, kappa
+    from ``k<a><b>``). A stack of another type (bf16) is upcast to the
+    state's first, so z = rho*c comes from the rounded fields, as in the
+    kernels. Returns the new state, or ``(state, aux)`` when ``aux`` is
     given."""
     if mstack.dtype != u.dtype:
         mstack = mstack.to(u.dtype)
+    mode = infer_layout(model, mstack.shape[0])
     mats = derive_window_mats(
-        model, dict(zip(mat_layout(model), mstack.unbind(0))))
-    zero = torch.zeros_like(mats["rho"])
-    mf = MaterialFields(cp=mats["cp"], cs=mats.get("cs", zero),
-                        zp=mats["zp"], zs=mats.get("zs", zero),
-                        kappa=mats.get("kappa", zero), rho=mats["rho"])
+        model, dict(zip(layout_names(model, mode), mstack.unbind(0))), mode)
+    if mode == "ortho":
+        mf = _OrthoStackViews(model, mats)
+    else:
+        zero = torch.zeros_like(mats["rho"])
+        mf = MaterialFields(cp=mats["cp"], cs=mats.get("cs", zero),
+                            zp=mats["zp"], zs=mats.get("zs", zero),
+                            kappa=mats.get("kappa", zero), rho=mats["rho"])
     out = step(model, u, mf, dt, h, order, borders, axes)
     out, new_aux = corrector_epilogue_reference(model, correctors or (), out,
                                                 aux, dt)
@@ -256,7 +362,7 @@ class _Params(ctypes.Structure):
     _fields_ = [
         ("n", _i(3)), ("ncomp", ctypes.c_int), ("nm", ctypes.c_int),
         ("sign", ctypes.c_int), ("axes", _i(3)), ("rho_idx", ctypes.c_int),
-        ("kappa_idx", ctypes.c_int), ("npairs", _i(3)),
+        ("zero_kappa", _i(_MAXZ) * 3), ("npairs", _i(3)),
         ("pair_sigma", _i(_MAXP) * 3), ("pair_vel", _i(_MAXP) * 3),
         ("pair_c", _i(_MAXP) * 3), ("nzeros", _i(3)),
         ("zero_comp", _i(_MAXZ) * 3), ("zero_src", _i(_MAXZ) * 3),
@@ -271,21 +377,25 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _params(model: Model, shape, dt: float, h: Sequence[float],
+def _params(model: Model, shape, nm: int, dt: float, h: Sequence[float],
             borders: Optional[Borders], axes: Sequence[int],
             specs) -> _Params:
-    names = mat_layout(model)
+    """The kernels' parameters for a stack of height ``nm``, whose layout
+    (compact or orthotropic) names the stack row of each pair's speed and
+    of each zero's coupling ratio."""
+    mode = infer_layout(model, nm)
+    names, ortho = layout_names(model, mode), mode == "ortho"
     p = _Params()
     p.n[:] = list(shape) + [1] * (3 - len(shape))
     p.ncomp = model.ncomp
-    p.nm = len(names)
+    p.nm = nm
     p.sign = model.sign
     p.axes[:] = list(axes) + [-1] * (3 - len(axes))
     p.axes_next[:] = [-1, -1, -1]
     p.rho_idx = names.index("rho")
-    p.kappa_idx = names.index("kappa") if "kappa" in names else -1
     for a in range(3):
         p.bc_kind[a][:] = [-1, -1]
+        p.zero_kappa[a][:] = [-1] * _MAXZ
     for a in range(model.dim):
         st = model.stage(a)
         p.npairs[a] = len(st.pairs)
@@ -293,10 +403,14 @@ def _params(model: Model, shape, dt: float, h: Sequence[float],
         for k, pair in enumerate(st.pairs):
             p.pair_sigma[a][k] = pair.sigma
             p.pair_vel[a][k] = pair.vel
-            p.pair_c[a][k] = names.index(f"c{pair.wave}")
+            p.pair_c[a][k] = names.index(
+                f"v{_stiff_label(model.dim, a, pair.traction_axis)}" if ortho
+                else f"c{pair.wave}")
         for j, zc in enumerate(st.zeros):
             p.zero_comp[a][j] = zc.comp
             p.zero_src[a][j] = zc.src
+            p.zero_kappa[a][j] = names.index(
+                f"k{a}{_zero_axis(zc)}" if ortho else "kappa")
         for side in (0, 1):
             bc = (borders or {}).get((a, side))
             p.bc_kind[a][side] = -1 if bc is None else _BC_CODES[bc.kind]
@@ -327,10 +441,10 @@ def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
     if any(len(st.pairs) > _MAXP or len(st.zeros) > _MAXZ
            for st in model.stages):
         raise ValueError(f"{model.name}: too many pairs or zeros per sweep")
-    nm = len(mat_layout(model))
-    if tuple(mstack.shape) != (nm,) + tuple(u.shape[1:]):
-        raise ValueError(f"mstack shape {tuple(mstack.shape)} is not the "
-                         f"compact stack {(nm,) + tuple(u.shape[1:])}")
+    infer_layout(model, mstack.shape[0])
+    if tuple(mstack.shape[1:]) != tuple(u.shape[1:]):
+        raise ValueError(f"mstack shape {tuple(mstack.shape)} does not "
+                         f"match the state's {tuple(u.shape[1:])}")
     tensors = [u, mstack] + ([aux] if aux is not None else [])
     if any(t.dtype != torch.float32 for t in tensors if t is not mstack) \
             or mstack.dtype not in (torch.float32, torch.bfloat16):
@@ -385,7 +499,8 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
     _check(model, dim, u, mstack, order, specs, aux)
     bf16 = mstack.dtype == torch.bfloat16
     lib = _build.load()
-    params = _params(model, u.shape[1:], dt, h, borders, seq[0], specs)
+    params = _params(model, u.shape[1:], mstack.shape[0], dt, h, borders,
+                     seq[0], specs)
     if len(seq) == 2:
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():

@@ -8,7 +8,8 @@ all others (:func:`tile_split`). The interior launch reads only the local
 block and the materials, so it runs while the halo slabs travel; the ring
 launch reads the slabs and writes its tiles into the interior launch's
 output buffer. Materials come from the shard's halo-extended stack
-(``parallel.fused_spmd.extended_mstack``).
+(``parallel.fused_spmd.extended_mstack``), compact or orthotropic (the
+layout follows the stack's height, ``ops.fused.infer_layout``).
 
 The kernels are CUDA C++ for Hopper: ``csrc/fused_spmd.cu`` (3D) and
 ``csrc/fused_spmd_2d.cu`` (2D, split along x only). Each wrapper launches
@@ -36,7 +37,7 @@ from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.fused import (
     _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params,
-    corrector_epilogue_reference, fused_step_reference, mat_layout,
+    corrector_epilogue_reference, fused_step_reference, infer_layout,
 )
 from gcm_tpu_torch.ops.interp import stencil_radius
 from gcm_tpu_torch.solver.correctors import _diag_stress_indices
@@ -233,8 +234,9 @@ def _check(model: Model, dim: int, u: torch.Tensor, mext: torch.Tensor,
     if min(u.shape[1:dim]) < r:
         raise ValueError(f"per-shard extents {tuple(u.shape[1:])} smaller "
                          f"than the stencil radius {r}")
-    ext = (len(mat_layout(model)),) + tuple(
+    ext = (mext.shape[0],) + tuple(
         n + 2 * r if a < dim - 1 else n for a, n in enumerate(u.shape[1:]))
+    infer_layout(model, mext.shape[0])
     if tuple(mext.shape) != ext:
         raise ValueError(f"mext shape {tuple(mext.shape)} is not the "
                          f"extended stack {ext}")
@@ -311,7 +313,7 @@ def _launch_3d(model, u, mext, dt, h, order, borders, axes, correctors,
         if [tuple(s.shape) for s in slabs] != want:
             raise ValueError(f"slabs {[tuple(s.shape) for s in slabs]} are "
                              f"not {want}")
-    params = _params(model, u.shape[1:], dt, h,
+    params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0, 0, 0), 3),
                      axes, specs)
     split = (ctypes.c_int * 6)(*split_3d(nxl, nyl, r))
@@ -402,7 +404,7 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
             [(model.ncomp, r, u.shape[2])] * 2:
         raise ValueError("the 2D slabs are not (C, r, ny)")
     lib = _lib()
-    params = _params(model, u.shape[1:], dt, h,
+    params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0), 2), axes, ())
     _, ix0, ix1 = tile_split(u.shape[1], TILE_2D, r)
     err = lib.gcm_fused_spmd_2d(

@@ -13,7 +13,7 @@ falls back. ``sweep_stage.launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,8 +46,13 @@ class _SweepParams(ctypes.Structure):
 
 def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
                   dt: float, h: Sequence[float], axis: int,
-                  borders: Optional[Borders]) -> _SweepParams:
-    """The kernel's parameters; raises on anything it does not take."""
+                  borders: Optional[Borders]
+                  ) -> Tuple[_SweepParams, List[torch.Tensor]]:
+    """The kernel's parameters and the material fields they point to;
+    raises on anything the kernel does not take. The caller holds the
+    fields until the launch is enqueued: an orthotropic ``axis_view``
+    computes them anew, and freed, their memory could be handed to the
+    output."""
     st = model.stage(axis)
     if model.ncomp > _MAXC or len(st.pairs) > _MAXP or len(st.zeros) > _MAXZ:
         raise ValueError(f"{model.name}: too many components, pairs or zeros")
@@ -83,7 +88,7 @@ def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
             p.bc_val[side][k] = (0.0 if bc is None else
                                  bc.pair_value(pair.traction_axis, st.axis))
     p.dtoh = float(dt / h[axis])
-    return p
+    return p, fields
 
 
 def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
@@ -91,8 +96,9 @@ def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
                 borders: Optional[Borders] = None) -> torch.Tensor:
     """One characteristic sweep along ``axis`` of a 2D or 3D state; returns
     the whole new state. A CUDA tensor goes through the CUDA kernel, which
-    reads c, z and kappa from ``mat.axis_view``; a CPU tensor runs the plain
-    ``solver.gcm.stage``."""
+    reads c, z and kappa from ``mat.axis_view`` (isotropic or orthotropic
+    fields, or a ``materials.AxisViewCache`` of them); a CPU tensor runs the
+    plain ``solver.gcm.stage``."""
     if u.ndim not in (3, 4) or model.dim != u.ndim - 1:
         raise ValueError("sweep_stage runs 2D and 3D models on [C, *spatial] "
                          "state")
@@ -111,7 +117,7 @@ def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
         raise ValueError(f"unsupported interpolation order {order}")
     if axis not in range(model.dim):
         raise ValueError(f"axis {axis} out of range for {model.name}")
-    params = _sweep_params(model, u, mat, dt, h, axis, borders)
+    params, fields = _sweep_params(model, u, mat, dt, h, axis, borders)
     lib = _build.load()
     if ctypes.sizeof(params) != lib.gcm_sweep_params_size():
         raise RuntimeError("GcmSweepParams layout differs from its binding")
@@ -123,6 +129,7 @@ def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
     if err != 0:
         raise RuntimeError(f"sweep_stage kernel launch failed: CUDA error "
                            f"{err} ({lib.gcm_error_string(err).decode()})")
+    del fields          # the launch is enqueued on the fields' stream
     sweep_stage.launches += 1
     return out
 

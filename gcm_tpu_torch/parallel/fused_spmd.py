@@ -13,9 +13,10 @@ on the compute stream; the ring launches wait for the copies' event.
   x-extended edge rows, so tile corners are covered. At a true domain face
   a slab is the replicated edge row. The copies go into buffers allocated
   once per mesh and block shape.
-- Materials are static: each shard's stack is laid out once, at setup,
-  with an r-deep halo of its neighbours' (or, at domain faces, replicated)
-  materials (:func:`extended_mstack`), so no step moves materials.
+- Materials are static: each shard's stack (compact or orthotropic) is
+  laid out once, at setup, with an r-deep halo of its neighbours' (or, at
+  domain faces, replicated) materials (:func:`extended_mstack`), so no step
+  moves materials.
 - Border conditions apply inside the kernels, gated by each shard's face
   flags (:func:`face_flags`).
 
@@ -31,7 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops.fused import fused_step, fused_step_2d, stack_mats
 from gcm_tpu_torch.ops.fused_spmd import (
@@ -162,14 +162,14 @@ def exchange_slabs(blocks: Sequence[torch.Tensor], mesh: DomainMesh, r: int,
 
 # ------------------------------------------------------------ material layout
 
-def extended_mstack(model: Model, mat: MaterialFields, mesh: DomainMesh,
-                    order: int,
+def extended_mstack(model: Model, mat, mesh: DomainMesh, order: int,
                     dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
-    """Per-shard halo-extended compact stacks ``(nm, nxl+2r, nyl+2r, nz)``
-    (3D) or ``(nm, nxl+2r, ny)`` (2D), built once at setup by the slab
-    exchange of the stacked global materials, rounded to ``dtype`` if given
-    (bf16 only in 2D: the 3D SPMD kernels keep float32 stacks, as in
-    JAX)."""
+    """Per-shard halo-extended stacks ``(nm, nxl+2r, nyl+2r, nz)`` (3D) or
+    ``(nm, nxl+2r, ny)`` (2D), built once at setup by the slab exchange of
+    the stacked global materials (``ops.fused.stack_mats``: compact for
+    ``MaterialFields``, orthotropic for ``OrthotropicMaterialFields``),
+    rounded to ``dtype`` if given (bf16 only in 2D: the 3D SPMD kernels
+    keep float32 stacks, as in JAX)."""
     r = stencil_radius(order)
     blocks = shard_field(stack_mats(model, mat), mesh, lead=1)
     slabs = exchange_slabs(blocks, mesh, r, dim=model.dim)
@@ -183,8 +183,7 @@ def extended_mstack(model: Model, mat: MaterialFields, mesh: DomainMesh,
     return out
 
 
-def extended_mstack_2d(model: Model, mat: MaterialFields, mesh: DomainMesh,
-                       order: int,
+def extended_mstack_2d(model: Model, mat, mesh: DomainMesh, order: int,
                        dtype: Optional[torch.dtype] = None
                        ) -> List[torch.Tensor]:
     """The 2D form of :func:`extended_mstack`: x-extended stacks, float32

@@ -14,9 +14,10 @@ function the JAX package computes under a mesh with its jnp path (a GSPMD
 program there, a per-shard halo step here).
 
 Materials are static: engines pass per-shard material dicts prepared once
-by :func:`extend_mats_once`, so a step exchanges only the state; plain
-per-shard ``MaterialFields`` are extended at every sweep. A sharded field
-is the list of its per-shard blocks (``parallel.sharding``).
+by :func:`extend_mats_once`, so a step exchanges only the state and each
+sweep's per-axis view is computed once; plain per-shard material fields
+(isotropic or orthotropic) are extended at every sweep. A sharded field is
+the list of its per-shard blocks (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from gcm_tpu_torch.materials import MaterialFields
+from gcm_tpu_torch.materials import AxisViewCache
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops.interp import stencil_radius
 from gcm_tpu_torch.ops.sweep import sweep_stage
@@ -87,22 +88,30 @@ def _spatial_names(dim: int, mesh: DomainMesh) -> Dict[int, Optional[str]]:
     return names
 
 
-def extend_mats_once(mats: Sequence[MaterialFields], mesh: DomainMesh,
-                     dim: int, order: int) -> List[Dict]:
+def _extend(mats: Sequence, mesh: DomainMesh, name: str, a: int,
+            r: int) -> List:
+    """Every shard's material fields (of their own type) extended along
+    axis ``a`` by r-deep halos of its neighbours'."""
+    leaves = {f.name: halo_exchange([getattr(m, f.name) for m in mats],
+                                    mesh, name, a, r)
+              for f in dataclasses.fields(mats[0])}
+    return [dataclasses.replace(m, **{n: v[k] for n, v in leaves.items()})
+            for k, m in enumerate(mats)]
+
+
+def extend_mats_once(mats: Sequence, mesh: DomainMesh, dim: int,
+                     order: int) -> List[Dict]:
     """Per shard ``{"base": mat, "ax<a>": mat extended along axis a, ...}``
     for every split axis a: the materials each sweep reads, exchanged once
-    at setup."""
+    at setup, each an ``AxisViewCache`` so that a sweep's view is computed
+    once too."""
     r = stencil_radius(order)
-    out = [{"base": m} for m in mats]
+    out = [{"base": AxisViewCache(m)} for m in mats]
     for a, name in _spatial_names(dim, mesh).items():
         if name is None:
             continue
-        leaves = {f.name: halo_exchange([getattr(m, f.name) for m in mats],
-                                        mesh, name, a, r)
-                  for f in dataclasses.fields(MaterialFields)}
-        for k, d in enumerate(out):
-            d[f"ax{a}"] = MaterialFields(**{n: v[k]
-                                            for n, v in leaves.items()})
+        for d, m in zip(out, _extend(mats, mesh, name, a, r)):
+            d[f"ax{a}"] = AxisViewCache(m)
     return out
 
 
@@ -125,14 +134,8 @@ def _sweep_all(model: Model, mesh: DomainMesh, raw, names, r: int,
     if name is None:
         return [raw(u, m, axis) for u, m in zip(us, base)]
     exts = halo_exchange(us, mesh, name, axis + 1, r)
-    if prepared:
-        mat_ext = [m[f"ax{axis}"] for m in mats]
-    else:
-        leaves = {f.name: halo_exchange([getattr(m, f.name) for m in base],
-                                        mesh, name, axis, r)
-                  for f in dataclasses.fields(MaterialFields)}
-        mat_ext = [MaterialFields(**{n: v[k] for n, v in leaves.items()})
-                   for k in range(len(us))]
+    mat_ext = ([m[f"ax{axis}"] for m in mats] if prepared
+               else _extend(base, mesh, name, axis, r))
     return [_crop(raw(e, m, axis), axis + 1, r)
             for e, m in zip(exts, mat_ext)]
 

@@ -22,8 +22,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from gcm_tpu_torch.materials import MaterialFields
-
 #: spatial axis each mesh axis splits
 AXIS_OF = {"sx": 0, "sy": 1}
 
@@ -144,11 +142,12 @@ def shard_state(u: torch.Tensor, mesh: DomainMesh) -> List[torch.Tensor]:
     return shard_field(u, mesh, lead=1)
 
 
-def shard_mats(mat: MaterialFields, mesh: DomainMesh) -> List[MaterialFields]:
-    """Per-shard material fields."""
+def shard_mats(mat, mesh: DomainMesh) -> List:
+    """Per-shard material fields, of ``mat``'s own type (isotropic or
+    orthotropic)."""
     leaves = {f.name: shard_field(getattr(mat, f.name), mesh, lead=0)
               for f in dataclasses.fields(mat)}
-    return [MaterialFields(**{k: v[s] for k, v in leaves.items()})
+    return [dataclasses.replace(mat, **{k: v[s] for k, v in leaves.items()})
             for s in range(mesh.size)]
 
 

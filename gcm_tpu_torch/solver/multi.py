@@ -248,9 +248,10 @@ def step_multi_fused(model: Model, us: BodyStates,
                                 contacts, bonded, axes)
 
 
-def _mat_slice(mat: MaterialFields, idx: Tuple) -> MaterialFields:
-    return MaterialFields(**{f.name: getattr(mat, f.name)[idx]
-                             for f in dataclasses.fields(mat)})
+def _mat_slice(mat, idx: Tuple):
+    """The fields of ``mat`` (isotropic or orthotropic) cut to ``idx``."""
+    return dataclasses.replace(mat, **{f.name: getattr(mat, f.name)[idx]
+                                       for f in dataclasses.fields(mat)})
 
 
 def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,

@@ -15,11 +15,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from gcm_tpu_torch.materials import IsotropicMaterial, MaterialFields
+from gcm_tpu_torch.materials import (
+    IsotropicMaterial, MaterialFields, OrthotropicMaterial,
+    OrthotropicMaterialFields,
+)
 
 Axis = int          # 0, 1, 2
 Side = int          # 0 = low face, 1 = high face
 Face = Tuple[Axis, Side]
+AnyMaterial = Union[IsotropicMaterial, OrthotropicMaterial]
 
 #: compute paths: "auto" resolves to the fused CUDA kernel for 2D and 3D
 #: tasks on a CUDA device and to the plain torch step elsewhere; "sweep"
@@ -252,7 +256,7 @@ class BorderSpec:
 @dataclasses.dataclass(frozen=True)
 class MaterialRegion:
     area: Area
-    material: IsotropicMaterial
+    material: AnyMaterial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,7 +365,7 @@ class Task:
     name: str
     model: str                         # gcm_tpu_torch.models.get_model key
     grid: GridSpec
-    default_material: IsotropicMaterial
+    default_material: AnyMaterial
     materials: Tuple[MaterialRegion, ...] = ()
     initial: Tuple[InitialCondition, ...] = ()
     borders: Dict[Face, BorderSpec] = dataclasses.field(default_factory=dict)
@@ -402,12 +406,12 @@ class Task:
     @property
     def is_orthotropic(self) -> bool:
         mats = (self.default_material,) + tuple(r.material for r in self.materials)
-        return any(not isinstance(m, IsotropicMaterial) for m in mats)
+        return any(isinstance(m, OrthotropicMaterial) for m in mats)
 
     def material_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Rasterize material regions into (rho, lam, mu) node arrays.
-        float32, as the JAX package rasterizes them: an f64 run then starts
-        from the same rounded parameters."""
+        """Rasterize isotropic material regions into (rho, lam, mu) node
+        arrays. float32, as the JAX package rasterizes them: an f64 run then
+        starts from the same rounded parameters."""
         shape = self.grid.shape
         m0 = self.default_material
         rho = np.full(shape, m0.rho, dtype=np.float32)
@@ -420,15 +424,37 @@ class Task:
             mu[msk] = region.material.mu
         return rho, lam, mu
 
-    def material_fields(self, device="cpu",
-                        dtype=torch.float32) -> MaterialFields:
-        """Rasterize regions into per-node derived characteristic fields."""
-        if self.is_orthotropic:
-            raise NotImplementedError(
-                "orthotropic media are not ported to gcm_tpu_torch yet")
-        rho, lam, mu = self.material_arrays()
-        return MaterialFields.from_arrays(rho, lam, mu, device=device,
-                                          dtype=dtype)
+    def material_fields(self, device="cpu", dtype=torch.float32
+                        ) -> Union[MaterialFields, OrthotropicMaterialFields]:
+        """Rasterize regions into per-node fields: ``MaterialFields`` when
+        every material is isotropic, else ``OrthotropicMaterialFields``
+        (isotropic regions embed through their orthotropic limit). As in the
+        JAX package, isotropic parameters rasterize in float32 and
+        orthotropic constants in float64, each cast once to ``dtype``."""
+        if not self.is_orthotropic:
+            rho, lam, mu = self.material_arrays()
+            return MaterialFields.from_arrays(rho, lam, mu, device=device,
+                                              dtype=dtype)
+
+        def as_ortho(m: AnyMaterial) -> OrthotropicMaterial:
+            if isinstance(m, OrthotropicMaterial):
+                return m
+            return OrthotropicMaterial.from_isotropic(m)
+
+        shape = self.grid.shape
+        m0 = as_ortho(self.default_material)
+        rho = np.full(shape, m0.rho, dtype=np.float64)
+        cons = {k: np.full(shape, v, dtype=np.float64)
+                for k, v in m0.constants().items()}
+        for region in self.materials:
+            msk = region.area.mask(self.grid)
+            mo = as_ortho(region.material)
+            rho[msk] = mo.rho
+            for k, v in mo.constants().items():
+                cons[k][msk] = v
+        return OrthotropicMaterialFields.from_constants(rho, cons,
+                                                        device=device,
+                                                        dtype=dtype)
 
 
 # ---------------------------------------------------------------- simplex task
@@ -473,10 +499,13 @@ class SimplexTask:
     def material_fields(self, device="cpu",
                         dtype=torch.float32) -> MaterialFields:
         """Rasterize regions into per-node fields over the mesh nodes,
-        from float64 parameters as the JAX package rasterizes them."""
+        from float64 parameters as the JAX package rasterizes them.
+        Isotropic media only: orthotropic media on simplex meshes (per-pair
+        foot tables) are not ported yet."""
         if self.is_orthotropic:
             raise NotImplementedError(
-                "orthotropic media are not ported to gcm_tpu_torch yet")
+                "orthotropic media on simplex meshes are not ported to "
+                "gcm_tpu_torch yet")
         pts = np.asarray(self.grid.points)
         m0 = self.default_material
         rho = np.full(len(pts), m0.rho, dtype=np.float64)

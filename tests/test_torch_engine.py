@@ -243,13 +243,28 @@ def test_task_rejects_unknown_kernels_and_tpu_knobs(knob, value):
 
 
 def test_task_refuses_orthotropic_media():
-    from gcm_tpu.materials import OrthotropicMaterial
+    """A structured Task takes orthotropic media: its fields equal JAX's
+    (float64 constants cast once); a SimplexTask still refuses them."""
+    from gcm_tpu.materials import OrthotropicMaterial as JOrthotropic
+    from gcm_tpu_torch.materials import (
+        OrthotropicMaterial, OrthotropicMaterialFields)
 
+    consts = dict(rho=1500.0, c11=12.0e9, c12=2.5e9, c13=1.8e9, c22=9.0e9,
+                  c23=2.1e9, c33=14.0e9, c44=2.2e9, c55=3.1e9, c66=2.7e9)
     task = get_scenario("elastic3d_layered", n=8, nsteps=1)
-    ortho = OrthotropicMaterial(rho=1.0, c11=1.0, c12=0.0, c13=0.0, c22=1.0,
-                                c23=0.0, c33=1.0, c44=1.0, c55=1.0, c66=1.0)
-    with pytest.raises(NotImplementedError, match="orthotropic"):
-        dataclasses.replace(task, default_material=ortho).material_fields()
+    jtask = jget_scenario("elastic3d_layered", n=8, nsteps=1)
+    got = dataclasses.replace(
+        task, default_material=OrthotropicMaterial(**consts)).material_fields()
+    want = dataclasses.replace(
+        jtask, default_material=JOrthotropic(**consts)).material_fields()
+    assert isinstance(got, OrthotropicMaterialFields)
+    for f in dataclasses.fields(got):
+        np.testing.assert_array_equal(getattr(got, f.name).numpy(),
+                                      np.asarray(getattr(want, f.name)))
+    simplex = get_scenario("simplex3d_layered", n=5)
+    with pytest.raises(NotImplementedError, match="simplex"):
+        dataclasses.replace(simplex, default_material=OrthotropicMaterial(
+            **consts)).material_fields()
 
 
 def test_scenarios_and_materials_match_jax():

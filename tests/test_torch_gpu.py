@@ -697,3 +697,221 @@ def test_contact_engine_on_card(cuda):
                         torch.from_numpy(want.bodies[k])) < 1e-5
     np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
     assert got.bonded[0].mean() < mask.mean()      # the interface broke
+
+
+# ------------------------------------------------------- orthotropic stacks
+
+def card_ortho_problem(seed, name, shape, device, with_mat=False):
+    """Random heterogeneous orthotropic medium (the recipe of
+    tests/test_fused_variants.py) and a random state on the card:
+    (model, state, orthotropic stack or fields, dt)."""
+    from gcm_tpu_torch.materials import OrthotropicMaterialFields
+
+    rng = np.random.default_rng(seed)
+    model = get_model(name)
+    ones = np.ones(shape)
+    rho = 2500.0 * (1.0 + 0.2 * rng.random(shape))
+    c = {"c11": 60e9 * (1 + 0.1 * rng.random(shape)), "c22": 45e9 * ones,
+         "c33": 70e9 * (1 + 0.1 * rng.random(shape)), "c12": 12e9 * ones,
+         "c13": 10e9 * ones, "c23": 14e9 * ones, "c44": 18e9 * ones,
+         "c55": 22e9 * (1 + 0.1 * rng.random(shape)), "c66": 16e9 * ones}
+    mat = OrthotropicMaterialFields.from_constants(rho, c, device=device)
+    u0 = rng.standard_normal((model.ncomp,) + shape)
+    u0[model.dim:] *= 1e6
+    u = torch.tensor(u0, dtype=torch.float32, device=device)
+    dt = 0.5 * 9.0 / mat.max_cp()
+    return model, u, (mat if with_mat else stack_mats(model, mat)), dt
+
+
+def _f64(mat):
+    return dataclasses.replace(mat, **{f.name: getattr(mat, f.name).double()
+                                       for f in dataclasses.fields(mat)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 40, 56), (64, 64, 32)])
+@pytest.mark.parametrize("axes", [(0, 1, 2), (2, 1, 0)])
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_ortho_kernel_matches_plain_on_card(cuda, order, axes, shape):
+    """fused_step on an orthotropic stack (13 rows) against its plain
+    version (2e-6), and against the float64 plain step on the fields (3e-6,
+    the JAX limit: the stack's v = sqrt(c/rho) rounds in float32)."""
+    from gcm_tpu_torch.solver.gcm import step
+
+    model, u, mat, dt = card_ortho_problem(order, "elastic3d", shape, cuda,
+                                           with_mat=True)
+    ms = stack_mats(model, mat)
+    assert ms.shape[0] == 13
+    h = (10.0, 12.0, 9.0)
+    before = fused_step.launches
+    got = fused_step(model, u, ms, dt, h, order, BORDERS, axes)
+    torch.cuda.synchronize()
+    assert fused_step.launches == before + 1
+    assert norm_err(got, fused_step_reference(model, u, ms, dt, h, order,
+                                              BORDERS, axes)) < 2e-6
+    exact = step(model, u.double(), _f64(mat), dt, h, order, BORDERS, axes)
+    assert norm_err(got.double(), exact) < 3e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 40, 56), (9, 17, 2)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("ksteps", [1, 2])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_ortho_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16,
+                                                 shape):
+    model, u, ms, dt = card_ortho_problem(order + 10 * ksteps, "elastic3d",
+                                          shape, cuda)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    h = (10.0, 12.0, 9.0)
+    for ax in SLAB_AXES:
+        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+        before = fused_step_slab.launches
+        got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
+                              axes_seq=seq)
+        torch.cuda.synchronize()
+        assert fused_step_slab.launches == before + 1
+        want = fused_step_slab_reference(model, u, ms, dt, h, order, BORDERS,
+                                         axes_seq=seq)
+        assert norm_err(got, want) < 2e-6 * ksteps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16,ksteps", [(False, 1), (True, 1), (False, 2),
+                                         (True, 2)])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps):
+    from gcm_tpu_torch.solver.gcm import step
+
+    model, u, mat, dt = card_ortho_problem(order, "elastic2d", (37, 61),
+                                           cuda, with_mat=True)
+    ms = stack_mats(model, mat)
+    assert ms.shape[0] == 6
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    h = (10.0, 12.0)
+    for ax in ((0, 1), (1, 0)):
+        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+        before = fused_step_2d.launches
+        got = fused_step_2d(model, u, ms, dt, h, order, borders(2),
+                            axes_seq=seq)
+        torch.cuda.synchronize()
+        assert fused_step_2d.launches == before + 1
+        want = fused_step_2d_reference(model, u, ms, dt, h, order,
+                                       borders(2), axes_seq=seq)
+        assert norm_err(got, want) < 2e-6 * ksteps
+        if not bf16 and ksteps == 1:
+            exact = step(model, u.double(), _f64(mat), dt, h, order,
+                         borders(2), ax)
+            assert norm_err(got.double(), exact) < 3e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("elastic3d", (24, 40, 56)),
+                                        ("elastic2d", (37, 61))])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_ortho_sweep_kernel_matches_plain_on_card(cuda, order, name, shape):
+    model, u, mat, dt = card_ortho_problem(order, name, shape, cuda,
+                                           with_mat=True)
+    h = (10.0, 12.0, 9.0)[:model.dim]
+    for axis in range(model.dim):
+        before = sweep_stage.launches
+        got = sweep_stage(model, u, mat, dt, h, axis, order,
+                          borders(model.dim))
+        torch.cuda.synchronize()
+        assert sweep_stage.launches == before + 1
+        want = stage(model, u, mat, dt, h, axis, order, borders(model.dim))
+        assert norm_err(got, want) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order,axes", [(1, (0, 1, 2)), (2, (2, 1, 0)),
+                                        (3, (0, 1, 2))])
+def test_ortho_spmd_kernels_match_plain_on_card(cuda, order, axes):
+    """The interior and ring kernels on orthotropic extended stacks, 2x2
+    shards on one card, and the sharded step against the unsharded one."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    model, u, mat, dt = card_ortho_problem(order, "elastic3d", (50, 38, 20),
+                                           cuda, with_mat=True)
+    h = (10.0, 12.0, 9.0)
+    mesh = _card_mesh(cuda, 3, (2, 2))
+    mext = extended_mstack(model, mat, mesh, order)
+    assert all(m.shape[0] == 13 for m in mext)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, fs.stencil_radius(order))
+    for k, uk in enumerate(us):
+        args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
+        got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
+        ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
+                                  face_flags(mesh, k), torch.zeros_like(uk),
+                                  *args[3:])
+        torch.cuda.synchronize()
+        assert norm_err(got, fs.fused_spmd_interior_reference(
+            *args, out=torch.zeros_like(uk))) < 2e-6
+        assert norm_err(ring, fs.fused_spmd_ring_reference(
+            model, uk, mext[k], slabs[k], face_flags(mesh, k),
+            torch.zeros_like(uk), *args[3:])) < 2e-6
+    step = make_fused_spmd_step(model, mesh, dt, h, order, BORDERS)
+    want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
+                                order, BORDERS, axes)
+    assert norm_err(gather_state(step(us, mext, axes), mesh), want) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_ortho_spmd_2d_kernel_matches_plain_on_card(cuda, order, bf16):
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack_2d, face_flags)
+    from gcm_tpu_torch.parallel.sharding import shard_state
+
+    model, u, mat, dt = card_ortho_problem(order, "elastic2d", (512, 70),
+                                           cuda, with_mat=True)
+    mesh = _card_mesh(cuda, 2, (2,))
+    mext = extended_mstack_2d(model, mat, mesh, order,
+                              torch.bfloat16 if bf16 else None)
+    assert all(m.shape[0] == 6 for m in mext)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, fs.stencil_radius(order), dim=2)
+    for k, uk in enumerate(us):
+        for which in ("interior", "ring"):
+            args = (model, uk, mext[k], dt, (10.0, 12.0), order, borders(2),
+                    (0, 1), which, slabs[k], face_flags(mesh, k)[:2])
+            got = fs.fused_spmd_2d(*args, torch.zeros_like(uk))
+            torch.cuda.synchronize()
+            assert norm_err(got, fs.fused_spmd_2d_reference(
+                *args, torch.zeros_like(uk))) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused", "sweep"])
+def test_ortho_engine_takes_the_kernels_on_card(cuda, kernel):
+    """An orthotropic elastic3d_explosion: the fused path launches
+    fused_step once a step, the per-sweep path sweep_stage three times;
+    both agree with the plain path."""
+    from gcm_tpu_torch.materials import OrthotropicMaterial
+
+    def ortho(m):
+        c33 = m.lam + 2.0 * m.mu
+        return OrthotropicMaterial(
+            rho=m.rho, c11=1.3 * c33, c12=m.lam, c13=m.lam, c22=1.1 * c33,
+            c23=m.lam, c33=c33, c44=m.mu, c55=1.15 * m.mu, c66=1.3 * m.mu)
+
+    task = get_scenario("elastic3d_explosion", n=32, nsteps=7)
+    task = dataclasses.replace(
+        task, kernel=kernel, default_material=ortho(task.default_material),
+        materials=tuple(dataclasses.replace(r, material=ortho(r.material))
+                        for r in task.materials))
+    counters = (fused_step, fused_step_slab, sweep_stage)
+    before = [f.launches for f in counters]
+    got = Engine(task, device=cuda).run()
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert launched == {"fused": [7, 0, 0], "sweep": [0, 0, 21]}[kernel]
+    want = Engine(dataclasses.replace(task, kernel="torch"), device=cuda).run()
+    assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5

@@ -31,7 +31,8 @@ assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.parallel.sharding", "gcm_tpu_torch.parallel.halo",
         "gcm_tpu_torch.parallel.fused_spmd", "gcm_tpu_torch.solver.contact",
         "gcm_tpu_torch.solver.contact_nc", "gcm_tpu_torch.solver.multi",
-        "gcm_tpu_torch.engine_multi"} <= set(names), names
+        "gcm_tpu_torch.engine_multi", "gcm_tpu_torch.oracle.oracle",
+        "gcm_tpu_torch.oracle.oracle_ortho"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
