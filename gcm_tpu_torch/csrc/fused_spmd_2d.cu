@@ -6,7 +6,7 @@
 // _make_2d_spmd_call (which="interior" and "ring", built by _pallas_build).
 // Its plain PyTorch version is gcm_tpu_torch/ops/fused_spmd.py::
 // fused_spmd_2d_reference, which it must match. The step is the
-// single-card 2D kernel's (gcm_common.cuh::step_tile, two sweeps), with
+// single-card 2D kernel's (gcm_common.cuh::step_tile_n, two sweeps), with
 // the window and materials from the shard's own sources.
 //
 // What bounds it on an H100: memory, as fused_step_2d. Per point of the
@@ -59,10 +59,12 @@ fused_spmd_2d_kernel(const float* __restrict__ u,
                            (long long)(n0 + 2 * R) * n1};
     if constexpr (RING) {
         const SlabSrc src{u, xlo, xhi, nullptr, nullptr, n0, n1, 1, R, N};
-        step_tile<ORDER>(p, 2, t0, T, src, mat, smem, out, nullptr, nullptr);
+        step_tile_n<ORDER, 1, 2>(p, t0, T, src, mat, smem, out, nullptr,
+                                 nullptr);
     } else {
         const GlobalSrc src{u, n0, n1, 1, N};
-        step_tile<ORDER>(p, 2, t0, T, src, mat, smem, out, nullptr, nullptr);
+        step_tile_n<ORDER, 1, 2>(p, t0, T, src, mat, smem, out, nullptr,
+                                 nullptr);
     }
 }
 

@@ -59,7 +59,7 @@ fused_step_2d_kernel(const float* __restrict__ u, const MatT* __restrict__ m,
     const long long N = (long long)p.n[0] * p.n[1];
     const GlobalSrc src{u, p.n[0], p.n[1], 1, N};
     const GlobalMat<MatT> mat{m, p.n[0], p.n[1], 1, N};
-    step_tile<ORDER, K>(p, 2, t0, T, src, mat, smem, out, aux_in, aux_out);
+    step_tile_n<ORDER, K, 2>(p, t0, T, src, mat, smem, out, aux_in, aux_out);
 }
 
 template <int ORDER, class MatT, int K>

@@ -4,8 +4,7 @@
 // Replaces two Pallas TPU kernels of gcm_tpu/ops/pallas_fused.py:
 // - fused_step (body _make_fused_kernel, sweep math _sweep_window, border
 //   algebra _bc_incoming, folded correctors _corrector_epilogue): one step
-//   on a float stack, which is this kernel's <ORDER, float, 1>
-//   instantiation;
+//   on a float stack, which is this kernel's float, one-step form;
 // - fused_step_slab (body _make_slab_kernel, call :894): the same contract
 //   plus bf16 material stacks (upcast right after the load, all arithmetic
 //   float) and K = len(axes_seq) steps per pass with a K*r halo and the
@@ -16,8 +15,8 @@
 // compact stack, then the plain corrector epilogue) and
 // fused_step_slab_reference (the stack upcast from bf16, fused_step_reference
 // once per step of the sequence, the epilogue at K = 1), which it must
-// match. The sweep, the border algebra and the epilogue are shared with the
-// 2D and SPMD kernels (gcm_common.cuh::step_tile).
+// match. The sweep algebra, border algebra and epilogue are shared with the
+// 2D and SPMD kernels (gcm_common.cuh).
 //
 // What bounds it on an H100: memory. Per grid point a pass reads the 9
 // state components and the 4 compact material fields (cp, cs, rho, kappa)
@@ -30,44 +29,58 @@
 // the stack row of each pair's speed and of each zero's ratio. A K = 2 pass
 // moves the same bytes for two steps, so its bound a step is half of that.
 // The arithmetic (three sweeps a step of Lagrange interpolation and pair
-// algebra, a few hundred flops per point, each sweep over a haloed box)
-// stays far below the 67 TFLOP/s f32 rate. On top come the re-reads of the
-// halo that each tile recomputes.
+// algebra, a few hundred flops per point) stays far below the 67 TFLOP/s
+// f32 rate. What a design adds on top: the re-reads and recomputation of
+// each tile's halo, and whatever keeps the loads from overlapping the
+// arithmetic (few resident warps, long dependent chains, local memory).
 //
-// What the design does about it:
+// One step a pass (K = 1: fused_step, the slab step on the contact path)
+// is gcm_common.cuh::stream_step:
 // - Not the TPU's slab tiling: its full (y, z) plane per x-tile is
 //   256 * 128 * 9 * 4 B = 1.2 MB at the contact shape, far over the 227 KB
-//   of shared memory a block has; it exists for long contiguous TPU DMA
-//   bursts. One block owns a TX x TY x TZ output tile and runs the K * 3
-//   sweeps back to back, so no intermediate state or step goes to device
-//   memory: the state is read once (plus halo) and written once a pass.
-// - The first sweep reads the state straight from global memory (the
-//   window, with a K*r halo on every axis, is served by L1/L2); the sweeps
-//   then write two shared buffers in turn, and the last one writes the
-//   output tile. An axis swept s times keeps a halo of K*r - s*r; each
-//   sweep computes over the still-haloed extent of the other axes,
-//   recomputing the corners, as the TPU kernel does.
+//   of shared memory a block has. A block owns an 8 x 32 tile of the (y, z)
+//   plane (z contiguous: 128-byte rows) and walks a chunk of x, the
+//   outermost axis, one plane at a time. Its 352 threads (11 warps) cover
+//   any sweep of a plane window, up to 10 x 34 cells, in one pass, so no
+//   warp idles at the barrier while others take a second pass. The chunks
+//   are cut by occupancy (stream_chunk): as few waves of blocks as the
+//   card holds, the fewest planes each; at 256x256x128 that is one wave.
+// - Each incoming plane window (the tile with an r halo in y and z) is
+//   staged into shared memory with cp.async while the previous plane
+//   computes, as the TPU kernel double-buffers its windows with DMA
+//   semaphores. The in-plane sweeps that precede x in the sweep order run
+//   on it and put it into a ring of 2r + 1 planes; the x sweep of the
+//   plane r behind reads the ring; the in-plane sweeps after x run on its
+//   result, and the last one stores the tile after the folded correctors.
+//   Any sweep order takes the same path. Only the (y, z) halo is
+//   recomputed (and 2r planes of in-plane sweeps a chunk), and the state
+//   is read once and written once a pass.
+// - Shared memory is a few planes: 57-73 KB at r = 1 for elastic3d, so
+//   three blocks (33 warps) share an SM, at 56 registers a thread (ptxas
+//   spills 4-24 bytes a thread in the order 1-2 forms, which still run
+//   faster than two blocks without spills); 91-123 KB at r = 2.
+// - The component map of the model (elastic3d, acoustic3d) and the tile
+//   extents are compile-time: a cell's components stay in registers (no
+//   stack frame, no spills) and the cell loops divide by constants; each
+//   sweep order is its own instantiation. The stack rows stay runtime, so
+//   the compact and orthotropic layouts share one code path.
 // - Edge replication is index clamping: window cell g of state and
-//   materials is read from clamp(g, 0, n-1), so a recomputed halo row
-//   outside the domain equals the swept edge row (the edge_pad of the
-//   plain step). The first step's out-of-domain halo cells are don't-cares
-//   (the TPU kernel re-patches them); the second step reads the first
-//   one's result through ClampedSharedSrc, at indices clamped to the
-//   domain. Borders stay keyed on the global row index (0 or n-1), ragged
-//   tiles are masked at the store, and any extent works, thinner than the
-//   halo included.
-// - The tile is chosen per (ORDER, K) so the two live buffers fit: 8x8x16
-//   (K = 1: ~93-138 KB for elastic3d; K = 2 at r = 1: ~158-171 KB) and
-//   8x8x8 at K = 2, r = 2 (8x8x16 would need 166 + 124 KB; 8x8x8 needs
-//   110 + 83 KB).
+//   materials is read from clamp(g, 0, n-1) (a plane outside the domain is
+//   the edge plane), so a recomputed halo row outside the domain equals the
+//   swept edge row (the edge_pad of the plain step). Borders stay keyed on
+//   the global row index (0 or n-1), ragged tiles are masked at the store,
+//   and any extent works, thinner than the halo included.
 // - Materials are read from global memory at each cell (GlobalMat<T>,
-//   float or __nv_bfloat16, L2-resident reuse across the sweeps) and
-//   upcast in registers; z = rho*c and 0.5/z are derived from the upcast
-//   values, as the plain version derives them from the rounded stack.
-// - Folded correctors run on each output cell in registers just before its
-//   store, so a viscoelastic or damage step stays one pass over memory.
-// Speed work left for later: the large K = 2 buffers leave one block an SM;
-// register-resident columns along z, cp.async/TMA staging of the window.
+//   float or __nv_bfloat16, L1-resident reuse across the sweeps of a
+//   plane) and upcast in registers; z = rho*c and 0.5/z are derived from
+//   the upcast values, as the plain version derives them from the rounded
+//   stack.
+// Two steps a pass (K = 2, temporal blocking, opt-in) keep the earlier box
+// tile (gcm_common.cuh::step_tile_n): one block owns an 8x8x16 output tile
+// (8x8x8 at r = 2) and runs the six sweeps back to back on two shared
+// buffers; the first sweep reads the state from global memory, the second
+// step reads the first one's result through ClampedSharedSrc. Its buffers
+// (~158-193 KB) leave one block an SM.
 
 #include "gcm_common.cuh"
 
@@ -75,20 +88,18 @@ namespace {
 
 constexpr int NTHREADS = 256;
 
-template <int ORDER, int K>
-struct SlabTile {
-    static constexpr int TX = 8, TY = 8;
-    static constexpr int TZ = (K == 2 && ORDER >= 3) ? 8 : 16;
+// The K = 2 box tile.
+template <int ORDER>
+struct PairTile {
+    static constexpr int TX = 8, TY = 8, TZ = ORDER >= 3 ? 8 : 16;
 };
 
-template <int ORDER, class MatT, int K>
+template <int ORDER, class MatT>
 __global__ void __launch_bounds__(NTHREADS)
-fused_step_slab_kernel(const float* __restrict__ u,
-                       const MatT* __restrict__ m,
-                       const float* __restrict__ aux_in,
-                       float* __restrict__ out, float* __restrict__ aux_out,
+fused_step_pair_kernel(const float* __restrict__ u,
+                       const MatT* __restrict__ m, float* __restrict__ out,
                        GcmFusedParams p) {
-    using TL = SlabTile<ORDER, K>;
+    using TL = PairTile<ORDER>;
     extern __shared__ float smem[];
     const int T[3] = {TL::TX, TL::TY, TL::TZ};
     const int t0[3] = {(int)blockIdx.z * TL::TX, (int)blockIdx.y * TL::TY,
@@ -96,39 +107,122 @@ fused_step_slab_kernel(const float* __restrict__ u,
     const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
     const GlobalSrc src{u, p.n[0], p.n[1], p.n[2], N};
     const GlobalMat<MatT> mat{m, p.n[0], p.n[1], p.n[2], N};
-    step_tile<ORDER, K>(p, 3, t0, T, src, mat, smem, out, aux_in, aux_out);
+    step_tile_n<ORDER, 2, 3>(p, t0, T, src, mat, smem, out, nullptr, nullptr);
 }
 
-template <int ORDER, class MatT, int K>
-cudaError_t launch_slab(const float* u, const void* m, const float* aux_in,
-                        float* out, float* aux_out, const GcmFusedParams& p,
-                        cudaStream_t stream) {
-    using TL = SlabTile<ORDER, K>;
+template <int ORDER, class MatT>
+cudaError_t launch_pair(const float* u, const void* m, float* out,
+                        const GcmFusedParams& p, cudaStream_t stream) {
+    using TL = PairTile<ORDER>;
     const int T[3] = {TL::TX, TL::TY, TL::TZ};
-    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 3, K);
+    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 3, 2);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_step_slab_kernel<ORDER, MatT, K>,
+        fused_step_pair_kernel<ORDER, MatT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.n[2] + TL::TZ - 1) / TL::TZ,
                     (p.n[1] + TL::TY - 1) / TL::TY,
                     (p.n[0] + TL::TX - 1) / TL::TX);
-    fused_step_slab_kernel<ORDER, MatT, K><<<grid, NTHREADS, smem, stream>>>(
-        u, (const MatT*)m, aux_in, out, aux_out, p);
+    fused_step_pair_kernel<ORDER, MatT><<<grid, NTHREADS, smem, stream>>>(
+        u, (const MatT*)m, out, p);
     return cudaGetLastError();
 }
 
-template <class MatT, int K>
-cudaError_t dispatch_slab(int order, const float* u, const void* m,
-                          const float* aux_in, float* out, float* aux_out,
-                          const GcmFusedParams& p, cudaStream_t s) {
+// One step: output planes [ch * blockIdx.z, +ch) of the (y, z) tile
+// (blockIdx.y, blockIdx.x).
+template <int ORDER, class M, class MatT, class AX>
+__global__ void __launch_bounds__(STREAM_NT,
+                                  StreamLayout<ORDER, M, AX>::MINB)
+fused_step_stream_kernel(const float* __restrict__ u,
+                         const MatT* __restrict__ m,
+                         const float* __restrict__ aux_in,
+                         float* __restrict__ out, float* __restrict__ aux_out,
+                         int ch, GcmFusedParams p) {
+    extern __shared__ float smem[];
+    const int n0 = p.n[0], n1 = p.n[1], n2 = p.n[2];
+    const long long N = (long long)n0 * n1 * n2;
+    const int xa = (int)blockIdx.z * ch;
+    const int xb = min(xa + ch, n0);
+    const GlobalSrc src{u, n0, n1, n2, N};
+    const GlobalMat<MatT> mat{m, n0, n1, n2, N};
+    stream_step<ORDER, M, AX>(p, src, mat, xa, xb,
+                              (int)blockIdx.y * STREAM_TY,
+                              (int)blockIdx.x * STREAM_TZ, smem,
+                              StepOut{out, aux_in, aux_out, N});
+}
+
+// Launches one step (occ == nullptr), or reports the occupancy such a
+// launch gets.
+template <int ORDER, class M, class MatT, class AX>
+cudaError_t launch_stream(const float* u, const void* m, const float* aux_in,
+                          float* out, float* aux_out, const GcmFusedParams& p,
+                          int device, cudaStream_t stream,
+                          StreamOccupancy* occ) {
+    using L = StreamLayout<ORDER, M, AX>;
+    const auto kernel = fused_step_stream_kernel<ORDER, M, MatT, AX>;
+    int bps = 0;
+    cudaError_t err = stream_blocks_per_sm(kernel, L::BYTES, &bps);
+    if (err != cudaSuccess) return err;
+    if (occ != nullptr) {
+        *occ = StreamOccupancy{bps, L::BYTES};
+        return cudaSuccess;
+    }
+    const int nzt = (p.n[2] + STREAM_TZ - 1) / STREAM_TZ;
+    const int nyt = (p.n[1] + STREAM_TY - 1) / STREAM_TY;
+    const int ch = stream_chunk(p.n[0], (long long)nzt * nyt,
+                                 Stencil<ORDER>::R, bps, device);
+    const dim3 grid(nzt, nyt, (p.n[0] + ch - 1) / ch);
+    kernel<<<grid, STREAM_NT, L::BYTES, stream>>>(
+        u, (const MatT*)m, aux_in, out, aux_out, ch, p);
+    return cudaGetLastError();
+}
+
+template <class MatT>
+cudaError_t dispatch_stream(int order, const float* u, const void* m,
+                            const float* aux_in, float* out, float* aux_out,
+                            const GcmFusedParams& p, int device,
+                            cudaStream_t s, StreamOccupancy* occ) {
+    return with_stencil(order, [&](auto o) {
+        return with_model(p.model, [&](auto mdl) {
+            return with_axes(p.axes, [&](auto ax) {
+                return launch_stream<decltype(o)::value, decltype(mdl), MatT,
+                                     decltype(ax)>(u, m, aux_in, out, aux_out,
+                                                   p, device, s, occ);
+            });
+        });
+    });
+}
+
+template <class MatT>
+cudaError_t dispatch_pair(int order, const float* u, const void* m,
+                          float* out, const GcmFusedParams& p,
+                          cudaStream_t s) {
     switch (order) {
-        case 1: return launch_slab<1, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 2: return launch_slab<2, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 3: return launch_slab<3, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 4: return launch_slab<4, MatT, K>(u, m, aux_in, out, aux_out, p, s);
+        case 1: return launch_pair<1, MatT>(u, m, out, p, s);
+        case 2: return launch_pair<2, MatT>(u, m, out, p, s);
+        case 3: return launch_pair<3, MatT>(u, m, out, p, s);
+        case 4: return launch_pair<4, MatT>(u, m, out, p, s);
         default: return cudaErrorInvalidValue;
     }
+}
+
+cudaError_t slab(const float* u, const void* mstack, const float* aux_in,
+                 float* out, float* aux_out, const GcmFusedParams& p,
+                 int order, int mat_bf16, int ksteps, int device,
+                 cudaStream_t s, StreamOccupancy* occ) {
+    // the streamed body addresses a plane with 32-bit offsets
+    if ((long long)p.n[1] * p.n[2] >= (1LL << 31))
+        return cudaErrorInvalidValue;
+    if (ksteps == 1 && !mat_bf16)
+        return dispatch_stream<float>(order, u, mstack, aux_in, out, aux_out,
+                                      p, device, s, occ);
+    if (ksteps == 1)
+        return dispatch_stream<__nv_bfloat16>(order, u, mstack, aux_in, out,
+                                              aux_out, p, device, s, occ);
+    if (ksteps != 2 || p.nspec > 0 || occ != nullptr)
+        return cudaErrorInvalidValue;
+    if (!mat_bf16) return dispatch_pair<float>(order, u, mstack, out, p, s);
+    return dispatch_pair<__nv_bfloat16>(order, u, mstack, out, p, s);
 }
 
 }  // namespace
@@ -138,32 +232,43 @@ extern "C" {
 // Launches one pass of `ksteps` (1 or 2) full 3D steps on `stream` (a
 // cudaStream_t) of device `device`: the sweeps along params->axes, then
 // (ksteps = 2) along params->axes_next; the stack (nm, nx, ny, nz) is bf16
-// when `mat_bf16` is set, float otherwise. The folded correctors (aux_in/
-// aux_out, one field per damage corrector, null without) run only with
-// ksteps = 1. Returns the CUDA error code of the launch (0 on success); the
-// caller allocates the outputs and checks shapes, types and contiguity.
+// when `mat_bf16` is set, float otherwise. One step runs the streamed body
+// compiled for params->model. The folded correctors (aux_in/aux_out, one
+// field per damage corrector, null without) run only with ksteps = 1.
+// Returns the CUDA error code of the launch (0 on success); the caller
+// allocates the outputs and checks shapes, types and contiguity.
 int gcm_fused_step_slab(const float* u, const void* mstack,
                         const float* aux_in, float* out, float* aux_out,
                         const GcmFusedParams* params, int order, int mat_bf16,
                         int ksteps, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    cudaStream_t s = (cudaStream_t)stream;
-    const GcmFusedParams& p = *params;
-    if (ksteps == 2 && p.nspec > 0) return (int)cudaErrorInvalidValue;
-    if (ksteps == 1 && !mat_bf16)
-        return (int)dispatch_slab<float, 1>(order, u, mstack, aux_in, out,
-                                            aux_out, p, s);
-    if (ksteps == 1)
-        return (int)dispatch_slab<__nv_bfloat16, 1>(order, u, mstack, aux_in,
-                                                    out, aux_out, p, s);
-    if (ksteps == 2 && !mat_bf16)
-        return (int)dispatch_slab<float, 2>(order, u, mstack, aux_in, out,
-                                            aux_out, p, s);
-    if (ksteps == 2)
-        return (int)dispatch_slab<__nv_bfloat16, 2>(order, u, mstack, aux_in,
-                                                    out, aux_out, p, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)slab(u, mstack, aux_in, out, aux_out, *params, order,
+                     mat_bf16, ksteps, device, (cudaStream_t)stream, nullptr);
+}
+
+// The occupancy a one-step launch with these arguments gets: out[0]
+// resident blocks an SM, out[1] its dynamic shared memory in bytes.
+int gcm_fused_step_slab_occupancy(const GcmFusedParams* params, int order,
+                                  int mat_bf16, int device, int* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    StreamOccupancy occ{0, 0};
+    err = slab(nullptr, nullptr, nullptr, nullptr, nullptr, *params, order,
+               mat_bf16, 1, device, nullptr, &occ);
+    out[0] = occ.blocks_per_sm;
+    out[1] = occ.smem_bytes;
+    return (int)err;
+}
+
+// Fills the component map compiled for `model` (STREAM_MODEL_*) into
+// ncomp, sign, npairs, pair_sigma, pair_vel, nzeros, zero_comp, zero_src,
+// ndiag, diag, nshear and shear of *out. Returns 0, or 1 for an unknown id.
+int gcm_stream_model_map(int model, GcmFusedParams* out) {
+    return (int)with_model(model, [&](auto mdl) {
+        model_map<decltype(mdl)>(out);
+        return cudaSuccess;
+    });
 }
 
 const char* gcm_error_string(int err) {

@@ -2,7 +2,10 @@
 // block of the fused steps, Lagrange stencil weights, the border algebra,
 // material stacks stored as float or bf16 (upcast at the load), one
 // characteristic sweep over a box of cells, the folded ODE corrector
-// epilogue, and a whole step (or K steps, temporal blocking) on one tile.
+// epilogue, K steps (temporal blocking) on one box tile (step_tile_n: the
+// 2D steps and the two-step 3D pass), and the one-step 3D body that walks
+// x plane by plane through a ring of planes in shared memory
+// (stream_step: the 3D fused, slab and SPMD kernels).
 //
 // The device functions sit in an anonymous namespace: each kernel source
 // compiles its own copy, and the sources link into one library without
@@ -56,7 +59,14 @@ struct GcmFusedParams {
     int shear[3];
     int axes_next[3];            // sweep order of the second in-window
                                  // step (temporal blocking, K = 2)
+    int model;                   // compiled component map of the one-step
+                                 // 3D body (STREAM_MODEL_*); -1 for none
 };
+
+// The component maps the one-step 3D body is compiled for (the ids of
+// GcmFusedParams::model; gcm_stream_model_map exports them).
+constexpr int STREAM_MODEL_ELASTIC3D = 0;
+constexpr int STREAM_MODEL_ACOUSTIC3D = 1;
 
 namespace {
 
@@ -99,6 +109,41 @@ struct Region {
     int vol;
 };
 
+// The one-step 3D body: a block of STREAM_NT threads owns a STREAM_TY x
+// STREAM_TZ tile of the (y, z) plane (z contiguous, 128-byte rows) and
+// walks a chunk of x planes. 11 warps: every sweep of a plane window, up
+// to (8 + 2) x (32 + 2) = 340 cells at r = 1, is one pass of the block.
+constexpr int STREAM_NT = 352;
+constexpr int STREAM_TY = 8;
+constexpr int STREAM_TZ = 32;
+
+// 4-byte asynchronous copy from global to shared memory (cp.async, sm_80+):
+// issued copies complete in commit groups; cp_async_wait<N> returns once at
+// most the N most recent groups are still in flight, and a barrier after it
+// makes every thread's copies visible to the block.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+#else
+    *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
 // Reads the state from global memory at clamped coordinates.
 struct GlobalSrc {
     const float* __restrict__ u;
@@ -109,6 +154,24 @@ struct GlobalSrc {
         y = min(max(y, 0), n1 - 1);
         z = min(max(z, 0), n2 - 1);
         return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
+    }
+    // Starts the copy of the C components of plane x, cells [ylo, ylo+EY)
+    // x [zlo, zlo+EZ) at clamped coordinates, into dst (C, EY, EZ):
+    // neighbouring threads copy neighbouring z, so rows coalesce.
+    template <int C, int EY, int EZ>
+    __device__ __forceinline__ void stage(float* dst, int x, int ylo,
+                                          int zlo) const {
+        x = min(max(x, 0), n0 - 1);
+        const float* pl = u + (long long)x * n1 * n2;
+        for (int e = threadIdx.x; e < EY * EZ; e += STREAM_NT) {
+            const int j = e / EZ, k = e - j * EZ;
+            const int y = min(max(ylo + j, 0), n1 - 1);
+            const int z = min(max(zlo + k, 0), n2 - 1);
+            const float* s = pl + y * n2 + z;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                cp_async4(dst + c * EY * EZ + e, s + c * N);
+        }
     }
 };
 
@@ -126,23 +189,38 @@ struct SlabSrc {
     const float* __restrict__ yhi;
     int n0, n1, n2, R;
     long long N;
-    __device__ float ld(int c, int x, int y, int z) const {
+    // the address that holds component c of cell (x, y, z)
+    __device__ const float* at(int c, int x, int y, int z) const {
         z = min(max(z, 0), n2 - 1);
         x = min(max(x, -R), n0 - 1 + R);
         if (ylo == nullptr) y = min(max(y, 0), n1 - 1);
         else y = min(max(y, -R), n1 - 1 + R);
         if (y < 0)
-            return __ldg(ylo + (((long long)c * (n0 + 2 * R) + x + R) * R
-                                + y + R) * n2 + z);
+            return ylo + (((long long)c * (n0 + 2 * R) + x + R) * R + y + R)
+                             * n2 + z;
         if (y >= n1)
-            return __ldg(yhi + (((long long)c * (n0 + 2 * R) + x + R) * R
-                                + y - n1) * n2 + z);
+            return yhi + (((long long)c * (n0 + 2 * R) + x + R) * R + y - n1)
+                             * n2 + z;
         if (x < 0)
-            return __ldg(xlo + (((long long)c * R + x + R) * n1 + y) * n2 + z);
+            return xlo + (((long long)c * R + x + R) * n1 + y) * n2 + z;
         if (x >= n0)
-            return __ldg(xhi + (((long long)c * R + x - n0) * n1 + y) * n2
-                         + z);
-        return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
+            return xhi + (((long long)c * R + x - n0) * n1 + y) * n2 + z;
+        return u + c * N + ((long long)x * n1 + y) * n2 + z;
+    }
+    __device__ float ld(int c, int x, int y, int z) const {
+        return __ldg(at(c, x, y, z));
+    }
+    // GlobalSrc::stage with each cell's address picked from the block or a
+    // slab.
+    template <int C, int EY, int EZ>
+    __device__ __forceinline__ void stage(float* dst, int x, int ylo,
+                                          int zlo) const {
+        for (int e = threadIdx.x; e < EY * EZ; e += STREAM_NT) {
+            const int j = e / EZ, k = e - j * EZ;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                cp_async4(dst + c * EY * EZ + e, at(c, x, ylo + j, zlo + k));
+        }
     }
 };
 
@@ -199,6 +277,17 @@ struct GlobalMat {
     __device__ float ld(int row, long long off) const {
         return mat_load(m + row * N + off);
     }
+    // plane x of row 0, and a cell's 32-bit offset within a plane (the
+    // streamed body's addressing)
+    __device__ const T* plane(int x) const {
+        return m + (long long)min(max(x, 0), n0 - 1) * n1 * n2;
+    }
+    __device__ int cell(int y, int z) const {
+        return min(max(y, 0), n1 - 1) * n2 + min(max(z, 0), n2 - 1);
+    }
+    __device__ float ld(const T* pl, int row, int cell) const {
+        return mat_load(pl + row * N + cell);
+    }
 };
 
 // A shard's halo-extended material stack (parallel/fused_spmd.py::
@@ -217,6 +306,17 @@ struct ExtMat {
     }
     __device__ float ld(int row, long long off) const {
         return mat_load(m + row * N + off);
+    }
+    __device__ const T* plane(int x) const {
+        return m + (long long)(min(max(x, -e0), n0 - 1 + e0) + e0) *
+                       (n1 + 2 * e1) * n2;
+    }
+    __device__ int cell(int y, int z) const {
+        return (min(max(y, -e1), n1 - 1 + e1) + e1) * n2 +
+               min(max(z, 0), n2 - 1);
+    }
+    __device__ float ld(const T* pl, int row, int cell) const {
+        return mat_load(pl + row * N + cell);
     }
 };
 
@@ -402,6 +502,7 @@ __device__ __forceinline__ void step_tile_n(
         const Mat& mat, float* smem, float* __restrict__ out,
         const float* __restrict__ aux_in, float* __restrict__ aux_out) {
     static_assert(K == 1 || K == 2, "one or two steps per window");
+    static_assert(DIM == 2 || K == 2, "one 3D step is stream_step's");
     constexpr int R = Stencil<ORDER>::R;
     constexpr int H = K * R;
     constexpr int S = K * DIM;
@@ -434,18 +535,492 @@ __device__ __forceinline__ void step_tile_n(
     }
 }
 
-// step_tile_n for a grid of `dim` (2 or 3) axes.
-template <int ORDER, int K = 1, class Src, class Mat>
-__device__ __forceinline__ void step_tile(
-        const GcmFusedParams& p, int dim, const int* t0, const int* T,
-        const Src& src, const Mat& mat, float* smem, float* __restrict__ out,
-        const float* __restrict__ aux_in, float* __restrict__ aux_out) {
-    if (dim == 2)
-        step_tile_n<ORDER, K, 2>(p, t0, T, src, mat, smem, out, aux_in,
-                                 aux_out);
-    else
-        step_tile_n<ORDER, K, 3>(p, t0, T, src, mat, smem, out, aux_in,
-                                 aux_out);
+// ------------------------------------------- the one-step 3D body, streamed
+
+// Component maps of the 3D fused models (gcm_tpu_torch/models/spec.py),
+// fixed at compile time so that a cell's components live in registers:
+// along sweep axis a, pair q couples stress sigma(a, q) with velocity
+// vel(a, q), and zero-speed invariant j moves zcomp(a, j) with the change
+// of zsrc(a); diag/shear name the stresses the folded correctors act on.
+// The stack rows of each pair's speed and each zero's ratio stay runtime
+// parameters (addresses), so one instantiation reads either stack layout.
+struct Elastic3D {
+    // [vx, vy, vz, sxx, sxy, sxz, syy, syz, szz]
+    static constexpr int ID = STREAM_MODEL_ELASTIC3D;
+    static constexpr int C = 9, SIGN = 1, NPAIRS = 3, NZEROS = 2;
+    static constexpr int NDIAG = 3, NSHEAR = 3;
+    __host__ __device__ static constexpr int sigma(int a, int q) {
+        return a == 0 ? 3 + q
+                      : (a == 1 ? (q == 0 ? 6 : (q == 1 ? 4 : 7))
+                                : (q == 0 ? 8 : (q == 1 ? 5 : 7)));
+    }
+    __host__ __device__ static constexpr int vel(int a, int q) {
+        return a == 0 ? q
+                      : (a == 1 ? (q == 0 ? 1 : (q == 1 ? 0 : 2))
+                                : (q == 0 ? 2 : (q == 1 ? 0 : 1)));
+    }
+    __host__ __device__ static constexpr int zcomp(int a, int j) {
+        return a == 0 ? (j == 0 ? 6 : 8)
+                      : (a == 1 ? (j == 0 ? 3 : 8) : (j == 0 ? 3 : 6));
+    }
+    __host__ __device__ static constexpr int zsrc(int a) {
+        return sigma(a, 0);
+    }
+    __host__ __device__ static constexpr int diag(int i) {
+        return i == 0 ? 3 : (i == 1 ? 6 : 8);
+    }
+    __host__ __device__ static constexpr int shear(int i) {
+        return i == 0 ? 4 : (i == 1 ? 5 : 7);
+    }
+};
+
+struct Acoustic3D {
+    // [vx, vy, vz, p]
+    static constexpr int ID = STREAM_MODEL_ACOUSTIC3D;
+    static constexpr int C = 4, SIGN = -1, NPAIRS = 1, NZEROS = 0;
+    static constexpr int NDIAG = 0, NSHEAR = 0;
+    __host__ __device__ static constexpr int sigma(int, int) { return 3; }
+    __host__ __device__ static constexpr int vel(int a, int) { return a; }
+    __host__ __device__ static constexpr int zcomp(int, int) { return 0; }
+    __host__ __device__ static constexpr int zsrc(int) { return 0; }
+    __host__ __device__ static constexpr int diag(int) { return 0; }
+    __host__ __device__ static constexpr int shear(int) { return 0; }
+};
+
+// The compiled map of model M in the fields of GcmFusedParams, for the
+// binding to hold the runtime model to.
+template <class M>
+__host__ inline void model_map(GcmFusedParams* p) {
+    p->ncomp = M::C;
+    p->sign = M::SIGN;
+    for (int a = 0; a < 3; ++a) {
+        p->npairs[a] = M::NPAIRS;
+        p->nzeros[a] = M::NZEROS;
+        for (int q = 0; q < M::NPAIRS; ++q) {
+            p->pair_sigma[a][q] = M::sigma(a, q);
+            p->pair_vel[a][q] = M::vel(a, q);
+        }
+        for (int j = 0; j < M::NZEROS; ++j) {
+            p->zero_comp[a][j] = M::zcomp(a, j);
+            p->zero_src[a][j] = M::zsrc(a);
+        }
+    }
+    p->ndiag = M::NDIAG;
+    p->nshear = M::NSHEAR;
+    for (int i = 0; i < M::NDIAG; ++i) p->diag[i] = M::diag(i);
+    for (int i = 0; i < M::NSHEAR; ++i) p->shear[i] = M::shear(i);
+}
+
+// A sweep order (a permutation of the three axes) as types.
+template <int A0_, int A1_, int A2_>
+struct Axes {
+    static constexpr int A0 = A0_, A1 = A1_, A2 = A2_;
+    // position of x in the order
+    static constexpr int P = A0 == 0 ? 0 : (A1 == 0 ? 1 : 2);
+    // whether y / z is among the first s sweeps
+    __host__ __device__ static constexpr bool ys(int s) {
+        return (s > 0 && A0 == 1) || (s > 1 && A1 == 1) || (s > 2 && A2 == 1);
+    }
+    __host__ __device__ static constexpr bool zs(int s) {
+        return (s > 0 && A0 == 2) || (s > 1 && A1 == 2) || (s > 2 && A2 == 2);
+    }
+};
+
+// The (y, z) window of a tile at one stage of the step: the tile with a
+// halo of R cells along each in-plane axis not swept yet (YS, ZS: swept).
+template <int R, bool YS, bool ZS>
+struct Win {
+    static constexpr int HY = YS ? 0 : R, HZ = ZS ? 0 : R;
+    static constexpr int EY = STREAM_TY + 2 * HY, EZ = STREAM_TZ + 2 * HZ;
+    static constexpr int VOL = EY * EZ;
+};
+
+// Shared memory of stream_step for one (order, model, sweep order), in
+// floats from the start of the block's buffer:
+// - RAW: two incoming raw planes (double buffer), only when some in-plane
+//   sweep precedes x (P > 0); at P = 0 the raw planes go straight into the
+//   ring;
+// - RING: the planes the x sweep reads, after the sweeps before x: 2R + 1
+//   of them, and one more at P = 0 for the plane in flight;
+// - TMP: the x sweep's output plane (P = 0, 1) or the first of two
+//   in-plane sweeps before x (P = 2); TMP2: the first sweep after x when
+//   two follow it (P = 0).
+template <int ORDER, class M, class AX>
+struct StreamLayout {
+    static constexpr int R = Stencil<ORDER>::R, C = M::C, P = AX::P;
+    using Raw = Win<R, false, false>;
+    using Mid = Win<R, AX::ys(1), AX::zs(1)>;
+    using Post = Win<R, AX::ys(2), AX::zs(2)>;
+    using Ring = Win<R, AX::ys(P), AX::zs(P)>;
+    using Out = Win<R, true, true>;
+    static constexpr int NRAW = P == 0 ? 0 : 2;
+    static constexpr int NSLOT = P == 0 ? 2 * R + 2 : 2 * R + 1;
+    static constexpr int RAW = 0;
+    static constexpr int RING = RAW + NRAW * C * Raw::VOL;
+    static constexpr int TMP = RING + NSLOT * C * Ring::VOL;
+    static constexpr int TMP2 = TMP + C * (P == 2 ? Mid::VOL : Ring::VOL);
+    static constexpr int FLOATS = TMP2 + (P == 0 ? C * Post::VOL : 0);
+    static constexpr int BYTES = (int)sizeof(float) * FLOATS;
+    // blocks an SM can hold by shared memory (228 KB, 1 KB reserved a
+    // block), at most 3: the register budget of __launch_bounds__ (56 a
+    // thread at 3 blocks of 11 warps; ptxas then spills a few bytes in the
+    // order 1-2 elastic3d forms, which still run faster than 2 blocks
+    // without spills, PERF.md)
+    static constexpr int MINB = 233472 / (BYTES + 1024) >= 3
+                                    ? 3
+                                    : (233472 / (BYTES + 1024) >= 2 ? 2 : 1);
+};
+
+// Where the last sweep stores: the state (C, n0, n1, n2) and, for the
+// damage correctors, the aux streams (naux, n0, n1, n2).
+struct StepOut {
+    float* __restrict__ u;
+    const float* __restrict__ aux_in;
+    float* __restrict__ aux_out;
+    long long N;
+};
+
+// The folded correctors on one cell in registers (corrector_epilogue with
+// the model's stresses fixed at compile time).
+template <class M>
+__device__ __forceinline__ void epilogue_n(const GcmFusedParams& p,
+                                           float (&c)[M::C],
+                                           const StepOut& so, long long off) {
+    if constexpr (M::NDIAG > 0) {
+        int q = 0;
+#pragma unroll
+        for (int s = 0; s < MAXSPEC; ++s) {
+            if (s >= p.nspec) break;
+            if (p.spec_kind[s] == 0) {
+                const float decay = p.spec_a[s];
+                float sum = 0.0f;
+#pragma unroll
+                for (int i = 0; i < M::NDIAG; ++i) sum += c[M::diag(i)];
+                const float mean = sum / (float)M::NDIAG;
+#pragma unroll
+                for (int i = 0; i < M::NDIAG; ++i)
+                    c[M::diag(i)] = mean + (c[M::diag(i)] - mean) * decay;
+#pragma unroll
+                for (int i = 0; i < M::NSHEAR; ++i) c[M::shear(i)] *= decay;
+            } else {
+                const float thr = p.spec_a[s], rate = p.spec_b[s];
+                const float d = so.aux_in[q * so.N + off];
+                float smax = c[M::diag(0)];
+#pragma unroll
+                for (int i = 1; i < M::NDIAG; ++i)
+                    smax = fmaxf(smax, c[M::diag(i)]);
+                const float over = fmaxf(smax - thr, 0.0f) / thr;
+                const float d_new =
+                    fminf(fmaxf(d + rate * over * p.dt, 0.0f), 1.0f);
+                const float f =
+                    fminf((1.0f - d_new) / fmaxf(1.0f - d, 1e-12f), 1.0f);
+#pragma unroll
+                for (int i = 0; i < M::NDIAG; ++i) c[M::diag(i)] *= f;
+#pragma unroll
+                for (int i = 0; i < M::NSHEAR; ++i) c[M::shear(i)] *= f;
+                so.aux_out[q * so.N + off] = d_new;
+                ++q;
+            }
+        }
+    }
+}
+
+// The folded correctors and the store of one output cell at flat offset
+// `off` of the state.
+template <class M>
+__device__ __forceinline__ void store_cell(const GcmFusedParams& p,
+                                           float (&nw)[M::C],
+                                           const StepOut& so, long long off) {
+    if (p.nspec > 0) epilogue_n<M>(p, nw, so, off);
+#pragma unroll
+    for (int c = 0; c < M::C; ++c) so.u[c * so.N + off] = nw[c];
+}
+
+// One cell of a sweep along axis A (sweep's term for term, with the
+// component map of M): ld(c, o) reads component c at offset o along A, mp
+// and moff address the cell's materials, ga is its row along A.
+template <int ORDER, class M, int A, class Ld, class Mat, class MP>
+__device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
+                                           const Ld& ld, const Mat& mat,
+                                           MP mp, int moff, int ga,
+                                           float (&nw)[M::C]) {
+    using S = Stencil<ORDER>;
+    float old[M::C];
+#pragma unroll
+    for (int c = 0; c < M::C; ++c) {
+        old[c] = ld(c, 0);
+        nw[c] = old[c];
+    }
+    const float rho = mat.ld(mp, p.rho_idx, moff);
+#pragma unroll
+    for (int q = 0; q < M::NPAIRS; ++q) {
+        const int sg = M::sigma(A, q), vl = M::vel(A, q);
+        const float c = mat.ld(mp, p.pair_c[A][q], moff);
+        const float z = rho * c;
+        const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
+        float w[S::NP];
+        S::weights(c * p.dtoh[A], w);
+        float Ap = 0.f, Bp = 0.f, Am = 0.f, Bm = 0.f;
+#pragma unroll
+        for (int t = 0; t < S::NP; ++t) {
+            const int o = t + S::LO;
+            Ap += w[t] * ld(sg, o);
+            Bp += w[t] * ld(vl, o);
+            Am += w[t] * ld(sg, -o);
+            Bm += w[t] * ld(vl, -o);
+        }
+        const float szb = (float)M::SIGN * z;
+        float wl = Ap + szb * Bp;
+        float wr = Am - szb * Bm;
+        if (ga == 0 && p.bc_kind[A][0] >= 0)
+            wr = bc_incoming(p.bc_kind[A][0], p.bc_val[A][0][q], wl, M::SIGN,
+                             z, 0);
+        if (ga == p.n[A] - 1 && p.bc_kind[A][1] >= 0)
+            wl = bc_incoming(p.bc_kind[A][1], p.bc_val[A][1][q], wr, M::SIGN,
+                             z, 1);
+        nw[sg] = 0.5f * (wl + wr);
+        nw[vl] = z > 0.0f ? (float)M::SIGN * (wl - wr) * rz : old[vl];
+    }
+#pragma unroll
+    for (int j = 0; j < M::NZEROS; ++j) {
+        const int zc = M::zcomp(A, j), zsr = M::zsrc(A);
+        nw[zc] = old[zc] + mat.ld(mp, p.zero_kappa[A][j], moff) *
+                               (nw[zsr] - old[zsr]);
+    }
+}
+
+// One sweep along the in-plane axis A (1 = y, 2 = z) of plane x: reads the
+// window In from the shared buffer `in` and writes window Out (In less its
+// halo along A) to the shared buffer `dst`, or, TO_GLOBAL, the tile's cells
+// inside the domain to the output after the folded correctors.
+template <int ORDER, class M, int A, class In, class Out, bool TO_GLOBAL,
+          class Mat>
+__device__ __forceinline__ void plane_sweep(const GcmFusedParams& p,
+                                            const float* in, float* dst,
+                                            const Mat& mat, int x, int y0,
+                                            int z0, const StepOut& so) {
+    static_assert(A == 1 || A == 2, "an in-plane axis");
+    constexpr int DY = In::HY - Out::HY, DZ = In::HZ - Out::HZ;
+    static_assert((A == 1 ? DZ : DY) == 0 && (A == 1 ? DY : DZ) ==
+                      Stencil<ORDER>::R, "the sweep drops A's halo only");
+    constexpr int ST = A == 1 ? In::EZ : 1;
+    const auto mp = mat.plane(x);
+    const long long plane = (long long)x * p.n[1] * p.n[2];
+    for (int idx = threadIdx.x; idx < Out::VOL; idx += STREAM_NT) {
+        const int j = idx / Out::EZ, k = idx - j * Out::EZ;
+        const int gy = y0 - Out::HY + j, gz = z0 - Out::HZ + k;
+        if (TO_GLOBAL && (gy >= p.n[1] || gz >= p.n[2])) continue;
+        const float* b = in + (j + DY) * In::EZ + k + DZ;
+        const auto ld = [&](int c, int o) { return b[c * In::VOL + o * ST]; };
+        float nw[M::C];
+        cell_sweep<ORDER, M, A>(p, ld, mat, mp, mat.cell(gy, gz),
+                                A == 1 ? gy : gz, nw);
+        if constexpr (TO_GLOBAL) {
+            store_cell<M>(p, nw, so, plane + gy * p.n[2] + gz);
+        } else {
+#pragma unroll
+            for (int c = 0; c < M::C; ++c) dst[c * Out::VOL + idx] = nw[c];
+        }
+    }
+}
+
+// The x sweep of plane x over window W: rp[t] holds plane x - R + t (the
+// ring's slots, after the in-plane sweeps that precede x), each W-shaped.
+template <int ORDER, class M, class W, bool TO_GLOBAL, class Mat>
+__device__ __forceinline__ void x_sweep(
+        const GcmFusedParams& p,
+        const float* const (&rp)[2 * Stencil<ORDER>::R + 1], float* dst,
+        const Mat& mat, int x, int y0, int z0, const StepOut& so) {
+    constexpr int R = Stencil<ORDER>::R;
+    const auto mp = mat.plane(x);
+    const long long plane = (long long)x * p.n[1] * p.n[2];
+    for (int idx = threadIdx.x; idx < W::VOL; idx += STREAM_NT) {
+        const int j = idx / W::EZ, k = idx - j * W::EZ;
+        const int gy = y0 - W::HY + j, gz = z0 - W::HZ + k;
+        if (TO_GLOBAL && (gy >= p.n[1] || gz >= p.n[2])) continue;
+        const auto ld = [&](int c, int o) {
+            return rp[o + R][c * W::VOL + idx];
+        };
+        float nw[M::C];
+        cell_sweep<ORDER, M, 0>(p, ld, mat, mp, mat.cell(gy, gz), x, nw);
+        if constexpr (TO_GLOBAL) {
+            store_cell<M>(p, nw, so, plane + gy * p.n[2] + gz);
+        } else {
+#pragma unroll
+            for (int c = 0; c < M::C; ++c) dst[c * W::VOL + idx] = nw[c];
+        }
+    }
+}
+
+// One full 3D step (sweeps along AX::A0, A1, A2) of output planes [xa, xb)
+// of the (y, z) tile at (y0, z0), walking x: each incoming plane xi (from
+// xa - R to xb + R - 1, clamped by the source, which replicates the edge)
+// is staged into shared memory while the previous one computes; the
+// in-plane sweeps that precede x run on it and put it into the ring; then
+// the x sweep of plane xi - R reads the 2R + 1 ring planes around it, the
+// in-plane sweeps that follow x run on its result, and the last sweep
+// stores the tile's cells, after the folded correctors. Called by every
+// thread of a STREAM_NT-thread block.
+template <int ORDER, class M, class AX, class Src, class Mat>
+__device__ __forceinline__ void stream_step(const GcmFusedParams& p,
+                                            const Src& src, const Mat& mat,
+                                            int xa, int xb, int y0, int z0,
+                                            float* smem, const StepOut& so) {
+    using L = StreamLayout<ORDER, M, AX>;
+    using Raw = typename L::Raw;
+    using Ring = typename L::Ring;
+    constexpr int R = L::R, C = M::C, P = L::P;
+    constexpr int SLOT = C * Ring::VOL;
+    float* const ring = smem + L::RING;
+    float* const tmp = smem + L::TMP;
+    float* const tmp2 = smem + L::TMP2;
+    // the buffer of incoming plane number `it` (counted from xa - R)
+    const auto inbox = [&](int it) {
+        return P == 0 ? ring + (it % L::NSLOT) * SLOT
+                      : smem + L::RAW + (it & 1) * (C * Raw::VOL);
+    };
+    const int nin = xb - xa + 2 * R;
+    src.template stage<C, Raw::EY, Raw::EZ>(inbox(0), xa - R, y0 - R, z0 - R);
+    cp_async_commit();
+    for (int it = 0; it < nin; ++it) {
+        const int xi = xa - R + it;
+        if (it + 1 < nin)
+            src.template stage<C, Raw::EY, Raw::EZ>(inbox(it + 1), xi + 1,
+                                                    y0 - R, z0 - R);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        if constexpr (P > 0) {
+            float* const slot = ring + (it % L::NSLOT) * SLOT;
+            const float* const in = inbox(it);
+            if constexpr (P == 1) {
+                plane_sweep<ORDER, M, AX::A0, Raw, Ring, false>(
+                    p, in, slot, mat, xi, y0, z0, so);
+            } else {
+                using Mid = typename L::Mid;
+                plane_sweep<ORDER, M, AX::A0, Raw, Mid, false>(
+                    p, in, tmp, mat, xi, y0, z0, so);
+                __syncthreads();
+                plane_sweep<ORDER, M, AX::A1, Mid, Ring, false>(
+                    p, tmp, slot, mat, xi, y0, z0, so);
+            }
+            __syncthreads();
+        }
+        if (it < 2 * R) continue;
+        const int xo = xi - R;
+        const float* rp[2 * R + 1];
+#pragma unroll
+        for (int t = 0; t <= 2 * R; ++t)
+            rp[t] = ring + ((it - 2 * R + t) % L::NSLOT) * SLOT;
+        if constexpr (P == 2) {
+            x_sweep<ORDER, M, Ring, true>(p, rp, nullptr, mat, xo, y0, z0,
+                                          so);
+        } else {
+            x_sweep<ORDER, M, Ring, false>(p, rp, tmp, mat, xo, y0, z0, so);
+            __syncthreads();
+            if constexpr (P == 1) {
+                plane_sweep<ORDER, M, AX::A2, Ring, typename L::Out, true>(
+                    p, tmp, nullptr, mat, xo, y0, z0, so);
+            } else {
+                using Post = typename L::Post;
+                plane_sweep<ORDER, M, AX::A1, Ring, Post, false>(
+                    p, tmp, tmp2, mat, xo, y0, z0, so);
+                __syncthreads();
+                plane_sweep<ORDER, M, AX::A2, Post, typename L::Out, true>(
+                    p, tmp2, nullptr, mat, xo, y0, z0, so);
+            }
+        }
+    }
+}
+
+// -------------------------------------------- host side of the streamed body
+
+template <int N>
+struct Int {
+    static constexpr int value = N;
+};
+
+// Calls f(Int<order>{}) for a stencil order 1-4.
+template <class F>
+__host__ inline cudaError_t with_stencil(int order, F&& f) {
+    switch (order) {
+        case 1: return f(Int<1>{});
+        case 2: return f(Int<2>{});
+        case 3: return f(Int<3>{});
+        case 4: return f(Int<4>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// Calls f(M{}) for the compiled component map p.model.
+template <class F>
+__host__ inline cudaError_t with_model(int model, F&& f) {
+    switch (model) {
+        case STREAM_MODEL_ELASTIC3D: return f(Elastic3D{});
+        case STREAM_MODEL_ACOUSTIC3D: return f(Acoustic3D{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// Calls f(Axes<...>{}) for a sweep order, any permutation of (0, 1, 2).
+template <class F>
+__host__ inline cudaError_t with_axes(const int* ax, F&& f) {
+    switch (ax[0] * 9 + ax[1] * 3 + ax[2]) {
+        case 5: return f(Axes<0, 1, 2>{});
+        case 7: return f(Axes<0, 2, 1>{});
+        case 11: return f(Axes<1, 0, 2>{});
+        case 15: return f(Axes<1, 2, 0>{});
+        case 19: return f(Axes<2, 0, 1>{});
+        case 21: return f(Axes<2, 1, 0>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// What a launch of the streamed body would get: resident blocks an SM at
+// its shared memory, and that shared memory.
+struct StreamOccupancy {
+    int blocks_per_sm;
+    int smem_bytes;
+};
+
+// Allows `smem` bytes of dynamic shared memory to `kernel` and returns its
+// resident blocks an SM.
+template <class K>
+__host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem,
+                                                 int* bps) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(bps, kernel,
+                                                         STREAM_NT, smem);
+}
+
+// Planes a block walks when `columns` (y, z) tiles each walk `len` planes
+// beside `fixed` other blocks of the launch, and `bps` blocks an SM are
+// resident: the chunk that minimizes the waves of blocks times the planes
+// each block stages (its chunk and the 2R planes of in-plane sweeps it
+// recomputes around it). On an H100 at 2 blocks an SM, 128 columns of 256
+// planes take 2 chunks: one wave of 256 blocks.
+__host__ inline int stream_chunk(int len, long long columns, int R, int bps,
+                                 int device, long long fixed = 0) {
+    int nsm = 0;
+    if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess || nsm < 1)
+        nsm = 1;
+    const long long slots = (long long)(bps > 0 ? bps : 1) * nsm;
+    int best = len;
+    long long best_cost = -1;
+    for (int nch = 1; nch <= len; ++nch) {
+        const int ch = (len + nch - 1) / nch;
+        if ((len + ch - 1) / ch != nch) continue;
+        const long long waves = (columns * nch + fixed + slots - 1) / slots;
+        const long long cost = waves * (ch + 2 * R);
+        if (best_cost < 0 || cost < best_cost) {
+            best_cost = cost;
+            best = ch;
+        }
+    }
+    return best;
 }
 
 }  // namespace

@@ -373,8 +373,50 @@ class _Params(ctypes.Structure):
         ("spec_b", ctypes.c_float * _MAXSPEC), ("dt", ctypes.c_float),
         ("ndiag", ctypes.c_int), ("diag", _i(3)),
         ("nshear", ctypes.c_int), ("shear", _i(3)),
-        ("axes_next", _i(3)),
+        ("axes_next", _i(3)), ("model", ctypes.c_int),
     ]
+
+
+#: the component maps the one-step 3D body is compiled for
+#: (csrc/gcm_common.cuh, STREAM_MODEL_*), by model name
+STREAM_MODELS = {"elastic3d": 0, "acoustic3d": 1}
+_MAP_FIELDS = ("ncomp", "sign", "ndiag", "nshear")
+_verified_maps = set()
+
+
+def _model_map(p: _Params) -> tuple:
+    """The component map a parameter block carries: the fields a compiled
+    map fixes, cut to their counts."""
+    per_axis = tuple(
+        (p.npairs[a], tuple(p.pair_sigma[a][:p.npairs[a]]),
+         tuple(p.pair_vel[a][:p.npairs[a]]), p.nzeros[a],
+         tuple(p.zero_comp[a][:p.nzeros[a]]),
+         tuple(p.zero_src[a][:p.nzeros[a]])) for a in range(3))
+    return (tuple(getattr(p, f) for f in _MAP_FIELDS), per_axis,
+            tuple(p.diag[:p.ndiag]), tuple(p.shear[:p.nshear]))
+
+
+def check_stream_model(lib, model: Model, params: _Params) -> None:
+    """Raise unless the library's one-step 3D body is compiled for
+    ``model``'s component map (``params.model``, set by ``_params``): the
+    kernel keeps a cell's components in registers under the compiled map
+    and reads only the stack rows from the parameters. Checked once a
+    model and library."""
+    key = (id(lib), model.name)
+    if key in _verified_maps:
+        return
+    if params.model < 0:
+        raise ValueError(f"the fused 3D kernels are compiled for "
+                         f"{sorted(STREAM_MODELS)}, not {model.name}")
+    compiled = _Params()
+    if lib.gcm_stream_model_map(params.model,
+                                ctypes.addressof(compiled)) != 0:
+        raise RuntimeError(f"the kernel library has no component map "
+                           f"{params.model} ({model.name})")
+    if _model_map(compiled) != _model_map(params):
+        raise RuntimeError(f"{model.name}: the component map compiled into "
+                           "the fused 3D kernels differs from the model's")
+    _verified_maps.add(key)
 
 
 def _params(model: Model, shape, nm: int, dt: float, h: Sequence[float],
@@ -392,6 +434,7 @@ def _params(model: Model, shape, nm: int, dt: float, h: Sequence[float],
     p.sign = model.sign
     p.axes[:] = list(axes) + [-1] * (3 - len(axes))
     p.axes_next[:] = [-1, -1, -1]
+    p.model = STREAM_MODELS.get(model.name, -1) if model.dim == 3 else -1
     p.rho_idx = names.index("rho")
     for a in range(3):
         p.bc_kind[a][:] = [-1, -1]
@@ -505,6 +548,8 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():
         raise RuntimeError("GcmFusedParams layout differs from its binding")
+    if dim == 3 and len(seq) == 1:
+        check_stream_model(lib, model, params)
     out = torch.empty_like(u)
     aux_out = torch.empty_like(aux) if aux is not None else None
     stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -585,6 +630,32 @@ def fused_step_2d(model: Model, u: torch.Tensor, mstack: torch.Tensor,
     if launched:
         fused_step_2d.launches += 1
     return out if aux is None else (out, new_aux)
+
+
+def fused_step_slab_occupancy(model: Model, u: torch.Tensor,
+                              mstack: torch.Tensor, dt: float,
+                              h: Sequence[float], order: int,
+                              borders: Optional[Borders] = None,
+                              axes: Optional[Sequence[int]] = None
+                              ) -> Tuple[int, int]:
+    """``(blocks_per_sm, smem_bytes)`` that a one-step launch of the 3D
+    kernel on these arguments (``fused_step``, or ``fused_step_slab`` with
+    one step) gets on ``u``'s card: resident blocks an SM at its dynamic
+    shared memory, and that shared memory in bytes."""
+    seq = norm_axes_seq(axes, None, 3)
+    _check(model, 3, u, mstack, order, (), None)
+    lib = _build.load()
+    params = _params(model, u.shape[1:], mstack.shape[0], dt, h, borders,
+                     seq[0], ())
+    check_stream_model(lib, model, params)
+    out = (ctypes.c_int * 2)()
+    err = lib.gcm_fused_step_slab_occupancy(
+        ctypes.addressof(params), order,
+        int(mstack.dtype == torch.bfloat16), u.device.index, out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                           f"({lib.gcm_error_string(err).decode()})")
+    return out[0], out[1]
 
 
 fused_step.launches = 0

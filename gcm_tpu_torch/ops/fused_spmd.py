@@ -4,12 +4,15 @@ Counterpart of the kernels of ``gcm_tpu/parallel/fused_spmd.py``
 (``_make_interior_call``, ``_make_ring_call``, ``_make_2d_spmd_call``). A
 shard's block is cut into the kernels' output tiles; the **interior** tiles
 are those whose r-haloed window lies inside the block, the **ring** tiles
-all others (:func:`tile_split`). The interior launch reads only the local
-block and the materials, so it runs while the halo slabs travel; the ring
-launch reads the slabs and writes its tiles into the interior launch's
-output buffer. Materials come from the shard's halo-extended stack
-(``parallel.fused_spmd.extended_mstack``), compact or orthotropic (the
-layout follows the stack's height, ``ops.fused.infer_layout``).
+all others (:func:`tile_split`). A 3D tile is one x plane by ``TILE_3D[1]``
+y rows (the kernel walks x plane by plane), so the 3D ring is r planes
+thick along x and one tile along y; a 2D tile is ``TILE_2D`` x rows. The
+interior launch reads only the local block and the materials, so it runs
+while the halo slabs travel; the ring launch reads the slabs and writes
+its tiles into the interior launch's output buffer. Materials come from
+the shard's halo-extended stack (``parallel.fused_spmd.extended_mstack``),
+compact or orthotropic (the layout follows the stack's height,
+``ops.fused.infer_layout``).
 
 The kernels are CUDA C++ for Hopper: ``csrc/fused_spmd.cu`` (3D) and
 ``csrc/fused_spmd_2d.cu`` (2D, split along x only). Each wrapper launches
@@ -36,7 +39,7 @@ import torch
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.fused import (
-    _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params,
+    _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params, check_stream_model,
     corrector_epilogue_reference, fused_step_reference, infer_layout,
 )
 from gcm_tpu_torch.ops.interp import stencil_radius
@@ -45,9 +48,9 @@ from gcm_tpu_torch.task import BorderSpec
 
 Borders = Dict[Tuple[int, int], BorderSpec]
 
-#: the kernels' output tiles along x and y (3D) and along x (2D); the
-#: binding checks them against csrc/fused_spmd*.cu at load
-TILE_3D = (8, 8)
+#: the kernels' output tiles along x and y (3D: one plane by 8 rows) and
+#: along x (2D); the binding checks them against csrc/fused_spmd*.cu at load
+TILE_3D = (1, 8)
 TILE_2D = 32
 
 
@@ -316,6 +319,7 @@ def _launch_3d(model, u, mext, dt, h, order, borders, axes, correctors,
     params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0, 0, 0), 3),
                      axes, specs)
+    check_stream_model(lib, model, params)
     split = (ctypes.c_int * 6)(*split_3d(nxl, nyl, r))
     sl = [_ptr(s) for s in slabs] if ring else [None] * 4
     err = lib.gcm_fused_spmd(
@@ -417,6 +421,27 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
     fused_spmd_2d.launches += 1
     fused_spmd_2d.ring_launches += int(ring)
     return base
+
+
+def fused_spmd_occupancy(model: Model, u: torch.Tensor, mext: torch.Tensor,
+                         dt: float, h: Sequence[float], order: int,
+                         borders: Optional[Borders] = None,
+                         axes: Optional[Sequence[int]] = None,
+                         ring: bool = False) -> Tuple[int, int]:
+    """``(blocks_per_sm, smem_bytes)`` that the interior (or ``ring``)
+    launch of the 3D kernel on this shard gets on ``u``'s card: resident
+    blocks an SM at its dynamic shared memory, and that shared memory in
+    bytes."""
+    axes = tuple(axes) if axes is not None else (0, 1, 2)
+    _check(model, 3, u, mext, order, axes, (), ())
+    lib = _lib()
+    params = _params(model, u.shape[1:], mext.shape[0], dt, h, borders, axes,
+                     ())
+    check_stream_model(lib, model, params)
+    out = (ctypes.c_int * 2)()
+    _raise(lib, "fused_spmd occupancy", lib.gcm_fused_spmd_occupancy(
+        ctypes.addressof(params), order, int(ring), u.device.index, out))
+    return out[0], out[1]
 
 
 fused_spmd_interior.launches = 0

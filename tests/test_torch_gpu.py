@@ -88,10 +88,19 @@ def norm_err(got, want):
     return ((got - want).abs().reshape(c, -1).amax(1) / scale).max().item()
 
 
+#: 3D sweep orders with x first, last and in the middle
+AXES_3D = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
+#: 3D extents: a tile multiple along none of the axes, ragged against the
+#: 8 x 32 (y, z) tile in every axis, thinner than an x chunk and than the
+#: halo (nx = 1, 2; nz = 2)
+SHAPES_3D = [(24, 40, 56), (3, 5, 7), (70, 19, 45), (9, 17, 2), (1, 9, 33),
+             (2, 3, 40)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7)])
+@pytest.mark.parametrize("shape", SHAPES_3D)
 @pytest.mark.parametrize("name", ["elastic3d", "acoustic3d"])
-@pytest.mark.parametrize("axes", [(0, 1, 2), (2, 1, 0)])
+@pytest.mark.parametrize("axes", AXES_3D)
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
 def test_kernel_matches_plain_on_card(cuda, order, axes, name, shape):
     model, u, ms, dt = card_problem(order, name, shape, cuda)
@@ -412,6 +421,121 @@ def test_spmd_kernels_match_plain_on_card(cuda, case):
     assert norm_err(gather_state(step(us, mext, axes), mesh), want) < 2e-6
 
 
+#: (global shape, mesh shape, order, axes, orthotropic): ragged shards,
+#: thin and ring-only ones, x in the middle of the sweep order
+SPMD_COVER_CASES = [((64, 48, 16), (2, 2), 3, (2, 0, 1), False),
+                    ((50, 38, 20), (2, 2), 2, (1, 0, 2), False),
+                    ((70, 38, 45), (2, 2), 4, (2, 0, 1), False),
+                    ((8, 36, 9), (2, 2), 1, (1, 0, 2), False),
+                    ((140, 38, 33), (2, 2), 2, (0, 2, 1), False),
+                    ((96, 20, 16), (4, 1), 2, (1, 2, 0), False),
+                    ((4, 4, 5), (2, 2), 1, (2, 0, 1), False),
+                    ((50, 38, 20), (2, 2), 2, (2, 0, 1), True),
+                    ((70, 38, 45), (2, 2), 3, (1, 0, 2), True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPMD_COVER_CASES, ids=str)
+def test_spmd_launches_cover_every_cell_once_on_card(cuda, case):
+    """The interior launch writes exactly the interior cells of a NaN
+    buffer, the ring launch all the others; each is held to its plain
+    version and their union to the unsharded plain step."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    shape, mshape, order, axes, ortho = case
+    make = card_ortho_problem if ortho else card_problem
+    model, u, mat, dt = make(order, "elastic3d", shape, cuda, with_mat=True)
+    h = (10.0, 12.0, 9.0)
+    mesh = _card_mesh(cuda, 3, mshape)
+    r = fs.stencil_radius(order)
+    mext = extended_mstack(model, mat, mesh, order)
+    us = shard_state(u, mesh)
+    slabs = exchange_slabs(us, mesh, r)
+    outs = []
+    for k, uk in enumerate(us):
+        args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
+        got = fs.fused_spmd_interior(*args,
+                                     out=torch.full_like(uk, float("nan")))
+        torch.cuda.synchronize()
+        inner = fs.interior_mask(uk.shape[1:], r, device=cuda)
+        assert not torch.isnan(got[:, inner]).any()
+        assert torch.isnan(got[:, ~inner]).all()
+        want = fs.fused_spmd_interior_reference(*args,
+                                                out=torch.zeros_like(uk))
+        assert norm_err(torch.nan_to_num(got), want) < 2e-6
+        flags = face_flags(mesh, k)
+        got = fs.fused_spmd_ring(model, uk, mext[k], slabs[k], flags, got,
+                                 *args[3:])
+        torch.cuda.synchronize()
+        assert not torch.isnan(got).any()
+        want = fs.fused_spmd_ring_reference(model, uk, mext[k], slabs[k],
+                                            flags, want, *args[3:])
+        assert norm_err(got, want) < 2e-6
+        outs.append(got)
+    want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
+                                order, BORDERS, axes)
+    assert norm_err(gather_state(outs, mesh), want) < 2e-6
+
+
+@pytest.mark.gpu
+def test_stream_occupancy_on_card(cuda):
+    """The one-step body's shared memory leaves at least two blocks an SM
+    at r = 1 for elastic3d, in every sweep order, float and bf16 stacks,
+    single-card and SPMD launches."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.ops.fused import fused_step_slab_occupancy
+    from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
+
+    model, u, mat, dt = card_problem(0, "elastic3d", (16, 16, 32), cuda,
+                                     with_mat=True)
+    ms = stack_mats(model, mat)
+    mext = extended_mstack(model, mat, _card_mesh(cuda, 3, (1, 1)), 2)[0]
+    h = (1.0, 1.0, 1.0)
+    for axes in AXES_3D + [(0, 2, 1), (1, 2, 0)]:
+        for stack in (ms, ms.to(torch.bfloat16)):
+            bps, smem = fused_step_slab_occupancy(model, u, stack, dt, h, 2,
+                                                  BORDERS, axes)
+            assert bps >= 2 and 0 < smem < 100_000
+        for ring in (False, True):
+            bps, smem = fs.fused_spmd_occupancy(model, u, mext, dt, h, 2,
+                                                BORDERS, axes, ring=ring)
+            assert bps >= 2 and 0 < smem < 100_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
+    """Maxwell + damage folded into the one-step body, a step in each of
+    the six sweep orders, against the plain steps with the epilogue."""
+    import itertools
+
+    model, u, ms, dt = card_problem(4, "elastic3d", (20, 19, 45), cuda)
+    for a in range(1, 4):   # a smooth state, off the damage knife-edges
+        u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    specs, _ = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    h = (10.0, 11.0, 9.0)
+    got, gaux = u, torch.zeros((1, 20, 19, 45), device=cuda)
+    want, waux = u, gaux
+    for axes in itertools.permutations(range(3)):
+        got, gaux = fused_step_slab(model, got, ms, dt, h, 2, BORDERS, axes,
+                                    correctors=specs, aux=gaux)
+        want, waux = fused_step_slab_reference(model, want, ms, dt, h, 2,
+                                               BORDERS, axes,
+                                               correctors=specs, aux=waux)
+        torch.cuda.synchronize()
+        assert norm_err(got, want) < 2e-6
+        torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+        want, waux = got, gaux    # held a step at a time
+    assert gaux.max().item() > 1e-4
+
+
 @pytest.mark.gpu
 def test_spmd_folded_correctors_on_card(cuda):
     from gcm_tpu_torch.parallel.fused_spmd import (
@@ -542,7 +666,8 @@ SLAB_AXES = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7), (9, 17, 2)])
+@pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7), (9, 17, 2),
+                                   (70, 19, 45), (1, 9, 33)])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("ksteps", [1, 2])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
@@ -730,7 +855,7 @@ def _f64(mat):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(24, 40, 56), (64, 64, 32)])
-@pytest.mark.parametrize("axes", [(0, 1, 2), (2, 1, 0)])
+@pytest.mark.parametrize("axes", AXES_3D)
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_ortho_kernel_matches_plain_on_card(cuda, order, axes, shape):
     """fused_step on an orthotropic stack (13 rows) against its plain

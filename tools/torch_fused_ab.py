@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused 3D step of the PyTorch/CUDA port (``gcm_tpu_torch.ops.
-fused.fused_step``) of several checkouts on one CUDA card, interleaved: the
-A/B comparison of two commits on the same card.
+"""Time the fused 3D launches of the PyTorch/CUDA port of several checkouts
+on one CUDA card, interleaved: the A/B comparison of two commits on the
+same card.
 
     python3 tools/torch_fused_ab.py ROOT [ROOT ...] [--rounds 2] [--reps 50]
 
@@ -9,12 +9,24 @@ Each ROOT is a checkout holding ``gcm_tpu_torch``. Round r runs every ROOT
 in turn (in reverse order on odd rounds, so two roots run A B B A), each in
 a process of its own, since the checkouts' packages share a name. A process
 builds its checkout's kernels, runs ``elastic3d_explosion`` at n=256
-(256x256x128) for 20 steps on the fused path, and times ``fused_step`` on
-that state with CUDA events: the median of 5 batches of REPS launches. A
-checkout that has orthotropic media also times the same step with every
-layer made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
-off-diagonals lam, c44 = mu, c55 = 1.15 mu, c66 = 1.3 mu). Prints the card's
-name and power limit, one JSON line a process, and the medians per ROOT.
+(256x256x128, the shape of one body of the contact path) for 20 steps on
+the fused path, and times with CUDA events, each the median of 5 batches
+of REPS launches queued behind a spin kernel (device time, not the host's
+enqueueing), on that state:
+
+- ``fused_step``: ``fused_step`` in the sweep order (0, 1, 2);
+- ``slab_f32``, ``slab_bf16``: ``fused_step_slab``, one step in the
+  canonical contact order (2, 0, 1), on the float32 stack and on it
+  rounded to bf16;
+- ``interior``, ``ring``: the same scenario on a 2x2 mesh of four
+  co-resident shards of 128^3, 20 steps, then ``fused_spmd_interior`` and
+  ``fused_spmd_ring`` on shard 0 (sweep order (0, 1, 2)).
+
+A checkout that has orthotropic media also times all five with every layer
+made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
+off-diagonals lam, c44 = mu, c55 = 1.15 mu, c66 = 1.3 mu), as
+``ortho_<key>``. Prints the card's name and power limit, one JSON line a
+process, and the medians per ROOT and key.
 """
 
 import argparse
@@ -24,6 +36,9 @@ import os
 import statistics
 import subprocess
 import sys
+import time
+
+KEYS = ("fused_step", "slab_f32", "slab_bf16", "interior", "ring")
 
 
 def _orthotropic(m, cls):
@@ -32,30 +47,71 @@ def _orthotropic(m, cls):
                c23=m.lam, c33=c33, c44=m.mu, c55=1.15 * m.mu, c66=1.3 * m.mu)
 
 
-def _time_step(task, reps):
-    """Median ms of ``fused_step`` on the state after 20 steps of ``task``."""
+def _median_ms(fn, reps):
+    """Median device ms a call of 5 batches of ``reps`` calls, after one
+    warm-up; each batch is queued behind a spin kernel that outlasts its
+    enqueueing, so the wrapper's host time stays off the clock."""
     import torch
 
-    from gcm_tpu_torch.engine import Engine
-    from gcm_tpu_torch.ops.fused import fused_step
-
-    eng = Engine(task, device="cuda")
-    eng.run()
-    args = (eng.model, eng.u, eng._mstack, eng.dt, task.grid.h, task.order,
-            task.borders, (0, 1, 2))
-    fused_step(*args)
+    fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     batches = []
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (1.5 * reps * wall + 2e-3)))
         start.record()
         for _ in range(reps):
-            fused_step(*args)
+            fn()
         stop.record()
         torch.cuda.synchronize()
         batches.append(start.elapsed_time(stop) / reps)
-    return statistics.median(batches), batches, int(eng._mstack.shape[0])
+    return statistics.median(batches)
+
+
+def _time_all(task, reps):
+    """The five timings on the state of 20 steps of ``task``."""
+    import torch
+
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.ops.fused import fused_step, fused_step_slab
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_ring)
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs, face_flags
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    eng = Engine(task, device="cuda")
+    eng.run()
+    h, order, bc = task.grid.h, task.order, task.borders
+    a = (eng.model, eng.u, eng._mstack, eng.dt, h, order, bc)
+    ms16 = eng._mstack.to(torch.bfloat16)
+    a16 = a[:2] + (ms16,) + a[3:]
+    out = {
+        "fused_step": _median_ms(lambda: fused_step(*a, (0, 1, 2)), reps),
+        "slab_f32": _median_ms(
+            lambda: fused_step_slab(*a, axes_seq=((2, 0, 1),)), reps),
+        "slab_bf16": _median_ms(
+            lambda: fused_step_slab(*a16, axes_seq=((2, 0, 1),)), reps),
+    }
+    del eng, a, a16, ms16
+    dev = torch.device("cuda", 0)
+    mesh = domain_mesh(3, [dev] * 4, (2, 2))
+    eng = Engine(task, mesh=mesh)
+    eng.run()
+    u0, m0 = eng.u[0], eng._carry[0]
+    slabs = exchange_slabs(eng.u, mesh, 2 if order >= 3 else 1)
+    base = torch.zeros_like(u0)
+    rest = (eng.dt, h, order, bc, (0, 1, 2))
+    out["interior"] = _median_ms(lambda: fused_spmd_interior(
+        eng.model, u0, m0, *rest, out=base), reps)
+    out["ring"] = _median_ms(lambda: fused_spmd_ring(
+        eng.model, u0, m0, slabs[0], face_flags(mesh, 0), base, *rest), reps)
+    out["nm"] = int(m0.shape[0])
+    return out
 
 
 def child(root, reps):
@@ -67,8 +123,7 @@ def child(root, reps):
     _build.build()
     _build.load()
     task = get_scenario("elastic3d_explosion", n=256, nsteps=20)
-    ms, batches, nm = _time_step(task, reps)
-    out = {"root": root, "fused_step_ms": ms, "batches": batches, "nm": nm}
+    out = {"root": root, **_time_all(task, reps)}
     cls = getattr(materials, "OrthotropicMaterial", None)
     if cls is not None:
         ortho = dataclasses.replace(
@@ -76,8 +131,8 @@ def child(root, reps):
             materials=tuple(dataclasses.replace(
                 r, material=_orthotropic(r.material, cls))
                 for r in task.materials))
-        out["ortho_ms"], out["ortho_batches"], out["ortho_nm"] = \
-            _time_step(ortho, reps)
+        out.update({f"ortho_{k}": v
+                    for k, v in _time_all(ortho, reps).items()})
     print(json.dumps(out), flush=True)
 
 
@@ -100,15 +155,16 @@ def main():
         for root in (roots if k % 2 == 0 else roots[::-1]):
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), root, "--child",
-                 "--reps",
-                 str(a.reps)], cwd=root, capture_output=True, text=True,
-                check=True, timeout=600)
+                 "--reps", str(a.reps)], cwd=root, capture_output=True,
+                text=True, check=True, timeout=900)
             line = res.stdout.strip().splitlines()[-1]
             print(line, flush=True)
             runs[root].append(json.loads(line))
+    keys = KEYS + tuple(f"ortho_{k}" for k in KEYS)
     print(json.dumps({root: {
-        key: [r[key] for r in rs if key in r]
-        for key in ("fused_step_ms", "ortho_ms")} for root, rs in runs.items()}))
+        key: statistics.median([r[key] for r in rs])
+        for key in keys if all(key in r for r in rs)}
+        for root, rs in runs.items()}))
     return 0
 
 
