@@ -20,8 +20,8 @@ Phases, each of which raises (exit code != 0) on failure:
    - both fused kernels with Maxwell and damage correctors folded into
      their epilogue, 3 steps each from the plain step's state (the damage
      must become non-zero);
-   - ``sweep_stage`` against ``solver.gcm.stage`` on each axis of a 3D and
-     a 2D problem, orders 1-4;
+   - ``sweep_stage`` against ``solver.gcm.stage`` on each axis of 3D and
+     2D problems, orders 1-4, and per axis on the 3D and 2D paths' states;
 4. the 3D main path: ``Engine(elastic3d_explosion, n=256, nsteps=300)``
    (256x256x128) resolves to the fused kernel, launches it once per step,
    gives finite fields, motion at the free surface and non-zero traces, and
@@ -72,9 +72,10 @@ Phases, each of which raises (exit code != 0) on failure:
    unsharded paths (under 1e-4);
 12. the slab kernel (checked with phase 3): ``fused_step_slab`` against
    ``fused_step_slab_reference`` on random heterogeneous problems (orders
-   1-4, the sweep orders (0,1,2), (2,1,0) and the canonical (2,0,1),
-   (1,0,2), one and two steps a pass, float32 and bf16 stacks, all four
-   border kinds, ragged and thinner-than-halo extents; under 2e-6 a step),
+   1-4, one step in the sweep orders (0,1,2), (2,1,0) and the canonical
+   (2,0,1), (1,0,2), two steps a pass in every pair of sweep orders,
+   float32 and bf16 stacks, elastic3d and acoustic3d, all four border
+   kinds, ragged and thinner-than-halo extents; under 2e-6 a step),
    Maxwell + damage folded at one step a pass; ``fused_step_2d`` with bf16
    stacks and two steps a pass, ``fused_spmd_2d`` with bf16 stacks;
 13. the contact path: ``MultiBodyEngine(*elastic3d_contact(n=256,
@@ -90,7 +91,9 @@ Phases, each of which raises (exit code != 0) on failure:
 14. the pair-fused body: ``elastic3d_layered`` n=256 without receivers and
    with ``temporal_block=True`` launches the two-step pass once a pair (100
    steps, 50 launches) and agrees with the per-step fused path (under
-   1e-4);
+   1e-4); one pass on the path's state is held against its plain version
+   (under 2e-6 a step against the float64 plain pass) and timed beside two
+   one-step launches, and the path's device idle share is traced;
 15. orthotropic media (every layer of a scenario made orthotropic by
    :func:`_orthotropic`, positive definite): each kernel of the structured
    paths on random heterogeneous orthotropic stacks (13 rows in 3D, 6 in
@@ -115,7 +118,8 @@ before the last is a JSON object with the kernels' launches on their main
 paths, errors, times and bounds (the least time for the bytes a call must
 move at 3.35 TB/s or its operations at 67 TFLOP/s, whichever is larger),
 for the four launches of the one-step 3D body (``fused_step``,
-``fused_step_slab``, ``fused_spmd_interior``, ``fused_spmd_ring``) the
+``fused_step_slab``, ``fused_spmd_interior``, ``fused_spmd_ring``) and the
+two-step one (``fused_step_slab_k2``: launches on the pair-fused path) the
 resident blocks an SM at their shared memory (``blocks_per_sm``,
 ``smem_bytes``, from the library's occupancy query), and for the kernels
 of the structured paths the same for their orthotropic
@@ -125,6 +129,7 @@ form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
 """
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -323,14 +328,19 @@ class Counts:
         for fn in self.fns.values():
             fn.launches = 0
         self.fns["fused_spmd_2d"].ring_launches = 0
+        self.fns["fused_step_slab"].pair_launches = 0
 
     def read(self):
-        return {k: fn.launches for k, fn in self.fns.items()}
+        """Launches by kernel; ``fused_step_slab_k2`` counts the two-step
+        body's among ``fused_step_slab``'s."""
+        out = {k: fn.launches for k, fn in self.fns.items()}
+        out["fused_step_slab_k2"] = self.fns["fused_step_slab"].pair_launches
+        return out
 
     def expect(self, tag, launched, **want):
         """Fail unless the kernels in ``want`` launched that often and
         every other kernel never."""
-        full = {k: want.get(k, 0) for k in self.fns}
+        full = {k: want.get(k, 0) for k in self.read()}
         _check(launched == full, f"{tag} launches {launched}, expected "
                f"{full}")
 
@@ -427,7 +437,10 @@ def kernels_vs_plain():
               f"error {aerr:.3e} (rtol 1e-5, atol 1e-6)")
 
     worst, ns = 0.0, 0
-    for name, shape in (("elastic3d", (24, 40, 56)), ("elastic2d", (37, 61))):
+    for name, shape in (("elastic3d", (24, 40, 56)), ("elastic3d", (9, 17, 2)),
+                        ("elastic3d", (64, 64, 128)),
+                        ("acoustic3d", (13, 21, 37)), ("elastic2d", (37, 61)),
+                        ("elastic2d", (5, 3)), ("acoustic2d", (130, 64))):
         for order in (1, 2, 3, 4):
             model, u, mat, _, dt = _problem(rng, shape, name)
             for axis in range(model.dim):
@@ -647,7 +660,7 @@ def _bound_entry(nbytes, flops):
 
 
 #: the kernels' names in the CUDA sources
-KERNEL_NAMES = ("fused_step_stream_kernel", "fused_step_pair_kernel",
+KERNEL_NAMES = ("fused_step_stream_kernel", "fused_pair_stream_kernel",
                 "fused_spmd_kernel", "fused_step_2d_kernel",
                 "fused_spmd_2d_kernel", "sweep_stage_kernel",
                 "simplex_sweep_kernel")
@@ -680,9 +693,9 @@ def _print_ptxas(log):
                     order = re.match(r"ILi(\d+)E",
                                      entry[at + len(str(len(name))) +
                                            len(name):])
-                    model = re.search(r"(Elastic3D|Acoustic3D)", entry)
+                    model = re.search(r"(Elastic|Acoustic)[23]D", entry)
                     key = (name + (f"<{order.group(1)}>" if order else "")
-                           + (" " + model.group(1) if model else ""))
+                           + (" " + model.group(0) if model else ""))
                     break
             g = groups.setdefault(key, [0, 999, 0, 0, 0])
             regs = int(m.group(1))
@@ -1219,24 +1232,34 @@ def slab_kernels_vs_plain():
     rng = np.random.default_rng(5)
     h3 = (10.0, 12.0, 9.0)
     worst, n = 0.0, 0
-    for shape in ((24, 40, 56), (9, 17, 2)):
+    orders3 = list(itertools.permutations(range(3)))
+    for name, shape in (("elastic3d", (24, 40, 56)),
+                        ("elastic3d", (9, 17, 2)), ("elastic3d", (3, 2, 5)),
+                        ("acoustic3d", (13, 21, 37))):
         for order in (1, 2, 3, 4):
-            model, u, _, ms, dt = _problem(rng, shape, "elastic3d")
+            model, u, _, ms, dt = _problem(rng, shape, name)
+            # one step in four orders; two steps in every order pair on the
+            # ragged elastic shape, each order and its reverse on the others
+            pairs = (itertools.product(orders3, orders3) if shape[0] == 24
+                     else ((ax, ax[::-1]) for ax in orders3))
+            seqs = [((0, 1, 2),), ((2, 1, 0),), ((2, 0, 1),), ((1, 0, 2),)]
+            seqs += list(pairs)
             for stack in (ms, ms.to(torch.bfloat16)):
-                for ax in ((0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)):
-                    for seq in ((ax,), (ax, ax[::-1])):
-                        args = (model, u, stack, dt, h3, order, _borders(3))
-                        got = fused_step_slab(*args, axes_seq=seq)
-                        torch.cuda.synchronize()
-                        err = _norm_err(got, fused_step_slab_reference(
-                            *args, axes_seq=seq))
-                        _check(err < 2e-6 * len(seq),
-                               f"fused_step_slab {shape} order {order} "
-                               f"{stack.dtype} {seq}: err {err:.3e}")
-                        worst = max(worst, err / len(seq))
-                        n += 1
+                for seq in seqs:
+                    args = (model, u, stack, dt, h3, order, _borders(3))
+                    got = fused_step_slab(*args, axes_seq=seq)
+                    torch.cuda.synchronize()
+                    err = _norm_err(got, fused_step_slab_reference(
+                        *args, axes_seq=seq))
+                    _check(err < 2e-6 * len(seq),
+                           f"fused_step_slab {name} {shape} order {order} "
+                           f"{stack.dtype} {seq}: err {err:.3e}")
+                    worst = max(worst, err / len(seq))
+                    n += 1
     print(f"fused_step_slab vs plain: {n} launches (orders 1-4, 4 sweep "
-          f"orders, 1 and 2 steps, float32 and bf16 stacks), worst "
+          f"orders a step, every order pair two steps a pass, float32 and "
+          f"bf16 stacks, ragged and thinner-than-halo shapes, elastic3d "
+          f"and acoustic3d), worst "
           f"normalized error a step {worst:.3e} (limit 2e-6)")
 
     shape = (12, 16, 24)
@@ -1495,9 +1518,13 @@ def contact_paths(counts, result):
                 nb_pts / resb.points_per_second * 1e3)
 
 
-def pair_fused_path(counts):
-    """Phase 14: the pair-fused single body."""
+def pair_fused_path(counts, result):
+    """Phase 14: the pair-fused single body, then its two-step pass on the
+    path's own state: held against its plain version, timed beside two
+    one-step launches and the plain pass, and the path's idle share."""
     from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.ops.fused import (
+        fused_step_slab, fused_step_slab_occupancy, fused_step_slab_reference)
     from gcm_tpu_torch.scenarios import get_scenario
 
     task = dataclasses.replace(
@@ -1509,16 +1536,47 @@ def pair_fused_path(counts):
     _check(eng._pair_fused, "the pair-fused body was not selected")
     counts.zero()
     res = eng.run()
-    counts.expect("pair-fused path", counts.read(),
-                  fused_step_slab=NSTEPS_PAIR // 2)
+    launched = counts.read()
+    counts.expect("pair-fused path", launched,
+                  fused_step_slab=NSTEPS_PAIR // 2,
+                  fused_step_slab_k2=NSTEPS_PAIR // 2)
     ref = Engine(task, device="cuda").run()
     err = _np_err(res.u, ref.u)
     _check(err < PATH_TOL, f"pair-fused vs per-step: err {err:.3e}")
     print(f"pair-fused path {task.name} {task.grid.shape} x {NSTEPS_PAIR} "
-          f"steps: {res.points_per_second:.6g} points/s ({NSTEPS_PAIR // 2} "
-          f"two-step fused_step_slab launches), per-step fused "
-          f"{ref.points_per_second:.6g} points/s; normalized error "
-          f"{err:.3e} (limit 1e-4)")
+          f"steps: {res.points_per_second:.6g} points/s "
+          f"({launched['fused_step_slab_k2']} two-step fused_step_slab "
+          f"launches), per-step fused {ref.points_per_second:.6g} points/s; "
+          f"normalized error {err:.3e} (limit 1e-4)")
+
+    seq = (eng._fwd, eng._fwd[::-1])
+    a = (eng.model, eng.u, eng._mstack, eng.dt, task.grid.h, task.order,
+         task.borders)
+    *_, max_abs = _hold_on_path_state(
+        f"two-step fused_step_slab {seq} on the pair-fused state",
+        fused_step_slab, fused_step_slab_reference, a, dict(axes_seq=seq),
+        steps=2)
+    t = _time_ms(lambda: fused_step_slab(*a, axes_seq=seq), 20)
+    t1 = _time_ms(lambda: (fused_step_slab(*a, axes_seq=seq[:1]),
+                           fused_step_slab(*a, axes_seq=seq[1:])), 20)
+    p = _time_ms(lambda: fused_step_slab_reference(*a, axes_seq=seq), 3)
+    cells = int(np.prod(task.grid.shape))
+    bound = _bound_entry(B_FUSED3 * cells,
+                         2 * _step_flops(eng.model, task.order, cells))
+    print(f"fused_step_slab two steps at {tuple(eng.u.shape)}: kernel "
+          f"{t:.4f} ms a pass ({t / 2:.4f} a step), two one-step launches "
+          f"{t1:.4f} ms, plain {p:.4f} ms, bound {bound['bound_ms']:.4f} ms")
+    result["fused_step_slab_k2"] = dict(
+        launches=launched["fused_step_slab_k2"], max_abs_err=max_abs, ms=t,
+        plain_ms=p, one_step_pair_ms=t1, **bound,
+        **_occupancy(fused_step_slab_occupancy(*a, axes_seq=seq)))
+
+    def passes():
+        u = eng.u
+        for _ in range(10):
+            u = fused_step_slab(*a[:1], u, *a[2:], axes_seq=seq)
+    result["fused_step_slab_k2"]["idle_share"] = _idle_share(
+        passes, 20, _step_ms(res, task))
 
 
 # ------------------------------------------------------- orthotropic media
@@ -1631,22 +1689,27 @@ def ortho_kernels_vs_plain():
                 exact("fused_step", tag, got, model, u, mat, dt, h3, order,
                       _borders(3), axes)
 
+    orders3 = list(itertools.permutations(range(3)))
     for shape in ((24, 40, 56), (9, 17, 2)):
         for order in (1, 2, 3, 4):
             model, u, mat, ms, dt = _ortho_problem(rng, shape, "elastic3d")
+            # two steps a pass in every order pair on the ragged shape
+            seqs = [(ax,) for ax in ((0, 1, 2), (2, 1, 0), (2, 0, 1))] + (
+                list(itertools.product(orders3, orders3)) if shape[0] == 24
+                else [(ax, ax[::-1]) for ax in orders3])
             for stack in (ms, ms.to(torch.bfloat16)):
-                for ax in ((0, 1, 2), (2, 1, 0), (2, 0, 1)):
-                    for seq in ((ax,), (ax, ax[::-1])):
-                        args = (model, u, stack, dt, h3, order, _borders(3))
-                        got = fused_step_slab(*args, axes_seq=seq)
-                        torch.cuda.synchronize()
-                        tag = f"{shape} order {order} {stack.dtype} {seq}"
-                        hold("fused_step_slab", tag, got,
-                             fused_step_slab_reference(*args, axes_seq=seq),
-                             len(seq))
-                        if stack is ms and len(seq) == 1:
-                            exact("fused_step_slab", tag, got, model, u, mat,
-                                  dt, h3, order, _borders(3), ax)
+                for seq in seqs:
+                    ax = seq[0]
+                    args = (model, u, stack, dt, h3, order, _borders(3))
+                    got = fused_step_slab(*args, axes_seq=seq)
+                    torch.cuda.synchronize()
+                    tag = f"{shape} order {order} {stack.dtype} {seq}"
+                    hold("fused_step_slab", tag, got,
+                         fused_step_slab_reference(*args, axes_seq=seq),
+                         len(seq))
+                    if stack is ms and len(seq) == 1:
+                        exact("fused_step_slab", tag, got, model, u, mat,
+                              dt, h3, order, _borders(3), ax)
 
     for shape in ((37, 61), (64, 128)):
         for order in (1, 2, 3, 4):
@@ -1840,6 +1903,8 @@ def ortho_paths(counts, result):
         sw_ms.append(_time_ms(lambda: sweep_stage(model, eng.u, views,
                                                   *a[3:]), 20))
         sw_plain.append(_time_ms(lambda: stage(*a), 5))
+        print(f"sweep_stage orthotropic axis {axis}: kernel {sw_ms[-1]:.4f} "
+              f"ms, plain {sw_plain[-1]:.4f} ms")
     del eng, res, res_t, args, views
 
     # ---- anisotropy: the wavefront on the source's horizontal plane
@@ -2260,6 +2325,18 @@ def main() -> int:
         print(f"fused_step_2d {tag} at {tuple(eng2.u.shape)}: kernel "
               f"{t:.4f} ms a launch ({t / len(seq):.4f} a step), bound "
               f"{_bound(nb * eng2.u[0].numel(), 0)[0]:.4f} ms")
+    # the per-sweep kernel on the 2D state, each axis
+    sw2_ms = []
+    for axis in range(2):
+        a2 = (eng2.model, eng2.u, eng2.mat, eng2.dt, task2.grid.h, axis,
+              task2.order, task2.borders)
+        _hold_on_path_state(
+            f"sweep_stage on the 2D state, axis {axis}", sweep_stage,
+            lambda model, u, mat, *rest: stage(
+                model, u, _mat_as(mat, u.dtype), *rest), a2)
+        sw2_ms.append(_time_ms(lambda: sweep_stage(*a2), 50))
+        print(f"sweep_stage at {tuple(eng2.u.shape)} axis {axis}: kernel "
+              f"{sw2_ms[-1]:.4f} ms")
     npts2 = int(np.prod(task2.grid.shape))
     result["fused_step_2d"] = dict(
         launches=launched2["fused_step_2d"], max_abs_err=max_abs, ms=ms2,
@@ -2334,6 +2411,7 @@ def main() -> int:
     result["sweep_stage"] = dict(
         launches=launched7["sweep_stage"], max_abs_err=sw_err,
         ms=float(np.mean(sw_ms)), plain_ms=float(np.mean(sw_plain)),
+        ms_by_axis=sw_ms, ms_2d_by_axis=sw2_ms,
         **_bound_entry(B_SWEEP * npts3, _step_flops(
             eng7.model, task7.order, npts3) / 3))
     del eng7, res7, res7f
@@ -2351,7 +2429,7 @@ def main() -> int:
     phase("contact paths")
     contact_paths(counts, result)
     phase("pair-fused path")
-    pair_fused_path(counts)
+    pair_fused_path(counts, result)
 
     # ---- 15. orthotropic media
     phase("orthotropic kernels vs plain")
@@ -2364,6 +2442,8 @@ def main() -> int:
                        "gcm_tpu/ops/pallas_fused.py:1162"),
         "fused_step_slab": ("gcm_tpu_torch/csrc/fused_step_slab.cu",
                             "gcm_tpu/ops/pallas_fused.py:807"),
+        "fused_step_slab_k2": ("gcm_tpu_torch/csrc/fused_pair_stream.cuh",
+                               "gcm_tpu/ops/pallas_fused.py:807"),
         "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                           "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",

@@ -1,0 +1,8 @@
+// The two-step 3D body (fused_pair_stream.cuh) at stencil order 2.
+
+#include "fused_pair_stream.cuh"
+
+GCM_PAIR_STREAM_ENTRY(2) {
+    return (int)pair_stream<2>(u, mstack, out, *params, mat_bf16, device,
+                                 (cudaStream_t)stream, occ);
+}

@@ -75,58 +75,18 @@
 //   plane) and upcast in registers; z = rho*c and 0.5/z are derived from
 //   the upcast values, as the plain version derives them from the rounded
 //   stack.
-// Two steps a pass (K = 2, temporal blocking, opt-in) keep the earlier box
-// tile (gcm_common.cuh::step_tile_n): one block owns an 8x8x16 output tile
-// (8x8x8 at r = 2) and runs the six sweeps back to back on two shared
-// buffers; the first sweep reads the state from global memory, the second
-// step reads the first one's result through ClampedSharedSrc. Its buffers
-// (~158-193 KB) leave one block an SM.
+// Two steps a pass (K = 2, temporal blocking, opt-in) run the two-step
+// form of that body (gcm_common.cuh::stream_pair), compiled one stencil
+// order a source (fused_pair_stream.cuh) and launched from here.
 
-#include "gcm_common.cuh"
+#include "fused_pair_stream.cuh"
+
+GCM_PAIR_STREAM_ENTRY(1);
+GCM_PAIR_STREAM_ENTRY(2);
+GCM_PAIR_STREAM_ENTRY(3);
+GCM_PAIR_STREAM_ENTRY(4);
 
 namespace {
-
-constexpr int NTHREADS = 256;
-
-// The K = 2 box tile.
-template <int ORDER>
-struct PairTile {
-    static constexpr int TX = 8, TY = 8, TZ = ORDER >= 3 ? 8 : 16;
-};
-
-template <int ORDER, class MatT>
-__global__ void __launch_bounds__(NTHREADS)
-fused_step_pair_kernel(const float* __restrict__ u,
-                       const MatT* __restrict__ m, float* __restrict__ out,
-                       GcmFusedParams p) {
-    using TL = PairTile<ORDER>;
-    extern __shared__ float smem[];
-    const int T[3] = {TL::TX, TL::TY, TL::TZ};
-    const int t0[3] = {(int)blockIdx.z * TL::TX, (int)blockIdx.y * TL::TY,
-                       (int)blockIdx.x * TL::TZ};
-    const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
-    const GlobalSrc src{u, p.n[0], p.n[1], p.n[2], N};
-    const GlobalMat<MatT> mat{m, p.n[0], p.n[1], p.n[2], N};
-    step_tile_n<ORDER, 2, 3>(p, t0, T, src, mat, smem, out, nullptr, nullptr);
-}
-
-template <int ORDER, class MatT>
-cudaError_t launch_pair(const float* u, const void* m, float* out,
-                        const GcmFusedParams& p, cudaStream_t stream) {
-    using TL = PairTile<ORDER>;
-    const int T[3] = {TL::TX, TL::TY, TL::TZ};
-    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 3, 2);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_step_pair_kernel<ORDER, MatT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.n[2] + TL::TZ - 1) / TL::TZ,
-                    (p.n[1] + TL::TY - 1) / TL::TY,
-                    (p.n[0] + TL::TX - 1) / TL::TX);
-    fused_step_pair_kernel<ORDER, MatT><<<grid, NTHREADS, smem, stream>>>(
-        u, (const MatT*)m, out, p);
-    return cudaGetLastError();
-}
 
 // One step: output planes [ch * blockIdx.z, +ch) of the (y, z) tile
 // (blockIdx.y, blockIdx.x).
@@ -193,19 +153,6 @@ cudaError_t dispatch_stream(int order, const float* u, const void* m,
     });
 }
 
-template <class MatT>
-cudaError_t dispatch_pair(int order, const float* u, const void* m,
-                          float* out, const GcmFusedParams& p,
-                          cudaStream_t s) {
-    switch (order) {
-        case 1: return launch_pair<1, MatT>(u, m, out, p, s);
-        case 2: return launch_pair<2, MatT>(u, m, out, p, s);
-        case 3: return launch_pair<3, MatT>(u, m, out, p, s);
-        case 4: return launch_pair<4, MatT>(u, m, out, p, s);
-        default: return cudaErrorInvalidValue;
-    }
-}
-
 cudaError_t slab(const float* u, const void* mstack, const float* aux_in,
                  float* out, float* aux_out, const GcmFusedParams& p,
                  int order, int mat_bf16, int ksteps, int device,
@@ -219,10 +166,19 @@ cudaError_t slab(const float* u, const void* mstack, const float* aux_in,
     if (ksteps == 1)
         return dispatch_stream<__nv_bfloat16>(order, u, mstack, aux_in, out,
                                               aux_out, p, device, s, occ);
-    if (ksteps != 2 || p.nspec > 0 || occ != nullptr)
-        return cudaErrorInvalidValue;
-    if (!mat_bf16) return dispatch_pair<float>(order, u, mstack, out, p, s);
-    return dispatch_pair<__nv_bfloat16>(order, u, mstack, out, p, s);
+    if (ksteps != 2 || p.nspec > 0) return cudaErrorInvalidValue;
+    const auto pair = order == 1   ? gcm_fused_pair_stream_o1
+                      : order == 2 ? gcm_fused_pair_stream_o2
+                      : order == 3 ? gcm_fused_pair_stream_o3
+                      : order == 4 ? gcm_fused_pair_stream_o4
+                                   : nullptr;
+    if (pair == nullptr) return cudaErrorInvalidValue;
+    int o[2] = {0, 0};
+    const cudaError_t err = (cudaError_t)pair(
+        u, mstack, out, &p, mat_bf16, device, s,
+        occ != nullptr ? o : nullptr);
+    if (occ != nullptr) *occ = StreamOccupancy{o[0], o[1]};
+    return err;
 }
 
 }  // namespace
@@ -232,7 +188,7 @@ extern "C" {
 // Launches one pass of `ksteps` (1 or 2) full 3D steps on `stream` (a
 // cudaStream_t) of device `device`: the sweeps along params->axes, then
 // (ksteps = 2) along params->axes_next; the stack (nm, nx, ny, nz) is bf16
-// when `mat_bf16` is set, float otherwise. One step runs the streamed body
+// when `mat_bf16` is set, float otherwise. Both run the streamed body
 // compiled for params->model. The folded correctors (aux_in/aux_out, one
 // field per damage corrector, null without) run only with ksteps = 1.
 // Returns the CUDA error code of the launch (0 on success); the caller
@@ -247,15 +203,17 @@ int gcm_fused_step_slab(const float* u, const void* mstack,
                      mat_bf16, ksteps, device, (cudaStream_t)stream, nullptr);
 }
 
-// The occupancy a one-step launch with these arguments gets: out[0]
-// resident blocks an SM, out[1] its dynamic shared memory in bytes.
+// The occupancy a launch of `ksteps` (1 or 2) steps with these arguments
+// gets: out[0] resident blocks an SM, out[1] its dynamic shared memory in
+// bytes.
 int gcm_fused_step_slab_occupancy(const GcmFusedParams* params, int order,
-                                  int mat_bf16, int device, int* out) {
+                                  int mat_bf16, int ksteps, int device,
+                                  int* out) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     StreamOccupancy occ{0, 0};
     err = slab(nullptr, nullptr, nullptr, nullptr, nullptr, *params, order,
-               mat_bf16, 1, device, nullptr, &occ);
+               mat_bf16, ksteps, device, nullptr, &occ);
     out[0] = occ.blocks_per_sm;
     out[1] = occ.smem_bytes;
     return (int)err;

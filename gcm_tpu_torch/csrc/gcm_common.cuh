@@ -3,9 +3,11 @@
 // material stacks stored as float or bf16 (upcast at the load), one
 // characteristic sweep over a box of cells, the folded ODE corrector
 // epilogue, K steps (temporal blocking) on one box tile (step_tile_n: the
-// 2D steps and the two-step 3D pass), and the one-step 3D body that walks
-// x plane by plane through a ring of planes in shared memory
-// (stream_step: the 3D fused, slab and SPMD kernels).
+// 2D steps), the component maps fixed at compile time (the 3D bodies and
+// the per-sweep kernel), the one-step 3D body that walks x plane by plane
+// through a ring of planes in shared memory (stream_step: the 3D fused,
+// slab and SPMD kernels) and its two-step form (stream_pair: the slab
+// kernel's two steps a pass).
 //
 // The device functions sit in an anonymous namespace: each kernel source
 // compiles its own copy, and the sources link into one library without
@@ -63,10 +65,14 @@ struct GcmFusedParams {
                                  // 3D body (STREAM_MODEL_*); -1 for none
 };
 
-// The component maps the one-step 3D body is compiled for (the ids of
-// GcmFusedParams::model; gcm_stream_model_map exports them).
+// The component maps the 3D bodies are compiled for (the ids of
+// GcmFusedParams::model; gcm_stream_model_map exports them), and the 2D
+// ones the per-sweep kernel adds (GcmSweepParams::model;
+// gcm_sweep_model_map exports all four).
 constexpr int STREAM_MODEL_ELASTIC3D = 0;
 constexpr int STREAM_MODEL_ACOUSTIC3D = 1;
+constexpr int SWEEP_MODEL_ELASTIC2D = 2;
+constexpr int SWEEP_MODEL_ACOUSTIC2D = 3;
 
 namespace {
 
@@ -131,6 +137,18 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 #endif
 }
 
+// The same for 16 bytes (four floats, both addresses 16-byte aligned),
+// cached in L2 only: the per-sweep kernel's aligned rows.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+#else
+    for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+
 __device__ __forceinline__ void cp_async_commit() {
 #if defined(__CUDA_ARCH__)
     asm volatile("cp.async.commit_group;\n" ::);
@@ -156,14 +174,15 @@ struct GlobalSrc {
         return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
     }
     // Starts the copy of the C components of plane x, cells [ylo, ylo+EY)
-    // x [zlo, zlo+EZ) at clamped coordinates, into dst (C, EY, EZ):
-    // neighbouring threads copy neighbouring z, so rows coalesce.
-    template <int C, int EY, int EZ>
+    // x [zlo, zlo+EZ) at clamped coordinates, into dst (C, EY, EZ), by a
+    // block of NT threads: neighbouring threads copy neighbouring z, so
+    // rows coalesce.
+    template <int C, int EY, int EZ, int NT = STREAM_NT>
     __device__ __forceinline__ void stage(float* dst, int x, int ylo,
                                           int zlo) const {
         x = min(max(x, 0), n0 - 1);
         const float* pl = u + (long long)x * n1 * n2;
-        for (int e = threadIdx.x; e < EY * EZ; e += STREAM_NT) {
+        for (int e = threadIdx.x; e < EY * EZ; e += NT) {
             const int j = e / EZ, k = e - j * EZ;
             const int y = min(max(ylo + j, 0), n1 - 1);
             const int z = min(max(zlo + k, 0), n2 - 1);
@@ -287,6 +306,28 @@ struct GlobalMat {
     }
     __device__ float ld(const T* pl, int row, int cell) const {
         return mat_load(pl + row * N + cell);
+    }
+};
+
+// GlobalMat's streamed addressing with the stored type (float or bf16) a
+// runtime flag: one instantiation of the two-step body reads both, which
+// halves its instantiations (a uniform branch at each material load).
+struct DynMat {
+    const void* __restrict__ m;
+    int n0, n1, n2;
+    long long N;
+    int bf16;
+    __device__ const char* plane(int x) const {
+        const long long pl = (long long)min(max(x, 0), n0 - 1) * n1 * n2;
+        return (const char*)m + (bf16 ? 2 : 4) * pl;
+    }
+    __device__ int cell(int y, int z) const {
+        return min(max(y, 0), n1 - 1) * n2 + min(max(z, 0), n2 - 1);
+    }
+    __device__ float ld(const char* pl, int row, int cell) const {
+        const long long i = row * N + cell;
+        return bf16 ? mat_load((const __nv_bfloat16*)pl + i)
+                    : mat_load((const float*)pl + i);
     }
 };
 
@@ -489,7 +530,7 @@ __host__ inline size_t step_smem_bytes(const GcmFusedParams& p, const int* T,
     return sizeof(float) * (size_t)p.ncomp * vol;
 }
 
-// K whole steps (K = 1 or 2, DIM sweeps each, along p.axes then
+// K whole 2D steps (K = 1 or 2, DIM sweeps each, along p.axes then
 // p.axes_next) on the output tile at t0 with extents T: the first sweep
 // reads `src`, each later one the shared buffer the one before it wrote (the
 // first sweep of the second step through ClampedSharedSrc), and the last
@@ -502,7 +543,8 @@ __device__ __forceinline__ void step_tile_n(
         const Mat& mat, float* smem, float* __restrict__ out,
         const float* __restrict__ aux_in, float* __restrict__ aux_out) {
     static_assert(K == 1 || K == 2, "one or two steps per window");
-    static_assert(DIM == 2 || K == 2, "one 3D step is stream_step's");
+    static_assert(DIM == 2,
+                  "the 3D steps are stream_step's and stream_pair's");
     constexpr int R = Stencil<ORDER>::R;
     constexpr int H = K * R;
     constexpr int S = K * DIM;
@@ -537,17 +579,17 @@ __device__ __forceinline__ void step_tile_n(
 
 // ------------------------------------------- the one-step 3D body, streamed
 
-// Component maps of the 3D fused models (gcm_tpu_torch/models/spec.py),
-// fixed at compile time so that a cell's components live in registers:
-// along sweep axis a, pair q couples stress sigma(a, q) with velocity
-// vel(a, q), and zero-speed invariant j moves zcomp(a, j) with the change
-// of zsrc(a); diag/shear name the stresses the folded correctors act on.
-// The stack rows of each pair's speed and each zero's ratio stay runtime
-// parameters (addresses), so one instantiation reads either stack layout.
+// Component maps of the models (gcm_tpu_torch/models/spec.py), fixed at
+// compile time so that a cell's components live in registers: along sweep
+// axis a, pair q couples stress sigma(a, q) with velocity vel(a, q), and
+// zero-speed invariant j moves zcomp(a, j) with the change of zsrc(a);
+// diag/shear name the stresses the folded correctors act on. The material
+// rows or fields of each pair's speed and each zero's ratio stay runtime
+// parameters (addresses), so one instantiation reads either layout.
 struct Elastic3D {
     // [vx, vy, vz, sxx, sxy, sxz, syy, syz, szz]
     static constexpr int ID = STREAM_MODEL_ELASTIC3D;
-    static constexpr int C = 9, SIGN = 1, NPAIRS = 3, NZEROS = 2;
+    static constexpr int DIM = 3, C = 9, SIGN = 1, NPAIRS = 3, NZEROS = 2;
     static constexpr int NDIAG = 3, NSHEAR = 3;
     __host__ __device__ static constexpr int sigma(int a, int q) {
         return a == 0 ? 3 + q
@@ -577,9 +619,45 @@ struct Elastic3D {
 struct Acoustic3D {
     // [vx, vy, vz, p]
     static constexpr int ID = STREAM_MODEL_ACOUSTIC3D;
-    static constexpr int C = 4, SIGN = -1, NPAIRS = 1, NZEROS = 0;
+    static constexpr int DIM = 3, C = 4, SIGN = -1, NPAIRS = 1, NZEROS = 0;
     static constexpr int NDIAG = 0, NSHEAR = 0;
     __host__ __device__ static constexpr int sigma(int, int) { return 3; }
+    __host__ __device__ static constexpr int vel(int a, int) { return a; }
+    __host__ __device__ static constexpr int zcomp(int, int) { return 0; }
+    __host__ __device__ static constexpr int zsrc(int) { return 0; }
+    __host__ __device__ static constexpr int diag(int) { return 0; }
+    __host__ __device__ static constexpr int shear(int) { return 0; }
+};
+
+struct Elastic2D {
+    // [vx, vy, sxx, sxy, syy]
+    static constexpr int ID = SWEEP_MODEL_ELASTIC2D;
+    static constexpr int DIM = 2, C = 5, SIGN = 1, NPAIRS = 2, NZEROS = 1;
+    static constexpr int NDIAG = 2, NSHEAR = 1;
+    __host__ __device__ static constexpr int sigma(int a, int q) {
+        return q == 1 ? 3 : (a == 0 ? 2 : 4);
+    }
+    __host__ __device__ static constexpr int vel(int a, int q) {
+        return q == 0 ? a : 1 - a;
+    }
+    __host__ __device__ static constexpr int zcomp(int a, int) {
+        return a == 0 ? 4 : 2;
+    }
+    __host__ __device__ static constexpr int zsrc(int a) {
+        return sigma(a, 0);
+    }
+    __host__ __device__ static constexpr int diag(int i) {
+        return i == 0 ? 2 : 4;
+    }
+    __host__ __device__ static constexpr int shear(int) { return 3; }
+};
+
+struct Acoustic2D {
+    // [vx, vy, p]
+    static constexpr int ID = SWEEP_MODEL_ACOUSTIC2D;
+    static constexpr int DIM = 2, C = 3, SIGN = -1, NPAIRS = 1, NZEROS = 0;
+    static constexpr int NDIAG = 0, NSHEAR = 0;
+    __host__ __device__ static constexpr int sigma(int, int) { return 2; }
     __host__ __device__ static constexpr int vel(int a, int) { return a; }
     __host__ __device__ static constexpr int zcomp(int, int) { return 0; }
     __host__ __device__ static constexpr int zsrc(int) { return 0; }
@@ -593,7 +671,7 @@ template <class M>
 __host__ inline void model_map(GcmFusedParams* p) {
     p->ncomp = M::C;
     p->sign = M::SIGN;
-    for (int a = 0; a < 3; ++a) {
+    for (int a = 0; a < M::DIM; ++a) {
         p->npairs[a] = M::NPAIRS;
         p->nzeros[a] = M::NZEROS;
         for (int q = 0; q < M::NPAIRS; ++q) {
@@ -617,6 +695,10 @@ struct Axes {
     static constexpr int A0 = A0_, A1 = A1_, A2 = A2_;
     // position of x in the order
     static constexpr int P = A0 == 0 ? 0 : (A1 == 0 ? 1 : 2);
+    // the axis swept i-th
+    __host__ __device__ static constexpr int at(int i) {
+        return i == 0 ? A0 : (i == 1 ? A1 : A2);
+    }
     // whether y / z is among the first s sweeps
     __host__ __device__ static constexpr bool ys(int s) {
         return (s > 0 && A0 == 1) || (s > 1 && A1 == 1) || (s > 2 && A2 == 1);
@@ -626,14 +708,25 @@ struct Axes {
     }
 };
 
-// The (y, z) window of a tile at one stage of the step: the tile with a
-// halo of R cells along each in-plane axis not swept yet (YS, ZS: swept).
-template <int R, bool YS, bool ZS>
-struct Win {
-    static constexpr int HY = YS ? 0 : R, HZ = ZS ? 0 : R;
-    static constexpr int EY = STREAM_TY + 2 * HY, EZ = STREAM_TZ + 2 * HZ;
+// The (y, z) window of a TY x TZ tile with a halo of HY rows and HZ
+// columns on each side.
+template <int TY_, int TZ_, int HY_, int HZ_>
+struct Box {
+    static constexpr int TY = TY_, TZ = TZ_, HY = HY_, HZ = HZ_;
+    static constexpr int EY = TY + 2 * HY, EZ = TZ + 2 * HZ;
     static constexpr int VOL = EY * EZ;
 };
+
+// The window of a one-step tile at one stage of the step: the tile with a
+// halo of R cells along each in-plane axis not swept yet (YS, ZS: swept).
+template <int R, bool YS, bool ZS>
+using Win = Box<STREAM_TY, STREAM_TZ, YS ? 0 : R, ZS ? 0 : R>;
+
+// Window W after a sweep along in-plane axis A, which drops R cells of
+// its halo along A.
+template <class W, int A, int R>
+using Drop = Box<W::TY, W::TZ, W::HY - (A == 1 ? R : 0),
+                 W::HZ - (A == 2 ? R : 0)>;
 
 // Shared memory of stream_step for one (order, model, sweep order), in
 // floats from the start of the block's buffer:
@@ -789,12 +882,13 @@ __device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
     }
 }
 
-// One sweep along the in-plane axis A (1 = y, 2 = z) of plane x: reads the
-// window In from the shared buffer `in` and writes window Out (In less its
-// halo along A) to the shared buffer `dst`, or, TO_GLOBAL, the tile's cells
-// inside the domain to the output after the folded correctors.
+// One sweep along the in-plane axis A (1 = y, 2 = z) of plane x, by a
+// block of NT threads: reads the window In from the shared buffer `in` and
+// writes window Out (In less its halo along A) to the shared buffer `dst`,
+// or, TO_GLOBAL, the tile's cells inside the domain to the output after
+// the folded correctors.
 template <int ORDER, class M, int A, class In, class Out, bool TO_GLOBAL,
-          class Mat>
+          int NT, class Mat>
 __device__ __forceinline__ void plane_sweep(const GcmFusedParams& p,
                                             const float* in, float* dst,
                                             const Mat& mat, int x, int y0,
@@ -806,7 +900,7 @@ __device__ __forceinline__ void plane_sweep(const GcmFusedParams& p,
     constexpr int ST = A == 1 ? In::EZ : 1;
     const auto mp = mat.plane(x);
     const long long plane = (long long)x * p.n[1] * p.n[2];
-    for (int idx = threadIdx.x; idx < Out::VOL; idx += STREAM_NT) {
+    for (int idx = threadIdx.x; idx < Out::VOL; idx += NT) {
         const int j = idx / Out::EZ, k = idx - j * Out::EZ;
         const int gy = y0 - Out::HY + j, gz = z0 - Out::HZ + k;
         if (TO_GLOBAL && (gy >= p.n[1] || gz >= p.n[2])) continue;
@@ -824,9 +918,10 @@ __device__ __forceinline__ void plane_sweep(const GcmFusedParams& p,
     }
 }
 
-// The x sweep of plane x over window W: rp[t] holds plane x - R + t (the
-// ring's slots, after the in-plane sweeps that precede x), each W-shaped.
-template <int ORDER, class M, class W, bool TO_GLOBAL, class Mat>
+// The x sweep of plane x over window W, by a block of NT threads: rp[t]
+// holds plane x - R + t (the ring's slots, after the in-plane sweeps that
+// precede x), each W-shaped.
+template <int ORDER, class M, class W, bool TO_GLOBAL, int NT, class Mat>
 __device__ __forceinline__ void x_sweep(
         const GcmFusedParams& p,
         const float* const (&rp)[2 * Stencil<ORDER>::R + 1], float* dst,
@@ -834,7 +929,7 @@ __device__ __forceinline__ void x_sweep(
     constexpr int R = Stencil<ORDER>::R;
     const auto mp = mat.plane(x);
     const long long plane = (long long)x * p.n[1] * p.n[2];
-    for (int idx = threadIdx.x; idx < W::VOL; idx += STREAM_NT) {
+    for (int idx = threadIdx.x; idx < W::VOL; idx += NT) {
         const int j = idx / W::EZ, k = idx - j * W::EZ;
         const int gy = y0 - W::HY + j, gz = z0 - W::HZ + k;
         if (TO_GLOBAL && (gy >= p.n[1] || gz >= p.n[2])) continue;
@@ -894,14 +989,14 @@ __device__ __forceinline__ void stream_step(const GcmFusedParams& p,
             float* const slot = ring + (it % L::NSLOT) * SLOT;
             const float* const in = inbox(it);
             if constexpr (P == 1) {
-                plane_sweep<ORDER, M, AX::A0, Raw, Ring, false>(
+                plane_sweep<ORDER, M, AX::A0, Raw, Ring, false, STREAM_NT>(
                     p, in, slot, mat, xi, y0, z0, so);
             } else {
                 using Mid = typename L::Mid;
-                plane_sweep<ORDER, M, AX::A0, Raw, Mid, false>(
+                plane_sweep<ORDER, M, AX::A0, Raw, Mid, false, STREAM_NT>(
                     p, in, tmp, mat, xi, y0, z0, so);
                 __syncthreads();
-                plane_sweep<ORDER, M, AX::A1, Mid, Ring, false>(
+                plane_sweep<ORDER, M, AX::A1, Mid, Ring, false, STREAM_NT>(
                     p, tmp, slot, mat, xi, y0, z0, so);
             }
             __syncthreads();
@@ -913,22 +1008,264 @@ __device__ __forceinline__ void stream_step(const GcmFusedParams& p,
         for (int t = 0; t <= 2 * R; ++t)
             rp[t] = ring + ((it - 2 * R + t) % L::NSLOT) * SLOT;
         if constexpr (P == 2) {
-            x_sweep<ORDER, M, Ring, true>(p, rp, nullptr, mat, xo, y0, z0,
-                                          so);
+            x_sweep<ORDER, M, Ring, true, STREAM_NT>(p, rp, nullptr, mat, xo,
+                                                     y0, z0, so);
         } else {
-            x_sweep<ORDER, M, Ring, false>(p, rp, tmp, mat, xo, y0, z0, so);
+            x_sweep<ORDER, M, Ring, false, STREAM_NT>(p, rp, tmp, mat, xo,
+                                                      y0, z0, so);
             __syncthreads();
             if constexpr (P == 1) {
-                plane_sweep<ORDER, M, AX::A2, Ring, typename L::Out, true>(
-                    p, tmp, nullptr, mat, xo, y0, z0, so);
+                plane_sweep<ORDER, M, AX::A2, Ring, typename L::Out, true,
+                            STREAM_NT>(p, tmp, nullptr, mat, xo, y0, z0, so);
             } else {
                 using Post = typename L::Post;
-                plane_sweep<ORDER, M, AX::A1, Ring, Post, false>(
+                plane_sweep<ORDER, M, AX::A1, Ring, Post, false, STREAM_NT>(
                     p, tmp, tmp2, mat, xo, y0, z0, so);
                 __syncthreads();
-                plane_sweep<ORDER, M, AX::A2, Post, typename L::Out, true>(
-                    p, tmp2, nullptr, mat, xo, y0, z0, so);
+                plane_sweep<ORDER, M, AX::A2, Post, typename L::Out, true,
+                            STREAM_NT>(p, tmp2, nullptr, mat, xo, y0, z0, so);
             }
+        }
+    }
+}
+
+// ------------------------------------------ two steps a pass, streamed
+
+// The output tile of the two-step body and its block: 8 x 16 at r = 1
+// (65-76 KB of shared memory, three blocks an SM) and 4 x 32 at r = 2 (one
+// block, 132-195 KB: every sweep-order pair fits the 227 KB a block has),
+// and threads enough (rounded up to whole warps) for the first
+// step's widest window, (TY + 4r) x (TZ + 4r) cells, in one pass.
+template <int ORDER>
+struct PairTile {
+    static constexpr int R = Stencil<ORDER>::R;
+    static constexpr int TY = R == 1 ? 8 : 4, TZ = R == 1 ? 16 : 32;
+    static constexpr int NT = ((TY + 4 * R) * (TZ + 4 * R) + 31) / 32 * 32;
+};
+
+// The in-plane sweeps between the first step's x sweep and the second
+// step's: the first step's after its x (KA of them), then the second
+// step's before its x; K1 in all.
+template <class AXA, class AXB>
+struct PairChain {
+    static constexpr int KA = 2 - AXA::P;
+    static constexpr int K1 = KA + AXB::P;
+    __host__ __device__ static constexpr int axis(int i) {
+        return i < KA ? AXA::at(AXA::P + 1 + i) : AXB::at(i - KA);
+    }
+};
+
+// Shared memory of stream_pair for one (order, model, sweep-order pair),
+// in floats from the start of the block's buffer. The first step (A)
+// starts from the tile with a 2R halo in y and z, the second (B) from A's
+// output with an R halo; a window drops R along each axis it is swept.
+// - RAW: two incoming raw planes (double buffer) when some in-plane sweep
+//   precedes A's x sweep (PA > 0); at PA = 0 they go straight into RINGA;
+// - RINGA: the planes A's x sweep reads, 2R + 1 (2R + 2 at PA = 0);
+// - T0, T1: one plane each, for the in-plane sweeps around the x sweeps,
+//   written in turn;
+// - RINGB: the 2R + 1 planes B's x sweep reads, A's output planes after
+//   the edge re-patch and B's in-plane sweeps before its x.
+template <int ORDER, class M, class AXA_, class AXB_>
+struct PairLayout {
+    using AXA = AXA_;
+    using AXB = AXB_;
+    using T = PairTile<ORDER>;
+    static constexpr int R = T::R, C = M::C, NT = T::NT;
+    static constexpr int PA = AXA::P, PB = AXB::P;
+    using Raw = Box<T::TY, T::TZ, 2 * R, 2 * R>;
+    using MidA = Box<T::TY, T::TZ, 2 * R - R * AXA::ys(1),
+                     2 * R - R * AXA::zs(1)>;
+    using RingA = Box<T::TY, T::TZ, 2 * R - R * AXA::ys(PA),
+                      2 * R - R * AXA::zs(PA)>;
+    using OutA = Box<T::TY, T::TZ, R, R>;
+    using RingB = Box<T::TY, T::TZ, R - R * AXB::ys(PB), R - R * AXB::zs(PB)>;
+    using Out = Box<T::TY, T::TZ, 0, 0>;
+    static constexpr int NRAW = PA == 0 ? 0 : 2;
+    static constexpr int NSA = PA == 0 ? 2 * R + 2 : 2 * R + 1;
+    static constexpr int NSB = 2 * R + 1;
+    // the windows only shrink, so RINGA's (and at PA = 2 the one between
+    // A's two in-plane sweeps) is the largest a temporary holds
+    static constexpr int TVOL =
+        PA == 2 && MidA::VOL > RingA::VOL ? MidA::VOL : RingA::VOL;
+    static constexpr int RAW = 0;
+    static constexpr int RINGA = RAW + NRAW * C * Raw::VOL;
+    static constexpr int T0 = RINGA + NSA * C * RingA::VOL;
+    static constexpr int T1 = T0 + C * TVOL;
+    static constexpr int RINGB = T1 + C * TVOL;
+    static constexpr int FLOATS = RINGB + NSB * C * RingB::VOL;
+    static constexpr int BYTES = (int)sizeof(float) * FLOATS;
+    static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+    // blocks an SM can hold by shared memory, at most 3: the register
+    // budget of __launch_bounds__
+    static constexpr int MINB = 233472 / (BYTES + 1024) >= 3
+                                    ? 3
+                                    : (233472 / (BYTES + 1024) >= 2 ? 2 : 1);
+};
+
+// A's output plane in window W (halo R, buffer b): each cell outside the
+// domain in y or z takes the value of the cell at its coordinates clamped
+// to the domain, the edge replication the plain version gives B's input.
+// The clamped cell lies in the window (the tile's origin lies in the
+// domain); only cells outside are written and only cells inside are read.
+template <class W, int C, int NT>
+__device__ __forceinline__ void patch_edges(float* b, int n1, int n2, int y0,
+                                            int z0) {
+    for (int idx = threadIdx.x; idx < W::VOL; idx += NT) {
+        const int j = idx / W::EZ, k = idx - j * W::EZ;
+        const int gy = y0 - W::HY + j, gz = z0 - W::HZ + k;
+        const int cy = min(max(gy, 0), n1 - 1), cz = min(max(gz, 0), n2 - 1);
+        if (cy == gy && cz == gz) continue;
+        const int from = (cy - y0 + W::HY) * W::EZ + (cz - z0 + W::HZ);
+#pragma unroll
+        for (int c = 0; c < C; ++c) b[c * W::VOL + idx] = b[c * W::VOL + from];
+    }
+}
+
+// The in-plane sweeps of PairChain from sweep I on, on plane x, the input
+// (window In) in T0 for even I and T1 for odd I; each writes the other
+// temporary and the last the ring slot `slot` of B. Before sweep KA (A's
+// output complete), A's output is re-patched at the domain's y and z edges
+// where the tile's window reaches past them (`edge`).
+template <int ORDER, class M, class L, int I, class In, class Mat>
+__device__ __forceinline__ void pair_chain(const GcmFusedParams& p,
+                                           float* smem, float* slot,
+                                           const Mat& mat, int x, int y0,
+                                           int z0, bool edge,
+                                           const StepOut& so) {
+    using CH = PairChain<typename L::AXA, typename L::AXB>;
+    float* const t0 = smem + L::T0;
+    float* const t1 = smem + L::T1;
+    if constexpr (I == CH::KA) {
+        static_assert(In::HY == L::R && In::HZ == L::R, "A's output window");
+        if (edge) {
+            float* const a_out = I == CH::K1 ? slot : (I % 2 ? t1 : t0);
+            patch_edges<In, M::C, L::NT>(a_out, p.n[1], p.n[2], y0, z0);
+            __syncthreads();
+        }
+    }
+    if constexpr (I < CH::K1) {
+        constexpr int A = CH::axis(I);
+        using Out = Drop<In, A, L::R>;
+        plane_sweep<ORDER, M, A, In, Out, false, L::NT>(
+            p, I % 2 ? t1 : t0, I == CH::K1 - 1 ? slot : (I % 2 ? t0 : t1),
+            mat, x, y0, z0, so);
+        __syncthreads();
+        pair_chain<ORDER, M, L, I + 1, Out>(p, smem, slot, mat, x, y0, z0,
+                                            edge, so);
+    }
+}
+
+// Two full 3D steps (A along AXA, then B along AXB) of output planes
+// [xa, xb) of the (y, z) tile at (y0, z0), walking x, by every thread of
+// an L::NT-thread block. A runs stream_step's pipeline on the tile with a
+// 2R halo in y and z: each incoming plane (from the clamping source, which
+// replicates the edge) is staged while the previous one computes, A's
+// in-plane sweeps before x put it into ring A, and A's x sweep of the
+// plane R behind reads that ring. A computes its output planes inside the
+// domain only, [xa - R, xb + R) cut to [0, n0); its in-plane sweeps after
+// x, the edge re-patch and B's in-plane sweeps before x turn each into a
+// plane of ring B, which B's x sweep reads at clamped plane indices (the
+// edge replication along x). B runs R planes behind A (at the domain's
+// last plane it flushes the rest of the chunk), and its last sweep stores
+// the tile. State and materials are read once and the state written once
+// a pass; A's (y, z) halo and 2R planes of A a chunk are recomputed.
+template <int ORDER, class M, class AXA, class AXB, class Src, class Mat>
+__device__ __forceinline__ void stream_pair(const GcmFusedParams& p,
+                                            const Src& src, const Mat& mat,
+                                            int xa, int xb, int y0, int z0,
+                                            float* smem, const StepOut& so) {
+    using L = PairLayout<ORDER, M, AXA, AXB>;
+    using CH = PairChain<AXA, AXB>;
+    using Raw = typename L::Raw;
+    using RingA = typename L::RingA;
+    using RingB = typename L::RingB;
+    constexpr int R = L::R, C = M::C, PA = L::PA, PB = L::PB, NT = L::NT;
+    constexpr int SA = C * RingA::VOL, SB = C * RingB::VOL;
+    float* const ringa = smem + L::RINGA;
+    float* const ringb = smem + L::RINGB;
+    float* const t0 = smem + L::T0;
+    float* const t1 = smem + L::T1;
+    const int n0 = p.n[0];
+    const int ya = max(xa - R, 0), yb = min(xb + R, n0);
+    const bool edge = y0 - R < 0 || y0 + L::T::TY + R > p.n[1] ||
+                      z0 - R < 0 || z0 + L::T::TZ + R > p.n[2];
+    // the buffer of incoming plane number `it` (counted from ya - R)
+    const auto inbox = [&](int it) {
+        return PA == 0 ? ringa + (it % L::NSA) * SA
+                       : smem + L::RAW + (it & 1) * (C * Raw::VOL);
+    };
+    const int nin = yb - ya + 2 * R;
+    src.template stage<C, Raw::EY, Raw::EZ, NT>(inbox(0), ya - R, y0 - 2 * R,
+                                                z0 - 2 * R);
+    cp_async_commit();
+    for (int it = 0; it < nin; ++it) {
+        const int xi = ya - R + it;
+        if (it + 1 < nin)
+            src.template stage<C, Raw::EY, Raw::EZ, NT>(
+                inbox(it + 1), xi + 1, y0 - 2 * R, z0 - 2 * R);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        if constexpr (PA > 0) {
+            float* const slot = ringa + (it % L::NSA) * SA;
+            const float* const in = inbox(it);
+            if constexpr (PA == 1) {
+                plane_sweep<ORDER, M, AXA::A0, Raw, RingA, false, NT>(
+                    p, in, slot, mat, xi, y0, z0, so);
+            } else {
+                using Mid = typename L::MidA;
+                plane_sweep<ORDER, M, AXA::A0, Raw, Mid, false, NT>(
+                    p, in, t0, mat, xi, y0, z0, so);
+                __syncthreads();
+                plane_sweep<ORDER, M, AXA::A1, Mid, RingA, false, NT>(
+                    p, t0, slot, mat, xi, y0, z0, so);
+            }
+            __syncthreads();
+        }
+        if (it < 2 * R) continue;
+        // A's output plane xo, into ring B
+        const int xo = xi - R;
+        float* const bslot = ringb + (xo % L::NSB) * SB;
+        const float* rp[2 * R + 1];
+#pragma unroll
+        for (int t = 0; t <= 2 * R; ++t)
+            rp[t] = ringa + ((it - 2 * R + t) % L::NSA) * SA;
+        x_sweep<ORDER, M, RingA, false, NT>(p, rp, CH::K1 == 0 ? bslot : t0,
+                                            mat, xo, y0, z0, so);
+        __syncthreads();
+        pair_chain<ORDER, M, L, 0, RingA>(p, smem, bslot, mat, xo, y0, z0,
+                                          edge, so);
+        // B on every output plane whose planes of ring B are all there
+        const int last = xo == n0 - 1 ? xb : min(xb, xo - R + 1);
+        for (int xq = max(xa, xo - R); xq < last; ++xq) {
+            const float* rq[2 * R + 1];
+#pragma unroll
+            for (int t = 0; t <= 2 * R; ++t)
+                rq[t] = ringb +
+                        (min(max(xq - R + t, 0), n0 - 1) % L::NSB) * SB;
+            if constexpr (PB == 2) {
+                x_sweep<ORDER, M, RingB, true, NT>(p, rq, nullptr, mat, xq,
+                                                   y0, z0, so);
+            } else {
+                x_sweep<ORDER, M, RingB, false, NT>(p, rq, t0, mat, xq, y0,
+                                                    z0, so);
+                __syncthreads();
+                if constexpr (PB == 1) {
+                    plane_sweep<ORDER, M, AXB::A2, RingB, typename L::Out,
+                                true, NT>(p, t0, nullptr, mat, xq, y0, z0,
+                                          so);
+                } else {
+                    using Post = Drop<RingB, AXB::A1, R>;
+                    plane_sweep<ORDER, M, AXB::A1, RingB, Post, false, NT>(
+                        p, t0, t1, mat, xq, y0, z0, so);
+                    __syncthreads();
+                    plane_sweep<ORDER, M, AXB::A2, Post, typename L::Out,
+                                true, NT>(p, t1, nullptr, mat, xq, y0, z0,
+                                          so);
+                }
+            }
+            __syncthreads();
         }
     }
 }
@@ -962,6 +1299,17 @@ __host__ inline cudaError_t with_model(int model, F&& f) {
     }
 }
 
+// Calls f(M{}) for a component map of the per-sweep kernel: the 3D ones
+// and SWEEP_MODEL_ELASTIC2D, SWEEP_MODEL_ACOUSTIC2D.
+template <class F>
+__host__ inline cudaError_t with_sweep_model(int model, F&& f) {
+    switch (model) {
+        case SWEEP_MODEL_ELASTIC2D: return f(Elastic2D{});
+        case SWEEP_MODEL_ACOUSTIC2D: return f(Acoustic2D{});
+        default: return with_model(model, f);
+    }
+}
+
 // Calls f(Axes<...>{}) for a sweep order, any permutation of (0, 1, 2).
 template <class F>
 __host__ inline cudaError_t with_axes(const int* ax, F&& f) {
@@ -984,15 +1332,15 @@ struct StreamOccupancy {
 };
 
 // Allows `smem` bytes of dynamic shared memory to `kernel` and returns its
-// resident blocks an SM.
+// resident blocks an SM at `nt` threads a block.
 template <class K>
-__host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem,
-                                                 int* bps) {
+__host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem, int* bps,
+                                                 int nt = STREAM_NT) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(bps, kernel,
-                                                         STREAM_NT, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(bps, kernel, nt,
+                                                         smem);
 }
 
 // Planes a block walks when `columns` (y, z) tiles each walk `len` planes

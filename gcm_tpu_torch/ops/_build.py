@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile runs the device optimizer of a source over 4 threads:
-# the one-step 3D body has 96 instantiations in each of two sources
+# the one-step 3D body has 96 instantiations in each of two sources, the
+# two-step body 72 in each of four (one a stencil order)
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v", "--split-compile=4")
 
@@ -116,15 +117,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gcm_fused_spmd_2d.restype = i32
     lib.gcm_fused_spmd_tile.argtypes = [i32]
     lib.gcm_fused_spmd_tile.restype = i32
-    # params, order, mat_bf16, device, out[2]
-    lib.gcm_fused_step_slab_occupancy.argtypes = [vp, i32, i32, i32, vp]
+    # params, order, mat_bf16, ksteps, device, out[2]
+    lib.gcm_fused_step_slab_occupancy.argtypes = [vp, i32, i32, i32, i32, vp]
     lib.gcm_fused_step_slab_occupancy.restype = i32
     # params, order, ring, device, out[2]
     lib.gcm_fused_spmd_occupancy.argtypes = [vp, i32, i32, i32, vp]
     lib.gcm_fused_spmd_occupancy.restype = i32
     # model id, params out
-    lib.gcm_stream_model_map.argtypes = [i32, vp]
-    lib.gcm_stream_model_map.restype = i32
+    for name in ("gcm_stream_model_map", "gcm_sweep_model_map"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i32, vp]
+        fn.restype = i32
     lib.gcm_fused_spmd_2d_tile.argtypes = []
     lib.gcm_fused_spmd_2d_tile.restype = i32
     # u, out, params, order, device, stream

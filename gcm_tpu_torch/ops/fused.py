@@ -5,8 +5,9 @@ Counterpart of ``gcm_tpu/ops/pallas_fused.py::fused_step``,
 folded ODE correctors, bf16 material stacks, ``axes_seq`` temporal blocking
 and the single-step contract). The kernels are CUDA C++ for Hopper,
 ``csrc/fused_step_slab.cu`` (3D, float or bf16 stack, one or two steps a
-pass; ``fused_step`` launches its float, one-step form) and
-``csrc/fused_step_2d.cu`` (2D, both options), sharing their sweep and
+pass, the two-step body in ``csrc/fused_pair_stream.cuh``, compiled one
+stencil order a source; ``fused_step`` launches its float, one-step form)
+and ``csrc/fused_step_2d.cu`` (2D, both options), sharing their sweep and
 epilogue (``csrc/gcm_common.cuh``). ``fused_step_reference`` is the
 plain PyTorch version of one step (the port's ``solver.gcm.step`` on
 materials derived from the compact stack exactly as the kernels derive
@@ -397,11 +398,11 @@ def _model_map(p: _Params) -> tuple:
 
 
 def check_stream_model(lib, model: Model, params: _Params) -> None:
-    """Raise unless the library's one-step 3D body is compiled for
-    ``model``'s component map (``params.model``, set by ``_params``): the
-    kernel keeps a cell's components in registers under the compiled map
-    and reads only the stack rows from the parameters. Checked once a
-    model and library."""
+    """Raise unless the library's 3D bodies (one and two steps a pass) are
+    compiled for ``model``'s component map (``params.model``, set by
+    ``_params``): the kernels keep a cell's components in registers under
+    the compiled map and read only the stack rows from the parameters.
+    Checked once a model and library."""
     key = (id(lib), model.name)
     if key in _verified_maps:
         return
@@ -548,7 +549,7 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():
         raise RuntimeError("GcmFusedParams layout differs from its binding")
-    if dim == 3 and len(seq) == 1:
+    if dim == 3:
         check_stream_model(lib, model, params)
     out = torch.empty_like(u)
     aux_out = torch.empty_like(aux) if aux is not None else None
@@ -605,12 +606,16 @@ def fused_step_slab(model: Model, u: torch.Tensor, mstack: torch.Tensor,
     extents. A CUDA tensor goes through the CUDA kernel
     (``csrc/fused_step_slab.cu``); a CPU tensor runs
     ``fused_step_slab_reference``. Returns the new state, or ``(state,
-    aux)`` when ``aux`` is given."""
+    aux)`` when ``aux`` is given. ``fused_step_slab.launches`` counts every
+    launch, ``fused_step_slab.pair_launches`` those of two steps (the
+    two-step body, a kernel of its own)."""
     (out, new_aux), launched = _fused(3, "gcm_fused_step_slab", model, u,
                                       mstack, dt, h, order, borders, axes,
                                       axes_seq, correctors, aux)
     if launched:
         fused_step_slab.launches += 1
+        if axes_seq is not None and len(axes_seq) == 2:
+            fused_step_slab.pair_launches += 1
     return out if aux is None else (out, new_aux)
 
 
@@ -636,22 +641,27 @@ def fused_step_slab_occupancy(model: Model, u: torch.Tensor,
                               mstack: torch.Tensor, dt: float,
                               h: Sequence[float], order: int,
                               borders: Optional[Borders] = None,
-                              axes: Optional[Sequence[int]] = None
-                              ) -> Tuple[int, int]:
-    """``(blocks_per_sm, smem_bytes)`` that a one-step launch of the 3D
-    kernel on these arguments (``fused_step``, or ``fused_step_slab`` with
-    one step) gets on ``u``'s card: resident blocks an SM at its dynamic
-    shared memory, and that shared memory in bytes."""
-    seq = norm_axes_seq(axes, None, 3)
+                              axes: Optional[Sequence[int]] = None,
+                              axes_seq=None) -> Tuple[int, int]:
+    """``(blocks_per_sm, smem_bytes)`` that a launch of the 3D kernel on
+    these arguments (``fused_step``, or ``fused_step_slab`` with one step
+    or, given a two-step ``axes_seq``, two) gets on ``u``'s card: resident
+    blocks an SM at its dynamic shared memory, and that shared memory in
+    bytes."""
+    seq = norm_axes_seq(axes, axes_seq, 3)
+    if len(seq) > 2:
+        raise ValueError("the fused kernels run one or two steps a pass")
     _check(model, 3, u, mstack, order, (), None)
     lib = _build.load()
     params = _params(model, u.shape[1:], mstack.shape[0], dt, h, borders,
                      seq[0], ())
+    if len(seq) == 2:
+        params.axes_next[:] = list(seq[1])
     check_stream_model(lib, model, params)
     out = (ctypes.c_int * 2)()
     err = lib.gcm_fused_step_slab_occupancy(
         ctypes.addressof(params), order,
-        int(mstack.dtype == torch.bfloat16), u.device.index, out)
+        int(mstack.dtype == torch.bfloat16), len(seq), u.device.index, out)
     if err != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {err} "
                            f"({lib.gcm_error_string(err).decode()})")
@@ -660,4 +670,5 @@ def fused_step_slab_occupancy(model: Model, u: torch.Tensor,
 
 fused_step.launches = 0
 fused_step_slab.launches = 0
+fused_step_slab.pair_launches = 0
 fused_step_2d.launches = 0

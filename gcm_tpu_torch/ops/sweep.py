@@ -7,7 +7,10 @@ plain PyTorch version is the port's ``solver.gcm.stage``.
 
 ``sweep_stage`` launches the kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; for a CUDA tensor it launches or raises, it never
-falls back. ``sweep_stage.launches`` counts the kernel launches.
+falls back. The kernel is compiled for the component maps of
+``SWEEP_MODELS``; the binding holds the runtime model to the compiled map
+(``check_sweep_model``) and refuses any other model.
+``sweep_stage.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import torch
 from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.fused import _BC_CODES, _MAXC, _MAXP, _MAXZ
+from gcm_tpu_torch.ops.fused import (
+    _BC_CODES, _MAXC, _MAXP, _MAXZ, STREAM_MODELS, _model_map, _Params,
+    _params, mat_layout)
 from gcm_tpu_torch.solver.gcm import stage
 from gcm_tpu_torch.task import BorderSpec
 
@@ -34,14 +39,40 @@ class _SweepParams(ctypes.Structure):
         ("pair_c", ctypes.c_void_p * _MAXP),
         ("pair_z", ctypes.c_void_p * _MAXP),
         ("zero_kappa", ctypes.c_void_p * _MAXZ),
-        ("n", ctypes.c_int * 3), ("ncomp", ctypes.c_int),
-        ("sign", ctypes.c_int), ("axis", ctypes.c_int),
-        ("npairs", ctypes.c_int), ("pair_sigma", ctypes.c_int * _MAXP),
-        ("pair_vel", ctypes.c_int * _MAXP), ("nzeros", ctypes.c_int),
-        ("zero_comp", ctypes.c_int * _MAXZ),
-        ("zero_src", ctypes.c_int * _MAXZ), ("bc_kind", ctypes.c_int * 2),
+        ("n", ctypes.c_int * 3), ("axis", ctypes.c_int),
+        ("model", ctypes.c_int), ("bc_kind", ctypes.c_int * 2),
         ("bc_val", ctypes.c_float * _MAXP * 2), ("dtoh", ctypes.c_float),
     ]
+
+
+#: the component maps the per-sweep kernel is compiled for
+#: (csrc/gcm_common.cuh, STREAM_MODEL_* and SWEEP_MODEL_*), by model name
+SWEEP_MODELS = {**STREAM_MODELS, "elastic2d": 2, "acoustic2d": 3}
+_verified_maps = set()
+
+
+def check_sweep_model(lib, model: Model) -> None:
+    """Raise unless the library's per-sweep kernel is compiled for
+    ``model``'s component map: the kernel keeps a cell's components in
+    registers under the compiled map and reads only the material fields
+    from the parameters. Checked once a model and library."""
+    key = (id(lib), model.name)
+    if key in _verified_maps:
+        return
+    if model.name not in SWEEP_MODELS:
+        raise ValueError(f"sweep_stage's kernel is compiled for "
+                         f"{sorted(SWEEP_MODELS)}, not {model.name}")
+    compiled = _Params()
+    if lib.gcm_sweep_model_map(SWEEP_MODELS[model.name],
+                               ctypes.addressof(compiled)) != 0:
+        raise RuntimeError(f"the kernel library has no per-sweep component "
+                           f"map for {model.name}")
+    runtime = _params(model, (1,) * model.dim, len(mat_layout(model)), 1.0,
+                      (1.0,) * model.dim, None, tuple(range(model.dim)), ())
+    if _model_map(compiled) != _model_map(runtime):
+        raise RuntimeError(f"{model.name}: the component map compiled into "
+                           "sweep_stage's kernel differs from the model's")
+    _verified_maps.add(key)
 
 
 def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
@@ -70,17 +101,8 @@ def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
     p.pair_z[:len(st.pairs)] = [f.data_ptr() for f in view.pair_z]
     p.zero_kappa[:len(st.zeros)] = [f.data_ptr() for f in view.zero_kappa]
     p.n[:] = list(u.shape[1:]) + [1] * (4 - u.ndim)
-    p.ncomp = model.ncomp
-    p.sign = model.sign
     p.axis = axis
-    p.npairs = len(st.pairs)
-    p.nzeros = len(st.zeros)
-    for k, pair in enumerate(st.pairs):
-        p.pair_sigma[k] = pair.sigma
-        p.pair_vel[k] = pair.vel
-    for j, zc in enumerate(st.zeros):
-        p.zero_comp[j] = zc.comp
-        p.zero_src[j] = zc.src
+    p.model = SWEEP_MODELS[model.name]
     for side in (0, 1):
         bc = (borders or {}).get((axis, side))
         p.bc_kind[side] = -1 if bc is None else _BC_CODES[bc.kind]
@@ -117,8 +139,9 @@ def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
         raise ValueError(f"unsupported interpolation order {order}")
     if axis not in range(model.dim):
         raise ValueError(f"axis {axis} out of range for {model.name}")
-    params, fields = _sweep_params(model, u, mat, dt, h, axis, borders)
     lib = _build.load()
+    check_sweep_model(lib, model)
+    params, fields = _sweep_params(model, u, mat, dt, h, axis, borders)
     if ctypes.sizeof(params) != lib.gcm_sweep_params_size():
         raise RuntimeError("GcmSweepParams layout differs from its binding")
     out = torch.empty_like(u)

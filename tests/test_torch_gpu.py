@@ -19,6 +19,7 @@ rtol 1e-5, atol 1e-6 (the atol absorbs threshold-crossing knife-edges in
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -188,11 +189,19 @@ def test_folded_correctors_match_plain_on_card(cuda, name, shape):
     torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
 
 
+#: per-sweep extents: each compiled model (the kernel's component maps),
+#: tile-multiple, ragged against the 16 x 64 tiles, thinner than the halo
+#: along the sweep axis and along the contiguous one
+SWEEP_CASES = [("elastic3d", (24, 40, 56)), ("elastic3d", (32, 64, 128)),
+               ("elastic3d", (9, 17, 2)), ("elastic3d", (1, 3, 130)),
+               ("acoustic3d", (3, 5, 7)), ("acoustic3d", (33, 4, 65)),
+               ("elastic2d", (37, 61)), ("elastic2d", (5, 3)),
+               ("elastic2d", (130, 2)), ("acoustic2d", (64, 128)),
+               ("acoustic2d", (2, 201))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,shape", [("elastic3d", (24, 40, 56)),
-                                        ("acoustic3d", (3, 5, 7)),
-                                        ("elastic2d", (37, 61)),
-                                        ("acoustic2d", (64, 128))])
+@pytest.mark.parametrize("name,shape", SWEEP_CASES)
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
 def test_sweep_kernel_matches_plain_on_card(cuda, order, name, shape):
     model, u, mat, dt = card_problem(order, name, shape, cuda, with_mat=True)
@@ -484,7 +493,8 @@ def test_spmd_launches_cover_every_cell_once_on_card(cuda, case):
 def test_stream_occupancy_on_card(cuda):
     """The one-step body's shared memory leaves at least two blocks an SM
     at r = 1 for elastic3d, in every sweep order, float and bf16 stacks,
-    single-card and SPMD launches."""
+    single-card and SPMD launches; the two-step body holds three blocks an
+    SM in every order pair at r = 1 and fits one at r = 2."""
     from gcm_tpu_torch.ops import fused_spmd as fs
     from gcm_tpu_torch.ops.fused import fused_step_slab_occupancy
     from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
@@ -503,6 +513,14 @@ def test_stream_occupancy_on_card(cuda):
             bps, smem = fs.fused_spmd_occupancy(model, u, mext, dt, h, 2,
                                                 BORDERS, axes, ring=ring)
             assert bps >= 2 and 0 < smem < 100_000
+    for order in (2, 4):
+        for seq in slab_seqs(2):
+            bps, smem = fused_step_slab_occupancy(model, u, ms, dt, h, order,
+                                                  BORDERS, axes_seq=seq)
+            if order == 2:
+                assert bps == 3 and 60_000 < smem < 80_000
+            else:
+                assert bps == 1 and smem <= 232_448
 
 
 @pytest.mark.gpu
@@ -510,8 +528,6 @@ def test_stream_occupancy_on_card(cuda):
 def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
     """Maxwell + damage folded into the one-step body, a step in each of
     the six sweep orders, against the plain steps with the epilogue."""
-    import itertools
-
     model, u, ms, dt = card_problem(4, "elastic3d", (20, 19, 45), cuda)
     for a in range(1, 4):   # a smooth state, off the damage knife-edges
         u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
@@ -665,6 +681,20 @@ def test_spmd_kernels_reject_what_they_do_not_take(cuda):
 SLAB_AXES = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
 
 
+def slab_seqs(ksteps, nx=2):
+    """The sweep-order sequences of a pass: the orders of SLAB_AXES one at
+    a time, or every pair of the six orders. On a single x plane (nx = 1)
+    two steps take each order of SLAB_AXES and its reverse: there a first
+    step ending with x and a second beginning with x apply both x borders
+    to the one row twice in a row, which leaves a stress component zero up
+    to round-off (sxz after (1, 2, 0) + (0, 2, 1)), and a normalized error
+    on it would weigh the kernel's round-off against the plain version's."""
+    if ksteps == 1 or nx == 1:
+        return [(ax,) if ksteps == 1 else (ax, ax[::-1]) for ax in SLAB_AXES]
+    orders = list(itertools.permutations(range(3)))
+    return list(itertools.product(orders, orders))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7), (9, 17, 2),
                                    (70, 19, 45), (1, 9, 33)])
@@ -672,21 +702,23 @@ SLAB_AXES = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
 @pytest.mark.parametrize("ksteps", [1, 2])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
 def test_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16, shape):
-    """fused_step_slab against its plain version: every sweep order (each
-    second step reversed), float32 and bf16 stacks, ragged extents and
-    extents thinner than the 2r halo; a K = 2 pass is held to 2e-6 a step."""
+    """fused_step_slab against its plain version: one step in four sweep
+    orders, two steps a pass in every pair of sweep orders (the two-step
+    body's 36 instantiations a model and order), float32 and bf16 stacks,
+    ragged extents and extents thinner than the 2r halo; a K = 2 pass is
+    held to 2e-6 a step."""
     model, u, ms, dt = card_problem(order + 10 * ksteps, "elastic3d", shape,
                                     cuda)
     if bf16:
         ms = ms.to(torch.bfloat16)
     h = (10.0, 12.0, 9.0)
-    for ax in SLAB_AXES:
-        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
-        before = fused_step_slab.launches
+    for seq in slab_seqs(ksteps, shape[0]):
+        before = (fused_step_slab.launches, fused_step_slab.pair_launches)
         got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
                               axes_seq=seq)
         torch.cuda.synchronize()
-        assert fused_step_slab.launches == before + 1
+        assert (fused_step_slab.launches - before[0],
+                fused_step_slab.pair_launches - before[1]) == (1, ksteps - 1)
         want = fused_step_slab_reference(model, u, ms, dt, h, order, BORDERS,
                                          axes_seq=seq)
         assert norm_err(got, want) < 2e-6 * ksteps
@@ -772,13 +804,15 @@ def test_engine_knobs_take_the_slab_kernel_on_card(cuda):
     bf16 bodies launch fused_step_slab."""
     task = dataclasses.replace(get_scenario("elastic3d_layered", n=32,
                                             nsteps=7), detectors=None)
-    before = (fused_step_slab.launches, fused_step.launches)
+    before = (fused_step_slab.launches, fused_step_slab.pair_launches,
+              fused_step.launches)
     eng = Engine(dataclasses.replace(task, temporal_block=True), device=cuda)
     got = eng.run()
     assert eng._pair_fused
     # 3 two-step passes on the slab kernel, the odd tail step on fused_step
     assert (fused_step_slab.launches - before[0],
-            fused_step.launches - before[1]) == (3, 1)
+            fused_step_slab.pair_launches - before[1],
+            fused_step.launches - before[2]) == (3, 3, 1)
     want = Engine(task, device=cuda).run()
     assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
     b16 = Engine(dataclasses.replace(task, mat_dtype="bf16"), device=cuda)
@@ -890,8 +924,7 @@ def test_ortho_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16,
     if bf16:
         ms = ms.to(torch.bfloat16)
     h = (10.0, 12.0, 9.0)
-    for ax in SLAB_AXES:
-        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+    for seq in slab_seqs(ksteps, shape[0]):
         before = fused_step_slab.launches
         got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
                               axes_seq=seq)
@@ -934,7 +967,10 @@ def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,shape", [("elastic3d", (24, 40, 56)),
-                                        ("elastic2d", (37, 61))])
+                                        ("elastic3d", (9, 17, 2)),
+                                        ("elastic3d", (1, 3, 130)),
+                                        ("elastic2d", (37, 61)),
+                                        ("elastic2d", (130, 2))])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
 def test_ortho_sweep_kernel_matches_plain_on_card(cuda, order, name, shape):
     model, u, mat, dt = card_ortho_problem(order, name, shape, cuda,

@@ -216,7 +216,8 @@ def test_sweep_params_hold_the_views_they_point_to(rng):
     tmodel = get_model("elastic3d")
     for axis in range(3):
         p, fields = _sweep_params(tmodel, tu, tmat, dt, H3, axis, None)
-        npairs, nzeros = p.npairs, p.nzeros
+        st = tmodel.stage(axis)
+        npairs, nzeros = len(st.pairs), len(st.zeros)
         assert list(p.pair_c[:npairs]) + list(p.pair_z[:npairs]) + list(
             p.zero_kappa[:nzeros]) == [f.data_ptr() for f in fields]
 
