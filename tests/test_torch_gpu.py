@@ -697,7 +697,7 @@ def slab_seqs(ksteps, nx=2):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(24, 40, 56), (3, 5, 7), (9, 17, 2),
-                                   (70, 19, 45), (1, 9, 33)])
+                                   (70, 19, 45), (1, 9, 33), (16, 32, 64)])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("ksteps", [1, 2])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
@@ -705,8 +705,8 @@ def test_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16, shape):
     """fused_step_slab against its plain version: one step in four sweep
     orders, two steps a pass in every pair of sweep orders (the two-step
     body's 36 instantiations a model and order), float32 and bf16 stacks,
-    ragged extents and extents thinner than the 2r halo; a K = 2 pass is
-    held to 2e-6 a step."""
+    tile-multiple and ragged extents and extents thinner than the 2r halo;
+    a K = 2 pass is held to 2e-6 a step."""
     model, u, ms, dt = card_problem(order + 10 * ksteps, "elastic3d", shape,
                                     cuda)
     if bf16:
