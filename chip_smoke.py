@@ -15,11 +15,15 @@ Phases, each of which raises (exit code != 0) on failure:
      sweep orders (0,1,2), (2,1,0), (2,0,1) and (1,0,2), elastic3d, one
      acoustic3d case, two ragged shapes and a tile-multiple one);
    - ``fused_step_2d`` against ``fused_step_2d_reference`` (orders 1-4, both
-     axes orders, elastic2d and acoustic2d, a ragged and a tile-multiple
-     shape);
+     axes orders, elastic2d and acoustic2d, float32 and bf16 stacks; a
+     ragged shape whose rows are not a multiple of 4 cells (4-byte copies),
+     aligned ones, one a multiple of the row-streamed body's strip, and
+     shapes thinner than the 2r halo along x with fewer columns than a
+     strip);
    - both fused kernels with Maxwell and damage correctors folded into
      their epilogue, 3 steps each from the plain step's state (the damage
-     must become non-zero);
+     must become non-zero; the 2D kernel at orders 2 and 4, on a ragged and
+     an aligned shape);
    - ``sweep_stage`` against ``solver.gcm.stage`` on each axis of 3D and
      2D problems, orders 1-4, and per axis on the 3D and 2D paths' states;
 4. the 3D main path: ``Engine(elastic3d_explosion, n=256, nsteps=300)``
@@ -56,7 +60,10 @@ Phases, each of which raises (exit code != 0) on failure:
    sweep orders with x in the middle on ragged shards, the interior launch
    writing exactly its cells of a NaN buffer and the ring launch all the
    others; the 2D kernel likewise in both modes on sx = 2 and 4 (orders
-   1-4); all under 2e-6;
+   1-4, both axes orders, elastic2d and acoustic2d, shards with an
+   interior and shards so thin (nxl <= 2r) that the interior launch is
+   empty), the interior launch writing exactly its rows of a NaN buffer and
+   the ring launch all the others; all under 2e-6;
 10. the sharded 3D path: ``Engine(elastic3d_explosion, n=256,
    mesh=domain_mesh(3, [cuda:0] * 4, (2, 2)))`` for 100 steps launches
    ``fused_spmd_interior`` and ``fused_spmd_ring`` 4 times a step each and
@@ -93,7 +100,10 @@ Phases, each of which raises (exit code != 0) on failure:
    steps, 50 launches) and agrees with the per-step fused path (under
    1e-4); one pass on the path's state is held against its plain version
    (under 2e-6 a step against the float64 plain pass) and timed beside two
-   one-step launches, and the path's device idle share is traced;
+   one-step launches, and the path's device idle share is traced; the
+   same in 2D (``elastic2d_ps`` n=2048 without receivers, 100 steps, 50
+   two-step ``fused_step_2d`` launches), its pass timed on float32 and
+   bf16 stacks;
 15. orthotropic media (every layer of a scenario made orthotropic by
    :func:`_orthotropic`, positive definite): each kernel of the structured
    paths on random heterogeneous orthotropic stacks (13 rows in 3D, 6 in
@@ -124,7 +134,10 @@ resident blocks an SM at their shared memory (``blocks_per_sm``,
 ``smem_bytes``, from the library's occupancy query), and for the kernels
 of the structured paths the same for their orthotropic
 form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
-``ortho_plain_ms``, ``ortho_bound_ms``); the last line is ``{"ok": true,
+``ortho_plain_ms``, ``ortho_bound_ms``); the 2D kernels' entries
+(``fused_step_2d``, its two-step pass ``fused_step_2d_k2``,
+``fused_spmd_2d`` with ``interior_ms`` and ``ring_ms``) carry their
+occupancy too; the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -329,12 +342,15 @@ class Counts:
             fn.launches = 0
         self.fns["fused_spmd_2d"].ring_launches = 0
         self.fns["fused_step_slab"].pair_launches = 0
+        self.fns["fused_step_2d"].pair_launches = 0
 
     def read(self):
-        """Launches by kernel; ``fused_step_slab_k2`` counts the two-step
-        body's among ``fused_step_slab``'s."""
+        """Launches by kernel; ``fused_step_slab_k2`` and
+        ``fused_step_2d_k2`` count the two-step passes among
+        ``fused_step_slab``'s and ``fused_step_2d``'s."""
         out = {k: fn.launches for k, fn in self.fns.items()}
         out["fused_step_slab_k2"] = self.fns["fused_step_slab"].pair_launches
+        out["fused_step_2d_k2"] = self.fns["fused_step_2d"].pair_launches
         return out
 
     def expect(self, tag, launched, **want):
@@ -389,25 +405,32 @@ def kernels_vs_plain():
     print(f"fused_step vs plain: {len(cases)} cases, worst normalized error "
           f"{worst:.3e} (limit 2e-6)")
 
+    # ragged with unaligned rows, aligned, a multiple of the 126-column
+    # strip (r = 1), thinner than the halo along x and narrower than a
+    # strip, aligned (4, 40) and not (3, 130)
     worst, n2 = 0.0, 0
-    for shape in ((37, 61), (64, 128)):
+    for shape in ((37, 61), (64, 128), (70, 252), (3, 130), (4, 40)):
         for name in ("elastic2d", "acoustic2d"):
             for order in (1, 2, 3, 4):
-                for axes in ((0, 1), (1, 0)):
-                    model, u, _, ms, dt = _problem(rng, shape, name)
-                    args = (model, u, ms, dt, h3[:2], order, _borders(2),
-                            axes)
-                    got = fused_step_2d(*args)
-                    torch.cuda.synchronize()
-                    worst = max(worst, hold(
-                        f"fused_step_2d {name} {shape} order {order} axes "
-                        f"{axes}", got, fused_step_2d_reference(*args)))
-                    n2 += 1
+                model, u, _, ms, dt = _problem(rng, shape, name)
+                for stack in (ms, ms.to(torch.bfloat16)):
+                    for axes in ((0, 1), (1, 0)):
+                        args = (model, u, stack, dt, h3[:2], order,
+                                _borders(2), axes)
+                        got = fused_step_2d(*args)
+                        torch.cuda.synchronize()
+                        worst = max(worst, hold(
+                            f"fused_step_2d {name} {shape} order {order} "
+                            f"{stack.dtype} axes {axes}", got,
+                            fused_step_2d_reference(*args)))
+                        n2 += 1
     print(f"fused_step_2d vs plain: {n2} cases, worst normalized error "
           f"{worst:.3e} (limit 2e-6)")
 
-    for name, shape, kernel in (("elastic3d", (24, 40, 56), fused_step),
-                                ("elastic2d", (37, 61), fused_step_2d)):
+    for name, shape, kernel, order in (
+            ("elastic3d", (24, 40, 56), fused_step, 2),
+            ("elastic2d", (37, 61), fused_step_2d, 2),
+            ("elastic2d", (64, 128), fused_step_2d, 4)):
         model, u, _, ms, dt = _problem(rng, shape, name)
         dim = model.dim
         specs, naux = fold_corrector_specs(
@@ -420,7 +443,7 @@ def kernels_vs_plain():
         err, aerr = 0.0, 0.0
         for n in range(3):
             axes = tuple(range(dim))[::(-1 if n % 2 else 1)]
-            rest = (ms, dt, h3[:dim], 2, _borders(dim), axes)
+            rest = (ms, dt, h3[:dim], order, _borders(dim), axes)
             got, gaux = kernel(model, want, *rest, correctors=specs,
                                aux=waux)
             want, waux = fused_step_reference(model, want, *rest,
@@ -432,7 +455,8 @@ def kernels_vs_plain():
             aerr = max(aerr, (gaux - waux).abs().max().item())
         _check(waux.max().item() > 1e-4, f"{name}: damage stayed zero")
         print(f"{kernel.__name__} with folded Maxwell + damage, 3 steps "
-              f"{name} {shape}, each from the plain state: normalized error "
+              f"{name} {shape} order {order}, each from the plain state: "
+              f"normalized error "
               f"{err:.3e}, damage max {waux.max().item():.4g}, aux max abs "
               f"error {aerr:.3e} (rtol 1e-5, atol 1e-6)")
 
@@ -661,9 +685,9 @@ def _bound_entry(nbytes, flops):
 
 #: the kernels' names in the CUDA sources
 KERNEL_NAMES = ("fused_step_stream_kernel", "fused_pair_stream_kernel",
-                "fused_spmd_kernel", "fused_step_2d_kernel",
-                "fused_spmd_2d_kernel", "sweep_stage_kernel",
-                "simplex_sweep_kernel")
+                "fused_spmd_kernel", "fused_step_rows_kernel",
+                "fused_pair_2d_kernel", "fused_spmd_rows_kernel",
+                "sweep_stage_kernel", "simplex_sweep_kernel")
 
 
 def _print_ptxas(log):
@@ -932,41 +956,63 @@ def spmd_kernels_vs_plain():
           f"damage max {waux.max().item():.4g}, aux max abs error "
           f"{aerr:.3e} (rtol 1e-5, atol 1e-6)")
 
-    # the 2D kernel: both modes, sx = 2 and 4, tile-multiple, ragged and
-    # ring-only shards, orders 1-4, both axes orders
+    # the 2D kernel: both modes, sx = 2 and 4, orders 1-4, both axes
+    # orders, both 2D models; aligned shards with an interior, ragged ones
+    # with unaligned rows, and shards so thin that the interior is empty
+    # (nxl = 2 <= 2r; nxl = 3 at r = 2); the interior launch fills exactly
+    # its rows of a NaN buffer, the ring launch the others
     worst, nk, nc = 0.0, 0, 0
-    for shape, nsh in (((512, 70), 2), ((400, 61), 4), ((64, 40), 4)):
-        for order in (1, 2, 3, 4):
-            for axes in ((0, 1), (1, 0)):
-                model, u, mat, ms, dt = _problem(rng, shape, "elastic2d")
-                mesh = domain_mesh(2, [dev] * nsh)
-                mext = extended_mstack(model, mat, mesh, order)
-                us = shard_state(u, mesh)
-                slabs = exchange_slabs(us, mesh, stencil_radius(order), dim=2)
-                bc = _borders(2)
-                for k, uk in enumerate(us):
-                    f = face_flags(mesh, k)[:2]
-                    for which in ("interior", "ring"):
+    for shape, nsh in (((512, 70), 2), ((400, 61), 4), ((64, 40), 4),
+                       ((8, 132), 4), ((12, 61), 4)):
+        for name in ("elastic2d", "acoustic2d"):
+            for order in (1, 2, 3, 4):
+                for axes in ((0, 1), (1, 0)):
+                    model, u, mat, ms, dt = _problem(rng, shape, name)
+                    mesh = domain_mesh(2, [dev] * nsh)
+                    r = stencil_radius(order)
+                    mext = extended_mstack(model, mat, mesh, order)
+                    us = shard_state(u, mesh)
+                    slabs = exchange_slabs(us, mesh, r, dim=2)
+                    bc = _borders(2)
+                    tag = f"{name} {shape}/{nsh} order {order} axes {axes}"
+                    for k, uk in enumerate(us):
+                        f = face_flags(mesh, k)[:2]
                         args = (model, uk, mext[k], dt, h3[:2], order, bc,
-                                axes, which, slabs[k], f)
-                        got = fused_spmd_2d(*args, torch.zeros_like(uk))
+                                axes)
+                        got = fused_spmd_2d(
+                            *args, "interior",
+                            base=torch.full_like(uk, float("nan")))
                         torch.cuda.synchronize()
+                        inner = interior_mask(uk.shape[1:], r, (1,), dev)
+                        _check(bool(torch.isnan(got[:, ~inner]).all())
+                               and not bool(torch.isnan(got[:, inner]).any()),
+                               f"fused_spmd_2d interior {tag}: wrote other "
+                               "rows")
+                        want = fused_spmd_2d_reference(*args, "interior")
                         worst = max(worst, hold(
-                            f"fused_spmd_2d {which} {shape}/{nsh} order "
-                            f"{order} axes {axes} shard {k}", got,
-                            fused_spmd_2d_reference(*args,
-                                                    torch.zeros_like(uk))))
-                        nk += 1
-                step = make_fused_spmd_step_2d(model, mesh, dt, h3[:2],
-                                               order, bc)
-                hold(f"sharded 2D step {shape}/{nsh} order {order}",
-                     gather_state(step(us, mext, axes), mesh),
-                     fused_step_reference(model, u, ms, dt, h3[:2], order,
-                                          bc, axes))
-                nc += 1
+                            f"fused_spmd_2d interior {tag} shard {k}",
+                            torch.nan_to_num(got), want))
+                        got = fused_spmd_2d(*args, "ring", slabs[k], f, got)
+                        torch.cuda.synchronize()
+                        _check(not bool(torch.isnan(got).any()),
+                               f"fused_spmd_2d ring {tag}: rows left "
+                               "unwritten")
+                        worst = max(worst, hold(
+                            f"fused_spmd_2d ring {tag} shard {k}", got,
+                            fused_spmd_2d_reference(*args, "ring", slabs[k],
+                                                    f, want)))
+                        nk += 2
+                    step = make_fused_spmd_step_2d(model, mesh, dt, h3[:2],
+                                                   order, bc)
+                    hold(f"sharded 2D step {tag}",
+                         gather_state(step(us, mext, axes), mesh),
+                         fused_step_reference(model, u, ms, dt, h3[:2],
+                                              order, bc, axes))
+                    nc += 1
     print(f"fused_spmd_2d vs plain: {nk} launches over {nc} problems, worst "
-          f"normalized error {worst:.3e} (limit 2e-6); every sharded 2D step "
-          "vs the unsharded plain step under 2e-6")
+          f"normalized error {worst:.3e} (limit 2e-6), every row written "
+          "once; every sharded 2D step vs the unsharded plain step under "
+          "2e-6")
 
 
 def sharded_paths(counts, result):
@@ -1181,14 +1227,19 @@ def sharded_paths(counts, result):
 
     t2 = _time_ms(both(fused_spmd_2d), 50)
     p2 = _time_ms(both(fused_spmd_2d_reference), 10)
+    t2w = {w: _time_ms(lambda w=w: fused_spmd_2d(*a2, w, sl2, f21, b2), 50)
+           for w in ("interior", "ring")}
     print(f"fused_spmd_2d (interior + ring) at shard {tuple(u2.shape)}: "
-          f"kernel {t2:.4f} ms, plain {p2:.4f} ms")
+          f"kernel {t2:.4f} ms (interior {t2w['interior']:.4f}, ring "
+          f"{t2w['ring']:.4f}), plain {p2:.4f} ms")
     nb = sum(_spmd_bytes(m2, u2.shape, r2, w, me2.shape[0])[0]
              for w in ("interior", "ring"))
     bms, by = _bound(nb, _step_flops(m2, task2.order, u2[0].numel()))
     result["fused_spmd_2d"] = dict(
         launches=launched2["fused_spmd_2d"], max_abs_err=e2, ms=t2,
-        plain_ms=p2, bound_ms=bms, bound_by=by, library_ms=None)
+        plain_ms=p2, bound_ms=bms, bound_by=by, library_ms=None,
+        interior_ms=t2w["interior"], ring_ms=t2w["ring"],
+        **_occupancy(fused_spmd_occupancy(*a2)))
     del eng2, res2, res2u, u2, me2, sl2, b2
 
     # ---- 11. the sharded per-sweep path
@@ -1521,9 +1572,11 @@ def contact_paths(counts, result):
 def pair_fused_path(counts, result):
     """Phase 14: the pair-fused single body, then its two-step pass on the
     path's own state: held against its plain version, timed beside two
-    one-step launches and the plain pass, and the path's idle share."""
+    one-step launches and the plain pass, and the path's idle share; then
+    the 2D pair-fused body the same way (no idle share)."""
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.ops.fused import (
+        fused_step_2d, fused_step_2d_occupancy, fused_step_2d_reference,
         fused_step_slab, fused_step_slab_occupancy, fused_step_slab_reference)
     from gcm_tpu_torch.scenarios import get_scenario
 
@@ -1577,6 +1630,57 @@ def pair_fused_path(counts, result):
             u = fused_step_slab(*a[:1], u, *a[2:], axes_seq=seq)
     result["fused_step_slab_k2"]["idle_share"] = _idle_share(
         passes, 20, _step_ms(res, task))
+    del eng, ref, res, a
+
+    # the 2D two-step pass (the box tile) on its path: elastic2d_ps at
+    # n=2048, whose initial ball needs no source, without receivers
+    task2 = dataclasses.replace(
+        get_scenario("elastic2d_ps", n=N_2D, nsteps=NSTEPS_PAIR),
+        detectors=None)
+    pair2 = dataclasses.replace(task2, temporal_block=True)
+    _warm(pair2, ("auto",))
+    eng2 = Engine(pair2, device="cuda")
+    _check(eng2._pair_fused, "the 2D pair-fused body was not selected")
+    counts.zero()
+    res2 = eng2.run()
+    launched2 = counts.read()
+    counts.expect("2D pair-fused path", launched2,
+                  fused_step_2d=NSTEPS_PAIR // 2,
+                  fused_step_2d_k2=NSTEPS_PAIR // 2)
+    ref2 = Engine(task2, device="cuda").run()
+    err2 = _np_err(res2.u, ref2.u)
+    _check(err2 < PATH_TOL, f"2D pair-fused vs per-step: err {err2:.3e}")
+    print(f"2D pair-fused path {task2.name} {task2.grid.shape} x "
+          f"{NSTEPS_PAIR} steps: {res2.points_per_second:.6g} points/s "
+          f"({launched2['fused_step_2d_k2']} two-step fused_step_2d "
+          f"launches), per-step fused {ref2.points_per_second:.6g} "
+          f"points/s; normalized error {err2:.3e} (limit 1e-4)")
+    seq2 = (eng2._fwd, eng2._fwd[::-1])
+    a2 = (eng2.model, eng2.u, eng2._mstack, eng2.dt, task2.grid.h,
+          task2.order, task2.borders)
+    *_, max_abs2 = _hold_on_path_state(
+        f"two-step fused_step_2d {seq2} on the 2D pair-fused state",
+        fused_step_2d, fused_step_2d_reference, a2, dict(axes_seq=seq2),
+        steps=2)
+    a16 = a2[:2] + (eng2._mstack.to(torch.bfloat16),) + a2[3:]
+    t2 = _time_ms(lambda: fused_step_2d(*a2, axes_seq=seq2), 50)
+    t2b = _time_ms(lambda: fused_step_2d(*a16, axes_seq=seq2), 50)
+    t21 = _time_ms(lambda: (fused_step_2d(*a2, axes_seq=seq2[:1]),
+                            fused_step_2d(*a2, axes_seq=seq2[1:])), 50)
+    p2 = _time_ms(lambda: fused_step_2d_reference(*a2, axes_seq=seq2), 5)
+    cells2 = int(np.prod(task2.grid.shape))
+    bound2 = _bound_entry(B_FUSED2 * cells2,
+                          2 * _step_flops(eng2.model, task2.order, cells2))
+    bound2b = _bound(B_FUSED2_BF16 * cells2, 0)[0]
+    print(f"fused_step_2d two steps at {tuple(eng2.u.shape)}: kernel "
+          f"{t2:.4f} ms a pass ({t2 / 2:.4f} a step), bf16 {t2b:.4f} ms, "
+          f"two one-step launches {t21:.4f} ms, plain {p2:.4f} ms, bound "
+          f"{bound2['bound_ms']:.4f} ms (bf16 {bound2b:.4f})")
+    result["fused_step_2d_k2"] = dict(
+        launches=launched2["fused_step_2d_k2"], max_abs_err=max_abs2, ms=t2,
+        plain_ms=p2, bf16_ms=t2b, bf16_bound_ms=bound2b,
+        one_step_pair_ms=t21, **bound2,
+        **_occupancy(fused_step_2d_occupancy(*a2, axes_seq=seq2)))
 
 
 # ------------------------------------------------------- orthotropic media
@@ -2193,8 +2297,9 @@ def main() -> int:
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.ops import _build
     from gcm_tpu_torch.ops.fused import (
-        fused_step, fused_step_2d, fused_step_2d_reference,
-        fused_step_reference, fused_step_slab_occupancy)
+        fused_step, fused_step_2d, fused_step_2d_occupancy,
+        fused_step_2d_reference, fused_step_reference,
+        fused_step_slab_occupancy)
     from gcm_tpu_torch.ops.sweep import sweep_stage
     from gcm_tpu_torch.scenarios import get_scenario
     from gcm_tpu_torch.solver.correctors import (
@@ -2341,7 +2446,8 @@ def main() -> int:
     result["fused_step_2d"] = dict(
         launches=launched2["fused_step_2d"], max_abs_err=max_abs, ms=ms2,
         plain_ms=plain2, **_bound_entry(B_FUSED2 * npts2, _step_flops(
-            eng2.model, task2.order, npts2)))
+            eng2.model, task2.order, npts2)),
+        **_occupancy(fused_step_2d_occupancy(*args2)))
     del eng2, r2f, r2t, args2
 
     # ---- 6. the folded corrector path (source-free 3D layered)
@@ -2446,6 +2552,8 @@ def main() -> int:
                                "gcm_tpu/ops/pallas_fused.py:807"),
         "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                           "gcm_tpu/ops/pallas_fused.py:1035"),
+        "fused_step_2d_k2": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
+                             "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",
                         "gcm_tpu/ops/pallas_stage.py:366"),
         "simplex_sweep": ("gcm_tpu_torch/csrc/simplex_sweep.cu",

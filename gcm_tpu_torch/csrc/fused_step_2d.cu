@@ -8,8 +8,8 @@
 // version is gcm_tpu_torch/ops/fused.py::fused_step_2d_reference
 // (= solver.gcm.step on materials derived from the compact stack, once per
 // step of the sequence, then the plain corrector epilogue), which it must
-// match. The sweep, the border algebra and the epilogue are the 3D
-// kernel's (gcm_common.cuh), run on a grid of extent 1 along z.
+// match. The sweep math, the border algebra and the epilogue are the 3D
+// kernels' (gcm_common.cuh).
 //
 // What bounds it on an H100: memory. Per grid point and step elastic2d
 // reads 5 state components and 4 compact material fields (cp, cs, rho,
@@ -18,77 +18,167 @@
 // adds 4 bytes in and 4 out); a bf16 stack makes it 20 + 8 + 20 = 48 bytes.
 // The orthotropic stack (v11, v66, v22, rho, k01, k10) has 6 fields: 64
 // bytes a point (52 with bf16), read through the same per-pair and per-zero
-// stack rows of the parameters.
-// Two steps per pass move the same bytes for two steps. Two sweeps of
-// interpolation and pair algebra are far below the f32 rate.
+// stack rows of the parameters. Two steps per pass move the same bytes for
+// two steps. Two sweeps of interpolation and pair algebra are far below
+// the f32 rate. What a design adds on top: the halo each block re-reads
+// and recomputes, and whatever keeps the loads from overlapping the
+// arithmetic.
 //
-// What the design does about it:
-// - One block owns a TX x TY output tile, y (the contiguous axis) along the
-//   threads. The first sweep reads the state from global memory at clamped
-//   indices (edge replication, as in 3D) over the tile plus a K*r-cell halo
-//   (r along the first sweep's own axis), and writes shared memory; each
-//   later sweep reads the buffer the one before it wrote; the last applies
-//   the folded correctors (K = 1) and writes the output tile. The
-//   intermediate states never go to device memory.
-// - With K = 2 the second step reads the first one's result at indices
-//   clamped to the domain (ClampedSharedSrc), so the out-of-domain halo
-//   cells of the first step, which are don't-cares, are never read: that
-//   is the TPU kernel's re-patch of the shrinking halo between steps.
-// - bf16 stacks are read as bf16 and upcast at the load (GlobalMat<T>).
-// - The TPU kernel's rule nx % 8 == 0 (8-row aligned halo DMAs for its
-//   sublane tiling) and its K*r <= 8 limit are gone: any extents, ragged
-//   tiles masked at the store.
-// - Shared memory: at most C * ((TX + 2H - r) * (TY + 2H) + (TX + 2H - r)
-//   * (TY + 2H - 2r)) floats, about 100 KB for elastic2d at order 4, K = 2.
+// One step a pass (K = 1, the 2D path) is gcm_common.cuh::stream_rows:
+// - A row is a plane whose only in-plane axis is the contiguous one, but
+//   stream_step's templates are not reused: their (8 x 32) plane tile would
+//   leave 7 of 8 rows of threads idle on a row, and their x ring lives in
+//   shared memory because the in-plane sweeps after x need the neighbours'
+//   results. In 2D the x sweep needs only its own column, so a thread
+//   keeps its column's ring of 2r + 1 rows in registers.
+// - A block of 128 threads (4 warps) owns a window of 128 columns of y
+//   (the contiguous axis: 512-byte rows), one a thread, of which the middle
+//   128 - 2r are its output strip, and walks a chunk of x rows. Each
+//   incoming row window is staged into shared memory with cp.async three
+//   rows ahead of the one computing (16-byte copies where the rows are
+//   aligned, 4-byte copies of clamped cells at the domain's edges and for
+//   ragged extents). y first: the y sweep runs on the staged row for the
+//   strip and its result enters the ring. x first: the raw column enters
+//   the ring, the x sweep computes the whole window row into shared
+//   memory, and the y sweep of the strip reads its neighbours there. One
+//   formulation for both sweep orders. The state is read once and written
+//   once; the recomputed halo is 2r columns a window and 2r rows a chunk.
+// - Chunks are cut by occupancy (stream_chunk): at 2048^2, 17 strips by a
+//   chunk of ~40 rows fill the card in one wave.
+// - The component map (elastic2d, acoustic2d) is compile-time, so a
+//   cell's 5 or 3 components stay in registers; the stack rows stay
+//   runtime (the compact and orthotropic layouts share the code) and the
+//   stack's stored type is a runtime flag (DynMat): 4 orders x 2 models x
+//   2 sweep orders = 16 instantiations.
+// - Edge replication is index clamping, as in 3D: borders stay keyed on the
+//   global row or column (0 or n - 1), ragged strips are masked at the
+//   store, any extent works, thinner than the halo included.
+// Two steps a pass (K = 2, temporal blocking) still run the box tile
+// (gcm_common.cuh::pair_tile_2d): a TX x TY output tile whose first sweep
+// reads the state at clamped indices over the tile plus a 2r halo, each
+// later sweep the shared buffer the one before it wrote; the second step
+// reads the first's result at indices clamped to the domain
+// (ClampedSharedSrc), the TPU kernel's re-patch of the halo between steps.
 
 #include "gcm_common.cuh"
 
 namespace {
 
+// the box tile of the two-step pass
 constexpr int TX2 = 32, TY2 = 64;
 constexpr int NTHREADS2 = 256;
 
-template <int ORDER, class MatT, int K>
+// One step: output rows [ch * blockIdx.y, +ch) of strip blockIdx.x.
+template <int ORDER, class M, bool XFIRST>
+__global__ void __launch_bounds__(ROWS_NT, RowTile<ORDER>::MINB)
+fused_step_rows_kernel(const float* __restrict__ u, const void* m, int bf16,
+                       const float* __restrict__ aux_in,
+                       float* __restrict__ out, float* __restrict__ aux_out,
+                       int ch, int vec, GcmFusedParams p) {
+    extern __shared__ __align__(16) float smem[];
+    const int n0 = p.n[0], n1 = p.n[1];
+    const long long N = (long long)n0 * n1;
+    const int xa = (int)blockIdx.y * ch;
+    const int xb = min(xa + ch, n0);
+    const GlobalSrc src{u, n0, n1, 1, N};
+    const DynMat mat{m, n0, n1, 1, N, bf16};
+    stream_rows<ORDER, M, XFIRST>(p, src, mat, xa, xb,
+                                  (int)blockIdx.x * RowTile<ORDER>::TY, smem,
+                                  StepOut{out, aux_in, aux_out, N}, vec != 0);
+}
+
+// Launches one step (occ == nullptr), or reports the occupancy such a
+// launch gets.
+template <int ORDER, class M, bool XFIRST>
+cudaError_t launch_rows(const float* u, const void* m, int bf16,
+                        const float* aux_in, float* out, float* aux_out,
+                        const GcmFusedParams& p, int device,
+                        cudaStream_t stream, StreamOccupancy* occ) {
+    using L = RowLayout<ORDER, M::C, XFIRST>;
+    const auto kernel = fused_step_rows_kernel<ORDER, M, XFIRST>;
+    int bps = 0;
+    cudaError_t err = stream_blocks_per_sm(kernel, L::BYTES, &bps, ROWS_NT);
+    if (err != cudaSuccess) return err;
+    if (occ != nullptr) {
+        *occ = StreamOccupancy{bps, L::BYTES};
+        return cudaSuccess;
+    }
+    const int nst = (p.n[1] + RowTile<ORDER>::TY - 1) / RowTile<ORDER>::TY;
+    const int ch = stream_chunk(p.n[0], nst, Stencil<ORDER>::R, bps, device);
+    const int vec = p.n[1] % 4 == 0 && aligned16(u);
+    const dim3 grid(nst, (p.n[0] + ch - 1) / ch);
+    kernel<<<grid, ROWS_NT, L::BYTES, stream>>>(u, m, bf16, aux_in, out,
+                                                aux_out, ch, vec, p);
+    return cudaGetLastError();
+}
+
+cudaError_t dispatch_rows(int order, const float* u, const void* m, int bf16,
+                          const float* aux_in, float* out, float* aux_out,
+                          const GcmFusedParams& p, int device,
+                          cudaStream_t s, StreamOccupancy* occ) {
+    if ((p.axes[0] != 0 && p.axes[0] != 1) || p.axes[1] != 1 - p.axes[0])
+        return cudaErrorInvalidValue;
+    return with_stencil(order, [&](auto o) {
+        return with_model_2d(p.model, [&](auto mdl) {
+            constexpr int O = decltype(o)::value;
+            using M = decltype(mdl);
+            return p.axes[0] == 0
+                ? launch_rows<O, M, true>(u, m, bf16, aux_in, out, aux_out,
+                                          p, device, s, occ)
+                : launch_rows<O, M, false>(u, m, bf16, aux_in, out, aux_out,
+                                           p, device, s, occ);
+        });
+    });
+}
+
+// Two steps a pass on the box tile.
+template <int ORDER, class MatT>
 __global__ void __launch_bounds__(NTHREADS2)
-fused_step_2d_kernel(const float* __restrict__ u, const MatT* __restrict__ m,
-                     const float* __restrict__ aux_in, float* __restrict__ out,
-                     float* __restrict__ aux_out, GcmFusedParams p) {
-    extern __shared__ float smem[];
+fused_pair_2d_kernel(const float* __restrict__ u, const MatT* __restrict__ m,
+                     float* __restrict__ out, GcmFusedParams p) {
+    extern __shared__ __align__(16) float smem[];
     const int T[3] = {TX2, TY2, 1};
     const int t0[3] = {(int)blockIdx.y * TX2, (int)blockIdx.x * TY2, 0};
     const long long N = (long long)p.n[0] * p.n[1];
     const GlobalSrc src{u, p.n[0], p.n[1], 1, N};
     const GlobalMat<MatT> mat{m, p.n[0], p.n[1], 1, N};
-    step_tile_n<ORDER, K, 2>(p, t0, T, src, mat, smem, out, aux_in, aux_out);
+    pair_tile_2d<ORDER>(p, t0, T, src, mat, smem, out);
 }
 
-template <int ORDER, class MatT, int K>
-cudaError_t launch_2d(const float* u, const void* m, const float* aux_in,
-                      float* out, float* aux_out, const GcmFusedParams& p,
-                      cudaStream_t stream) {
+template <int ORDER, class MatT>
+cudaError_t launch_pair_2d(const float* u, const void* m, float* out,
+                           const GcmFusedParams& p, cudaStream_t stream,
+                           StreamOccupancy* occ) {
     const int T[3] = {TX2, TY2, 1};
-    const size_t smem = step_smem_bytes(p, T, Stencil<ORDER>::R, 2, K);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_step_2d_kernel<ORDER, MatT, K>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = pair_smem_bytes_2d(p, T, Stencil<ORDER>::R);
+    const auto kernel = fused_pair_2d_kernel<ORDER, MatT>;
+    int bps = 0;
+    cudaError_t err = stream_blocks_per_sm(kernel, (int)smem, &bps,
+                                           NTHREADS2);
     if (err != cudaSuccess) return err;
+    if (occ != nullptr) {
+        *occ = StreamOccupancy{bps, (int)smem};
+        return cudaSuccess;
+    }
     const dim3 grid((p.n[1] + TY2 - 1) / TY2, (p.n[0] + TX2 - 1) / TX2);
-    fused_step_2d_kernel<ORDER, MatT, K><<<grid, NTHREADS2, smem, stream>>>(
-        u, (const MatT*)m, aux_in, out, aux_out, p);
+    kernel<<<grid, NTHREADS2, smem, stream>>>(u, (const MatT*)m, out, p);
     return cudaGetLastError();
 }
 
-template <class MatT, int K>
-cudaError_t dispatch_2d(int order, const float* u, const void* m,
-                        const float* aux_in, float* out, float* aux_out,
-                        const GcmFusedParams& p, cudaStream_t s) {
-    switch (order) {
-        case 1: return launch_2d<1, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 2: return launch_2d<2, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 3: return launch_2d<3, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        case 4: return launch_2d<4, MatT, K>(u, m, aux_in, out, aux_out, p, s);
-        default: return cudaErrorInvalidValue;
-    }
+cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
+                    float* out, float* aux_out, const GcmFusedParams& p,
+                    int order, int mat_bf16, int ksteps, int device,
+                    cudaStream_t s, StreamOccupancy* occ) {
+    if (ksteps == 1)
+        return dispatch_rows(order, u, mstack, mat_bf16, aux_in, out,
+                             aux_out, p, device, s, occ);
+    if (ksteps != 2 || p.nspec > 0) return cudaErrorInvalidValue;
+    return with_stencil(order, [&](auto o) {
+        constexpr int O = decltype(o)::value;
+        return mat_bf16
+            ? launch_pair_2d<O, __nv_bfloat16>(u, mstack, out, p, s, occ)
+            : launch_pair_2d<O, float>(u, mstack, out, p, s, occ);
+    });
 }
 
 }  // namespace
@@ -96,32 +186,36 @@ cudaError_t dispatch_2d(int order, const float* u, const void* m,
 extern "C" {
 
 // Launches one fused 2D pass of `ksteps` (1 or 2) steps; the same contract
-// as gcm_fused_step_slab, with params->n = {nx, ny, 1}: the second step's
-// sweep order in params->axes_next, the stack stored as bf16 when
-// `mat_bf16` is set (float otherwise), correctors folded only with
-// ksteps = 1.
+// as gcm_fused_step_slab, with params->n = {nx, ny, 1}: one step runs the
+// streamed body compiled for params->model (SWEEP_MODEL_ELASTIC2D or
+// SWEEP_MODEL_ACOUSTIC2D), two the box tile with the second step's sweep
+// order in params->axes_next; the stack stored as bf16 when `mat_bf16` is
+// set (float otherwise), correctors folded only with ksteps = 1.
 int gcm_fused_step_2d(const float* u, const void* mstack,
                       const float* aux_in, float* out, float* aux_out,
                       const GcmFusedParams* params, int order, int mat_bf16,
                       int ksteps, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    cudaStream_t s = (cudaStream_t)stream;
-    const GcmFusedParams& p = *params;
-    if (ksteps == 2 && p.nspec > 0) return (int)cudaErrorInvalidValue;
-    if (ksteps == 1 && !mat_bf16)
-        return (int)dispatch_2d<float, 1>(order, u, mstack, aux_in, out,
-                                          aux_out, p, s);
-    if (ksteps == 1)
-        return (int)dispatch_2d<__nv_bfloat16, 1>(order, u, mstack, aux_in,
-                                                  out, aux_out, p, s);
-    if (ksteps == 2 && !mat_bf16)
-        return (int)dispatch_2d<float, 2>(order, u, mstack, aux_in, out,
-                                          aux_out, p, s);
-    if (ksteps == 2)
-        return (int)dispatch_2d<__nv_bfloat16, 2>(order, u, mstack, aux_in,
-                                                  out, aux_out, p, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)step_2d(u, mstack, aux_in, out, aux_out, *params, order,
+                        mat_bf16, ksteps, device, (cudaStream_t)stream,
+                        nullptr);
+}
+
+// The occupancy a launch of `ksteps` (1 or 2) steps with these parameters
+// gets: out[0] resident blocks an SM, out[1] its dynamic shared memory in
+// bytes.
+int gcm_fused_step_2d_occupancy(const GcmFusedParams* params, int order,
+                                int mat_bf16, int ksteps, int device,
+                                int* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    StreamOccupancy occ{0, 0};
+    err = step_2d(nullptr, nullptr, nullptr, nullptr, nullptr, *params,
+                  order, mat_bf16, ksteps, device, nullptr, &occ);
+    out[0] = occ.blocks_per_sm;
+    out[1] = occ.smem_bytes;
+    return (int)err;
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 // Device code shared by the port's CUDA kernels (sm_90a): the parameter
 // block of the fused steps, Lagrange stencil weights, the border algebra,
 // material stacks stored as float or bf16 (upcast at the load), one
-// characteristic sweep over a box of cells, the folded ODE corrector
-// epilogue, K steps (temporal blocking) on one box tile (step_tile_n: the
-// 2D steps), the component maps fixed at compile time (the 3D bodies and
-// the per-sweep kernel), the one-step 3D body that walks x plane by plane
-// through a ring of planes in shared memory (stream_step: the 3D fused,
-// slab and SPMD kernels) and its two-step form (stream_pair: the slab
-// kernel's two steps a pass).
+// characteristic sweep over a box of cells and two whole 2D steps on one
+// box tile (pair_tile_2d: the 2D two-step pass), the component maps fixed
+// at compile time (the streamed bodies and the per-sweep kernel), the
+// one-step 3D body that walks x plane by plane through a ring of planes in
+// shared memory (stream_step: the 3D fused, slab and SPMD kernels), its
+// two-step form (stream_pair: the slab kernel's two steps a pass), and the
+// one-step 2D body that walks x row by row through a ring of rows in
+// registers (stream_rows: the 2D fused and SPMD kernels).
 //
 // The device functions sit in an anonymous namespace: each kernel source
 // compiles its own copy, and the sources link into one library without
@@ -61,14 +62,14 @@ struct GcmFusedParams {
     int shear[3];
     int axes_next[3];            // sweep order of the second in-window
                                  // step (temporal blocking, K = 2)
-    int model;                   // compiled component map of the one-step
-                                 // 3D body (STREAM_MODEL_*); -1 for none
+    int model;                   // compiled component map of the streamed
+                                 // bodies (STREAM_MODEL_*, SWEEP_MODEL_*2D);
+                                 // -1 for none
 };
 
-// The component maps the 3D bodies are compiled for (the ids of
-// GcmFusedParams::model; gcm_stream_model_map exports them), and the 2D
-// ones the per-sweep kernel adds (GcmSweepParams::model;
-// gcm_sweep_model_map exports all four).
+// The component maps the streamed bodies and the per-sweep kernel are
+// compiled for (the ids of GcmFusedParams::model and GcmSweepParams::model;
+// gcm_stream_model_map and gcm_sweep_model_map export all four).
 constexpr int STREAM_MODEL_ELASTIC3D = 0;
 constexpr int STREAM_MODEL_ACOUSTIC3D = 1;
 constexpr int SWEEP_MODEL_ELASTIC2D = 2;
@@ -138,7 +139,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 }
 
 // The same for 16 bytes (four floats, both addresses 16-byte aligned),
-// cached in L2 only: the per-sweep kernel's aligned rows.
+// cached in L2 only: the per-sweep kernel's and the 2D body's aligned rows.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 #if defined(__CUDA_ARCH__)
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -173,6 +174,11 @@ struct GlobalSrc {
         z = min(max(z, 0), n2 - 1);
         return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
     }
+    // the first cell of row x (clamped) of component c of a 2D state (n2 =
+    // 1): the row's cells follow contiguously
+    __device__ const float* row(int c, int x) const {
+        return u + c * N + (long long)min(max(x, 0), n0 - 1) * n1;
+    }
     // Starts the copy of the C components of plane x, cells [ylo, ylo+EY)
     // x [zlo, zlo+EZ) at clamped coordinates, into dst (C, EY, EZ), by a
     // block of NT threads: neighbouring threads copy neighbouring z, so
@@ -199,7 +205,7 @@ struct GlobalSrc {
 // exchange_slabs) up to R cells outside it along x and y. xlo/xhi are
 // (C, R, n1, n2); ylo/yhi are (C, n0 + 2R, R, n2) and span the x-extended
 // range, so they hold the corners and win there. Without y slabs (a 2D
-// shard, split along x only) y clamps; z always clamps.
+// shard (C, n0, n1, 1), split along x only) y clamps; z always clamps.
 struct SlabSrc {
     const float* __restrict__ u;
     const float* __restrict__ xlo;
@@ -226,9 +232,8 @@ struct SlabSrc {
             return xhi + (((long long)c * R + x - n0) * n1 + y) * n2 + z;
         return u + c * N + ((long long)x * n1 + y) * n2 + z;
     }
-    __device__ float ld(int c, int x, int y, int z) const {
-        return __ldg(at(c, x, y, z));
-    }
+    // GlobalSrc::row of a 2D shard, x reaching R rows into the slabs
+    __device__ const float* row(int c, int x) const { return at(c, x, 0, 0); }
     // GlobalSrc::stage with each cell's address picked from the block or a
     // slab.
     template <int C, int EY, int EZ>
@@ -310,15 +315,19 @@ struct GlobalMat {
 };
 
 // GlobalMat's streamed addressing with the stored type (float or bf16) a
-// runtime flag: one instantiation of the two-step body reads both, which
-// halves its instantiations (a uniform branch at each material load).
+// runtime flag: one instantiation of the two-step body (and of the 2D one)
+// reads both, which halves its instantiations (a uniform branch at each
+// material load). With e0 > 0 the stack is a 2D shard's x-extended one
+// (nm, n0 + 2 e0, n1, n2), local row x at x + e0, as ExtMat<T> with e1 = 0.
 struct DynMat {
     const void* __restrict__ m;
     int n0, n1, n2;
-    long long N;
+    long long N;                 // (n0 + 2 e0) * n1 * n2
     int bf16;
+    int e0 = 0;
     __device__ const char* plane(int x) const {
-        const long long pl = (long long)min(max(x, 0), n0 - 1) * n1 * n2;
+        const long long pl =
+            (long long)(min(max(x, -e0), n0 - 1 + e0) + e0) * n1 * n2;
         return (const char*)m + (bf16 ? 2 : 4) * pl;
     }
     __device__ int cell(int y, int z) const {
@@ -339,15 +348,6 @@ struct ExtMat {
     const T* __restrict__ m;
     int n0, n1, n2, e0, e1;
     long long N;                 // (n0 + 2 e0) * (n1 + 2 e1) * n2
-    __device__ long long off(int x, int y, int z) const {
-        x = min(max(x, -e0), n0 - 1 + e0) + e0;
-        y = min(max(y, -e1), n1 - 1 + e1) + e1;
-        z = min(max(z, 0), n2 - 1);
-        return ((long long)x * (n1 + 2 * e1) + y) * n2 + z;
-    }
-    __device__ float ld(int row, long long off) const {
-        return mat_load(m + row * N + off);
-    }
     __device__ const T* plane(int x) const {
         return m + (long long)(min(max(x, -e0), n0 - 1 + e0) + e0) *
                        (n1 + 2 * e1) * n2;
@@ -371,54 +371,16 @@ __device__ __forceinline__ float bc_incoming(int kind, float value, float out,
     return out + s * 2.0f * (float)sign * z * value;
 }
 
-// The folded correctors on one output cell's components `c`, in corrector
-// order (ops/pallas_fused.py::_corrector_epilogue, term for term); the q-th
-// damage corrector reads and writes aux field q at flat offset `off`.
-__device__ __forceinline__ void corrector_epilogue(
-        const GcmFusedParams& p, float* c, const float* __restrict__ aux_in,
-        float* __restrict__ aux_out, long long N, long long off) {
-    int q = 0;
-    for (int s = 0; s < p.nspec; ++s) {
-        if (p.spec_kind[s] == 0) {
-            if (p.ndiag == 0) continue;
-            const float decay = p.spec_a[s];
-            float sum = 0.0f;
-            for (int i = 0; i < p.ndiag; ++i) sum += c[p.diag[i]];
-            const float mean = sum / (float)p.ndiag;
-            for (int i = 0; i < p.ndiag; ++i)
-                c[p.diag[i]] = mean + (c[p.diag[i]] - mean) * decay;
-            for (int i = 0; i < p.nshear; ++i) c[p.shear[i]] *= decay;
-        } else {
-            const float thr = p.spec_a[s], rate = p.spec_b[s];
-            const float d = aux_in[q * N + off];
-            float smax = c[p.diag[0]];
-            for (int i = 1; i < p.ndiag; ++i) smax = fmaxf(smax, c[p.diag[i]]);
-            const float over = fmaxf(smax - thr, 0.0f) / thr;
-            const float d_new =
-                fminf(fmaxf(d + rate * over * p.dt, 0.0f), 1.0f);
-            // incremental degradation (solver/correctors.py::DamageCorrector)
-            const float f =
-                fminf((1.0f - d_new) / fmaxf(1.0f - d, 1e-12f), 1.0f);
-            for (int i = 0; i < p.ndiag; ++i) c[p.diag[i]] *= f;
-            for (int i = 0; i < p.nshear; ++i) c[p.shear[i]] *= f;
-            aux_out[q * N + off] = d_new;
-            ++q;
-        }
-    }
-}
-
 // One characteristic sweep along physical axis a over region `reg`, reading
 // the state from `src` and the materials from `mat` (any stack layout: p
 // names each pair's speed row and each zero's ratio row), and writing either
 // a shared buffer (all cells) or the output of extents p.n (in-block cells
-// only, after the folded correctors). Borders apply on the rows at 0 and
-// p.n[a] - 1 along the sweep axis, for the kinds p.bc_kind gives.
+// only). Borders apply on the rows at 0 and p.n[a] - 1 along the sweep
+// axis, for the kinds p.bc_kind gives.
 template <int ORDER, class Src, class Mat, bool TO_GLOBAL>
 __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
                       const Mat& mat, const Region& reg,
-                      float* __restrict__ dst,
-                      const float* __restrict__ aux_in,
-                      float* __restrict__ aux_out) {
+                      float* __restrict__ dst) {
     using S = Stencil<ORDER>;
     const int C = p.ncomp;
     const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
@@ -479,7 +441,6 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
         }
         if (TO_GLOBAL) {
             const long long off = ((long long)gx * p.n[1] + gy) * p.n[2] + gz;
-            if (p.nspec > 0) corrector_epilogue(p, nw, aux_in, aux_out, N, off);
             for (int c = 0; c < C; ++c) dst[c * N + off] = nw[c];
         } else {
             for (int c = 0; c < C; ++c) dst[c * reg.vol + idx] = nw[c];
@@ -487,91 +448,85 @@ __device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
     }
 }
 
-// The flattened sweep sequence of K in-window steps: p.axes, then (K = 2)
-// p.axes_next, dim entries each.
-__host__ __device__ inline void flat_axes(const GcmFusedParams& p, int dim,
-                                          int K, int* ax) {
-    for (int j = 0; j < dim; ++j) {
+// The flattened sweep sequence of two in-window 2D steps: p.axes, then
+// p.axes_next.
+__host__ __device__ inline void pair_axes_2d(const GcmFusedParams& p,
+                                            int* ax) {
+    for (int j = 0; j < 2; ++j) {
         ax[j] = p.axes[j];
-        if (K == 2) ax[dim + j] = p.axes_next[j];
+        ax[2 + j] = p.axes_next[j];
     }
 }
 
 // Box of the output of the first `nswept` sweeps of the sequence `ax` on
-// the tile at t0 with extents T, in a window with a halo of H = K*R cells
-// on every axis: an axis swept s times keeps a halo of H - s*R. Axes at or
-// past `dim` have extent 1 and no halo.
+// the 2D tile at t0 with extents T, in a window with a halo of H = 2R
+// cells on both axes: an axis swept s times keeps a halo of H - s*R. The
+// third axis has extent 1 and no halo.
 __host__ __device__ inline Region tile_region(const int* ax, int nswept,
                                               const int* t0, const int* T,
-                                              int R, int H, int dim) {
+                                              int R, int H) {
     Region r;
     r.vol = 1;
     for (int d = 0; d < 3; ++d) {
         int s = 0;
         for (int q = 0; q < nswept; ++q) s += ax[q] == d;
-        const int halo = d >= dim ? 0 : H - s * R;
+        const int halo = d >= 2 ? 0 : H - s * R;
         r.o[d] = t0[d] - halo;
-        r.e[d] = (d >= dim ? 1 : T[d]) + 2 * halo;
+        r.e[d] = (d >= 2 ? 1 : T[d]) + 2 * halo;
         r.vol *= r.e[d];
     }
     return r;
 }
 
-// Shared memory of K steps on one tile of extents T: two buffers that the
-// sweeps of the sequence write in turn, the first as large as the first
+// Shared memory of two 2D steps on one tile of extents T: two buffers that
+// the sweeps of the sequence write in turn, the first as large as the first
 // sweep's output, the second as the second's (the regions only shrink).
-__host__ inline size_t step_smem_bytes(const GcmFusedParams& p, const int* T,
-                                       int R, int dim, int K = 1) {
+__host__ inline size_t pair_smem_bytes_2d(const GcmFusedParams& p,
+                                          const int* T, int R) {
     const int t0[3] = {0, 0, 0};
-    int ax[6];
-    flat_axes(p, dim, K, ax);
-    size_t vol = tile_region(ax, 1, t0, T, R, K * R, dim).vol;
-    if (K * dim > 2) vol += tile_region(ax, 2, t0, T, R, K * R, dim).vol;
+    int ax[4];
+    pair_axes_2d(p, ax);
+    const size_t vol = tile_region(ax, 1, t0, T, R, 2 * R).vol +
+                       tile_region(ax, 2, t0, T, R, 2 * R).vol;
     return sizeof(float) * (size_t)p.ncomp * vol;
 }
 
-// K whole 2D steps (K = 1 or 2, DIM sweeps each, along p.axes then
-// p.axes_next) on the output tile at t0 with extents T: the first sweep
-// reads `src`, each later one the shared buffer the one before it wrote (the
-// first sweep of the second step through ClampedSharedSrc), and the last
-// writes `out` and, after the folded correctors, the aux stream. The sweep
-// loop unrolls at compile time, so the axes, regions and buffers stay in
-// registers. Called by every thread of the block.
-template <int ORDER, int K, int DIM, class Src, class Mat>
-__device__ __forceinline__ void step_tile_n(
-        const GcmFusedParams& p, const int* t0, const int* T, const Src& src,
-        const Mat& mat, float* smem, float* __restrict__ out,
-        const float* __restrict__ aux_in, float* __restrict__ aux_out) {
-    static_assert(K == 1 || K == 2, "one or two steps per window");
-    static_assert(DIM == 2,
-                  "the 3D steps are stream_step's and stream_pair's");
+// Two whole 2D steps (two sweeps each, along p.axes then p.axes_next) on
+// the output tile at t0 with extents T: the first sweep reads `src`, each
+// later one the shared buffer the one before it wrote (the first sweep of
+// the second step through ClampedSharedSrc), and the last writes `out`.
+// The sweep loop unrolls at compile time, so the axes, regions and buffers
+// stay in registers. Called by every thread of the block.
+template <int ORDER, class Src, class Mat>
+__device__ __forceinline__ void pair_tile_2d(const GcmFusedParams& p,
+                                             const int* t0, const int* T,
+                                             const Src& src, const Mat& mat,
+                                             float* smem,
+                                             float* __restrict__ out) {
     constexpr int R = Stencil<ORDER>::R;
-    constexpr int H = K * R;
-    constexpr int S = K * DIM;
-    int ax[S];
-    flat_axes(p, DIM, K, ax);
-    Region prev = tile_region(ax, 1, t0, T, R, H, DIM);
+    constexpr int H = 2 * R;
+    int ax[4];
+    pair_axes_2d(p, ax);
+    Region prev = tile_region(ax, 1, t0, T, R, H);
     float* const b0 = smem;
     float* const b1 = smem + p.ncomp * prev.vol;
-    sweep<ORDER, Src, Mat, false>(p, ax[0], src, mat, prev, b0, nullptr,
-                                  nullptr);
+    sweep<ORDER, Src, Mat, false>(p, ax[0], src, mat, prev, b0);
 #pragma unroll
-    for (int i = 1; i < S; ++i) {
+    for (int i = 1; i < 4; ++i) {
         __syncthreads();
-        const Region reg = tile_region(ax, i + 1, t0, T, R, H, DIM);
+        const Region reg = tile_region(ax, i + 1, t0, T, R, H);
         const float* in = ((i - 1) & 1) ? b1 : b0;
         float* dst = (i & 1) ? b1 : b0;
-        if (K > 1 && i % DIM == 0) {
+        if (i == 2) {
             const ClampedSharedSrc s{in, prev, p.n[0], p.n[1], p.n[2]};
-            sweep<ORDER, ClampedSharedSrc, Mat, false>(
-                p, ax[i], s, mat, reg, dst, nullptr, nullptr);
-        } else if (i == S - 1) {
+            sweep<ORDER, ClampedSharedSrc, Mat, false>(p, ax[i], s, mat, reg,
+                                                       dst);
+        } else if (i == 3) {
             sweep<ORDER, SharedSrc, Mat, true>(p, ax[i], SharedSrc{in, prev},
-                                               mat, reg, out, aux_in, aux_out);
+                                               mat, reg, out);
         } else {
             sweep<ORDER, SharedSrc, Mat, false>(p, ax[i], SharedSrc{in, prev},
-                                                mat, reg, dst, nullptr,
-                                                nullptr);
+                                                mat, reg, dst);
         }
         prev = reg;
     }
@@ -1270,6 +1225,162 @@ __device__ __forceinline__ void stream_pair(const GcmFusedParams& p,
     }
 }
 
+// ------------------------------------------- the one-step 2D body, streamed
+
+// The one-step 2D body: a block of ROWS_NT threads (4 warps) owns a window
+// of ROWS_NT columns of y (the contiguous axis), one a thread, whose middle
+// ROWS_NT - 2R columns are its output strip, and walks a chunk of x rows.
+// Incoming rows are staged ROWS_DEPTH - 1 rows ahead.
+constexpr int ROWS_NT = 128;
+constexpr int ROWS_DEPTH = 4;
+
+template <int ORDER>
+struct RowTile {
+    static constexpr int R = Stencil<ORDER>::R;
+    // output columns a block (the window less its R halo on each side)
+    static constexpr int TY = ROWS_NT - 2 * R;
+    // floats a staged component row: the window from the multiple of 4
+    // at or below its first column, whole 16-byte vectors
+    static constexpr int EW = ROWS_NT + 4;
+    // blocks an SM for __launch_bounds__: a budget of 85 registers a
+    // thread, which ptxas does not reach (48-79, no stack frame), so the
+    // order 1-2 forms hold 8 blocks (32 warps) an SM
+    static constexpr int MINB = 6;
+};
+
+// Shared memory of stream_rows for C components, in floats: ROWS_DEPTH
+// staged rows of C x EW and, when x is swept first, the x sweep's output
+// row (C x ROWS_NT) that the y sweep reads.
+template <int ORDER, int C, bool XFIRST>
+struct RowLayout {
+    static constexpr int FLOATS =
+        ROWS_DEPTH * C * RowTile<ORDER>::EW + (XFIRST ? C * ROWS_NT : 0);
+    static constexpr int BYTES = (int)sizeof(float) * FLOATS;
+};
+
+// Starts the copy of C component rows, cells [ys, ys + EW) at clamped
+// columns, into dst (C, EW), by a block of ROWS_NT threads; row(c) is the
+// first cell of component c's row (ny cells). With `vec` (ys a multiple of
+// 4, every component row 16-byte aligned) each 4-cell vector inside the
+// row is one 16-byte copy; vectors that reach past either end, and every
+// vector without `vec`, are four 4-byte copies of clamped cells (the edge
+// replication of the plain step).
+template <int C, int EW, class Row>
+__device__ __forceinline__ void stage_row(float* dst, const Row& row, int ys,
+                                          int ny, bool vec) {
+    constexpr int NV = EW / 4;
+    for (int e = threadIdx.x; e < C * NV; e += ROWS_NT) {
+        const int c = e / NV, v = e - c * NV;
+        const int y = ys + 4 * v;
+        const float* rp = row(c);
+        float* d = dst + c * EW + 4 * v;
+        if (vec && y >= 0 && y + 4 <= ny) {
+            cp_async16(d, rp + y);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                cp_async4(d + k, rp + min(max(y + k, 0), ny - 1));
+        }
+    }
+}
+
+// One full 2D step (sweeps along x then y when XFIRST, else y then x) of
+// output rows [xa, xb) of the strip of columns [y0, y0 + TY), walking x,
+// by every thread of a ROWS_NT-thread block; thread w owns window column
+// gy = y0 - R + w. Each incoming row xi (from xa - R to xb + R - 1, clamped
+// by the source, which replicates the edge) is staged into shared memory
+// ROWS_DEPTH - 1 rows ahead of the one computing. Without XFIRST the y
+// sweep runs on it for the strip's columns, reading the staged row at the
+// column's neighbours; with XFIRST the raw column is taken as it is. That
+// result enters the thread's ring of the last 2R + 1 rows, in registers:
+// the x sweep needs only its own column. Then the x sweep of row xi - R
+// reads the ring and either stores the strip (y swept already) or writes
+// the whole window row to shared memory, whose R halo columns the y sweep
+// of the strip then reads. One formulation for both sweep orders; the
+// state is read once and written once, and 2R rows of y sweeps a chunk
+// (XFIRST: 2R of the window's columns a row) are recomputed.
+template <int ORDER, class M, bool XFIRST, class Src, class Mat>
+__device__ __forceinline__ void stream_rows(const GcmFusedParams& p,
+                                            const Src& src, const Mat& mat,
+                                            int xa, int xb, int y0,
+                                            float* smem, const StepOut& so,
+                                            bool vec) {
+    using T = RowTile<ORDER>;
+    constexpr int R = T::R, C = M::C, EW = T::EW, D = ROWS_DEPTH;
+    const int ny = p.n[1];
+    const int w = threadIdx.x;
+    const int gy = y0 - R + w;
+    // the first staged column (a multiple of 4 at or below the window's
+    // first) and this thread's column in a staged row
+    const int ys = (y0 - R) & ~3;
+    const int col = y0 - R - ys + w;
+    const bool strip = w >= R && w < R + T::TY && gy < ny;
+    float* const xrow = smem + D * C * EW;
+    const auto raw = [&](int it) { return smem + (it % D) * (C * EW); };
+    const auto stage = [&](int it) {
+        const int x = xa - R + it;
+        stage_row<C, EW>(raw(it), [&](int c) { return src.row(c, x); }, ys,
+                         ny, vec);
+    };
+    const int nin = xb - xa + 2 * R;
+#pragma unroll
+    for (int it = 0; it < D - 1; ++it) {
+        if (it < nin) stage(it);
+        cp_async_commit();
+    }
+    float ring[2 * R + 1][C];
+#pragma unroll
+    for (int t = 0; t <= 2 * R; ++t)
+#pragma unroll
+        for (int c = 0; c < C; ++c) ring[t][c] = 0.0f;
+    for (int it = 0; it < nin; ++it) {
+        const int xi = xa - R + it;
+        // row it has landed; every thread is done with row it - 1, whose
+        // buffer takes row it + D - 1
+        cp_async_wait<D - 2>();
+        __syncthreads();
+        if (it + D - 1 < nin) stage(it + D - 1);
+        cp_async_commit();
+#pragma unroll
+        for (int t = 0; t < 2 * R; ++t)
+#pragma unroll
+            for (int c = 0; c < C; ++c) ring[t][c] = ring[t + 1][c];
+        const float* const in = raw(it) + col;
+        if constexpr (XFIRST) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) ring[2 * R][c] = in[c * EW];
+        } else if (strip) {
+            const auto ld = [&](int c, int o) { return in[c * EW + o]; };
+            cell_sweep<ORDER, M, 1>(p, ld, mat, mat.plane(xi),
+                                    mat.cell(gy, 0), gy, ring[2 * R]);
+        }
+        if (it < 2 * R) continue;
+        const int xo = xi - R;
+        const auto mp = mat.plane(xo);
+        const int mc = mat.cell(gy, 0);
+        const long long off = (long long)xo * ny + gy;
+        const auto ldx = [&](int c, int o) { return ring[o + R][c]; };
+        float nw[C];
+        if constexpr (XFIRST) {
+            cell_sweep<ORDER, M, 0>(p, ldx, mat, mp, mc, xo, nw);
+#pragma unroll
+            for (int c = 0; c < C; ++c) xrow[c * ROWS_NT + w] = nw[c];
+            __syncthreads();
+            if (strip) {
+                const float* const b = xrow + w;
+                const auto ldy = [&](int c, int o) {
+                    return b[c * ROWS_NT + o];
+                };
+                cell_sweep<ORDER, M, 1>(p, ldy, mat, mp, mc, gy, nw);
+                store_cell<M>(p, nw, so, off);
+            }
+        } else if (strip) {
+            cell_sweep<ORDER, M, 0>(p, ldx, mat, mp, mc, xo, nw);
+            store_cell<M>(p, nw, so, off);
+        }
+    }
+}
+
 // -------------------------------------------- host side of the streamed body
 
 template <int N>
@@ -1299,8 +1410,19 @@ __host__ inline cudaError_t with_model(int model, F&& f) {
     }
 }
 
-// Calls f(M{}) for a component map of the per-sweep kernel: the 3D ones
-// and SWEEP_MODEL_ELASTIC2D, SWEEP_MODEL_ACOUSTIC2D.
+// Calls f(M{}) for a 2D component map p.model (SWEEP_MODEL_ELASTIC2D,
+// SWEEP_MODEL_ACOUSTIC2D).
+template <class F>
+__host__ inline cudaError_t with_model_2d(int model, F&& f) {
+    switch (model) {
+        case SWEEP_MODEL_ELASTIC2D: return f(Elastic2D{});
+        case SWEEP_MODEL_ACOUSTIC2D: return f(Acoustic2D{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// Calls f(M{}) for any of the four compiled component maps (the per-sweep
+// kernel's, and the streamed bodies' 3D and 2D ones).
 template <class F>
 __host__ inline cudaError_t with_sweep_model(int model, F&& f) {
     switch (model) {
@@ -1322,6 +1444,11 @@ __host__ inline cudaError_t with_axes(const int* ax, F&& f) {
         case 21: return f(Axes<2, 1, 0>{});
         default: return cudaErrorInvalidValue;
     }
+}
+
+// Whether a pointer is 16-byte aligned (for 16-byte vector copies).
+__host__ inline bool aligned16(const void* q) {
+    return ((uintptr_t)q & 15) == 0;
 }
 
 // What a launch of the streamed body would get: resident blocks an SM at

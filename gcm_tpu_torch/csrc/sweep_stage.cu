@@ -304,8 +304,6 @@ cudaError_t launch_sweep(const float* u, float* out, const GcmSweepParams& p,
     return cudaGetLastError();
 }
 
-bool aligned16(const void* q) { return ((uintptr_t)q & 15) == 0; }
-
 template <int ORDER, class M, int A>
 cudaError_t dispatch_vector(const float* u, float* out,
                             const GcmSweepParams& p, cudaStream_t s) {

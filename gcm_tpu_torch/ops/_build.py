@@ -118,11 +118,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gcm_fused_spmd_tile.argtypes = [i32]
     lib.gcm_fused_spmd_tile.restype = i32
     # params, order, mat_bf16, ksteps, device, out[2]
-    lib.gcm_fused_step_slab_occupancy.argtypes = [vp, i32, i32, i32, i32, vp]
-    lib.gcm_fused_step_slab_occupancy.restype = i32
+    for name in ("gcm_fused_step_slab_occupancy",
+                 "gcm_fused_step_2d_occupancy"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, i32, i32, i32, i32, vp]
+        fn.restype = i32
     # params, order, ring, device, out[2]
-    lib.gcm_fused_spmd_occupancy.argtypes = [vp, i32, i32, i32, vp]
-    lib.gcm_fused_spmd_occupancy.restype = i32
+    for name in ("gcm_fused_spmd_occupancy", "gcm_fused_spmd_2d_occupancy"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, i32, i32, i32, vp]
+        fn.restype = i32
     # model id, params out
     for name in ("gcm_stream_model_map", "gcm_sweep_model_map"):
         fn = getattr(lib, name)

@@ -7,11 +7,15 @@ and the single-step contract). The kernels are CUDA C++ for Hopper,
 ``csrc/fused_step_slab.cu`` (3D, float or bf16 stack, one or two steps a
 pass, the two-step body in ``csrc/fused_pair_stream.cuh``, compiled one
 stencil order a source; ``fused_step`` launches its float, one-step form)
-and ``csrc/fused_step_2d.cu`` (2D, both options), sharing their sweep and
-epilogue (``csrc/gcm_common.cuh``). ``fused_step_reference`` is the
-plain PyTorch version of one step (the port's ``solver.gcm.step`` on
-materials derived from the compact stack exactly as the kernels derive
-them, then ``corrector_epilogue_reference``); ``fused_step_slab_reference``
+and ``csrc/fused_step_2d.cu`` (2D, both options: one step on the
+row-streamed body, two on a box tile), sharing their sweep and epilogue
+(``csrc/gcm_common.cuh``). The streamed bodies keep a cell's components in
+registers under a component map compiled for each model
+(``STREAM_MODELS``); ``check_stream_model`` holds the runtime model to
+it. ``fused_step_reference`` is the plain PyTorch version of one step
+(the port's ``solver.gcm.step`` on materials derived from the compact
+stack exactly as the kernels derive them, then
+``corrector_epilogue_reference``); ``fused_step_slab_reference``
 runs it once per step of a sequence on the upcast stack, and
 ``fused_step_2d_reference`` names it for the 2D kernel.
 
@@ -20,7 +24,8 @@ kernel for a CUDA tensor and run the plain version for a CPU tensor; for a
 CUDA tensor they launch or raise, they never fall back. ``fused_step``
 hands bf16 stacks and two-step sequences to ``fused_step_slab``.
 ``fused_step.launches``, ``fused_step_slab.launches`` and
-``fused_step_2d.launches`` count the kernel launches.
+``fused_step_2d.launches`` count the kernel launches (``.pair_launches``
+of the last two those of two steps a pass).
 """
 
 from __future__ import annotations
@@ -378,9 +383,10 @@ class _Params(ctypes.Structure):
     ]
 
 
-#: the component maps the one-step 3D body is compiled for
-#: (csrc/gcm_common.cuh, STREAM_MODEL_*), by model name
-STREAM_MODELS = {"elastic3d": 0, "acoustic3d": 1}
+#: the component maps the streamed 3D and 2D bodies are compiled for
+#: (csrc/gcm_common.cuh, STREAM_MODEL_* and SWEEP_MODEL_*2D), by model name
+STREAM_MODELS = {"elastic3d": 0, "acoustic3d": 1, "elastic2d": 2,
+                 "acoustic2d": 3}
 _MAP_FIELDS = ("ncomp", "sign", "ndiag", "nshear")
 _verified_maps = set()
 
@@ -398,16 +404,17 @@ def _model_map(p: _Params) -> tuple:
 
 
 def check_stream_model(lib, model: Model, params: _Params) -> None:
-    """Raise unless the library's 3D bodies (one and two steps a pass) are
-    compiled for ``model``'s component map (``params.model``, set by
-    ``_params``): the kernels keep a cell's components in registers under
-    the compiled map and read only the stack rows from the parameters.
-    Checked once a model and library."""
+    """Raise unless the library's streamed bodies (the 3D ones, one and two
+    steps a pass, and the 2D one-step body) are compiled for ``model``'s
+    component map (``params.model``, set by ``_params``): the kernels keep a
+    cell's components in registers under the compiled map and read only
+    the stack rows from the parameters. Checked once a model and
+    library."""
     key = (id(lib), model.name)
     if key in _verified_maps:
         return
     if params.model < 0:
-        raise ValueError(f"the fused 3D kernels are compiled for "
+        raise ValueError(f"the fused kernels are compiled for "
                          f"{sorted(STREAM_MODELS)}, not {model.name}")
     compiled = _Params()
     if lib.gcm_stream_model_map(params.model,
@@ -416,7 +423,7 @@ def check_stream_model(lib, model: Model, params: _Params) -> None:
                            f"{params.model} ({model.name})")
     if _model_map(compiled) != _model_map(params):
         raise RuntimeError(f"{model.name}: the component map compiled into "
-                           "the fused 3D kernels differs from the model's")
+                           "the fused kernels differs from the model's")
     _verified_maps.add(key)
 
 
@@ -435,7 +442,7 @@ def _params(model: Model, shape, nm: int, dt: float, h: Sequence[float],
     p.sign = model.sign
     p.axes[:] = list(axes) + [-1] * (3 - len(axes))
     p.axes_next[:] = [-1, -1, -1]
-    p.model = STREAM_MODELS.get(model.name, -1) if model.dim == 3 else -1
+    p.model = STREAM_MODELS.get(model.name, -1)
     p.rho_idx = names.index("rho")
     for a in range(3):
         p.bc_kind[a][:] = [-1, -1]
@@ -549,8 +556,7 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():
         raise RuntimeError("GcmFusedParams layout differs from its binding")
-    if dim == 3:
-        check_stream_model(lib, model, params)
+    check_stream_model(lib, model, params)
     out = torch.empty_like(u)
     aux_out = torch.empty_like(aux) if aux is not None else None
     stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -627,14 +633,45 @@ def fused_step_2d(model: Model, u: torch.Tensor, mstack: torch.Tensor,
                   axes_seq=None):
     """One full 2D time step, the contract of ``fused_step`` on ``[C, nx,
     ny]`` state (any extents), or two steps a pass with ``axes_seq``, on a
-    float32 or bf16 stack. A CUDA tensor goes through the CUDA kernel; a
-    CPU tensor runs ``fused_step_2d_reference``."""
+    float32 or bf16 stack. A CUDA tensor goes through the CUDA kernel
+    (``csrc/fused_step_2d.cu``: one step on the row-streamed body, compiled
+    for elastic2d and acoustic2d, two on the box tile); a CPU tensor runs
+    ``fused_step_2d_reference``. ``fused_step_2d.launches`` counts every
+    launch, ``fused_step_2d.pair_launches`` those of two steps."""
     (out, new_aux), launched = _fused(2, "gcm_fused_step_2d", model, u,
                                       mstack, dt, h, order, borders, axes,
                                       axes_seq, correctors, aux)
     if launched:
         fused_step_2d.launches += 1
+        if axes_seq is not None and len(axes_seq) == 2:
+            fused_step_2d.pair_launches += 1
     return out if aux is None else (out, new_aux)
+
+
+def _occupancy(entry: str, dim: int, model: Model, u: torch.Tensor,
+               mstack: torch.Tensor, dt: float, h: Sequence[float],
+               order: int, borders: Optional[Borders], axes,
+               axes_seq) -> Tuple[int, int]:
+    """Shared body of the occupancy queries: ``entry`` is
+    ``gcm_fused_step_slab_occupancy`` or ``gcm_fused_step_2d_occupancy``."""
+    seq = norm_axes_seq(axes, axes_seq, dim)
+    if len(seq) > 2:
+        raise ValueError("the fused kernels run one or two steps a pass")
+    _check(model, dim, u, mstack, order, (), None)
+    lib = _build.load()
+    params = _params(model, u.shape[1:], mstack.shape[0], dt, h, borders,
+                     seq[0], ())
+    if len(seq) == 2:
+        params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
+    check_stream_model(lib, model, params)
+    out = (ctypes.c_int * 2)()
+    err = getattr(lib, entry)(
+        ctypes.addressof(params), order,
+        int(mstack.dtype == torch.bfloat16), len(seq), u.device.index, out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                           f"({lib.gcm_error_string(err).decode()})")
+    return out[0], out[1]
 
 
 def fused_step_slab_occupancy(model: Model, u: torch.Tensor,
@@ -648,27 +685,24 @@ def fused_step_slab_occupancy(model: Model, u: torch.Tensor,
     or, given a two-step ``axes_seq``, two) gets on ``u``'s card: resident
     blocks an SM at its dynamic shared memory, and that shared memory in
     bytes."""
-    seq = norm_axes_seq(axes, axes_seq, 3)
-    if len(seq) > 2:
-        raise ValueError("the fused kernels run one or two steps a pass")
-    _check(model, 3, u, mstack, order, (), None)
-    lib = _build.load()
-    params = _params(model, u.shape[1:], mstack.shape[0], dt, h, borders,
-                     seq[0], ())
-    if len(seq) == 2:
-        params.axes_next[:] = list(seq[1])
-    check_stream_model(lib, model, params)
-    out = (ctypes.c_int * 2)()
-    err = lib.gcm_fused_step_slab_occupancy(
-        ctypes.addressof(params), order,
-        int(mstack.dtype == torch.bfloat16), len(seq), u.device.index, out)
-    if err != 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
-                           f"({lib.gcm_error_string(err).decode()})")
-    return out[0], out[1]
+    return _occupancy("gcm_fused_step_slab_occupancy", 3, model, u, mstack,
+                      dt, h, order, borders, axes, axes_seq)
+
+
+def fused_step_2d_occupancy(model: Model, u: torch.Tensor,
+                            mstack: torch.Tensor, dt: float,
+                            h: Sequence[float], order: int,
+                            borders: Optional[Borders] = None,
+                            axes: Optional[Sequence[int]] = None,
+                            axes_seq=None) -> Tuple[int, int]:
+    """``fused_step_slab_occupancy`` of the 2D kernel: the row-streamed body
+    for one step, the box tile for a two-step ``axes_seq``."""
+    return _occupancy("gcm_fused_step_2d_occupancy", 2, model, u, mstack,
+                      dt, h, order, borders, axes, axes_seq)
 
 
 fused_step.launches = 0
 fused_step_slab.launches = 0
 fused_step_slab.pair_launches = 0
 fused_step_2d.launches = 0
+fused_step_2d.pair_launches = 0

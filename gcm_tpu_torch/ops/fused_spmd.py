@@ -6,7 +6,9 @@ shard's block is cut into the kernels' output tiles; the **interior** tiles
 are those whose r-haloed window lies inside the block, the **ring** tiles
 all others (:func:`tile_split`). A 3D tile is one x plane by ``TILE_3D[1]``
 y rows (the kernel walks x plane by plane), so the 3D ring is r planes
-thick along x and one tile along y; a 2D tile is ``TILE_2D`` x rows. The
+thick along x and one tile along y; a 2D tile is ``TILE_2D`` = 1 x row
+(the kernel walks x row by row), so the 2D ring is the r rows at each x
+face. The
 interior launch reads only the local block and the materials, so it runs
 while the halo slabs travel; the ring launch reads the slabs and writes
 its tiles into the interior launch's output buffer. Materials come from
@@ -15,7 +17,8 @@ compact or orthotropic (the layout follows the stack's height,
 ``ops.fused.infer_layout``).
 
 The kernels are CUDA C++ for Hopper: ``csrc/fused_spmd.cu`` (3D) and
-``csrc/fused_spmd_2d.cu`` (2D, split along x only). Each wrapper launches
+``csrc/fused_spmd_2d.cu`` (2D, split along x only), compiled for the
+component maps of ``ops.fused.STREAM_MODELS``. Each wrapper launches
 its kernel for a CUDA tensor (or raises) and runs its plain version,
 ``*_reference`` below, for a CPU tensor. The plain versions run the port's
 ``fused_step_reference`` on the block extended by the received slab where
@@ -49,9 +52,10 @@ from gcm_tpu_torch.task import BorderSpec
 Borders = Dict[Tuple[int, int], BorderSpec]
 
 #: the kernels' output tiles along x and y (3D: one plane by 8 rows) and
-#: along x (2D); the binding checks them against csrc/fused_spmd*.cu at load
+#: along x (2D: one row); the binding checks them against
+#: csrc/fused_spmd*.cu at load
 TILE_3D = (1, 8)
-TILE_2D = 32
+TILE_2D = 1
 
 
 # ------------------------------------------------------------------ tiling
@@ -386,12 +390,13 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
                   axes: Optional[Sequence[int]] = None,
                   which: str = "interior", slabs=None, flags=None,
                   base: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The fused 2D step on the interior x-tiles (``which="interior"``) or
-    the ring x-tiles (``"ring"``, reading ``slabs`` = (xlo, xhi), each (C,
-    r, ny), with x borders gated by ``flags`` = (x-lo, x-hi face)) of one
-    shard's block (C, nxl, ny), materials from its x-extended stack ``mext``
-    (nm, nxl+2r, ny; float32 or bf16). Writes those tiles of ``base``
-    (allocated if None) in place and returns it."""
+    """The fused 2D step on the interior rows (``which="interior"``: the
+    rows r or more from both x faces) or the ring rows (``"ring"``: the
+    others, reading ``slabs`` = (xlo, xhi), each (C, r, ny), with x borders
+    gated by ``flags`` = (x-lo, x-hi face)) of one shard's block (C, nxl,
+    ny), materials from its x-extended stack ``mext`` (nm, nxl+2r, ny;
+    float32 or bf16). Writes those rows of ``base`` (allocated if None) in
+    place and returns it."""
     if which not in ("interior", "ring"):
         raise ValueError(f"which={which!r} is not 'interior' or 'ring'")
     ring = which == "ring"
@@ -410,6 +415,7 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
     lib = _lib()
     params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0), 2), axes, ())
+    check_stream_model(lib, model, params)
     _, ix0, ix1 = tile_split(u.shape[1], TILE_2D, r)
     err = lib.gcm_fused_spmd_2d(
         u.data_ptr(), mext.data_ptr(), base.data_ptr(),
@@ -429,17 +435,20 @@ def fused_spmd_occupancy(model: Model, u: torch.Tensor, mext: torch.Tensor,
                          axes: Optional[Sequence[int]] = None,
                          ring: bool = False) -> Tuple[int, int]:
     """``(blocks_per_sm, smem_bytes)`` that the interior (or ``ring``)
-    launch of the 3D kernel on this shard gets on ``u``'s card: resident
-    blocks an SM at its dynamic shared memory, and that shared memory in
-    bytes."""
-    axes = tuple(axes) if axes is not None else (0, 1, 2)
-    _check(model, 3, u, mext, order, axes, (), ())
+    launch of the 3D or 2D kernel (by ``model.dim``) on this shard gets on
+    ``u``'s card: resident blocks an SM at its dynamic shared memory, and
+    that shared memory in bytes."""
+    dim = model.dim
+    axes = tuple(axes) if axes is not None else tuple(range(dim))
+    _check(model, dim, u, mext, order, axes, (), ())
     lib = _lib()
     params = _params(model, u.shape[1:], mext.shape[0], dt, h, borders, axes,
                      ())
     check_stream_model(lib, model, params)
     out = (ctypes.c_int * 2)()
-    _raise(lib, "fused_spmd occupancy", lib.gcm_fused_spmd_occupancy(
+    entry = ("gcm_fused_spmd_occupancy" if dim == 3
+             else "gcm_fused_spmd_2d_occupancy")
+    _raise(lib, entry, getattr(lib, entry)(
         ctypes.addressof(params), order, int(ring), u.device.index, out))
     return out[0], out[1]
 

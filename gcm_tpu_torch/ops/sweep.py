@@ -46,8 +46,9 @@ class _SweepParams(ctypes.Structure):
 
 
 #: the component maps the per-sweep kernel is compiled for
-#: (csrc/gcm_common.cuh, STREAM_MODEL_* and SWEEP_MODEL_*), by model name
-SWEEP_MODELS = {**STREAM_MODELS, "elastic2d": 2, "acoustic2d": 3}
+#: (csrc/gcm_common.cuh, STREAM_MODEL_* and SWEEP_MODEL_*), by model name:
+#: the streamed bodies' four
+SWEEP_MODELS = STREAM_MODELS
 _verified_maps = set()
 
 

@@ -144,8 +144,14 @@ def test_engine_takes_the_kernel_on_card(cuda):
                                atol=1e-5 * np.abs(want.traces).max())
 
 
+#: 2D extents of the row-streamed body: rows not a multiple of 4 cells
+#: (4-byte copies), aligned rows, a multiple of the 126-column strip (r =
+#: 1), and thinner than the 2r halo along x with fewer columns than a strip
+SHAPES_2D = [(37, 61), (64, 128), (70, 252), (3, 130), (4, 40)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(37, 61), (64, 128)])
+@pytest.mark.parametrize("shape", SHAPES_2D)
 @pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
 @pytest.mark.parametrize("axes", [(0, 1), (1, 0)])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
@@ -524,6 +530,33 @@ def test_stream_occupancy_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
+def test_rows_occupancy_on_card(cuda, name):
+    """The row-streamed 2D body takes a few rows of shared memory (under
+    16 KB) and holds at least four blocks of 4 warps an SM, single-card
+    and SPMD launches, in both sweep orders at every stencil order."""
+    from gcm_tpu_torch.ops import fused_spmd as fs
+    from gcm_tpu_torch.ops.fused import fused_step_2d_occupancy
+    from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
+
+    model, u, mat, dt = card_problem(0, name, (16, 64), cuda, with_mat=True)
+    ms = stack_mats(model, mat)
+    h = (1.0, 1.0)
+    for order in (1, 2, 3, 4):
+        mext = extended_mstack(model, mat, _card_mesh(cuda, 2, (1,)),
+                               order)[0]
+        for axes in ((0, 1), (1, 0)):
+            bps, smem = fused_step_2d_occupancy(model, u, ms, dt, h, order,
+                                                borders(2), axes)
+            assert bps >= 4 and 0 < smem < 16_384
+            for ring in (False, True):
+                bps, smem = fs.fused_spmd_occupancy(
+                    model, u, mext, dt, h, order, borders(2), axes,
+                    ring=ring)
+                assert bps >= 4 and 0 < smem < 16_384
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
     """Maxwell + damage folded into the one-step body, a step in each of
@@ -549,6 +582,42 @@ def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
         assert norm_err(got, want) < 2e-6
         torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
         want, waux = got, gaux    # held a step at a time
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("shape", [(37, 61), (64, 128)])
+def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, order,
+                                                       bf16):
+    """Maxwell + damage folded into the row-streamed 2D body, on unaligned
+    and aligned rows, both sweep orders in turn, held a step at a time
+    from a smooth state: three chained steps compound the damage's
+    sensitivity to the stresses (~0.5 x the stress error over the
+    threshold a step) past the aux tolerance at the aligned shape."""
+    model, u, ms, dt = card_problem(5, "elastic2d", shape, cuda)
+    for a in range(1, 3):   # a smooth state, off the damage knife-edges
+        u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
+    if bf16:
+        ms = ms.to(torch.bfloat16)
+    specs, _ = fold_corrector_specs(
+        (MaxwellCorrector(tau=40 * dt),
+         DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
+    h = (10.0, 11.0)
+    got, gaux = u, torch.zeros((1,) + shape, device=cuda)
+    want, waux = u, gaux
+    for n in range(3):
+        axes = (0, 1) if n % 2 == 0 else (1, 0)
+        got, gaux = fused_step_2d(model, got, ms, dt, h, order, borders(2),
+                                  axes, correctors=specs, aux=gaux)
+        want, waux = fused_step_2d_reference(
+            model, want, ms, dt, h, order, borders(2), axes,
+            correctors=specs, aux=waux)
+        torch.cuda.synchronize()
+        assert norm_err(got, want) < 2e-6
+        torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+        want, waux = got, gaux    # held a step at a time
+    assert gaux.max().item() > 1e-4
     assert gaux.max().item() > 1e-4
 
 
@@ -589,32 +658,48 @@ def test_spmd_folded_correctors_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,nsh", [((512, 70), 2), ((400, 61), 4),
-                                       ((64, 40), 4)])
+                                       ((64, 40), 4), ((8, 132), 4),
+                                       ((12, 61), 4)])
+@pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
 @pytest.mark.parametrize("axes", [(0, 1), (1, 0)])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
-def test_spmd_2d_kernel_matches_plain_on_card(cuda, order, axes, shape, nsh):
+def test_spmd_2d_kernel_matches_plain_on_card(cuda, order, axes, name, shape,
+                                              nsh):
+    """Both launches on sx = 2 and 4, shards with an interior and shards
+    too thin for one (nxl <= 2r): the interior launch writes exactly the
+    rows [r, nxl - r) of a NaN buffer, the ring launch the others."""
     from gcm_tpu_torch.ops import fused_spmd as fs
     from gcm_tpu_torch.parallel.fused_spmd import (
         exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step_2d)
     from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
 
-    model, u, mat, dt = card_problem(order, "elastic2d", shape, cuda,
-                                     with_mat=True)
+    model, u, mat, dt = card_problem(order, name, shape, cuda, with_mat=True)
     h = (10.0, 12.0)
+    r = fs.stencil_radius(order)
     mesh = _card_mesh(cuda, 2, (nsh,))
     mext = extended_mstack(model, mat, mesh, order)
     us = shard_state(u, mesh)
-    slabs = exchange_slabs(us, mesh, fs.stencil_radius(order), dim=2)
+    slabs = exchange_slabs(us, mesh, r, dim=2)
     for k, uk in enumerate(us):
-        for which in ("interior", "ring"):
-            args = (model, uk, mext[k], dt, h, order, borders(2), axes,
-                    which, slabs[k], face_flags(mesh, k)[:2])
-            before = fs.fused_spmd_2d.launches
-            got = fs.fused_spmd_2d(*args, torch.zeros_like(uk))
-            torch.cuda.synchronize()
-            assert fs.fused_spmd_2d.launches == before + 1
-            assert norm_err(got, fs.fused_spmd_2d_reference(
-                *args, torch.zeros_like(uk))) < 2e-6
+        args = (model, uk, mext[k], dt, h, order, borders(2), axes)
+        flags = face_flags(mesh, k)[:2]
+        before = (fs.fused_spmd_2d.launches, fs.fused_spmd_2d.ring_launches)
+        got = fs.fused_spmd_2d(*args, "interior",
+                               base=torch.full_like(uk, float("nan")))
+        torch.cuda.synchronize()
+        rows = torch.zeros(uk.shape[1], dtype=torch.bool, device=cuda)
+        rows[r:uk.shape[1] - r] = uk.shape[1] > 2 * r
+        assert torch.isnan(got[:, ~rows]).all()
+        assert not torch.isnan(got[:, rows]).any()
+        want = fs.fused_spmd_2d_reference(*args, "interior")
+        assert norm_err(torch.nan_to_num(got), want) < 2e-6
+        got = fs.fused_spmd_2d(*args, "ring", slabs[k], flags, got)
+        torch.cuda.synchronize()
+        assert (fs.fused_spmd_2d.launches - before[0],
+                fs.fused_spmd_2d.ring_launches - before[1]) == (2, 1)
+        assert not torch.isnan(got).any()
+        assert norm_err(got, fs.fused_spmd_2d_reference(
+            *args, "ring", slabs[k], flags, want)) < 2e-6
     step = make_fused_spmd_step_2d(model, mesh, dt, h, order, borders(2))
     want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
                                 order, borders(2), axes)
@@ -647,7 +732,8 @@ def test_sharded_engine_on_card(cuda, kernel):
 def test_sharded_2d_engine_on_card(cuda):
     from gcm_tpu_torch.ops import fused_spmd as fs
 
-    # 128-row shards: 4 x-tiles of 32, interior and ring both launch
+    # 128-row shards: interior rows [r, 128 - r) and r ring rows at each
+    # face, both launch
     task = get_scenario("elastic2d_viscoelastic", n=512, nsteps=5)
     before = (fs.fused_spmd_2d.launches, fs.fused_spmd_2d.ring_launches)
     got = Engine(task, mesh=_card_mesh(cuda, 2, (4,))).run()
@@ -750,7 +836,8 @@ def test_slab_kernel_folds_correctors_on_card(cuda, bf16):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(37, 61), (5, 3)])
+@pytest.mark.parametrize("shape", [(37, 61), (5, 3), (64, 128), (3, 130),
+                                   (4, 40)])
 @pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
 @pytest.mark.parametrize("bf16,ksteps", [(True, 1), (False, 2), (True, 2)])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
@@ -936,14 +1023,16 @@ def test_ortho_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 61), (3, 130)])
 @pytest.mark.parametrize("bf16,ksteps", [(False, 1), (True, 1), (False, 2),
                                          (True, 2)])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
-def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps):
+def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps,
+                                               shape):
     from gcm_tpu_torch.solver.gcm import step
 
-    model, u, mat, dt = card_ortho_problem(order, "elastic2d", (37, 61),
-                                           cuda, with_mat=True)
+    model, u, mat, dt = card_ortho_problem(order, "elastic2d", shape, cuda,
+                                           with_mat=True)
     ms = stack_mats(model, mat)
     assert ms.shape[0] == 6
     if bf16:

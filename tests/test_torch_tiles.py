@@ -1,10 +1,13 @@
-"""The 3D SPMD tiling of the port (one x plane by 8 y rows), on the CPU.
+"""The SPMD tilings of the port (3D: one x plane by 8 y rows; 2D: one x
+row), on the CPU.
 
 The 3D interior and ring kernels walk x plane by plane, so their tile is
 ``ops.fused_spmd.TILE_3D`` = (1, 8): the interior is every plane r or more
 from the shard's x faces, times the 8-row y tiles whose r-halo lies inside
-the block. These tests hold ``tile_split``/``split_3d``/``interior_mask``
-to that definition on ragged and thin shards, check that the interior and
+the block. The 2D kernel walks x row by row, so its tile is ``TILE_2D`` =
+1: the interior is the rows [r, nxl - r), the ring the r rows at each x
+face. These tests hold ``tile_split``/``split_3d``/``interior_mask`` to
+those definitions on ragged and thin shards, check that the interior and
 ring launches' plain versions together equal the plain fused step of the
 whole domain (float64, 1e-12 normalized, every sweep order), and that the
 binding refuses a component map other than the one compiled into the
@@ -22,7 +25,7 @@ from gcm_tpu_torch.ops import fused_spmd as ofs
 from gcm_tpu_torch.ops.fused import fused_step_reference, stack_mats
 from gcm_tpu_torch.parallel import fused_spmd as pfs
 from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
-from test_torch_sharded import BORDERS, _mesh, _problem
+from test_torch_sharded import BORDERS, _borders, _mesh, _problem
 from test_torch_step import norm_err
 
 #: shard extents (nxl, nyl): ragged against the 8-row tile, thinner than
@@ -63,6 +66,24 @@ def test_split_3d_partitions_the_shard(shard, r):
     assert bool(((x >= r) & (x + r < nxl) & (y >= r) & (y + r < nyl)).all())
 
 
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("nxl", [512, 128, 35, 6, 5, 4, 3, 2, 1])
+def test_split_2d_is_the_rows_away_from_the_faces(nxl, r):
+    """With TILE_2D = 1 the interior is exactly the rows [r, nxl - r)
+    (none when nxl <= 2r) and the ring every other row: 2r of a 512-row
+    shard, under 1%."""
+    assert ofs.TILE_2D == 1
+    nt, i0, i1 = ofs.tile_split(nxl, ofs.TILE_2D, r)
+    assert nt == nxl
+    assert (i0, i1) == ((r, nxl - r) if nxl > 2 * r else (0, 0))
+    mask = ofs.interior_mask((nxl, 7), r, (ofs.TILE_2D,))
+    want = torch.zeros(nxl, dtype=torch.bool)
+    want[r:nxl - r] = nxl > 2 * r
+    assert torch.equal(mask, want)
+    if nxl == 512:
+        assert int((~mask).sum()) == 2 * r
+
+
 def test_ring_is_thinner_than_the_box_tiles():
     """On a 128^2 shard at r = 1 the ring holds 2272 of 16384 cells a z
     column (13.9%), against 3840 (23.4%) with the earlier 8x8 box tiles."""
@@ -72,7 +93,9 @@ def test_ring_is_thinner_than_the_box_tiles():
 
 
 # (global shape, mesh shape, order, axes): ragged and thin shards, interior
-# and ring-only splits, x first, in the middle and last in the sweep order
+# and ring-only splits, x first, in the middle and last in the sweep order;
+# in 2D (one mesh axis) both sweep orders at orders 1-4 on shards with an
+# interior, and on shards too thin for one (nxl <= 2r)
 CASES = [((70, 38, 45), (2, 2), 2, (0, 1, 2)),
          ((70, 38, 45), (2, 2), 3, (2, 0, 1)),
          ((96, 20, 16), (4, 1), 1, (1, 0, 2)),
@@ -80,7 +103,15 @@ CASES = [((70, 38, 45), (2, 2), 2, (0, 1, 2)),
          ((8, 36, 9), (2, 2), 4, (1, 2, 0)),
          ((6, 16, 5), (2, 2), 2, (0, 2, 1)),
          ((4, 4, 5), (2, 2), 1, (2, 0, 1)),
-         ((24, 17, 6), (1, 1), 2, (1, 0, 2))]
+         ((24, 17, 6), (1, 1), 2, (1, 0, 2)),
+         ((64, 20), (4,), 1, (0, 1)),
+         ((70, 13), (2,), 2, (1, 0)),
+         ((20, 9), (4,), 3, (0, 1)),
+         ((40, 6), (8,), 4, (1, 0)),
+         ((8, 11), (4,), 1, (1, 0)),
+         ((12, 7), (4,), 2, (0, 1)),
+         ((16, 5), (4,), 3, (1, 0)),
+         ((30, 3), (2,), 4, (0, 1))]
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
@@ -89,28 +120,38 @@ def test_interior_and_ring_references_make_the_step(rng, case):
     ring plain version fill every cell once and together equal the plain
     fused step of the whole domain, float64."""
     shape, mshape, order, axes = case
-    model, u, mat, dt = _problem(rng, "elastic3d", shape)
-    h = (1.0, 1.1, 0.9)
-    mesh = _mesh(3, mshape)
+    dim = len(shape)
+    model, u, mat, dt = _problem(rng, f"elastic{dim}d", shape)
+    h = (1.0, 1.1, 0.9)[:dim]
+    mesh = _mesh(dim, mshape)
     r = ofs.stencil_radius(order)
     mext = pfs.extended_mstack(model, mat, mesh, order)
     us = shard_state(u, mesh)
-    slabs = pfs.exchange_slabs(us, mesh, r)
+    slabs = pfs.exchange_slabs(us, mesh, r, dim=dim)
+    bc = BORDERS if dim == 3 else _borders(2)
+    tile = ofs.TILE_3D if dim == 3 else (ofs.TILE_2D,)
     outs = []
     for k, uk in enumerate(us):
-        args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
-        got = ofs.fused_spmd_interior_reference(
-            *args, out=torch.full_like(uk, float("nan")))
-        inner = ofs.interior_mask(uk.shape[1:], r)
+        args = (model, uk, mext[k], dt, h, order, bc, axes)
+        nan = torch.full_like(uk, float("nan"))
+        flags = pfs.face_flags(mesh, k)
+        if dim == 3:
+            got = ofs.fused_spmd_interior_reference(*args, out=nan)
+        else:
+            got = ofs.fused_spmd_2d_reference(*args, "interior", base=nan)
+        inner = ofs.interior_mask(uk.shape[1:], r, tile)
         assert not torch.isnan(got[:, inner]).any()
         assert torch.isnan(got[:, ~inner]).all()
-        got = ofs.fused_spmd_ring_reference(
-            model, uk, mext[k], slabs[k], pfs.face_flags(mesh, k), got,
-            *args[3:])
+        if dim == 3:
+            got = ofs.fused_spmd_ring_reference(
+                model, uk, mext[k], slabs[k], flags, got, *args[3:])
+        else:
+            got = ofs.fused_spmd_2d_reference(*args, "ring", slabs[k],
+                                              flags[:2], got)
         assert not torch.isnan(got).any()
         outs.append(got)
     want = fused_step_reference(model, u, stack_mats(model, mat), dt, h,
-                                order, BORDERS, axes)
+                                order, bc, axes)
     assert norm_err(gather_state(outs, mesh), want) < 1e-12
 
 
@@ -125,30 +166,40 @@ class _MapLib:
         if model_id not in ofu.STREAM_MODELS.values():
             return 1
         model = get_model(self.name)
-        src = ofu._params(model, (4, 4, 4), len(ofu.mat_layout(model)), 1.0,
-                          (1.0,) * 3, None, (0, 1, 2), ())
+        dim = model.dim
+        src = ofu._params(model, (4,) * dim, len(ofu.mat_layout(model)), 1.0,
+                          (1.0,) * dim, None, tuple(range(dim)), ())
         if self.moved:
             src.pair_sigma[1][0] += 1
         ctypes.memmove(addr, ctypes.addressof(src), ctypes.sizeof(src))
         return 0
 
 
-@pytest.mark.parametrize("name", ["elastic3d", "acoustic3d"])
+#: each compiled model and the other one of its dimension
+OTHER = {"elastic3d": "acoustic3d", "acoustic3d": "elastic3d",
+         "elastic2d": "acoustic2d", "acoustic2d": "elastic2d"}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER))
 def test_binding_holds_the_model_to_the_compiled_map(name):
+    """The 3D and 2D streamed bodies: a library whose map of the model's
+    id differs (a moved stress, the other model of the dimension) is
+    refused, and a model compiled into none (1D) too."""
     model = get_model(name)
-    params = ofu._params(model, (8, 8, 8), len(ofu.mat_layout(model)), 1.0,
-                         (1.0,) * 3, None, (2, 0, 1), ())
+    dim = model.dim
+    params = ofu._params(model, (8,) * dim, len(ofu.mat_layout(model)), 1.0,
+                         (1.0,) * dim, None, tuple(range(dim))[::-1], ())
     assert params.model == ofu.STREAM_MODELS[name]
     # distinct live stand-ins: the check is remembered a model and library
     good, moved = _MapLib(name), _MapLib(name, moved=True)
-    other = _MapLib("acoustic3d" if name == "elastic3d" else "elastic3d")
+    other = _MapLib(OTHER[name])
     ofu.check_stream_model(good, model, params)
     for lib in (moved, other):
         with pytest.raises(RuntimeError, match="component map"):
             ofu.check_stream_model(lib, model, params)
-    elastic2d = get_model("elastic2d")
-    p2 = ofu._params(elastic2d, (8, 8), len(ofu.mat_layout(elastic2d)), 1.0,
-                     (1.0,) * 2, None, (0, 1), ())
-    assert p2.model == -1
+    elastic1d = get_model("elastic1d")
+    p1 = ofu._params(elastic1d, (8,), len(ofu.mat_layout(elastic1d)), 1.0,
+                     (1.0,), None, (0,), ())
+    assert p1.model == -1
     with pytest.raises(ValueError, match="compiled for"):
-        ofu.check_stream_model(good, elastic2d, p2)
+        ofu.check_stream_model(good, elastic1d, p1)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused 3D launches of the PyTorch/CUDA port of several checkouts
-on one CUDA card, interleaved: the A/B comparison of two commits on the
-same card.
+"""Time the fused 3D and 2D launches of the PyTorch/CUDA port of several
+checkouts on one CUDA card, interleaved: the A/B comparison of two commits
+on the same card.
 
     python3 tools/torch_fused_ab.py ROOT [ROOT ...] [--rounds 2] [--reps 50]
         [--keys KEY,KEY,...]
@@ -26,14 +26,25 @@ enqueueing), on that state:
 - ``interior``, ``ring``: the same scenario on a 2x2 mesh of four
   co-resident shards of 128^3, 20 steps, then ``fused_spmd_interior`` and
   ``fused_spmd_ring`` on shard 0 (sweep order (0, 1, 2));
-- ``path_pair``, ``path_sweep``: wall ms a step of ``Engine.run()`` (host
-  clock, the card synchronised before and after, warmed up) over 100 steps
-  of the pair-fused path (``elastic3d_layered`` n=256, no receivers,
-  ``temporal_block=True``: 50 two-step passes) and of the per-sweep path
-  (``elastic3d_explosion`` n=256, ``kernel="sweep"``).
+- ``fused_2d_f32``, ``fused_2d_bf16``, ``pair_2d``: on the state of 20
+  steps of ``elastic2d_viscoelastic`` at n=2048 (2048x2048, the 2D path),
+  ``fused_step_2d`` in the sweep order (0, 1) on the float32 stack and on
+  it rounded to bf16, and one two-step pass (0, 1) + (1, 0) on the float32
+  stack;
+- ``spmd_2d_interior``, ``spmd_2d_ring``: the same scenario on sx = 4
+  co-resident shards of 512x2048, 20 steps, then ``fused_spmd_2d`` on
+  shard 1 in each mode;
+- ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``: wall ms
+  a step of ``Engine.run()`` (host clock, the card synchronised before and
+  after, warmed up) over 100 steps of the pair-fused path
+  (``elastic3d_layered`` n=256, no receivers, ``temporal_block=True``: 50
+  two-step passes) and of the per-sweep path (``elastic3d_explosion``
+  n=256, ``kernel="sweep"``), and over 300 steps of the 2D path
+  (``elastic2d_viscoelastic`` n=2048) and of the same on sx = 4 shards of
+  cuda:0.
 
-A checkout that has orthotropic media also times them all with every layer
-made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
+A checkout that has orthotropic media also times the kernel keys with
+every layer made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
 off-diagonals lam, c44 = mu, c55 = 1.15 mu, c66 = 1.3 mu), as
 ``ortho_<key>``. ``--keys`` times only the keys it names (all by default).
 Prints the card's name and power limit, one JSON line a process, and the
@@ -51,11 +62,14 @@ import time
 
 KEYS = ("fused_step", "slab_f32", "slab_bf16", "pair_f32", "pair_bf16",
         "sweep_x", "sweep_y", "sweep_z", "interior", "ring")
-PATH_KEYS = ("path_pair", "path_sweep")
+KEYS_2D = ("fused_2d_f32", "fused_2d_bf16", "pair_2d", "spmd_2d_interior",
+           "spmd_2d_ring")
+PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded")
 #: the canonical contact order and the pair of steps a two-step pass runs
 CANON = (2, 0, 1)
 PAIR = (CANON, (1, 0, 2))
-ALL_KEYS = KEYS + tuple(f"ortho_{k}" for k in KEYS) + PATH_KEYS
+ALL_KEYS = (KEYS + KEYS_2D + tuple(f"ortho_{k}" for k in KEYS + KEYS_2D)
+            + PATH_KEYS)
 
 
 def _orthotropic(m, cls):
@@ -137,6 +151,53 @@ def _time_all(task, reps, keys):
     return out
 
 
+def _time_2d(task, reps, keys):
+    """The 2D timings of ``keys`` on the state of 20 steps of ``task``."""
+    import torch
+
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.ops.fused import fused_step_2d
+    from gcm_tpu_torch.ops.fused_spmd import fused_spmd_2d
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs, face_flags
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    eng = Engine(task, device="cuda")
+    eng.run()
+    h, order, bc = task.grid.h, task.order, task.borders
+    a = (eng.model, eng.u, eng._mstack, eng.dt, h, order, bc)
+    a16 = a[:2] + (eng._mstack.to(torch.bfloat16),) + a[3:]
+    calls = {
+        "fused_2d_f32": lambda: fused_step_2d(*a, (0, 1)),
+        "fused_2d_bf16": lambda: fused_step_2d(*a16, (0, 1)),
+        "pair_2d": lambda: fused_step_2d(*a, axes_seq=((0, 1), (1, 0))),
+    }
+    out = {k: _median_ms(f, reps) for k, f in calls.items() if k in keys}
+    del eng, a, a16, calls
+    if "spmd_2d_interior" not in keys and "spmd_2d_ring" not in keys:
+        return out
+    dev = torch.device("cuda", 0)
+    mesh = domain_mesh(2, [dev] * 4)
+    eng = Engine(task, mesh=mesh)
+    eng.run()
+    u1, m1 = eng.u[1], eng._carry[1]
+    slabs = exchange_slabs(eng.u, mesh, 2 if order >= 3 else 1, dim=2)[1]
+    base = torch.zeros_like(u1)
+    a = (eng.model, u1, m1, eng.dt, h, order, bc, (0, 1))
+    flags = face_flags(mesh, 1)[:2]
+    for w in ("interior", "ring"):
+        out[f"spmd_2d_{w}"] = _median_ms(
+            lambda w=w: fused_spmd_2d(*a, w, slabs, flags, base), reps)
+    return out
+
+
+def _orthoize(task, cls):
+    return dataclasses.replace(
+        task, default_material=_orthotropic(task.default_material, cls),
+        materials=tuple(dataclasses.replace(
+            r, material=_orthotropic(r.material, cls))
+            for r in task.materials))
+
+
 def child(root, reps, keys):
     sys.path.insert(0, root)
     from gcm_tpu_torch import materials
@@ -146,17 +207,20 @@ def child(root, reps, keys):
     _build.build()
     _build.load()
     task = get_scenario("elastic3d_explosion", n=256, nsteps=20)
-    out = {"root": root, **_time_all(task, reps, keys)}
+    task2 = get_scenario("elastic2d_viscoelastic", n=2048, nsteps=20)
+    out = {"root": root}
+    if set(KEYS) & keys:
+        out.update(_time_all(task, reps, keys))
+    if set(KEYS_2D) & keys:
+        out.update(_time_2d(task2, reps, keys))
     cls = getattr(materials, "OrthotropicMaterial", None)
     okeys = {k[len("ortho_"):] for k in keys if k.startswith("ortho_")}
-    if cls is not None and okeys:
-        ortho = dataclasses.replace(
-            task, default_material=_orthotropic(task.default_material, cls),
-            materials=tuple(dataclasses.replace(
-                r, material=_orthotropic(r.material, cls))
-                for r in task.materials))
-        out.update({f"ortho_{k}": v
-                    for k, v in _time_all(ortho, reps, okeys).items()})
+    if cls is not None and set(KEYS) & okeys:
+        out.update({f"ortho_{k}": v for k, v in _time_all(
+            _orthoize(task, cls), reps, okeys).items()})
+    if cls is not None and set(KEYS_2D) & okeys:
+        out.update({f"ortho_{k}": v for k, v in _time_2d(
+            _orthoize(task2, cls), reps, okeys).items()})
     out.update(_time_paths(keys))
     print(json.dumps(out), flush=True)
 
@@ -164,10 +228,13 @@ def child(root, reps, keys):
 def _time_paths(keys):
     """Wall ms a step of the paths in ``keys`` (PATH_KEYS)."""
     import numpy as np
+    import torch
 
     from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
     from gcm_tpu_torch.scenarios import get_scenario
 
+    visco2d = get_scenario("elastic2d_viscoelastic", n=2048, nsteps=300)
     tasks = {
         "path_pair": dataclasses.replace(
             get_scenario("elastic3d_layered", n=256, nsteps=100),
@@ -175,14 +242,18 @@ def _time_paths(keys):
         "path_sweep": dataclasses.replace(
             get_scenario("elastic3d_explosion", n=256, nsteps=100),
             kernel="sweep"),
+        "path_2d": visco2d,
+        "path_2d_sharded": visco2d,
     }
     out = {}
     for key, task in tasks.items():
         if key not in keys:
             continue
+        kw = (dict(mesh=domain_mesh(2, [torch.device("cuda", 0)] * 4))
+              if key == "path_2d_sharded" else dict(device="cuda"))
         Engine(dataclasses.replace(task, time=dataclasses.replace(
-            task.time, nsteps=2)), device="cuda").run()
-        res = Engine(task, device="cuda").run()
+            task.time, nsteps=2)), **kw).run()
+        res = Engine(task, **kw).run()
         npts = float(np.prod(task.grid.shape))
         out[key] = npts / res.points_per_second * 1e3
     return out
