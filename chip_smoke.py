@@ -2311,6 +2311,9 @@ def main() -> int:
     lib_path, log = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    for line in log.splitlines():
+        if line.startswith("nvcc "):
+            print(f"  {line}")
     _print_ptxas(log)
 
     # ---- 3. kernel vs plain on the card

@@ -124,26 +124,17 @@ cudaError_t launch_spmd_rows(const float* u, const void* mext, int bf16,
     return cudaGetLastError();
 }
 
+// The interior (RING false) or ring launch, or its occupancy (occ).
 template <bool RING>
 cudaError_t dispatch_spmd_rows(int order, const float* u, const void* mext,
                                int bf16, float* out, const float* xlo,
                                const float* xhi, int ix0, int ix1,
                                const GcmFusedParams& p, int device,
                                cudaStream_t s, StreamOccupancy* occ) {
-    if ((p.axes[0] != 0 && p.axes[0] != 1) || p.axes[1] != 1 - p.axes[0])
-        return cudaErrorInvalidValue;
-    return with_stencil(order, [&](auto o) {
-        return with_model_2d(p.model, [&](auto mdl) {
-            constexpr int O = decltype(o)::value;
-            using M = decltype(mdl);
-            return p.axes[0] == 0
-                ? launch_spmd_rows<O, M, true, RING>(
-                      u, mext, bf16, out, xlo, xhi, ix0, ix1, p, device, s,
-                      occ)
-                : launch_spmd_rows<O, M, false, RING>(
-                      u, mext, bf16, out, xlo, xhi, ix0, ix1, p, device, s,
-                      occ);
-        });
+    return with_rows(order, p, [&](auto o, auto mdl, auto xfirst) {
+        return launch_spmd_rows<decltype(o)::value, decltype(mdl),
+                                decltype(xfirst)::value, RING>(
+            u, mext, bf16, out, xlo, xhi, ix0, ix1, p, device, s, occ);
     });
 }
 

@@ -112,25 +112,6 @@ cudaError_t launch_rows(const float* u, const void* m, int bf16,
     return cudaGetLastError();
 }
 
-cudaError_t dispatch_rows(int order, const float* u, const void* m, int bf16,
-                          const float* aux_in, float* out, float* aux_out,
-                          const GcmFusedParams& p, int device,
-                          cudaStream_t s, StreamOccupancy* occ) {
-    if ((p.axes[0] != 0 && p.axes[0] != 1) || p.axes[1] != 1 - p.axes[0])
-        return cudaErrorInvalidValue;
-    return with_stencil(order, [&](auto o) {
-        return with_model_2d(p.model, [&](auto mdl) {
-            constexpr int O = decltype(o)::value;
-            using M = decltype(mdl);
-            return p.axes[0] == 0
-                ? launch_rows<O, M, true>(u, m, bf16, aux_in, out, aux_out,
-                                          p, device, s, occ)
-                : launch_rows<O, M, false>(u, m, bf16, aux_in, out, aux_out,
-                                           p, device, s, occ);
-        });
-    });
-}
-
 // Two steps a pass on the box tile.
 template <int ORDER, class MatT>
 __global__ void __launch_bounds__(NTHREADS2)
@@ -170,8 +151,12 @@ cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
                     int order, int mat_bf16, int ksteps, int device,
                     cudaStream_t s, StreamOccupancy* occ) {
     if (ksteps == 1)
-        return dispatch_rows(order, u, mstack, mat_bf16, aux_in, out,
-                             aux_out, p, device, s, occ);
+        return with_rows(order, p, [&](auto o, auto mdl, auto xfirst) {
+            return launch_rows<decltype(o)::value, decltype(mdl),
+                               decltype(xfirst)::value>(
+                u, mstack, mat_bf16, aux_in, out, aux_out, p, device, s,
+                occ);
+        });
     if (ksteps != 2 || p.nspec > 0) return cudaErrorInvalidValue;
     return with_stencil(order, [&](auto o) {
         constexpr int O = decltype(o)::value;

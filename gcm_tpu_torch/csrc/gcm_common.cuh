@@ -20,6 +20,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
+
 constexpr int MAXC = 9;      // components of the largest model (elastic3d)
 constexpr int MAXP = 3;      // pairs per sweep
 constexpr int MAXZ = 2;      // zero-speed invariants per sweep
@@ -1421,6 +1426,23 @@ __host__ inline cudaError_t with_model_2d(int model, F&& f) {
     }
 }
 
+// Calls f(Int<order>{}, M{}, std::bool_constant<XFIRST>{}) for a launch
+// of the one-step 2D body (stream_rows): a stencil order 1-4, the compiled
+// 2D map p.model, and the sweep order p.axes, (0, 1) x first or (1, 0) y
+// first.
+template <class F>
+__host__ inline cudaError_t with_rows(int order, const GcmFusedParams& p,
+                                      F&& f) {
+    if ((p.axes[0] != 0 && p.axes[0] != 1) || p.axes[1] != 1 - p.axes[0])
+        return cudaErrorInvalidValue;
+    return with_stencil(order, [&](auto o) {
+        return with_model_2d(p.model, [&](auto mdl) {
+            return p.axes[0] == 0 ? f(o, mdl, std::true_type{})
+                                  : f(o, mdl, std::false_type{});
+        });
+    });
+}
+
 // Calls f(M{}) for any of the four compiled component maps (the per-sweep
 // kernel's, and the streamed bodies' 3D and 2D ones).
 template <class F>
@@ -1459,15 +1481,41 @@ struct StreamOccupancy {
 };
 
 // Allows `smem` bytes of dynamic shared memory to `kernel` and returns its
-// resident blocks an SM at `nt` threads a block.
+// resident blocks an SM at `nt` threads a block, on the current device.
+// Each kernel, device and size is asked of the runtime once and kept (as
+// stream_chunk keeps a device's SM count and a shape's chunk): asked at
+// every launch it would cost the host microseconds, and the SPMD paths are
+// host-paced. A mutex guards the caches, since launches can come from
+// several host threads. A kernel's allowance only grows: the two-step 2D
+// kernel takes shared memory by its components and sweep orders, and an
+// allowance cut to a smaller launch's would refuse a larger one.
 template <class K>
 __host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem, int* bps,
                                                  int nt = STREAM_NT) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static std::mutex mu;
+    static std::map<std::tuple<const void*, int>, int> allowed;
+    static std::map<std::tuple<const void*, int, int, int>, int> blocks;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(bps, kernel, nt,
-                                                         smem);
+    const void* const k = (const void*)kernel;
+    std::lock_guard<std::mutex> lock(mu);
+    int& most = allowed[{k, device}];
+    if (smem > most) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        most = smem;
+    }
+    const auto key = std::make_tuple(k, device, smem, nt);
+    const auto it = blocks.find(key);
+    if (it != blocks.end()) {
+        *bps = it->second;
+        return cudaSuccess;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(bps, kernel, nt, smem);
+    if (err == cudaSuccess) blocks.emplace(key, *bps);
+    return err;
 }
 
 // Planes a block walks when `columns` (y, z) tiles each walk `len` planes
@@ -1478,10 +1526,22 @@ __host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem, int* bps,
 // planes take 2 chunks: one wave of 256 blocks.
 __host__ inline int stream_chunk(int len, long long columns, int R, int bps,
                                  int device, long long fixed = 0) {
-    int nsm = 0;
-    if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess || nsm < 1)
-        nsm = 1;
+    static std::mutex mu;
+    static std::map<int, int> sms;
+    static std::map<std::tuple<int, long long, int, int, int, long long>,
+                    int> chunks;
+    std::lock_guard<std::mutex> lock(mu);
+    auto sm = sms.find(device);
+    if (sm == sms.end()) {
+        int n = 0;
+        if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                   device) == cudaSuccess && n > 0)
+            sm = sms.emplace(device, n).first;
+    }
+    const int nsm = sm == sms.end() ? 1 : sm->second;
+    const auto key = std::make_tuple(len, columns, R, bps, device, fixed);
+    const auto it = chunks.find(key);
+    if (it != chunks.end()) return it->second;
     const long long slots = (long long)(bps > 0 ? bps : 1) * nsm;
     int best = len;
     long long best_cost = -1;
@@ -1495,6 +1555,7 @@ __host__ inline int stream_chunk(int len, long long columns, int R, int bps,
             best = ch;
         }
     }
+    chunks.emplace(key, best);
     return best;
 }
 

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Tuple
 
@@ -59,23 +60,40 @@ def build() -> Tuple[Path, str]:
     """Compile the sources unless the library of this hash exists. Returns
     the library's path and what the compiler printed ("" when nothing was
     built); ptxas reports each kernel's registers, shared memory and
-    spills."""
+    spills, and a line ``nvcc <source>: <s> s`` a source gives the seconds
+    from the start of the build to the end of its compile."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
+        # each compiler writes to a file of its own: through a pipe, read
+        # one source after another, a source's ptxas report could fill the
+        # pipe and stall that compiler until the ones before it finished
+        t0 = time.perf_counter()
+        jobs = []
         for src in (p for p in _sources() if p.suffix == ".cu"):
             obj = os.path.join(tmp, src.stem + ".o")
-            objs.append(obj)
-            procs.append(subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate()[0] for p in procs]
-        log = "".join(logs)
-        failed = [p.returncode for p in procs if p.returncode != 0]
+            with open(obj + ".log", "w") as f:
+                proc = subprocess.Popen(
+                    [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=f, stderr=subprocess.STDOUT)
+            jobs.append((src.name, obj, proc))
+        seconds = {}
+        while len(seconds) < len(jobs):
+            for name, _, proc in jobs:
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        log = ""
+        for name, obj, _ in jobs:
+            with open(obj + ".log") as f:
+                log += f.read()
+        log += "".join(f"nvcc {name}: {seconds[name]:.1f} s\n"
+                       for name, _, _ in jobs)
+        objs = [obj for _, obj, _ in jobs]
+        failed = [p.returncode for _, _, p in jobs if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
         lib = os.path.join(tmp, "lib.so")

@@ -8,8 +8,9 @@ plain PyTorch version is the port's ``solver.gcm.stage``.
 ``sweep_stage`` launches the kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; for a CUDA tensor it launches or raises, it never
 falls back. The kernel is compiled for the component maps of
-``SWEEP_MODELS``; the binding holds the runtime model to the compiled map
-(``check_sweep_model``) and refuses any other model.
+``ops.fused.STREAM_MODELS`` (the streamed bodies' four); the binding holds
+the runtime model to the compiled map (``check_sweep_model``) and refuses
+any other model.
 ``sweep_stage.launches`` counts the kernel launches.
 """
 
@@ -45,10 +46,6 @@ class _SweepParams(ctypes.Structure):
     ]
 
 
-#: the component maps the per-sweep kernel is compiled for
-#: (csrc/gcm_common.cuh, STREAM_MODEL_* and SWEEP_MODEL_*), by model name:
-#: the streamed bodies' four
-SWEEP_MODELS = STREAM_MODELS
 _verified_maps = set()
 
 
@@ -60,11 +57,11 @@ def check_sweep_model(lib, model: Model) -> None:
     key = (id(lib), model.name)
     if key in _verified_maps:
         return
-    if model.name not in SWEEP_MODELS:
+    if model.name not in STREAM_MODELS:
         raise ValueError(f"sweep_stage's kernel is compiled for "
-                         f"{sorted(SWEEP_MODELS)}, not {model.name}")
+                         f"{sorted(STREAM_MODELS)}, not {model.name}")
     compiled = _Params()
-    if lib.gcm_sweep_model_map(SWEEP_MODELS[model.name],
+    if lib.gcm_sweep_model_map(STREAM_MODELS[model.name],
                                ctypes.addressof(compiled)) != 0:
         raise RuntimeError(f"the kernel library has no per-sweep component "
                            f"map for {model.name}")
@@ -103,7 +100,7 @@ def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
     p.zero_kappa[:len(st.zeros)] = [f.data_ptr() for f in view.zero_kappa]
     p.n[:] = list(u.shape[1:]) + [1] * (4 - u.ndim)
     p.axis = axis
-    p.model = SWEEP_MODELS[model.name]
+    p.model = STREAM_MODELS[model.name]
     for side in (0, 1):
         bc = (borders or {}).get((axis, side))
         p.bc_kind[side] = -1 if bc is None else _BC_CODES[bc.kind]

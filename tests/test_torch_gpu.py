@@ -582,21 +582,27 @@ def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
         assert norm_err(got, want) < 2e-6
         torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
         want, waux = got, gaux    # held a step at a time
+    assert gaux.max().item() > 1e-4
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("order", [2, 4])
-@pytest.mark.parametrize("shape", [(37, 61), (64, 128)])
-def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, order,
-                                                       bf16):
+@pytest.mark.parametrize("shape,smooth", [((37, 61), True), ((64, 128), True),
+                                          ((37, 61), False)])
+def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, smooth,
+                                                       order, bf16):
     """Maxwell + damage folded into the row-streamed 2D body, on unaligned
-    and aligned rows, both sweep orders in turn, held a step at a time
-    from a smooth state: three chained steps compound the damage's
-    sensitivity to the stresses (~0.5 x the stress error over the
-    threshold a step) past the aux tolerance at the aligned shape."""
+    and aligned rows, both sweep orders in turn, held a step at a time,
+    from a smooth state and, on the unaligned rows, from the random one.
+    On 64 x 128 cells the random state's damage sits on its threshold's
+    knife-edge in enough cells that the float32 plain version itself
+    strays from its float64 form by up to 1.55 x the aux tolerance in
+    three steps, and the 2D box-tile kernel misses the tolerance there
+    by the same 1.21e-6 in the same cell as this body
+    (tools/torch_fold_drift.py, ROADMAP.md queue C)."""
     model, u, ms, dt = card_problem(5, "elastic2d", shape, cuda)
-    for a in range(1, 3):   # a smooth state, off the damage knife-edges
+    for a in range(1, 3) if smooth else ():   # off the damage knife-edges
         u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
     if bf16:
         ms = ms.to(torch.bfloat16)
@@ -617,7 +623,6 @@ def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, order,
         assert norm_err(got, want) < 2e-6
         torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
         want, waux = got, gaux    # held a step at a time
-    assert gaux.max().item() > 1e-4
     assert gaux.max().item() > 1e-4
 
 

@@ -71,7 +71,7 @@ class _SweepMapLib:
         self.name, self.moved = name, moved
 
     def gcm_sweep_model_map(self, model_id, addr):
-        if model_id not in osw.SWEEP_MODELS.values():
+        if model_id not in osw.STREAM_MODELS.values():
             return 1
         model = get_model(self.name)
         src = ofu._params(model, (4,) * model.dim,
@@ -87,7 +87,7 @@ class _SweepMapLib:
                                   "acoustic2d"])
 def test_sweep_binding_holds_the_model_to_the_compiled_map(name):
     model = get_model(name)
-    assert osw.SWEEP_MODELS[name] in range(4)
+    assert osw.STREAM_MODELS[name] in range(4)
     # distinct live stand-ins: the check is remembered a model and library
     good, moved = _SweepMapLib(name), _SweepMapLib(name, moved=True)
     other = _SweepMapLib({"elastic3d": "acoustic3d", "acoustic3d": "elastic3d",

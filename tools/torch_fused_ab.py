@@ -4,7 +4,7 @@ checkouts on one CUDA card, interleaved: the A/B comparison of two commits
 on the same card.
 
     python3 tools/torch_fused_ab.py ROOT [ROOT ...] [--rounds 2] [--reps 50]
-        [--keys KEY,KEY,...]
+        [--path-runs 1] [--keys KEY,KEY,...]
 
 Each ROOT is a checkout holding ``gcm_tpu_torch``. Round r runs every ROOT
 in turn (in reverse order on odd rounds, so two roots run A B B A), each in
@@ -34,6 +34,10 @@ enqueueing), on that state:
 - ``spmd_2d_interior``, ``spmd_2d_ring``: the same scenario on sx = 4
   co-resident shards of 512x2048, 20 steps, then ``fused_spmd_2d`` on
   shard 1 in each mode;
+- ``host_spmd_2d_interior``, ``host_spmd_2d_ring``: the host's ms a call
+  of those two wrappers (parameters, checks and the launch, with the card
+  kept busy behind a spin kernel, so no call waits on it): the host work
+  a launch adds to the host-paced sharded path;
 - ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``: wall ms
   a step of ``Engine.run()`` (host clock, the card synchronised before and
   after, warmed up) over 100 steps of the pair-fused path
@@ -41,7 +45,7 @@ enqueueing), on that state:
   two-step passes) and of the per-sweep path (``elastic3d_explosion``
   n=256, ``kernel="sweep"``), and over 300 steps of the 2D path
   (``elastic2d_viscoelastic`` n=2048) and of the same on sx = 4 shards of
-  cuda:0.
+  cuda:0; with ``--path-runs N`` the median of N runs in the process.
 
 A checkout that has orthotropic media also times the kernel keys with
 every layer made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
@@ -64,12 +68,13 @@ KEYS = ("fused_step", "slab_f32", "slab_bf16", "pair_f32", "pair_bf16",
         "sweep_x", "sweep_y", "sweep_z", "interior", "ring")
 KEYS_2D = ("fused_2d_f32", "fused_2d_bf16", "pair_2d", "spmd_2d_interior",
            "spmd_2d_ring")
+HOST_KEYS = ("host_spmd_2d_interior", "host_spmd_2d_ring")
 PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded")
 #: the canonical contact order and the pair of steps a two-step pass runs
 CANON = (2, 0, 1)
 PAIR = (CANON, (1, 0, 2))
 ALL_KEYS = (KEYS + KEYS_2D + tuple(f"ortho_{k}" for k in KEYS + KEYS_2D)
-            + PATH_KEYS)
+            + HOST_KEYS + PATH_KEYS)
 
 
 def _orthotropic(m, cls):
@@ -78,10 +83,12 @@ def _orthotropic(m, cls):
                c23=m.lam, c33=c33, c44=m.mu, c55=1.15 * m.mu, c66=1.3 * m.mu)
 
 
-def _median_ms(fn, reps):
-    """Median device ms a call of 5 batches of ``reps`` calls, after one
-    warm-up; each batch is queued behind a spin kernel that outlasts its
-    enqueueing, so the wrapper's host time stays off the clock."""
+def _median_ms(fn, reps, host=False):
+    """Median ms a call of 5 batches of ``reps`` calls, after one warm-up;
+    each batch is queued behind a spin kernel that outlasts its
+    enqueueing, so the card's time (CUDA events) leaves the wrapper's host
+    time off the clock, and the host's (``host``: the host clock around
+    the enqueueing) leaves off any wait on the card."""
     import torch
 
     fn()
@@ -96,11 +103,14 @@ def _median_ms(fn, reps):
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(2e9 * (1.5 * reps * wall + 2e-3)))
         start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        t1 = time.perf_counter()
         stop.record()
         torch.cuda.synchronize()
-        batches.append(start.elapsed_time(stop) / reps)
+        batches.append((t1 - t0) * 1e3 / reps if host
+                       else start.elapsed_time(stop) / reps)
     return statistics.median(batches)
 
 
@@ -173,7 +183,8 @@ def _time_2d(task, reps, keys):
     }
     out = {k: _median_ms(f, reps) for k, f in calls.items() if k in keys}
     del eng, a, a16, calls
-    if "spmd_2d_interior" not in keys and "spmd_2d_ring" not in keys:
+    spmd = {"spmd_2d_interior", "spmd_2d_ring"} | set(HOST_KEYS)
+    if not spmd & keys:
         return out
     dev = torch.device("cuda", 0)
     mesh = domain_mesh(2, [dev] * 4)
@@ -185,8 +196,11 @@ def _time_2d(task, reps, keys):
     a = (eng.model, u1, m1, eng.dt, h, order, bc, (0, 1))
     flags = face_flags(mesh, 1)[:2]
     for w in ("interior", "ring"):
-        out[f"spmd_2d_{w}"] = _median_ms(
-            lambda w=w: fused_spmd_2d(*a, w, slabs, flags, base), reps)
+        for pre, host in (("", False), ("host_", True)):
+            if f"{pre}spmd_2d_{w}" in keys:
+                out[f"{pre}spmd_2d_{w}"] = _median_ms(
+                    lambda w=w: fused_spmd_2d(*a, w, slabs, flags, base),
+                    reps, host)
     return out
 
 
@@ -198,7 +212,7 @@ def _orthoize(task, cls):
             for r in task.materials))
 
 
-def child(root, reps, keys):
+def child(root, reps, keys, path_runs):
     sys.path.insert(0, root)
     from gcm_tpu_torch import materials
     from gcm_tpu_torch.ops import _build
@@ -211,7 +225,7 @@ def child(root, reps, keys):
     out = {"root": root}
     if set(KEYS) & keys:
         out.update(_time_all(task, reps, keys))
-    if set(KEYS_2D) & keys:
+    if (set(KEYS_2D) | set(HOST_KEYS)) & keys:
         out.update(_time_2d(task2, reps, keys))
     cls = getattr(materials, "OrthotropicMaterial", None)
     okeys = {k[len("ortho_"):] for k in keys if k.startswith("ortho_")}
@@ -221,12 +235,13 @@ def child(root, reps, keys):
     if cls is not None and set(KEYS_2D) & okeys:
         out.update({f"ortho_{k}": v for k, v in _time_2d(
             _orthoize(task2, cls), reps, okeys).items()})
-    out.update(_time_paths(keys))
+    out.update(_time_paths(keys, path_runs))
     print(json.dumps(out), flush=True)
 
 
-def _time_paths(keys):
-    """Wall ms a step of the paths in ``keys`` (PATH_KEYS)."""
+def _time_paths(keys, runs):
+    """Wall ms a step of the paths in ``keys`` (PATH_KEYS), the median of
+    ``runs`` runs."""
     import numpy as np
     import torch
 
@@ -253,9 +268,10 @@ def _time_paths(keys):
               if key == "path_2d_sharded" else dict(device="cuda"))
         Engine(dataclasses.replace(task, time=dataclasses.replace(
             task.time, nsteps=2)), **kw).run()
-        res = Engine(task, **kw).run()
         npts = float(np.prod(task.grid.shape))
-        out[key] = npts / res.points_per_second * 1e3
+        out[key] = statistics.median(
+            npts / Engine(task, **kw).run().points_per_second * 1e3
+            for _ in range(runs))
     return out
 
 
@@ -264,13 +280,14 @@ def main():
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--path-runs", type=int, default=1)
     ap.add_argument("--keys", default=",".join(ALL_KEYS),
                     help="comma-separated keys to time (default: all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     keys = a.keys.split(",")
     if a.child:
-        child(a.roots[0], a.reps, set(keys))
+        child(a.roots[0], a.reps, set(keys), a.path_runs)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -281,7 +298,8 @@ def main():
         for root in (roots if k % 2 == 0 else roots[::-1]):
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), root, "--child",
-                 "--reps", str(a.reps), "--keys", a.keys], cwd=root,
+                 "--reps", str(a.reps), "--path-runs", str(a.path_runs),
+                 "--keys", a.keys], cwd=root,
                 capture_output=True, text=True, check=True, timeout=900)
             line = res.stdout.strip().splitlines()[-1]
             print(line, flush=True)
