@@ -43,7 +43,8 @@ Phases, each of which raises (exit code != 0) on failure:
    with the fused path (under 1e-4);
 8. the simplex path: ``simplex_sweep`` against ``simplex_sweep_reference``
    on random heterogeneous jittered meshes (3D elastic orders 1 and 2, a
-   fluid, 2D elastic; the four uniform border kinds and per-node borders;
+   fluid, 2D elastic orders 1 and 2, a 9^3 mesh whose 729 nodes are no
+   multiple of a block; the four uniform border kinds and per-node borders;
    every axis in both axis orders; under 2e-6 per sweep), then
    ``SimplexEngine.from_task(simplex3d_layered(n=65))`` (274,625 nodes)
    until the P wave has reached the surface receivers: it resolves to
@@ -84,7 +85,10 @@ Phases, each of which raises (exit code != 0) on failure:
    float32 and bf16 stacks, elastic3d and acoustic3d, all four border
    kinds, ragged and thinner-than-halo extents; under 2e-6 a step),
    Maxwell + damage folded at one step a pass; ``fused_step_2d`` with bf16
-   stacks and two steps a pass, ``fused_spmd_2d`` with bf16 stacks;
+   stacks and two steps a pass (every pair of the two sweep orders, orders
+   1-4, both models, float32 and bf16, shapes thinner than the two steps'
+   2r halo, aligned and wider than one strip), ``fused_spmd_2d`` with bf16
+   stacks;
 13. the contact path: ``MultiBodyEngine(*elastic3d_contact(n=256,
    nsteps=300), canonical_layout=True)`` (two bodies of 256x256x128)
    resolves to ``fused_canonical``, launches ``fused_step_slab`` twice a
@@ -103,7 +107,7 @@ Phases, each of which raises (exit code != 0) on failure:
    one-step launches, and the path's device idle share is traced; the
    same in 2D (``elastic2d_ps`` n=2048 without receivers, 100 steps, 50
    two-step ``fused_step_2d`` launches), its pass timed on float32 and
-   bf16 stacks;
+   bf16 stacks (and, in phase 15, on the orthotropic 2D state);
 15. orthotropic media (every layer of a scenario made orthotropic by
    :func:`_orthotropic`, positive definite): each kernel of the structured
    paths on random heterogeneous orthotropic stacks (13 rows in 3D, 6 in
@@ -137,7 +141,8 @@ form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
 ``ortho_plain_ms``, ``ortho_bound_ms``); the 2D kernels' entries
 (``fused_step_2d``, its two-step pass ``fused_step_2d_k2``,
 ``fused_spmd_2d`` with ``interior_ms`` and ``ring_ms``) carry their
-occupancy too; the last line is ``{"ok": true,
+occupancy too, and ``simplex_sweep`` its blocks an SM and nodes a block;
+the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -255,6 +260,14 @@ def _problem(rng, shape, name):
     dt = 0.6 / float(np.sqrt((lam + 2 * mu) / rho).max())
     u = torch.tensor(u0, dtype=torch.float32, device="cuda")
     return model, u, mat, stack_mats(model, mat), dt
+
+
+def _seqs_2d(k):
+    """The 2D sweep sequences of a pass of ``k`` steps: both orders for
+    one step, every pair of them for two."""
+    orders = ((0, 1), (1, 0))
+    return ([(ax,) for ax in orders] if k == 1
+            else list(itertools.product(orders, orders)))
 
 
 def _time_ms(fn, reps):
@@ -536,7 +549,8 @@ def simplex_kernel_vs_plain():
     rng = np.random.default_rng(1)
     cases = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
              (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
-             (12, 2, "elastic2d", 1, False)]
+             (12, 2, "elastic2d", 1, False), (9, 3, "elastic3d", 1, False),
+             (12, 2, "elastic2d", 2, False)]
     worst, nsweeps = 0.0, 0
     for n, dim, name, order, fluid in cases:
         grid, model, mat, tables, u0 = _simplex_problem(rng, n, dim, name,
@@ -565,7 +579,7 @@ def simplex_path(counts, result):
     """Phase 8, second part: the simplex main path at 65^3."""
     from gcm_tpu_torch.engine_simplex import SimplexEngine
     from gcm_tpu_torch.ops.simplex import (
-        simplex_sweep, simplex_sweep_reference)
+        simplex_sweep, simplex_sweep_occupancy, simplex_sweep_reference)
     from gcm_tpu_torch.scenarios import get_scenario
     from gcm_tpu_torch.task import TimeSpec
 
@@ -631,9 +645,12 @@ def simplex_path(counts, result):
     K = next(iter(eng.tables.values())).ids.shape[1]
     flops = grid.npoints * sum(len(st.pairs) * (8 * K + 20)
                                for st in eng.model.stages) / 3
+    bps, nb = simplex_sweep_occupancy(eng._plan, eng.u, 0)
+    print(f"  occupancy: {bps} blocks an SM, {nb} nodes a block")
     result["simplex_sweep"] = dict(
         launches=launched["simplex_sweep"], max_abs_err=max_abs,
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        ms_by_axis=ms, blocks_per_sm=bps, nodes_per_block=nb,
         **_bound_entry(B_SIMPLEX * grid.npoints, flops))
 
 
@@ -686,7 +703,7 @@ def _bound_entry(nbytes, flops):
 #: the kernels' names in the CUDA sources
 KERNEL_NAMES = ("fused_step_stream_kernel", "fused_pair_stream_kernel",
                 "fused_spmd_kernel", "fused_step_rows_kernel",
-                "fused_pair_2d_kernel", "fused_spmd_rows_kernel",
+                "fused_pair_rows_kernel", "fused_spmd_rows_kernel",
                 "sweep_stage_kernel", "simplex_sweep_kernel")
 
 
@@ -1344,14 +1361,16 @@ def slab_kernels_vs_plain():
               f"{aerr:.3e} (rtol 1e-5, atol 1e-6)")
 
     worst, n = 0.0, 0
-    for shape in ((37, 61), (5, 3)):
+    # two steps a pass in every sequence pair; (5, 3) and (2, 300) are
+    # thinner than the 2r halo of two steps, (64, 128) has aligned rows and
+    # (2, 300) three strips of the two-step body
+    for shape in ((37, 61), (5, 3), (64, 128), (2, 300)):
         for name in ("elastic2d", "acoustic2d"):
             for order in (1, 2, 3, 4):
                 model, u, _, ms, dt = _problem(rng, shape, name)
                 for stack, k in ((ms.to(torch.bfloat16), 1), (ms, 2),
                                  (ms.to(torch.bfloat16), 2)):
-                    for ax in ((0, 1), (1, 0)):
-                        seq = (ax,) if k == 1 else (ax, ax[::-1])
+                    for seq in _seqs_2d(k):
                         args = (model, u, stack, dt, h3[:2], order,
                                 _borders(2))
                         got = fused_step_2d(*args, axes_seq=seq)
@@ -1362,9 +1381,9 @@ def slab_kernels_vs_plain():
                                f"{shape} {stack.dtype} {seq}: {err:.3e}")
                         worst = max(worst, err / k)
                         n += 1
-    print(f"fused_step_2d with bf16 stacks and two steps a pass vs plain: "
-          f"{n} launches, worst normalized error a step {worst:.3e} (limit "
-          "2e-6)")
+    print(f"fused_step_2d with bf16 stacks and two steps a pass (every "
+          f"sequence pair) vs plain: {n} launches, worst normalized error a "
+          f"step {worst:.3e} (limit 2e-6)")
 
     worst, n = 0.0, 0
     dev = torch.device("cuda", 0)
@@ -1632,7 +1651,7 @@ def pair_fused_path(counts, result):
         passes, 20, _step_ms(res, task))
     del eng, ref, res, a
 
-    # the 2D two-step pass (the box tile) on its path: elastic2d_ps at
+    # the 2D two-step pass (stream_rows_pair) on its path: elastic2d_ps at
     # n=2048, whose initial ball needs no source, without receivers
     task2 = dataclasses.replace(
         get_scenario("elastic2d_ps", n=N_2D, nsteps=NSTEPS_PAIR),
@@ -1820,8 +1839,7 @@ def ortho_kernels_vs_plain():
             model, u, mat, ms, dt = _ortho_problem(rng, shape, "elastic2d")
             for stack, k in ((ms, 1), (ms.to(torch.bfloat16), 1), (ms, 2),
                              (ms.to(torch.bfloat16), 2)):
-                for ax in ((0, 1), (1, 0)):
-                    seq = (ax,) if k == 1 else (ax, ax[::-1])
+                for seq in _seqs_2d(k):
                     args = (model, u, stack, dt, h3[:2], order, _borders(2))
                     got = fused_step_2d(*args, axes_seq=seq)
                     torch.cuda.synchronize()
@@ -1830,7 +1848,7 @@ def ortho_kernels_vs_plain():
                          fused_step_2d_reference(*args, axes_seq=seq), k)
                     if stack is ms and k == 1:
                         exact("fused_step_2d", tag, got, model, u, mat, dt,
-                              h3[:2], order, _borders(2), ax)
+                              h3[:2], order, _borders(2), seq[0])
 
     for name, shape in (("elastic3d", (24, 40, 56)), ("elastic2d", (37, 61))):
         for order in (1, 2, 3, 4):
@@ -2180,7 +2198,26 @@ def ortho_paths(counts, result):
                  _time_ms(lambda: fused_step_2d(*args2), 50),
                  _time_ms(lambda: fused_step_2d_reference(*args2), 10),
                  B_FUSED2_ORTHO * npts2, _step_flops(m2, o2, npts2))
-    del eng2, res2, res2t, args2
+    # the two-step pass of the 2D pair-fused path on the orthotropic state
+    seq2 = ((0, 1), (1, 0))
+    a2 = args2[:7]
+    *_, e2k = _hold_on_path_state(
+        f"two-step fused_step_2d {seq2} on the orthotropic 2D state",
+        fused_step_2d, fused_step_2d_reference, a2, dict(axes_seq=seq2),
+        steps=2)
+    k2 = result["fused_step_2d_k2"]
+    k2.update(ortho_max_abs_err=e2k,
+              ortho_ms=_time_ms(lambda: fused_step_2d(*a2, axes_seq=seq2),
+                                50),
+              ortho_plain_ms=_time_ms(
+                  lambda: fused_step_2d_reference(*a2, axes_seq=seq2), 5),
+              ortho_bound_ms=_bound(B_FUSED2_ORTHO * npts2,
+                                    2 * _step_flops(m2, o2, npts2))[0])
+    print(f"fused_step_2d two steps orthotropic: kernel {k2['ortho_ms']:.4f}"
+          f" ms a pass, plain {k2['ortho_plain_ms']:.4f} ms, bound "
+          f"{k2['ortho_bound_ms']:.4f} ms; isotropic kernel {k2['ms']:.4f} "
+          f"ms")
+    del eng2, res2, res2t, args2, a2
 
     t2s = steps_of(task2, NSTEPS_ORTHO_SHORT)
     mesh2 = domain_mesh(2, [dev] * 4)
@@ -2555,7 +2592,7 @@ def main() -> int:
                                "gcm_tpu/ops/pallas_fused.py:807"),
         "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                           "gcm_tpu/ops/pallas_fused.py:1035"),
-        "fused_step_2d_k2": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
+        "fused_step_2d_k2": ("gcm_tpu_torch/csrc/fused_pair_rows.cuh",
                              "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",
                         "gcm_tpu/ops/pallas_stage.py:366"),

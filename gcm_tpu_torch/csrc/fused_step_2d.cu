@@ -53,20 +53,18 @@
 // - Edge replication is index clamping, as in 3D: borders stay keyed on the
 //   global row or column (0 or n - 1), ragged strips are masked at the
 //   store, any extent works, thinner than the halo included.
-// Two steps a pass (K = 2, temporal blocking) still run the box tile
-// (gcm_common.cuh::pair_tile_2d): a TX x TY output tile whose first sweep
-// reads the state at clamped indices over the tile plus a 2r halo, each
-// later sweep the shared buffer the one before it wrote; the second step
-// reads the first's result at indices clamped to the domain
-// (ClampedSharedSrc), the TPU kernel's re-patch of the halo between steps.
+// Two steps a pass (K = 2, temporal blocking, opt-in) run the two-step
+// form of that body (gcm_common.cuh::stream_rows_pair), compiled one
+// stencil order a source (fused_pair_rows.cuh) and launched from here.
 
-#include "gcm_common.cuh"
+#include "fused_pair_rows.cuh"
+
+GCM_PAIR_ROWS_ENTRY(1);
+GCM_PAIR_ROWS_ENTRY(2);
+GCM_PAIR_ROWS_ENTRY(3);
+GCM_PAIR_ROWS_ENTRY(4);
 
 namespace {
-
-// the box tile of the two-step pass
-constexpr int TX2 = 32, TY2 = 64;
-constexpr int NTHREADS2 = 256;
 
 // One step: output rows [ch * blockIdx.y, +ch) of strip blockIdx.x.
 template <int ORDER, class M, bool XFIRST>
@@ -112,40 +110,6 @@ cudaError_t launch_rows(const float* u, const void* m, int bf16,
     return cudaGetLastError();
 }
 
-// Two steps a pass on the box tile.
-template <int ORDER, class MatT>
-__global__ void __launch_bounds__(NTHREADS2)
-fused_pair_2d_kernel(const float* __restrict__ u, const MatT* __restrict__ m,
-                     float* __restrict__ out, GcmFusedParams p) {
-    extern __shared__ __align__(16) float smem[];
-    const int T[3] = {TX2, TY2, 1};
-    const int t0[3] = {(int)blockIdx.y * TX2, (int)blockIdx.x * TY2, 0};
-    const long long N = (long long)p.n[0] * p.n[1];
-    const GlobalSrc src{u, p.n[0], p.n[1], 1, N};
-    const GlobalMat<MatT> mat{m, p.n[0], p.n[1], 1, N};
-    pair_tile_2d<ORDER>(p, t0, T, src, mat, smem, out);
-}
-
-template <int ORDER, class MatT>
-cudaError_t launch_pair_2d(const float* u, const void* m, float* out,
-                           const GcmFusedParams& p, cudaStream_t stream,
-                           StreamOccupancy* occ) {
-    const int T[3] = {TX2, TY2, 1};
-    const size_t smem = pair_smem_bytes_2d(p, T, Stencil<ORDER>::R);
-    const auto kernel = fused_pair_2d_kernel<ORDER, MatT>;
-    int bps = 0;
-    cudaError_t err = stream_blocks_per_sm(kernel, (int)smem, &bps,
-                                           NTHREADS2);
-    if (err != cudaSuccess) return err;
-    if (occ != nullptr) {
-        *occ = StreamOccupancy{bps, (int)smem};
-        return cudaSuccess;
-    }
-    const dim3 grid((p.n[1] + TY2 - 1) / TY2, (p.n[0] + TX2 - 1) / TX2);
-    kernel<<<grid, NTHREADS2, smem, stream>>>(u, (const MatT*)m, out, p);
-    return cudaGetLastError();
-}
-
 cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
                     float* out, float* aux_out, const GcmFusedParams& p,
                     int order, int mat_bf16, int ksteps, int device,
@@ -158,12 +122,18 @@ cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
                 occ);
         });
     if (ksteps != 2 || p.nspec > 0) return cudaErrorInvalidValue;
-    return with_stencil(order, [&](auto o) {
-        constexpr int O = decltype(o)::value;
-        return mat_bf16
-            ? launch_pair_2d<O, __nv_bfloat16>(u, mstack, out, p, s, occ)
-            : launch_pair_2d<O, float>(u, mstack, out, p, s, occ);
-    });
+    const auto pair = order == 1   ? gcm_fused_pair_rows_o1
+                      : order == 2 ? gcm_fused_pair_rows_o2
+                      : order == 3 ? gcm_fused_pair_rows_o3
+                      : order == 4 ? gcm_fused_pair_rows_o4
+                                   : nullptr;
+    if (pair == nullptr) return cudaErrorInvalidValue;
+    int o[2] = {0, 0};
+    const cudaError_t err = (cudaError_t)pair(
+        u, mstack, out, &p, mat_bf16, device, s,
+        occ != nullptr ? o : nullptr);
+    if (occ != nullptr) *occ = StreamOccupancy{o[0], o[1]};
+    return err;
 }
 
 }  // namespace
@@ -172,10 +142,11 @@ extern "C" {
 
 // Launches one fused 2D pass of `ksteps` (1 or 2) steps; the same contract
 // as gcm_fused_step_slab, with params->n = {nx, ny, 1}: one step runs the
-// streamed body compiled for params->model (SWEEP_MODEL_ELASTIC2D or
-// SWEEP_MODEL_ACOUSTIC2D), two the box tile with the second step's sweep
-// order in params->axes_next; the stack stored as bf16 when `mat_bf16` is
-// set (float otherwise), correctors folded only with ksteps = 1.
+// row-streamed body compiled for params->model (SWEEP_MODEL_ELASTIC2D or
+// SWEEP_MODEL_ACOUSTIC2D), two its two-step form with the second step's
+// sweep order in params->axes_next; the stack stored as bf16 when
+// `mat_bf16` is set (float otherwise), correctors folded only with
+// ksteps = 1.
 int gcm_fused_step_2d(const float* u, const void* mstack,
                       const float* aux_in, float* out, float* aux_out,
                       const GcmFusedParams* params, int order, int mat_bf16,

@@ -1,14 +1,14 @@
 // Device code shared by the port's CUDA kernels (sm_90a): the parameter
 // block of the fused steps, Lagrange stencil weights, the border algebra,
-// material stacks stored as float or bf16 (upcast at the load), one
-// characteristic sweep over a box of cells and two whole 2D steps on one
-// box tile (pair_tile_2d: the 2D two-step pass), the component maps fixed
-// at compile time (the streamed bodies and the per-sweep kernel), the
-// one-step 3D body that walks x plane by plane through a ring of planes in
-// shared memory (stream_step: the 3D fused, slab and SPMD kernels), its
-// two-step form (stream_pair: the slab kernel's two steps a pass), and the
-// one-step 2D body that walks x row by row through a ring of rows in
-// registers (stream_rows: the 2D fused and SPMD kernels).
+// material stacks stored as float or bf16 (upcast at the load), the
+// component maps fixed at compile time (the streamed bodies, the per-sweep
+// kernel and the simplex sweep), the one-step 3D body that walks x plane by
+// plane through a ring of planes in shared memory (stream_step: the 3D
+// fused, slab and SPMD kernels), its two-step form (stream_pair: the slab
+// kernel's two steps a pass), the one-step 2D body that walks x row by row
+// through a ring of rows in registers (stream_rows: the 2D fused and SPMD
+// kernels), and its two-step form (stream_rows_pair: the 2D kernel's two
+// steps a pass).
 //
 // The device functions sit in an anonymous namespace: each kernel source
 // compiles its own copy, and the sources link into one library without
@@ -25,7 +25,6 @@
 #include <tuple>
 #include <type_traits>
 
-constexpr int MAXC = 9;      // components of the largest model (elastic3d)
 constexpr int MAXP = 3;      // pairs per sweep
 constexpr int MAXZ = 2;      // zero-speed invariants per sweep
 constexpr int MAXSPEC = 4;   // folded correctors per step
@@ -114,13 +113,6 @@ struct Stencil {
     }
 };
 
-// A box of cells in global coordinates (may reach outside the domain).
-struct Region {
-    int o[3];
-    int e[3];
-    int vol;
-};
-
 // The one-step 3D body: a block of STREAM_NT threads owns a STREAM_TY x
 // STREAM_TZ tile of the (y, z) plane (z contiguous, 128-byte rows) and
 // walks a chunk of x planes. 11 warps: every sweep of a plane window, up
@@ -173,12 +165,6 @@ struct GlobalSrc {
     const float* __restrict__ u;
     int n0, n1, n2;
     long long N;
-    __device__ float ld(int c, int x, int y, int z) const {
-        x = min(max(x, 0), n0 - 1);
-        y = min(max(y, 0), n1 - 1);
-        z = min(max(z, 0), n2 - 1);
-        return __ldg(u + c * N + ((long long)x * n1 + y) * n2 + z);
-    }
     // the first cell of row x (clamped) of component c of a 2D state (n2 =
     // 1): the row's cells follow contiguously
     __device__ const float* row(int c, int x) const {
@@ -253,35 +239,6 @@ struct SlabSrc {
     }
 };
 
-// Reads a previous sweep's result from shared memory; every cell a sweep
-// touches lies inside the source region by construction.
-struct SharedSrc {
-    const float* s;
-    Region r;
-    __device__ float ld(int c, int x, int y, int z) const {
-        return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
-                 + (z - r.o[2])];
-    }
-};
-
-// Reads the previous in-window step's result from shared memory at
-// coordinates clamped to the domain [0, n-1]: the out-of-domain halo cells
-// of that step hold don't-care values, and the next step must see its edge
-// replication (the edge_pad of the plain step). A clamped cell lies inside
-// the source region, since the tile's origin lies inside the domain.
-struct ClampedSharedSrc {
-    const float* s;
-    Region r;
-    int n0, n1, n2;
-    __device__ float ld(int c, int x, int y, int z) const {
-        x = min(max(x, 0), n0 - 1);
-        y = min(max(y, 0), n1 - 1);
-        z = min(max(z, 0), n2 - 1);
-        return s[c * r.vol + ((x - r.o[0]) * r.e[1] + (y - r.o[1])) * r.e[2]
-                 + (z - r.o[2])];
-    }
-};
-
 // One material value, upcast to float right after the load: the stacks are
 // stored as float or as bf16 (half the material stream); all arithmetic
 // stays float.
@@ -297,17 +254,7 @@ struct GlobalMat {
     const T* __restrict__ m;
     int n0, n1, n2;
     long long N;
-    __device__ long long off(int x, int y, int z) const {
-        x = min(max(x, 0), n0 - 1);
-        y = min(max(y, 0), n1 - 1);
-        z = min(max(z, 0), n2 - 1);
-        return ((long long)x * n1 + y) * n2 + z;
-    }
-    __device__ float ld(int row, long long off) const {
-        return mat_load(m + row * N + off);
-    }
-    // plane x of row 0, and a cell's 32-bit offset within a plane (the
-    // streamed body's addressing)
+    // plane x of row 0, and a cell's 32-bit offset within a plane
     __device__ const T* plane(int x) const {
         return m + (long long)min(max(x, 0), n0 - 1) * n1 * n2;
     }
@@ -374,167 +321,6 @@ __device__ __forceinline__ float bc_incoming(int kind, float value, float out,
     if (kind == 2) return 2.0f * value - out;
     float s = side == 0 ? -1.0f : 1.0f;
     return out + s * 2.0f * (float)sign * z * value;
-}
-
-// One characteristic sweep along physical axis a over region `reg`, reading
-// the state from `src` and the materials from `mat` (any stack layout: p
-// names each pair's speed row and each zero's ratio row), and writing either
-// a shared buffer (all cells) or the output of extents p.n (in-block cells
-// only). Borders apply on the rows at 0 and p.n[a] - 1 along the sweep
-// axis, for the kinds p.bc_kind gives.
-template <int ORDER, class Src, class Mat, bool TO_GLOBAL>
-__device__ void sweep(const GcmFusedParams& p, int a, const Src& src,
-                      const Mat& mat, const Region& reg,
-                      float* __restrict__ dst) {
-    using S = Stencil<ORDER>;
-    const int C = p.ncomp;
-    const long long N = (long long)p.n[0] * p.n[1] * p.n[2];
-    for (int idx = threadIdx.x; idx < reg.vol; idx += blockDim.x) {
-        const int k = idx % reg.e[2];
-        const int j = (idx / reg.e[2]) % reg.e[1];
-        const int i = idx / (reg.e[2] * reg.e[1]);
-        const int gx = reg.o[0] + i, gy = reg.o[1] + j, gz = reg.o[2] + k;
-        if (TO_GLOBAL && (gx >= p.n[0] || gy >= p.n[1] || gz >= p.n[2]))
-            continue;
-        // position along the sweep axis, and the unit step along it
-        const int ga = a == 0 ? gx : (a == 1 ? gy : gz);
-        const int na = p.n[a];
-        const int sx = a == 0, sy = a == 1, sz = a == 2;
-        const long long moff = mat.off(gx, gy, gz);
-
-        float old[MAXC], nw[MAXC];
-        for (int c = 0; c < C; ++c) {
-            old[c] = src.ld(c, gx, gy, gz);
-            nw[c] = old[c];
-        }
-        const float rho = mat.ld(p.rho_idx, moff);
-        for (int q = 0; q < p.npairs[a]; ++q) {
-            const int sg = p.pair_sigma[a][q];
-            const int vl = p.pair_vel[a][q];
-            const float c = mat.ld(p.pair_c[a][q], moff);
-            const float z = rho * c;
-            const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
-            float w[S::NP];
-            S::weights(c * p.dtoh[a], w);
-            float Ap = 0.f, Bp = 0.f, Am = 0.f, Bm = 0.f;
-#pragma unroll
-            for (int t = 0; t < S::NP; ++t) {
-                const int o = t + S::LO;
-                const int px = gx + o * sx, py = gy + o * sy, pz = gz + o * sz;
-                const int mx = gx - o * sx, my = gy - o * sy, mz = gz - o * sz;
-                Ap += w[t] * src.ld(sg, px, py, pz);
-                Bp += w[t] * src.ld(vl, px, py, pz);
-                Am += w[t] * src.ld(sg, mx, my, mz);
-                Bm += w[t] * src.ld(vl, mx, my, mz);
-            }
-            const float szb = (float)p.sign * z;
-            float wl = Ap + szb * Bp;
-            float wr = Am - szb * Bm;
-            if (ga == 0 && p.bc_kind[a][0] >= 0)
-                wr = bc_incoming(p.bc_kind[a][0], p.bc_val[a][0][q], wl,
-                                 p.sign, z, 0);
-            if (ga == na - 1 && p.bc_kind[a][1] >= 0)
-                wl = bc_incoming(p.bc_kind[a][1], p.bc_val[a][1][q], wr,
-                                 p.sign, z, 1);
-            nw[sg] = 0.5f * (wl + wr);
-            nw[vl] = z > 0.0f ? (float)p.sign * (wl - wr) * rz : old[vl];
-        }
-        for (int q = 0; q < p.nzeros[a]; ++q) {
-            const int zc = p.zero_comp[a][q], zs = p.zero_src[a][q];
-            nw[zc] = old[zc] + mat.ld(p.zero_kappa[a][q], moff) *
-                               (nw[zs] - old[zs]);
-        }
-        if (TO_GLOBAL) {
-            const long long off = ((long long)gx * p.n[1] + gy) * p.n[2] + gz;
-            for (int c = 0; c < C; ++c) dst[c * N + off] = nw[c];
-        } else {
-            for (int c = 0; c < C; ++c) dst[c * reg.vol + idx] = nw[c];
-        }
-    }
-}
-
-// The flattened sweep sequence of two in-window 2D steps: p.axes, then
-// p.axes_next.
-__host__ __device__ inline void pair_axes_2d(const GcmFusedParams& p,
-                                            int* ax) {
-    for (int j = 0; j < 2; ++j) {
-        ax[j] = p.axes[j];
-        ax[2 + j] = p.axes_next[j];
-    }
-}
-
-// Box of the output of the first `nswept` sweeps of the sequence `ax` on
-// the 2D tile at t0 with extents T, in a window with a halo of H = 2R
-// cells on both axes: an axis swept s times keeps a halo of H - s*R. The
-// third axis has extent 1 and no halo.
-__host__ __device__ inline Region tile_region(const int* ax, int nswept,
-                                              const int* t0, const int* T,
-                                              int R, int H) {
-    Region r;
-    r.vol = 1;
-    for (int d = 0; d < 3; ++d) {
-        int s = 0;
-        for (int q = 0; q < nswept; ++q) s += ax[q] == d;
-        const int halo = d >= 2 ? 0 : H - s * R;
-        r.o[d] = t0[d] - halo;
-        r.e[d] = (d >= 2 ? 1 : T[d]) + 2 * halo;
-        r.vol *= r.e[d];
-    }
-    return r;
-}
-
-// Shared memory of two 2D steps on one tile of extents T: two buffers that
-// the sweeps of the sequence write in turn, the first as large as the first
-// sweep's output, the second as the second's (the regions only shrink).
-__host__ inline size_t pair_smem_bytes_2d(const GcmFusedParams& p,
-                                          const int* T, int R) {
-    const int t0[3] = {0, 0, 0};
-    int ax[4];
-    pair_axes_2d(p, ax);
-    const size_t vol = tile_region(ax, 1, t0, T, R, 2 * R).vol +
-                       tile_region(ax, 2, t0, T, R, 2 * R).vol;
-    return sizeof(float) * (size_t)p.ncomp * vol;
-}
-
-// Two whole 2D steps (two sweeps each, along p.axes then p.axes_next) on
-// the output tile at t0 with extents T: the first sweep reads `src`, each
-// later one the shared buffer the one before it wrote (the first sweep of
-// the second step through ClampedSharedSrc), and the last writes `out`.
-// The sweep loop unrolls at compile time, so the axes, regions and buffers
-// stay in registers. Called by every thread of the block.
-template <int ORDER, class Src, class Mat>
-__device__ __forceinline__ void pair_tile_2d(const GcmFusedParams& p,
-                                             const int* t0, const int* T,
-                                             const Src& src, const Mat& mat,
-                                             float* smem,
-                                             float* __restrict__ out) {
-    constexpr int R = Stencil<ORDER>::R;
-    constexpr int H = 2 * R;
-    int ax[4];
-    pair_axes_2d(p, ax);
-    Region prev = tile_region(ax, 1, t0, T, R, H);
-    float* const b0 = smem;
-    float* const b1 = smem + p.ncomp * prev.vol;
-    sweep<ORDER, Src, Mat, false>(p, ax[0], src, mat, prev, b0);
-#pragma unroll
-    for (int i = 1; i < 4; ++i) {
-        __syncthreads();
-        const Region reg = tile_region(ax, i + 1, t0, T, R, H);
-        const float* in = ((i - 1) & 1) ? b1 : b0;
-        float* dst = (i & 1) ? b1 : b0;
-        if (i == 2) {
-            const ClampedSharedSrc s{in, prev, p.n[0], p.n[1], p.n[2]};
-            sweep<ORDER, ClampedSharedSrc, Mat, false>(p, ax[i], s, mat, reg,
-                                                       dst);
-        } else if (i == 3) {
-            sweep<ORDER, SharedSrc, Mat, true>(p, ax[i], SharedSrc{in, prev},
-                                               mat, reg, out);
-        } else {
-            sweep<ORDER, SharedSrc, Mat, false>(p, ax[i], SharedSrc{in, prev},
-                                                mat, reg, dst);
-        }
-        prev = reg;
-    }
 }
 
 // ------------------------------------------- the one-step 3D body, streamed
@@ -1264,17 +1050,17 @@ struct RowLayout {
 };
 
 // Starts the copy of C component rows, cells [ys, ys + EW) at clamped
-// columns, into dst (C, EW), by a block of ROWS_NT threads; row(c) is the
+// columns, into dst (C, EW), by a block of NT threads; row(c) is the
 // first cell of component c's row (ny cells). With `vec` (ys a multiple of
 // 4, every component row 16-byte aligned) each 4-cell vector inside the
 // row is one 16-byte copy; vectors that reach past either end, and every
 // vector without `vec`, are four 4-byte copies of clamped cells (the edge
 // replication of the plain step).
-template <int C, int EW, class Row>
+template <int C, int EW, int NT, class Row>
 __device__ __forceinline__ void stage_row(float* dst, const Row& row, int ys,
                                           int ny, bool vec) {
     constexpr int NV = EW / 4;
-    for (int e = threadIdx.x; e < C * NV; e += ROWS_NT) {
+    for (int e = threadIdx.x; e < C * NV; e += NT) {
         const int c = e / NV, v = e - c * NV;
         const int y = ys + 4 * v;
         const float* rp = row(c);
@@ -1324,8 +1110,9 @@ __device__ __forceinline__ void stream_rows(const GcmFusedParams& p,
     const auto raw = [&](int it) { return smem + (it % D) * (C * EW); };
     const auto stage = [&](int it) {
         const int x = xa - R + it;
-        stage_row<C, EW>(raw(it), [&](int c) { return src.row(c, x); }, ys,
-                         ny, vec);
+        stage_row<C, EW, ROWS_NT>(raw(it),
+                                  [&](int c) { return src.row(c, x); }, ys,
+                                  ny, vec);
     };
     const int nin = xb - xa + 2 * R;
 #pragma unroll
@@ -1386,6 +1173,218 @@ __device__ __forceinline__ void stream_rows(const GcmFusedParams& p,
     }
 }
 
+// ------------------------------------------ two 2D steps a pass, streamed
+
+// The two-step 2D body: a block of PAIR_ROWS_NT threads (4 warps) owns a
+// window of PAIR_ROWS_NT columns of y, one a thread, and walks a chunk of x
+// rows. Its output strip is the middle PAIR_ROWS_NT - 4R columns: the first
+// step's y sweep drops R columns on each side, the second's another R.
+constexpr int PAIR_ROWS_NT = 128;
+
+template <int ORDER>
+struct PairRowTile {
+    static constexpr int R = Stencil<ORDER>::R;
+    static constexpr int NT = PAIR_ROWS_NT;
+    // output columns a block
+    static constexpr int TY = NT - 4 * R;
+    // floats a staged component row (stream_rows' EW)
+    static constexpr int EW = NT + 4;
+    // blocks an SM for __launch_bounds__: 102 registers a thread at r = 1,
+    // 128 at r = 2, where each of the two register rings holds 5 rows
+    static constexpr int MINB = R == 1 ? 5 : 4;
+};
+
+// Shared memory of stream_rows_pair for C components, in floats:
+// ROWS_DEPTH staged rows of C x EW; A's x sweep output row when A sweeps
+// x first (XROW); A's output row (AROW), which B reads at columns clamped
+// to the domain; and, when B sweeps x first, two rows of B's x sweep
+// output (BROW), written in turn by consecutive output rows.
+template <int ORDER, int C, bool XA, bool XB>
+struct PairRowLayout {
+    using T = PairRowTile<ORDER>;
+    static constexpr int ROW = C * T::NT;
+    static constexpr int XROW = ROWS_DEPTH * C * T::EW;
+    static constexpr int AROW = XROW + (XA ? ROW : 0);
+    static constexpr int BROW = AROW + ROW;
+    static constexpr int FLOATS = BROW + (XB ? 2 * ROW : 0);
+    static constexpr int BYTES = (int)sizeof(float) * FLOATS;
+};
+
+// Two full 2D steps (A along x then y when XA, else y then x; B the same
+// with XB) of output rows [xa, xb) of the strip of columns [y0, y0 + TY),
+// walking x, by every thread of a PAIR_ROWS_NT-thread block; thread w owns
+// window column gy = y0 - 2R + w.
+// - A runs stream_rows' pipeline on the whole window: each incoming row
+//   (clamped by the source, which replicates the edge) is staged
+//   ROWS_DEPTH - 1 rows ahead; A's first sweep puts it into A's register
+//   ring of 2R + 1 rows, whose x sweep gives A's output row R behind. A
+//   computes its output rows inside the domain only, [xa - R, xb + R) cut
+//   to [0, n0), and its columns [R, NT - R) of the window, the ones B's y
+//   sweep reads.
+// - The y edge: A's output row goes through a shared row, which B reads at
+//   columns clamped to the domain, the edge replication the plain version
+//   gives B's input (a thread outside reads another thread's value, hence
+//   the barrier).
+// - The x edge: B keeps its own register ring of 2R + 1 rows of A's output
+//   after B's first sweep, filled at clamped row indices: at row 0 the
+//   first row enters R + 1 times (more in a chunk that starts near it),
+//   and after row n0 - 1 the last row enters again until the chunk's
+//   output rows are done. This is the TPU kernel's re-patch of the halo
+//   between the steps.
+// - B runs R rows behind A, and its last sweep stores the strip.
+// The state and the materials are read once a pass and the state written
+// once; 2R columns of A a window and 2R rows of A a chunk are recomputed.
+template <int ORDER, class M, bool XA, bool XB, class Src, class Mat>
+__device__ __forceinline__ void stream_rows_pair(const GcmFusedParams& p,
+                                                 const Src& src,
+                                                 const Mat& mat, int xa,
+                                                 int xb, int y0, float* smem,
+                                                 const StepOut& so,
+                                                 bool vec) {
+    using T = PairRowTile<ORDER>;
+    using L = PairRowLayout<ORDER, M::C, XA, XB>;
+    constexpr int R = T::R, C = M::C, NT = T::NT, EW = T::EW;
+    constexpr int D = ROWS_DEPTH;
+    const int n0 = p.n[0], ny = p.n[1];
+    const int w = threadIdx.x;
+    const int y0w = y0 - 2 * R;          // the window's first column
+    const int gy = y0w + w;
+    const bool inside = gy >= 0 && gy < ny;
+    // A's output columns, and the strip's columns inside the domain
+    const bool acol = w >= R && w < NT - R;
+    const bool strip = w >= 2 * R && w < NT - 2 * R && gy < ny;
+    // the first staged column (a multiple of 4 at or below the window's
+    // first) and this thread's column in a staged row
+    const int ys = y0w & ~3;
+    const int col = y0w - ys + w;
+    float* const xrow = smem + L::XROW;
+    float* const arow = smem + L::AROW;
+    // the window position of column g clamped to the domain
+    const auto at = [&](int g) { return min(max(g, 0), ny - 1) - y0w; };
+    const auto raw = [&](int it) { return smem + (it % D) * (C * EW); };
+    // A's output rows, and the incoming rows from ya - R on
+    const int ya = max(xa - R, 0), yb = min(xb + R, n0);
+    const auto stage = [&](int it) {
+        const int x = ya - R + it;
+        stage_row<C, EW, NT>(raw(it), [&](int c) { return src.row(c, x); },
+                             ys, ny, vec);
+    };
+    const int nin = yb - ya + 2 * R;
+#pragma unroll
+    for (int it = 0; it < D - 1; ++it) {
+        if (it < nin) stage(it);
+        cp_async_commit();
+    }
+    float ra[2 * R + 1][C], rb[2 * R + 1][C];
+#pragma unroll
+    for (int t = 0; t <= 2 * R; ++t)
+#pragma unroll
+        for (int c = 0; c < C; ++c) ra[t][c] = rb[t][c] = 0.0f;
+    const int mc = mat.cell(gy, 0);
+    for (int it = 0; it < nin; ++it) {
+        const int xi = ya - R + it;
+        // row it has landed; every thread is done with row it - 1, whose
+        // buffer takes row it + D - 1, and with the shared rows
+        cp_async_wait<D - 2>();
+        __syncthreads();
+        if (it + D - 1 < nin) stage(it + D - 1);
+        cp_async_commit();
+#pragma unroll
+        for (int t = 0; t < 2 * R; ++t)
+#pragma unroll
+            for (int c = 0; c < C; ++c) ra[t][c] = ra[t + 1][c];
+        const float* const in = raw(it) + col;
+        if constexpr (XA) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) ra[2 * R][c] = in[c * EW];
+        } else if (acol && inside) {
+            const auto ld = [&](int c, int o) { return in[c * EW + o]; };
+            cell_sweep<ORDER, M, 1>(p, ld, mat, mat.plane(xi), mc, gy,
+                                    ra[2 * R]);
+        }
+        if (it < 2 * R) continue;
+        // A's output row xo into the shared row
+        const int xo = xi - R;
+        const auto mp = mat.plane(xo);
+        const auto ldx = [&](int c, int o) { return ra[o + R][c]; };
+        float v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = 0.0f;
+        if constexpr (XA) {
+            cell_sweep<ORDER, M, 0>(p, ldx, mat, mp, mc, xo, v);
+#pragma unroll
+            for (int c = 0; c < C; ++c) xrow[c * NT + w] = v[c];
+            __syncthreads();
+            if (acol && inside) {
+                const float* const b = xrow + w;
+                const auto ldy = [&](int c, int o) { return b[c * NT + o]; };
+                cell_sweep<ORDER, M, 1>(p, ldy, mat, mp, mc, gy, v);
+            }
+        } else if (acol && inside) {
+            cell_sweep<ORDER, M, 0>(p, ldx, mat, mp, mc, xo, v);
+        }
+        if (acol && inside) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) arow[c * NT + w] = v[c];
+        }
+        __syncthreads();
+        // B's first sweep on A's row xo, read at clamped columns
+        if constexpr (XB) {
+            if (acol) {
+                const int k = at(gy);
+#pragma unroll
+                for (int c = 0; c < C; ++c) v[c] = arow[c * NT + k];
+            }
+        } else if (strip) {
+            const auto ldy = [&](int c, int o) {
+                return arow[c * NT + at(gy + o)];
+            };
+            cell_sweep<ORDER, M, 1>(p, ldy, mat, mp, mc, gy, v);
+        }
+        // the rows of B's ring that row xo stands for: itself, and at the
+        // domain's first and last rows the rows outside up to the chunk's
+        // reach [xa - R, xb + R)
+        const int vlo = xo == ya ? xa - R : xo;
+        const int vhi = xo == yb - 1 ? xb + R - 1 : xo;
+        for (int vr = vlo; vr <= vhi; ++vr) {
+#pragma unroll
+            for (int t = 0; t < 2 * R; ++t)
+#pragma unroll
+                for (int c = 0; c < C; ++c) rb[t][c] = rb[t + 1][c];
+#pragma unroll
+            for (int c = 0; c < C; ++c) rb[2 * R][c] = v[c];
+            // B's output row xq, whose ring rows are all there
+            const int xq = vr - R;
+            if (xq < xa || xq >= xb) continue;
+            const auto mq = mat.plane(xq);
+            const auto ldb = [&](int c, int o) { return rb[o + R][c]; };
+            const long long off = (long long)xq * ny + gy;
+            float nw[C];
+            if constexpr (XB) {
+                // B's x sweep over A's columns, which B's y sweep reads
+                float* const bb = smem + L::BROW + (xq & 1) * L::ROW;
+                if (acol) {
+                    cell_sweep<ORDER, M, 0>(p, ldb, mat, mq, mc, xq, nw);
+#pragma unroll
+                    for (int c = 0; c < C; ++c) bb[c * NT + w] = nw[c];
+                }
+                __syncthreads();
+                if (strip) {
+                    const float* const b = bb + w;
+                    const auto ldy = [&](int c, int o) {
+                        return b[c * NT + o];
+                    };
+                    cell_sweep<ORDER, M, 1>(p, ldy, mat, mq, mc, gy, nw);
+                    store_cell<M>(p, nw, so, off);
+                }
+            } else if (strip) {
+                cell_sweep<ORDER, M, 0>(p, ldb, mat, mq, mc, xq, nw);
+                store_cell<M>(p, nw, so, off);
+            }
+        }
+    }
+}
+
 // -------------------------------------------- host side of the streamed body
 
 template <int N>
@@ -1440,6 +1439,28 @@ __host__ inline cudaError_t with_rows(int order, const GcmFusedParams& p,
             return p.axes[0] == 0 ? f(o, mdl, std::true_type{})
                                   : f(o, mdl, std::false_type{});
         });
+    });
+}
+
+// Calls f(M{}, std::bool_constant<XA>{}, std::bool_constant<XB>{}) for a
+// launch of the two-step 2D body (stream_rows_pair): the compiled 2D map
+// p.model and the sweep orders p.axes (A) and p.axes_next (B), each (0, 1)
+// x first or (1, 0) y first.
+template <class F>
+__host__ inline cudaError_t with_rows_pair(const GcmFusedParams& p, F&& f) {
+    const auto order_2d = [](const int* ax) {
+        return (ax[0] == 0 || ax[0] == 1) && ax[1] == 1 - ax[0];
+    };
+    if (!order_2d(p.axes) || !order_2d(p.axes_next))
+        return cudaErrorInvalidValue;
+    return with_model_2d(p.model, [&](auto mdl) {
+        if (p.axes[0] == 0)
+            return p.axes_next[0] == 0
+                       ? f(mdl, std::true_type{}, std::true_type{})
+                       : f(mdl, std::true_type{}, std::false_type{});
+        return p.axes_next[0] == 0
+                   ? f(mdl, std::false_type{}, std::true_type{})
+                   : f(mdl, std::false_type{}, std::false_type{});
     });
 }
 
@@ -1518,6 +1539,22 @@ __host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem, int* bps,
     return err;
 }
 
+// The SM count of a device, asked of the runtime once and kept (1 if the
+// query fails).
+__host__ inline int sm_count(int device) {
+    static std::mutex mu;
+    static std::map<int, int> sms;
+    std::lock_guard<std::mutex> lock(mu);
+    auto sm = sms.find(device);
+    if (sm == sms.end()) {
+        int n = 0;
+        if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                   device) == cudaSuccess && n > 0)
+            sm = sms.emplace(device, n).first;
+    }
+    return sm == sms.end() ? 1 : sm->second;
+}
+
 // Planes a block walks when `columns` (y, z) tiles each walk `len` planes
 // beside `fixed` other blocks of the launch, and `bps` blocks an SM are
 // resident: the chunk that minimizes the waves of blocks times the planes
@@ -1527,18 +1564,10 @@ __host__ inline cudaError_t stream_blocks_per_sm(K kernel, int smem, int* bps,
 __host__ inline int stream_chunk(int len, long long columns, int R, int bps,
                                  int device, long long fixed = 0) {
     static std::mutex mu;
-    static std::map<int, int> sms;
     static std::map<std::tuple<int, long long, int, int, int, long long>,
                     int> chunks;
+    const int nsm = sm_count(device);
     std::lock_guard<std::mutex> lock(mu);
-    auto sm = sms.find(device);
-    if (sm == sms.end()) {
-        int n = 0;
-        if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
-                                   device) == cudaSuccess && n > 0)
-            sm = sms.emplace(device, n).first;
-    }
-    const int nsm = sm == sms.end() ? 1 : sm->second;
     const auto key = std::make_tuple(len, columns, R, bps, device, fixed);
     const auto it = chunks.find(key);
     if (it != chunks.end()) return it->second;

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile runs the device optimizer of a source over 4 threads:
 # the one-step 3D body has 96 instantiations in each of two sources, the
-# two-step body 72 in each of four (one a stencil order)
+# two-step 3D body 72 in each of four (one a stencil order), the two-step
+# 2D body 8 in each of four
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v", "--split-compile=4")
 
@@ -146,8 +147,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, i32, i32, i32, vp]
         fn.restype = i32
+    # params, device, out[2]
+    lib.gcm_simplex_occupancy.argtypes = [vp, i32, vp]
+    lib.gcm_simplex_occupancy.restype = i32
     # model id, params out
-    for name in ("gcm_stream_model_map", "gcm_sweep_model_map"):
+    for name in ("gcm_stream_model_map", "gcm_sweep_model_map",
+                 "gcm_simplex_model_map"):
         fn = getattr(lib, name)
         fn.argtypes = [i32, vp]
         fn.restype = i32

@@ -8,11 +8,12 @@ and the single-step contract). The kernels are CUDA C++ for Hopper,
 pass, the two-step body in ``csrc/fused_pair_stream.cuh``, compiled one
 stencil order a source; ``fused_step`` launches its float, one-step form)
 and ``csrc/fused_step_2d.cu`` (2D, both options: one step on the
-row-streamed body, two on a box tile), sharing their sweep and epilogue
-(``csrc/gcm_common.cuh``). The streamed bodies keep a cell's components in
-registers under a component map compiled for each model
-(``STREAM_MODELS``); ``check_stream_model`` holds the runtime model to
-it. ``fused_step_reference`` is the plain PyTorch version of one step
+row-streamed body, two on its two-step form in
+``csrc/fused_pair_rows.cuh``, compiled one stencil order a source),
+sharing their sweep and epilogue (``csrc/gcm_common.cuh``). The streamed
+bodies keep a cell's components in registers under a component map
+compiled for each model (``STREAM_MODELS``); ``check_stream_model`` holds
+the runtime model to it. ``fused_step_reference`` is the plain PyTorch version of one step
 (the port's ``solver.gcm.step`` on materials derived from the compact
 stack exactly as the kernels derive them, then
 ``corrector_epilogue_reference``); ``fused_step_slab_reference``
@@ -404,8 +405,8 @@ def _model_map(p: _Params) -> tuple:
 
 
 def check_stream_model(lib, model: Model, params: _Params) -> None:
-    """Raise unless the library's streamed bodies (the 3D ones, one and two
-    steps a pass, and the 2D one-step body) are compiled for ``model``'s
+    """Raise unless the library's streamed bodies (the 3D and 2D ones, one
+    and two steps a pass) are compiled for ``model``'s
     component map (``params.model``, set by ``_params``): the kernels keep a
     cell's components in registers under the compiled map and read only
     the stack rows from the parameters. Checked once a model and
@@ -424,6 +425,33 @@ def check_stream_model(lib, model: Model, params: _Params) -> None:
     if _model_map(compiled) != _model_map(params):
         raise RuntimeError(f"{model.name}: the component map compiled into "
                            "the fused kernels differs from the model's")
+    _verified_maps.add(key)
+
+
+def check_compiled_map(lib, model: Model, entry: str, kernel: str) -> None:
+    """Raise unless the map that the library's ``entry``
+    (``gcm_sweep_model_map``, ``gcm_simplex_model_map``) fills for
+    ``model`` is the model's own: ``kernel`` keeps a cell's components in
+    registers under that compiled map and reads only its material rows or
+    fields from the parameters. Checked once a model, entry and library; a
+    model without a compiled map raises ``ValueError`` before the library
+    is asked."""
+    if model.name not in STREAM_MODELS:
+        raise ValueError(f"{kernel} is compiled for {sorted(STREAM_MODELS)}, "
+                         f"not {model.name}")
+    key = (id(lib), entry, model.name)
+    if key in _verified_maps:
+        return
+    compiled = _Params()
+    if getattr(lib, entry)(STREAM_MODELS[model.name],
+                           ctypes.addressof(compiled)) != 0:
+        raise RuntimeError(f"the kernel library has no component map of "
+                           f"{kernel} for {model.name}")
+    runtime = _params(model, (1,) * model.dim, len(mat_layout(model)), 1.0,
+                      (1.0,) * model.dim, None, tuple(range(model.dim)), ())
+    if _model_map(compiled) != _model_map(runtime):
+        raise RuntimeError(f"{model.name}: the component map compiled into "
+                           f"{kernel} differs from the model's")
     _verified_maps.add(key)
 
 
@@ -635,9 +663,9 @@ def fused_step_2d(model: Model, u: torch.Tensor, mstack: torch.Tensor,
     ny]`` state (any extents), or two steps a pass with ``axes_seq``, on a
     float32 or bf16 stack. A CUDA tensor goes through the CUDA kernel
     (``csrc/fused_step_2d.cu``: one step on the row-streamed body, compiled
-    for elastic2d and acoustic2d, two on the box tile); a CPU tensor runs
-    ``fused_step_2d_reference``. ``fused_step_2d.launches`` counts every
-    launch, ``fused_step_2d.pair_launches`` those of two steps."""
+    for elastic2d and acoustic2d, two on its two-step form); a CPU tensor
+    runs ``fused_step_2d_reference``. ``fused_step_2d.launches`` counts
+    every launch, ``fused_step_2d.pair_launches`` those of two steps."""
     (out, new_aux), launched = _fused(2, "gcm_fused_step_2d", model, u,
                                       mstack, dt, h, order, borders, axes,
                                       axes_seq, correctors, aux)
@@ -696,7 +724,7 @@ def fused_step_2d_occupancy(model: Model, u: torch.Tensor,
                             axes: Optional[Sequence[int]] = None,
                             axes_seq=None) -> Tuple[int, int]:
     """``fused_step_slab_occupancy`` of the 2D kernel: the row-streamed body
-    for one step, the box tile for a two-step ``axes_seq``."""
+    for one step, its two-step form for a two-step ``axes_seq``."""
     return _occupancy("gcm_fused_step_2d_occupancy", 2, model, u, mstack,
                       dt, h, order, borders, axes, axes_seq)
 

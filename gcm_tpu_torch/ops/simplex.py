@@ -17,6 +17,9 @@ uniform kind with its values, or per-node codes ``[N]`` and values
 ``simplex_sweep`` launches the kernel for a CUDA tensor and runs
 ``simplex_sweep_reference``, its plain PyTorch version on the same plan, for
 a CPU tensor; for a CUDA tensor it launches or raises, it never falls back.
+The kernel is compiled for the component maps of ``ops.fused.STREAM_MODELS``
+(a node's components in registers); ``check_simplex_model`` holds the model
+to the compiled map and refuses any other model.
 ``simplex_sweep.launches`` counts the kernel launches.
 """
 
@@ -32,7 +35,8 @@ import torch
 from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.fused import _MAXC, _MAXP, _MAXZ
+from gcm_tpu_torch.ops.fused import (
+    _MAXC, _MAXP, _MAXZ, STREAM_MODELS, check_compiled_map)
 from gcm_tpu_torch.solver.simplex_gcm import (
     NodeBorders, pair_table_keys, pair_update, uniform_border,
 )
@@ -178,24 +182,35 @@ class _SimplexParams(ctypes.Structure):
         ("ids", ctypes.c_void_p), ("weights", ctypes.c_void_p),
         ("outside", ctypes.c_void_p), ("mats", ctypes.c_void_p),
         ("code", ctypes.c_void_p), ("val", ctypes.c_void_p),
-        ("N", ctypes.c_int), ("K", ctypes.c_int), ("ncomp", ctypes.c_int),
-        ("sign", ctypes.c_int), ("npairs", ctypes.c_int),
-        ("pair_sigma", ctypes.c_int * _MAXP), ("pair_vel", ctypes.c_int * _MAXP),
+        ("N", ctypes.c_int), ("K", ctypes.c_int), ("model", ctypes.c_int),
+        ("axis", ctypes.c_int),
         ("pair_tp", ctypes.c_int * _MAXP), ("pair_tm", ctypes.c_int * _MAXP),
         ("pair_zrow", ctypes.c_int * _MAXP),
         ("pair_traction", ctypes.c_int * _MAXP),
-        ("nzeros", ctypes.c_int), ("zero_comp", ctypes.c_int * _MAXZ),
-        ("zero_src", ctypes.c_int * _MAXZ), ("kappa_row", ctypes.c_int),
-        ("bc_kind", ctypes.c_int), ("bc_val", ctypes.c_float * _MAXP),
+        ("kappa_row", ctypes.c_int), ("bc_kind", ctypes.c_int),
+        ("bc_val", ctypes.c_float * _MAXP),
     ]
+
+
+def check_simplex_model(lib, model: Model) -> None:
+    """Raise unless the library's simplex kernel is compiled for
+    ``model``'s component map (``ops.fused.check_compiled_map``). The
+    plan's pairs and zeros come from the model's stages
+    (``build_simplex_plan``), so each plan pair is then the compiled pair
+    of its index in the model's stage."""
+    check_compiled_map(lib, model, "gcm_simplex_model_map",
+                       "the simplex kernel")
 
 
 def _simplex_params(plan: SimplexPlan, u: torch.Tensor,
                     axis: int) -> _SimplexParams:
-    """The kernel's parameters; raises on anything it does not take."""
+    """The kernel's parameters; raises on anything it does not take. Each
+    plan pair fills the slot of its index in the model's stage (the
+    compiled map's pair), and slots without tables stay at -1."""
     sp = plan.stages[axis]
     model = plan.model
-    if model.ncomp > _MAXC or len(sp.pairs) > _MAXP or len(sp.zeros) > _MAXZ:
+    st = model.stage(axis)
+    if model.ncomp > _MAXC or len(st.pairs) > _MAXP or len(st.zeros) > _MAXZ:
         raise ValueError(f"{model.name}: too many components, pairs or zeros")
     T = len(sp.keys)
     checks = [(sp.ids, torch.int32, (T, plan.N, plan.K)),
@@ -220,19 +235,42 @@ def _simplex_params(plan: SimplexPlan, u: torch.Tensor,
     if plan.border_code < 0:
         p.code = plan.code.data_ptr()
         p.val = plan.val[axis].data_ptr()
-    p.N, p.K, p.ncomp, p.sign = plan.N, plan.K, model.ncomp, model.sign
-    p.npairs = len(sp.pairs)
-    for q, (sg, vl, tp, tm, zrow, ta) in enumerate(sp.pairs):
-        p.pair_sigma[q], p.pair_vel[q] = sg, vl
+    p.N, p.K = plan.N, plan.K
+    p.model, p.axis = STREAM_MODELS.get(model.name, -1), axis
+    p.pair_tp[:] = p.pair_tm[:] = [-1] * _MAXP
+    slot = {(pr.sigma, pr.vel): q for q, pr in enumerate(st.pairs)}
+    for (sg, vl, tp, tm, zrow, ta), bv in zip(sp.pairs, sp.bc_val):
+        q = slot[(sg, vl)]
         p.pair_tp[q], p.pair_tm[q] = tp, tm
         p.pair_zrow[q], p.pair_traction[q] = zrow, ta
-        p.bc_val[q] = sp.bc_val[q]
-    p.nzeros = len(sp.zeros)
-    for j, (zc, zs) in enumerate(sp.zeros):
-        p.zero_comp[j], p.zero_src[j] = zc, zs
+        p.bc_val[q] = bv
     p.kappa_row = _KAPPA
     p.bc_kind = plan.border_code
     return p
+
+
+def _check_state(plan: SimplexPlan, u: torch.Tensor, axis: int) -> None:
+    model = plan.model
+    if u.ndim != 2 or tuple(u.shape) != (model.ncomp, plan.N):
+        raise ValueError(f"state of shape {tuple(u.shape)} is not "
+                         f"[{model.ncomp}, {plan.N}]")
+    if axis not in plan.stages:
+        raise ValueError(f"axis {axis} out of range for {model.name}")
+
+
+def _kernel_params(plan: SimplexPlan, u: torch.Tensor, axis: int):
+    """The library and the kernel's parameters for a CUDA state: the
+    state's checks, the plan's, and the compiled map's."""
+    if u.dtype != torch.float32:
+        raise TypeError("simplex_sweep's kernel takes float32 state")
+    if not u.is_contiguous():
+        raise ValueError("simplex_sweep's kernel takes a contiguous state")
+    params = _simplex_params(plan, u, axis)
+    lib = _build.load()
+    check_simplex_model(lib, plan.model)
+    if ctypes.sizeof(params) != lib.gcm_simplex_params_size():
+        raise RuntimeError("GcmSimplexParams layout differs from its binding")
+    return lib, params
 
 
 def simplex_sweep(plan: SimplexPlan, u: torch.Tensor,
@@ -240,24 +278,12 @@ def simplex_sweep(plan: SimplexPlan, u: torch.Tensor,
     """One characteristic sweep along ``axis`` of the node state
     ``u [ncomp, N]``; returns the whole new state. A CUDA tensor goes
     through the CUDA kernel, a CPU tensor through the plain version."""
-    model = plan.model
-    if u.ndim != 2 or tuple(u.shape) != (model.ncomp, plan.N):
-        raise ValueError(f"state of shape {tuple(u.shape)} is not "
-                         f"[{model.ncomp}, {plan.N}]")
-    if axis not in plan.stages:
-        raise ValueError(f"axis {axis} out of range for {model.name}")
+    _check_state(plan, u, axis)
     if u.device.type == "cpu":
         return simplex_sweep_reference(plan, u, axis)
     if u.device.type != "cuda":
         raise ValueError(f"simplex_sweep has no kernel for device {u.device}")
-    if u.dtype != torch.float32:
-        raise TypeError("simplex_sweep's kernel takes float32 state")
-    if not u.is_contiguous():
-        raise ValueError("simplex_sweep's kernel takes a contiguous state")
-    params = _simplex_params(plan, u, axis)
-    lib = _build.load()
-    if ctypes.sizeof(params) != lib.gcm_simplex_params_size():
-        raise RuntimeError("GcmSimplexParams layout differs from its binding")
+    lib, params = _kernel_params(plan, u, axis)
     out = torch.empty_like(u)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = lib.gcm_simplex_sweep(u.data_ptr(), out.data_ptr(),
@@ -268,6 +294,22 @@ def simplex_sweep(plan: SimplexPlan, u: torch.Tensor,
                            f"{err} ({lib.gcm_error_string(err).decode()})")
     simplex_sweep.launches += 1
     return out
+
+
+def simplex_sweep_occupancy(plan: SimplexPlan, u: torch.Tensor,
+                            axis: int) -> Tuple[int, int]:
+    """``(blocks_per_sm, nodes_per_block)`` that a launch of the kernel on
+    these arguments gets on ``u``'s card: resident blocks an SM, and the
+    nodes each block of the launch takes."""
+    _check_state(plan, u, axis)
+    lib, params = _kernel_params(plan, u, axis)
+    out = (ctypes.c_int * 2)()
+    err = lib.gcm_simplex_occupancy(ctypes.addressof(params), u.device.index,
+                                    out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                           f"({lib.gcm_error_string(err).decode()})")
+    return out[0], out[1]
 
 
 simplex_sweep.launches = 0

@@ -25,8 +25,7 @@ from gcm_tpu_torch.materials import MaterialFields
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.fused import (
-    _BC_CODES, _MAXC, _MAXP, _MAXZ, STREAM_MODELS, _model_map, _Params,
-    _params, mat_layout)
+    _BC_CODES, _MAXC, _MAXP, _MAXZ, STREAM_MODELS, check_compiled_map)
 from gcm_tpu_torch.solver.gcm import stage
 from gcm_tpu_torch.task import BorderSpec
 
@@ -46,31 +45,11 @@ class _SweepParams(ctypes.Structure):
     ]
 
 
-_verified_maps = set()
-
-
 def check_sweep_model(lib, model: Model) -> None:
     """Raise unless the library's per-sweep kernel is compiled for
-    ``model``'s component map: the kernel keeps a cell's components in
-    registers under the compiled map and reads only the material fields
-    from the parameters. Checked once a model and library."""
-    key = (id(lib), model.name)
-    if key in _verified_maps:
-        return
-    if model.name not in STREAM_MODELS:
-        raise ValueError(f"sweep_stage's kernel is compiled for "
-                         f"{sorted(STREAM_MODELS)}, not {model.name}")
-    compiled = _Params()
-    if lib.gcm_sweep_model_map(STREAM_MODELS[model.name],
-                               ctypes.addressof(compiled)) != 0:
-        raise RuntimeError(f"the kernel library has no per-sweep component "
-                           f"map for {model.name}")
-    runtime = _params(model, (1,) * model.dim, len(mat_layout(model)), 1.0,
-                      (1.0,) * model.dim, None, tuple(range(model.dim)), ())
-    if _model_map(compiled) != _model_map(runtime):
-        raise RuntimeError(f"{model.name}: the component map compiled into "
-                           "sweep_stage's kernel differs from the model's")
-    _verified_maps.add(key)
+    ``model``'s component map (``ops.fused.check_compiled_map``)."""
+    check_compiled_map(lib, model, "gcm_sweep_model_map",
+                       "sweep_stage's kernel")
 
 
 def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,

@@ -89,6 +89,14 @@ def norm_err(got, want):
     return ((got - want).abs().reshape(c, -1).amax(1) / scale).max().item()
 
 
+def seqs_2d(ksteps):
+    """The 2D sweep sequences of a pass of ``ksteps`` steps: both orders for
+    one step, every pair of them for two."""
+    orders = ((0, 1), (1, 0))
+    return ([(ax,) for ax in orders] if ksteps == 1
+            else list(itertools.product(orders, orders)))
+
+
 #: 3D sweep orders with x first, last and in the middle
 AXES_3D = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
 #: 3D extents: a tile multiple along none of the axes, ragged against the
@@ -276,10 +284,13 @@ def test_2d_and_sweep_kernels_reject_what_they_do_not_take(cuda):
 
 # ------------------------------------------------------------------ simplex
 
-#: (n, dim, model, order, fluid): jittered n^dim box meshes
+#: (n, dim, model, order, fluid): jittered n^dim box meshes; 9^3 = 729
+#: nodes is no multiple of the kernel's 128-thread block, and the 2D
+#: order-2 mesh has tables of K = 10 (no 16-byte rows)
 SIMPLEX_CASES = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
                  (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
-                 (12, 2, "elastic2d", 1, False)]
+                 (12, 2, "elastic2d", 1, False), (9, 3, "elastic3d", 1, False),
+                 (12, 2, "elastic2d", 2, False)]
 
 
 def simplex_problem(seed, n, dim, name, order, fluid, device):
@@ -326,8 +337,9 @@ def simplex_border(grid, dim, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("border", ["absorbing", "free", "fixed_force",
                                     "fixed_velocity", "node"])
-@pytest.mark.parametrize("case", SIMPLEX_CASES,
-                         ids=lambda c: f"{c[2]}-o{c[3]}{'-fluid' * c[4]}")
+@pytest.mark.parametrize(
+    "case", SIMPLEX_CASES,
+    ids=lambda c: f"{c[2]}-o{c[3]}{'-fluid' * c[4]}-n{c[0]}")
 def test_simplex_kernel_matches_plain_on_card(cuda, case, border):
     n, dim, name, order, fluid = case
     grid, model, mat, tables, u0 = simplex_problem(order, *case, cuda)
@@ -554,6 +566,61 @@ def test_rows_occupancy_on_card(cuda, name):
                     model, u, mext, dt, h, order, borders(2), axes,
                     ring=ring)
                 assert bps >= 4 and 0 < smem < 16_384
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["elastic2d", "acoustic2d"])
+def test_rows_pair_occupancy_on_card(cuda, name):
+    """The two-step 2D body takes a few rows of shared memory (under 24 KB)
+    and holds at least four blocks of 4 warps an SM, in every pair of sweep
+    orders at every stencil order, float and bf16 stacks."""
+    from gcm_tpu_torch.ops.fused import fused_step_2d_occupancy
+
+    model, u, ms, dt = card_problem(0, name, (16, 64), cuda)
+    for order in (1, 2, 3, 4):
+        for stack in (ms, ms.to(torch.bfloat16)):
+            for seq in seqs_2d(2):
+                bps, smem = fused_step_2d_occupancy(
+                    model, u, stack, dt, (1.0, 1.0), order, borders(2),
+                    axes_seq=seq)
+                assert bps >= 4 and 0 < smem < 24_576
+
+
+@pytest.mark.gpu
+def test_simplex_occupancy_on_card(cuda):
+    """The simplex sweep keeps a node's components in registers within the
+    budget of six 128-thread blocks an SM, and hands each block at least a
+    node a thread: at 65^3 (274,625 nodes) every block of one wave."""
+    from gcm_tpu_torch.ops.simplex import simplex_sweep_occupancy
+
+    for case in SIMPLEX_CASES:
+        grid, model, mat, tables, u = simplex_problem(0, *case, cuda)
+        plan = build_simplex_plan(model, mat, tables, "free", cuda)
+        for axis in range(case[1]):
+            bps, nb = simplex_sweep_occupancy(plan, u, axis)
+            assert bps >= 6 and nb >= 128
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_a_model_without_a_compiled_map_on_card(cuda):
+    """A model the kernels have no component map for (here elastic2d and
+    elastic3d under other names) is refused by the two-step 2D launch and
+    the simplex sweep, before any launch."""
+    model, u, ms, dt = card_problem(0, "elastic2d", (16, 24), cuda)
+    other = dataclasses.replace(model, name="elastic2d_other")
+    before = fused_step_2d.launches
+    with pytest.raises(ValueError, match="compiled for"):
+        fused_step_2d(other, u, ms, dt, (1.0, 1.0), 2, borders(2),
+                      axes_seq=((0, 1), (1, 0)))
+    grid, model3, mat, tables, u3 = simplex_problem(0, *SIMPLEX_CASES[0],
+                                                    cuda)
+    other3 = dataclasses.replace(model3, name="elastic3d_other")
+    plan = build_simplex_plan(other3, mat, tables, "free", cuda)
+    sweeps = simplex_sweep.launches
+    with pytest.raises(ValueError, match="compiled for"):
+        simplex_sweep(plan, u3, 0)
+    assert fused_step_2d.launches == before
+    assert simplex_sweep.launches == sweeps
 
 
 @pytest.mark.gpu
@@ -852,8 +919,7 @@ def test_2d_kernel_bf16_and_two_steps_on_card(cuda, order, bf16, ksteps,
     if bf16:
         ms = ms.to(torch.bfloat16)
     h = (10.0, 12.0)
-    for ax in ((0, 1), (1, 0)):
-        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+    for seq in seqs_2d(ksteps):
         before = fused_step_2d.launches
         got = fused_step_2d(model, u, ms, dt, h, order, borders(2),
                             axes_seq=seq)
@@ -1043,8 +1109,7 @@ def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps,
     if bf16:
         ms = ms.to(torch.bfloat16)
     h = (10.0, 12.0)
-    for ax in ((0, 1), (1, 0)):
-        seq = (ax,) if ksteps == 1 else (ax, ax[::-1])
+    for seq in seqs_2d(ksteps):
         before = fused_step_2d.launches
         got = fused_step_2d(model, u, ms, dt, h, order, borders(2),
                             axes_seq=seq)
@@ -1055,7 +1120,7 @@ def test_ortho_2d_kernel_matches_plain_on_card(cuda, order, bf16, ksteps,
         assert norm_err(got, want) < 2e-6 * ksteps
         if not bf16 and ksteps == 1:
             exact = step(model, u.double(), _f64(mat), dt, h, order,
-                         borders(2), ax)
+                         borders(2), seq[0])
             assert norm_err(got.double(), exact) < 3e-6
 
 

@@ -21,6 +21,7 @@ as numpy arrays; JAX runs on the CPU with x64 (tests/conftest.py).
   the two locators agree (asserted).
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -52,8 +53,11 @@ from gcm_tpu_torch.engine_simplex import SimplexEngine, resolve_simplex_kernel
 from gcm_tpu_torch.grids import simplex as tsimplex
 from gcm_tpu_torch.grids.locate import MAX_STEPS, walk_locate
 from gcm_tpu_torch.models.spec import get_model
+from gcm_tpu_torch.ops import fused as ofu
+from gcm_tpu_torch.ops import simplex as osx
 from gcm_tpu_torch.ops.simplex import (
-    build_simplex_plan, simplex_step, simplex_sweep, simplex_sweep_reference,
+    build_simplex_plan, check_simplex_model, simplex_step, simplex_sweep,
+    simplex_sweep_reference,
 )
 from gcm_tpu_torch.scenarios import get_scenario
 from gcm_tpu_torch.solver.simplex_gcm import build_node_borders, simplex_stage
@@ -379,6 +383,83 @@ def test_sweep_wrapper_on_cpu_runs_the_plain_version():
     assert norm_err(got.numpy(), want.numpy()) < 2e-6
     with pytest.raises(ValueError):
         simplex_sweep(plan, u[:, :-1], 0)
+
+
+class _SimplexMapLib:
+    """Stands in for the kernel library's ``gcm_simplex_model_map`` (the
+    CPU has no library): fills the map of model ``name`` for every id it
+    knows, optionally with one pair's velocity component moved."""
+
+    def __init__(self, name, moved=False):
+        self.name, self.moved = name, moved
+
+    def gcm_simplex_model_map(self, model_id, addr):
+        if model_id not in ofu.STREAM_MODELS.values():
+            return 1
+        model = get_model(self.name)
+        src = ofu._params(model, (4,) * model.dim,
+                          len(ofu.mat_layout(model)), 1.0, (1.0,) * model.dim,
+                          None, tuple(range(model.dim)), ())
+        if self.moved:
+            src.pair_vel[0][0] += 1
+        ctypes.memmove(addr, ctypes.addressof(src), ctypes.sizeof(src))
+        return 0
+
+
+@pytest.mark.parametrize("name", ["elastic3d", "acoustic3d", "elastic2d",
+                                  "acoustic2d"])
+def test_simplex_binding_holds_the_model_to_the_compiled_map(name):
+    model = get_model(name)
+    # distinct live stand-ins: the check is remembered a model and library
+    good, moved = _SimplexMapLib(name), _SimplexMapLib(name, moved=True)
+    other = _SimplexMapLib({"elastic3d": "acoustic3d",
+                            "acoustic3d": "elastic3d",
+                            "elastic2d": "acoustic2d",
+                            "acoustic2d": "elastic2d"}[name])
+    check_simplex_model(good, model)
+    for lib in (moved, other):
+        with pytest.raises(RuntimeError, match="component map"):
+            check_simplex_model(lib, model)
+
+
+@pytest.mark.parametrize("name", ["elastic1d", "acoustic1d"])
+def test_simplex_binding_refuses_a_model_without_a_map(name):
+    """No simplex map is compiled for the 1D models: the binding raises
+    before it asks the library."""
+    class Unasked:
+        def gcm_simplex_model_map(self, *args):
+            raise AssertionError("the library was asked")
+
+    with pytest.raises(ValueError, match="compiled for"):
+        check_simplex_model(Unasked(), get_model(name))
+
+
+@pytest.mark.parametrize("mesh", ["3d", "3d-fluid", "2d"])
+def test_simplex_params_fill_the_model_pair_slots(mesh):
+    """The kernel's parameters put each plan pair's tables in the slot of
+    its index in the model's stage, the compiled map's pair; a pair without
+    tables keeps -1, the two S pairs of a 3D sweep name one pair of tables,
+    and the zeros the kernel applies with the P pair are the plan's."""
+    p = mesh_problem(mesh)
+    model = get_model(p["model"])
+    plan = build_simplex_plan(model, p["tmat"], p["ttables"], "free")
+    u = torch.zeros((model.ncomp, plan.N))
+    for axis, sp in plan.stages.items():
+        params = osx._simplex_params(plan, u, axis)
+        assert (params.model, params.axis) == (
+            ofu.STREAM_MODELS[model.name], axis)
+        st = model.stage(axis)
+        by_pair = {(sg, vl): (tp, tm) for sg, vl, tp, tm, *_ in sp.pairs}
+        for q, pair in enumerate(st.pairs):
+            want = by_pair.get((pair.sigma, pair.vel), (-1, -1))
+            assert (params.pair_tp[q], params.pair_tm[q]) == want
+        if mesh == "3d":
+            assert params.pair_tp[1] == params.pair_tp[2] >= 0
+            assert params.pair_tm[1] == params.pair_tm[2] >= 0
+        if mesh == "3d-fluid":
+            assert params.pair_tp[1] == params.pair_tp[2] == -1
+        assert params.pair_tp[0] >= 0
+        assert sp.zeros == tuple((z.comp, z.src) for z in st.zeros)
 
 
 # ------------------------------------------------------------------ engine

@@ -14,6 +14,7 @@ on the card in tests/test_torch_gpu.py.
 """
 
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,18 +99,25 @@ def test_slab_reference_folds_correctors_as_jax(rng, bf16):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("bf16,seq", [(True, False), (True, True),
-                                      (False, True)])
-def test_2d_reference_matches_jax_kernel(rng, bf16, seq):
+#: one 2D step along (1, 0), and two steps a pass in every pair of the two
+#: sweep orders, on float32 and bf16 stacks
+SEQS_2D = [(True, ((1, 0),))] + [
+    (k % 2 == 0, seq) for k, seq in enumerate(itertools.product(
+        ((0, 1), (1, 0)), repeat=2))]
+
+
+@pytest.mark.parametrize("bf16,seq", SEQS_2D, ids=str)
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_2d_reference_matches_jax_kernel(rng, order, bf16, seq):
     model, ju, jmat, tu, tmat, dt = problem(rng, "elastic2d", (16, 24),
                                             np.float32)
     jb, tb = borders_pair(2)
     jms, tms = _stacks(model, jmat, tmat, bf16)
-    kw = dict(axes_seq=((1, 0), (0, 1))) if seq else dict(axes=(1, 0))
-    want = jfused_step_2d(model, ju, jms, dt, (10.0, 12.0), 2, jb, bx=8,
+    kw = dict(axes_seq=seq) if len(seq) == 2 else dict(axes=seq[0])
+    want = jfused_step_2d(model, ju, jms, dt, (10.0, 12.0), order, jb, bx=8,
                           interpret=True, **kw)
     got = fused_step_2d_reference(get_model("elastic2d"), tu, tms, dt,
-                                  (10.0, 12.0), 2, tb, **kw)
+                                  (10.0, 12.0), order, tb, **kw)
     assert norm_err(got, want) < 2e-6
 
 

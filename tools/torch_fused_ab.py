@@ -38,14 +38,21 @@ enqueueing), on that state:
   of those two wrappers (parameters, checks and the launch, with the card
   kept busy behind a spin kernel, so no call waits on it): the host work
   a launch adds to the host-paced sharded path;
-- ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``: wall ms
-  a step of ``Engine.run()`` (host clock, the card synchronised before and
-  after, warmed up) over 100 steps of the pair-fused path
-  (``elastic3d_layered`` n=256, no receivers, ``temporal_block=True``: 50
-  two-step passes) and of the per-sweep path (``elastic3d_explosion``
-  n=256, ``kernel="sweep"``), and over 300 steps of the 2D path
-  (``elastic2d_viscoelastic`` n=2048) and of the same on sx = 4 shards of
-  cuda:0; with ``--path-runs N`` the median of N runs in the process.
+- ``simplex``: ``simplex_sweep`` on the state of 20 steps of
+  ``simplex3d_layered`` at n=65 (274,625 nodes, the simplex path's mesh),
+  the mean over the three axes of each axis's median (the host builds the
+  mesh and its foot tables first, about a minute a process);
+- ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``,
+  ``path_pair_2d``: wall ms a step of ``Engine.run()`` (host clock, the
+  card synchronised before and after, warmed up) over 100 steps of the
+  pair-fused path (``elastic3d_layered`` n=256, no receivers,
+  ``temporal_block=True``: 50 two-step passes) and of the per-sweep path
+  (``elastic3d_explosion`` n=256, ``kernel="sweep"``), over 300 steps of
+  the 2D path (``elastic2d_viscoelastic`` n=2048) and of the same on sx = 4
+  shards of cuda:0, and over 100 steps of the 2D pair-fused path
+  (``elastic2d_ps`` n=2048, no receivers, ``temporal_block=True``: 50
+  two-step passes); with ``--path-runs N`` the median of N runs in the
+  process.
 
 A checkout that has orthotropic media also times the kernel keys with
 every layer made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
@@ -69,12 +76,13 @@ KEYS = ("fused_step", "slab_f32", "slab_bf16", "pair_f32", "pair_bf16",
 KEYS_2D = ("fused_2d_f32", "fused_2d_bf16", "pair_2d", "spmd_2d_interior",
            "spmd_2d_ring")
 HOST_KEYS = ("host_spmd_2d_interior", "host_spmd_2d_ring")
-PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded")
+PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded",
+             "path_pair_2d")
 #: the canonical contact order and the pair of steps a two-step pass runs
 CANON = (2, 0, 1)
 PAIR = (CANON, (1, 0, 2))
 ALL_KEYS = (KEYS + KEYS_2D + tuple(f"ortho_{k}" for k in KEYS + KEYS_2D)
-            + HOST_KEYS + PATH_KEYS)
+            + HOST_KEYS + ("simplex",) + PATH_KEYS)
 
 
 def _orthotropic(m, cls):
@@ -235,8 +243,27 @@ def child(root, reps, keys, path_runs):
     if cls is not None and set(KEYS_2D) & okeys:
         out.update({f"ortho_{k}": v for k, v in _time_2d(
             _orthoize(task2, cls), reps, okeys).items()})
+    if "simplex" in keys:
+        out.update(_time_simplex(reps))
     out.update(_time_paths(keys, path_runs))
     print(json.dumps(out), flush=True)
+
+
+def _time_simplex(reps):
+    """``simplex``: the simplex sweep on the 65^3 path's state."""
+    from gcm_tpu_torch.engine_simplex import SimplexEngine
+    from gcm_tpu_torch.ops.simplex import simplex_sweep
+    from gcm_tpu_torch.scenarios import get_scenario
+
+    task = get_scenario("simplex3d_layered", n=65, nsteps=20)
+    t0 = time.perf_counter()
+    eng = SimplexEngine.from_task(task, device="cuda")
+    setup = time.perf_counter() - t0
+    eng.run()
+    ms = [_median_ms(lambda a=a: simplex_sweep(eng._plan, eng.u, a), reps)
+          for a in range(3)]
+    return {"simplex": statistics.mean(ms), "simplex_by_axis": ms,
+            "simplex_setup_s": setup}
 
 
 def _time_paths(keys, runs):
@@ -259,6 +286,9 @@ def _time_paths(keys, runs):
             kernel="sweep"),
         "path_2d": visco2d,
         "path_2d_sharded": visco2d,
+        "path_pair_2d": dataclasses.replace(
+            get_scenario("elastic2d_ps", n=2048, nsteps=100),
+            detectors=None, temporal_block=True),
     }
     out = {}
     for key, task in tasks.items():
