@@ -550,7 +550,8 @@ def simplex_kernel_vs_plain():
     cases = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
              (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
              (12, 2, "elastic2d", 1, False), (9, 3, "elastic3d", 1, False),
-             (12, 2, "elastic2d", 2, False)]
+             (12, 2, "elastic2d", 2, False), (12, 2, "elastic2d", 3, False),
+             (8, 3, "elastic3d", 3, False)]
     worst, nsweeps = 0.0, 0
     for n, dim, name, order, fluid in cases:
         grid, model, mat, tables, u0 = _simplex_problem(rng, n, dim, name,
@@ -2592,7 +2593,7 @@ def main() -> int:
                                "gcm_tpu/ops/pallas_fused.py:807"),
         "fused_step_2d": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                           "gcm_tpu/ops/pallas_fused.py:1035"),
-        "fused_step_2d_k2": ("gcm_tpu_torch/csrc/fused_pair_rows.cuh",
+        "fused_step_2d_k2": ("gcm_tpu_torch/csrc/fused_step_2d.cu",
                              "gcm_tpu/ops/pallas_fused.py:1035"),
         "sweep_stage": ("gcm_tpu_torch/csrc/sweep_stage.cu",
                         "gcm_tpu/ops/pallas_stage.py:366"),

@@ -53,16 +53,40 @@
 // - Edge replication is index clamping, as in 3D: borders stay keyed on the
 //   global row or column (0 or n - 1), ragged strips are masked at the
 //   store, any extent works, thinner than the halo included.
-// Two steps a pass (K = 2, temporal blocking, opt-in) run the two-step
-// form of that body (gcm_common.cuh::stream_rows_pair), compiled one
-// stencil order a source (fused_pair_rows.cuh) and launched from here.
+// Two steps a pass (K = 2, temporal blocking, opt-in) run the two-step form
+// of that body, gcm_common.cuh::stream_rows_pair. It replaces the two-step
+// form of the Pallas kernel: len(axes_seq) == 2, the sweeps of
+// _make_2d_kernel (:1013-1022) once a step with the edge re-patch between
+// the steps (:1020-1022), folded correctors refused (:1086-1088). A pass
+// moves one step's bytes for two steps; four sweeps stay far below the
+// f32 rate but are what one-step launches issue twice (the one-step body
+// is issue-bound at half its bound, PERF.md), so the aim is to beat two
+// one-step launches:
+// - The one-step row pipeline twice, chained in registers. A block of 128
+//   threads owns a window of 128 columns of y and walks a chunk of x rows;
+//   the first step (A) runs on the whole window, and the second (B) reads
+//   A's output rows. A's output strip of 128 - 2r columns feeds B's strip
+//   of 128 - 4r (r = 1: 124 columns, 17 strips at 2048^2).
+// - Rows are staged with cp.async three rows ahead (16-byte copies where
+//   the rows are aligned), as for one step. Each sweep along x reads a
+//   register ring of 2r + 1 rows of the thread's own column: A's ring of
+//   A's input, B's ring of A's output after B's first sweep. Only the y
+//   sweeps read neighbours, from a shared row.
+// - The edge re-patch: A's output row goes through a shared row that B
+//   reads at columns clamped to the domain (the y edge), and B's ring is
+//   filled at clamped row indices (the x edge: the domain's first row
+//   enters r + 1 times, its last repeats until the chunk is done). So the
+//   state and materials are read once and the state written once a pass.
+// - Compile time: the model's component map and both sweep orders (A and
+//   B each x first or y first), 4 orders x 2 models x 4 pairs = 32
+//   instantiations, in this source beside the one-step body's 16. The
+//   stack's stored type is a runtime flag (DynMat) and the stack rows stay
+//   runtime, so the compact and orthotropic layouts, float and bf16, share
+//   a path.
+// - x chunks are cut by occupancy as for one step, counting the 4r rows a
+//   chunk stages beyond its own.
 
-#include "fused_pair_rows.cuh"
-
-GCM_PAIR_ROWS_ENTRY(1);
-GCM_PAIR_ROWS_ENTRY(2);
-GCM_PAIR_ROWS_ENTRY(3);
-GCM_PAIR_ROWS_ENTRY(4);
+#include "gcm_common.cuh"
 
 namespace {
 
@@ -110,6 +134,48 @@ cudaError_t launch_rows(const float* u, const void* m, int bf16,
     return cudaGetLastError();
 }
 
+// Two steps: output rows [ch * blockIdx.y, +ch) of strip blockIdx.x.
+template <int ORDER, class M, bool XA, bool XB>
+__global__ void __launch_bounds__(PAIR_ROWS_NT, PairRowTile<ORDER>::MINB)
+fused_pair_rows_kernel(const float* __restrict__ u, const void* m, int bf16,
+                       float* __restrict__ out, int ch, int vec,
+                       GcmFusedParams p) {
+    extern __shared__ __align__(16) float smem[];
+    const int n0 = p.n[0], n1 = p.n[1];
+    const long long N = (long long)n0 * n1;
+    const int xa = (int)blockIdx.y * ch;
+    const int xb = min(xa + ch, n0);
+    const GlobalSrc src{u, n0, n1, 1, N};
+    const DynMat mat{m, n0, n1, 1, N, bf16};
+    stream_rows_pair<ORDER, M, XA, XB>(
+        p, src, mat, xa, xb, (int)blockIdx.x * PairRowTile<ORDER>::TY, smem,
+        StepOut{out, nullptr, nullptr, N}, vec != 0);
+}
+
+// Launches one pass of two steps (occ == nullptr), or reports the
+// occupancy such a launch gets.
+template <int ORDER, class M, bool XA, bool XB>
+cudaError_t launch_pair_rows(const float* u, const void* m, int bf16,
+                             float* out, const GcmFusedParams& p, int device,
+                             cudaStream_t stream, StreamOccupancy* occ) {
+    using L = PairRowLayout<ORDER, M::C, XA, XB>;
+    using T = PairRowTile<ORDER>;
+    const auto kernel = fused_pair_rows_kernel<ORDER, M, XA, XB>;
+    int bps = 0;
+    cudaError_t err = stream_blocks_per_sm(kernel, L::BYTES, &bps, T::NT);
+    if (err != cudaSuccess) return err;
+    if (occ != nullptr) {
+        *occ = StreamOccupancy{bps, L::BYTES};
+        return cudaSuccess;
+    }
+    const int nst = (p.n[1] + T::TY - 1) / T::TY;
+    const int ch = stream_chunk(p.n[0], nst, 2 * T::R, bps, device);
+    const int vec = p.n[1] % 4 == 0 && aligned16(u);
+    const dim3 grid(nst, (p.n[0] + ch - 1) / ch);
+    kernel<<<grid, T::NT, L::BYTES, stream>>>(u, m, bf16, out, ch, vec, p);
+    return cudaGetLastError();
+}
+
 cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
                     float* out, float* aux_out, const GcmFusedParams& p,
                     int order, int mat_bf16, int ksteps, int device,
@@ -122,18 +188,13 @@ cudaError_t step_2d(const float* u, const void* mstack, const float* aux_in,
                 occ);
         });
     if (ksteps != 2 || p.nspec > 0) return cudaErrorInvalidValue;
-    const auto pair = order == 1   ? gcm_fused_pair_rows_o1
-                      : order == 2 ? gcm_fused_pair_rows_o2
-                      : order == 3 ? gcm_fused_pair_rows_o3
-                      : order == 4 ? gcm_fused_pair_rows_o4
-                                   : nullptr;
-    if (pair == nullptr) return cudaErrorInvalidValue;
-    int o[2] = {0, 0};
-    const cudaError_t err = (cudaError_t)pair(
-        u, mstack, out, &p, mat_bf16, device, s,
-        occ != nullptr ? o : nullptr);
-    if (occ != nullptr) *occ = StreamOccupancy{o[0], o[1]};
-    return err;
+    return with_stencil(order, [&](auto o) {
+        return with_rows_pair(p, [&](auto mdl, auto xa, auto xb) {
+            return launch_pair_rows<decltype(o)::value, decltype(mdl),
+                                    decltype(xa)::value, decltype(xb)::value>(
+                u, mstack, mat_bf16, out, p, device, s, occ);
+        });
+    });
 }
 
 }  // namespace

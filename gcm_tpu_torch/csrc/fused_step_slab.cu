@@ -219,11 +219,13 @@ int gcm_fused_step_slab_occupancy(const GcmFusedParams* params, int order,
     return (int)err;
 }
 
-// Fills the component map compiled for `model` (STREAM_MODEL_* of the 3D
-// bodies, SWEEP_MODEL_ELASTIC2D/ACOUSTIC2D of the 2D one) into ncomp, sign,
-// npairs, pair_sigma, pair_vel, nzeros, zero_comp, zero_src, ndiag, diag,
-// nshear and shear of *out. Returns 0, or 1 for an unknown id.
-int gcm_stream_model_map(int model, GcmFusedParams* out) {
+// Fills the component map compiled for `model` (STREAM_MODEL_*,
+// SWEEP_MODEL_*2D: the one map of each model that the streamed bodies, the
+// per-sweep kernel and the simplex sweep are all compiled for, from
+// gcm_common.cuh) into ncomp, sign, npairs, pair_sigma, pair_vel, nzeros,
+// zero_comp, zero_src, ndiag, diag, nshear and shear of *out. Returns 0, or
+// 1 for an unknown id.
+int gcm_model_map(int model, GcmFusedParams* out) {
     return (int)with_sweep_model(model, [&](auto mdl) {
         model_map<decltype(mdl)>(out);
         return cudaSuccess;

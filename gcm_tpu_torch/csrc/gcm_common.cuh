@@ -72,8 +72,8 @@ struct GcmFusedParams {
 };
 
 // The component maps the streamed bodies and the per-sweep kernel are
-// compiled for (the ids of GcmFusedParams::model and GcmSweepParams::model;
-// gcm_stream_model_map and gcm_sweep_model_map export all four).
+// compiled for (the ids of GcmFusedParams::model, GcmSweepParams::model and
+// GcmSimplexParams::model; gcm_model_map exports all four).
 constexpr int STREAM_MODEL_ELASTIC3D = 0;
 constexpr int STREAM_MODEL_ACOUSTIC3D = 1;
 constexpr int SWEEP_MODEL_ELASTIC2D = 2;

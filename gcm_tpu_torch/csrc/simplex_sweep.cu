@@ -373,16 +373,6 @@ int gcm_simplex_occupancy(const GcmSimplexParams* params, int device,
     return (int)err;
 }
 
-// Fills the component map the simplex sweep is compiled for (`model`, any
-// of the four ids of gcm_stream_model_map) into the map fields of *out.
-// Returns 0, or 1 for an unknown id.
-int gcm_simplex_model_map(int model, GcmFusedParams* out) {
-    return (int)with_sweep_model(model, [&](auto mdl) {
-        model_map<decltype(mdl)>(out);
-        return cudaSuccess;
-    });
-}
-
 // sizeof(GcmSimplexParams), so the binding can check its mirror of the layout
 int gcm_simplex_params_size(void) { return (int)sizeof(GcmSimplexParams); }
 

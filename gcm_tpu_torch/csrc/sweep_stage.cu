@@ -21,7 +21,7 @@
 // - The model's component map (elastic3d, acoustic3d, elastic2d,
 //   acoustic2d) and the sweep axis are compile time, so a cell's values
 //   stay in registers; the binding holds the runtime model to the compiled
-//   map (gcm_sweep_model_map) and refuses any other model.
+//   map (gcm_model_map) and refuses any other model.
 // - The state is read as (C, outer, na, inner): na cells along the sweep
 //   axis, inner contiguous cells between two of them. A block stages the
 //   2 * NPAIRS components the sweep interpolates, for its tile and an r
@@ -359,22 +359,12 @@ extern "C" {
 // Launches one sweep on `stream` of device `device` with the component map
 // params->model; returns the CUDA error code of the launch (0 on success).
 // The caller allocates `out` and checks shapes, types, contiguity, the
-// material field pointers and the model against gcm_sweep_model_map.
+// material field pointers and the model against gcm_model_map.
 int gcm_sweep_stage(const float* u, float* out, const GcmSweepParams* params,
                     int order, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     return (int)sweep(u, out, *params, order, (cudaStream_t)stream);
-}
-
-// Fills the component map compiled for `model` (STREAM_MODEL_*,
-// SWEEP_MODEL_*) into the map fields of *out, as gcm_stream_model_map
-// does. Returns 0, or 1 for an unknown id.
-int gcm_sweep_model_map(int model, GcmFusedParams* out) {
-    return (int)with_sweep_model(model, [&](auto mdl) {
-        model_map<decltype(mdl)>(out);
-        return cudaSuccess;
-    });
 }
 
 // sizeof(GcmSweepParams), so the binding can check its mirror of the layout

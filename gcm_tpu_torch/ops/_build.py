@@ -25,8 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile runs the device optimizer of a source over 4 threads:
 # the one-step 3D body has 96 instantiations in each of two sources, the
-# two-step 3D body 72 in each of four (one a stencil order), the two-step
-# 2D body 8 in each of four
+# two-step 3D body 72 in each of four (one a stencil order), the 2D bodies
+# 16 + 32 in one
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v", "--split-compile=4")
 
@@ -151,11 +151,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gcm_simplex_occupancy.argtypes = [vp, i32, vp]
     lib.gcm_simplex_occupancy.restype = i32
     # model id, params out
-    for name in ("gcm_stream_model_map", "gcm_sweep_model_map",
-                 "gcm_simplex_model_map"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i32, vp]
-        fn.restype = i32
+    lib.gcm_model_map.argtypes = [i32, vp]
+    lib.gcm_model_map.restype = i32
     lib.gcm_fused_spmd_2d_tile.argtypes = []
     lib.gcm_fused_spmd_2d_tile.restype = i32
     # u, out, params, order, device, stream

@@ -8,11 +8,10 @@ and the single-step contract). The kernels are CUDA C++ for Hopper,
 pass, the two-step body in ``csrc/fused_pair_stream.cuh``, compiled one
 stencil order a source; ``fused_step`` launches its float, one-step form)
 and ``csrc/fused_step_2d.cu`` (2D, both options: one step on the
-row-streamed body, two on its two-step form in
-``csrc/fused_pair_rows.cuh``, compiled one stencil order a source),
+row-streamed body, two on its two-step form),
 sharing their sweep and epilogue (``csrc/gcm_common.cuh``). The streamed
 bodies keep a cell's components in registers under a component map
-compiled for each model (``STREAM_MODELS``); ``check_stream_model`` holds
+compiled for each model (``STREAM_MODELS``); ``check_compiled_map`` holds
 the runtime model to it. ``fused_step_reference`` is the plain PyTorch version of one step
 (the port's ``solver.gcm.step`` on materials derived from the compact
 stack exactly as the kernels derive them, then
@@ -404,49 +403,26 @@ def _model_map(p: _Params) -> tuple:
             tuple(p.diag[:p.ndiag]), tuple(p.shear[:p.nshear]))
 
 
-def check_stream_model(lib, model: Model, params: _Params) -> None:
-    """Raise unless the library's streamed bodies (the 3D and 2D ones, one
-    and two steps a pass) are compiled for ``model``'s
-    component map (``params.model``, set by ``_params``): the kernels keep a
-    cell's components in registers under the compiled map and read only
-    the stack rows from the parameters. Checked once a model and
-    library."""
-    key = (id(lib), model.name)
-    if key in _verified_maps:
-        return
-    if params.model < 0:
-        raise ValueError(f"the fused kernels are compiled for "
-                         f"{sorted(STREAM_MODELS)}, not {model.name}")
-    compiled = _Params()
-    if lib.gcm_stream_model_map(params.model,
-                                ctypes.addressof(compiled)) != 0:
-        raise RuntimeError(f"the kernel library has no component map "
-                           f"{params.model} ({model.name})")
-    if _model_map(compiled) != _model_map(params):
-        raise RuntimeError(f"{model.name}: the component map compiled into "
-                           "the fused kernels differs from the model's")
-    _verified_maps.add(key)
-
-
-def check_compiled_map(lib, model: Model, entry: str, kernel: str) -> None:
-    """Raise unless the map that the library's ``entry``
-    (``gcm_sweep_model_map``, ``gcm_simplex_model_map``) fills for
-    ``model`` is the model's own: ``kernel`` keeps a cell's components in
-    registers under that compiled map and reads only its material rows or
-    fields from the parameters. Checked once a model, entry and library; a
-    model without a compiled map raises ``ValueError`` before the library
-    is asked."""
+def check_compiled_map(lib, model: Model, kernel: str) -> None:
+    """Raise unless the component map that the library is compiled for
+    under ``model``'s id (``gcm_model_map``: one map a model, shared by the
+    streamed 3D and 2D bodies, the per-sweep kernel and the simplex sweep)
+    is the model's own: ``kernel`` keeps a cell's components in registers
+    under that map and reads only its stack rows, material rows or fields
+    from the parameters. Checked once a model and library; a model without
+    a compiled map (1D) raises ``ValueError`` before the library is
+    asked."""
     if model.name not in STREAM_MODELS:
         raise ValueError(f"{kernel} is compiled for {sorted(STREAM_MODELS)}, "
                          f"not {model.name}")
-    key = (id(lib), entry, model.name)
+    key = (id(lib), model.name)
     if key in _verified_maps:
         return
     compiled = _Params()
-    if getattr(lib, entry)(STREAM_MODELS[model.name],
-                           ctypes.addressof(compiled)) != 0:
-        raise RuntimeError(f"the kernel library has no component map of "
-                           f"{kernel} for {model.name}")
+    if lib.gcm_model_map(STREAM_MODELS[model.name],
+                         ctypes.addressof(compiled)) != 0:
+        raise RuntimeError(f"the kernel library has no component map for "
+                           f"{model.name}")
     runtime = _params(model, (1,) * model.dim, len(mat_layout(model)), 1.0,
                       (1.0,) * model.dim, None, tuple(range(model.dim)), ())
     if _model_map(compiled) != _model_map(runtime):
@@ -584,7 +560,7 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
     if ctypes.sizeof(params) != lib.gcm_params_size():
         raise RuntimeError("GcmFusedParams layout differs from its binding")
-    check_stream_model(lib, model, params)
+    check_compiled_map(lib, model, "the fused kernels")
     out = torch.empty_like(u)
     aux_out = torch.empty_like(aux) if aux is not None else None
     stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -691,7 +667,7 @@ def _occupancy(entry: str, dim: int, model: Model, u: torch.Tensor,
                      seq[0], ())
     if len(seq) == 2:
         params.axes_next[:] = list(seq[1]) + [-1] * (3 - dim)
-    check_stream_model(lib, model, params)
+    check_compiled_map(lib, model, "the fused kernels")
     out = (ctypes.c_int * 2)()
     err = getattr(lib, entry)(
         ctypes.addressof(params), order,

@@ -42,7 +42,7 @@ import torch
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.fused import (
-    _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params, check_stream_model,
+    _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params, check_compiled_map,
     corrector_epilogue_reference, fused_step_reference, infer_layout,
 )
 from gcm_tpu_torch.ops.interp import stencil_radius
@@ -323,7 +323,7 @@ def _launch_3d(model, u, mext, dt, h, order, borders, axes, correctors,
     params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0, 0, 0), 3),
                      axes, specs)
-    check_stream_model(lib, model, params)
+    check_compiled_map(lib, model, "the fused kernels")
     split = (ctypes.c_int * 6)(*split_3d(nxl, nyl, r))
     sl = [_ptr(s) for s in slabs] if ring else [None] * 4
     err = lib.gcm_fused_spmd(
@@ -415,7 +415,7 @@ def fused_spmd_2d(model: Model, u: torch.Tensor, mext: torch.Tensor,
     lib = _lib()
     params = _params(model, u.shape[1:], mext.shape[0], dt, h,
                      _gated(borders, flags if ring else (0, 0), 2), axes, ())
-    check_stream_model(lib, model, params)
+    check_compiled_map(lib, model, "the fused kernels")
     _, ix0, ix1 = tile_split(u.shape[1], TILE_2D, r)
     err = lib.gcm_fused_spmd_2d(
         u.data_ptr(), mext.data_ptr(), base.data_ptr(),
@@ -444,7 +444,7 @@ def fused_spmd_occupancy(model: Model, u: torch.Tensor, mext: torch.Tensor,
     lib = _lib()
     params = _params(model, u.shape[1:], mext.shape[0], dt, h, borders, axes,
                      ())
-    check_stream_model(lib, model, params)
+    check_compiled_map(lib, model, "the fused kernels")
     out = (ctypes.c_int * 2)()
     entry = ("gcm_fused_spmd_occupancy" if dim == 3
              else "gcm_fused_spmd_2d_occupancy")

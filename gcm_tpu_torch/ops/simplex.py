@@ -18,7 +18,7 @@ uniform kind with its values, or per-node codes ``[N]`` and values
 ``simplex_sweep_reference``, its plain PyTorch version on the same plan, for
 a CPU tensor; for a CUDA tensor it launches or raises, it never falls back.
 The kernel is compiled for the component maps of ``ops.fused.STREAM_MODELS``
-(a node's components in registers); ``check_simplex_model`` holds the model
+(a node's components in registers); ``check_compiled_map`` holds the model
 to the compiled map and refuses any other model.
 ``simplex_sweep.launches`` counts the kernel launches.
 """
@@ -192,16 +192,6 @@ class _SimplexParams(ctypes.Structure):
     ]
 
 
-def check_simplex_model(lib, model: Model) -> None:
-    """Raise unless the library's simplex kernel is compiled for
-    ``model``'s component map (``ops.fused.check_compiled_map``). The
-    plan's pairs and zeros come from the model's stages
-    (``build_simplex_plan``), so each plan pair is then the compiled pair
-    of its index in the model's stage."""
-    check_compiled_map(lib, model, "gcm_simplex_model_map",
-                       "the simplex kernel")
-
-
 def _simplex_params(plan: SimplexPlan, u: torch.Tensor,
                     axis: int) -> _SimplexParams:
     """The kernel's parameters; raises on anything it does not take. Each
@@ -267,7 +257,10 @@ def _kernel_params(plan: SimplexPlan, u: torch.Tensor, axis: int):
         raise ValueError("simplex_sweep's kernel takes a contiguous state")
     params = _simplex_params(plan, u, axis)
     lib = _build.load()
-    check_simplex_model(lib, plan.model)
+    # the plan's pairs and zeros come from the model's stages
+    # (build_simplex_plan), so each plan pair is the compiled pair of its
+    # index in the model's stage
+    check_compiled_map(lib, plan.model, "the simplex kernel")
     if ctypes.sizeof(params) != lib.gcm_simplex_params_size():
         raise RuntimeError("GcmSimplexParams layout differs from its binding")
     return lib, params

@@ -9,7 +9,7 @@ plain PyTorch version is the port's ``solver.gcm.stage``.
 version for a CPU tensor; for a CUDA tensor it launches or raises, it never
 falls back. The kernel is compiled for the component maps of
 ``ops.fused.STREAM_MODELS`` (the streamed bodies' four); the binding holds
-the runtime model to the compiled map (``check_sweep_model``) and refuses
+the runtime model to the compiled map (``check_compiled_map``) and refuses
 any other model.
 ``sweep_stage.launches`` counts the kernel launches.
 """
@@ -43,13 +43,6 @@ class _SweepParams(ctypes.Structure):
         ("model", ctypes.c_int), ("bc_kind", ctypes.c_int * 2),
         ("bc_val", ctypes.c_float * _MAXP * 2), ("dtoh", ctypes.c_float),
     ]
-
-
-def check_sweep_model(lib, model: Model) -> None:
-    """Raise unless the library's per-sweep kernel is compiled for
-    ``model``'s component map (``ops.fused.check_compiled_map``)."""
-    check_compiled_map(lib, model, "gcm_sweep_model_map",
-                       "sweep_stage's kernel")
 
 
 def _sweep_params(model: Model, u: torch.Tensor, mat: MaterialFields,
@@ -117,7 +110,7 @@ def sweep_stage(model: Model, u: torch.Tensor, mat: MaterialFields,
     if axis not in range(model.dim):
         raise ValueError(f"axis {axis} out of range for {model.name}")
     lib = _build.load()
-    check_sweep_model(lib, model)
+    check_compiled_map(lib, model, "sweep_stage's kernel")
     params, fields = _sweep_params(model, u, mat, dt, h, axis, borders)
     if ctypes.sizeof(params) != lib.gcm_sweep_params_size():
         raise RuntimeError("GcmSweepParams layout differs from its binding")

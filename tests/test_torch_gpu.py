@@ -285,12 +285,14 @@ def test_2d_and_sweep_kernels_reject_what_they_do_not_take(cuda):
 # ------------------------------------------------------------------ simplex
 
 #: (n, dim, model, order, fluid): jittered n^dim box meshes; 9^3 = 729
-#: nodes is no multiple of the kernel's 128-thread block, and the 2D
-#: order-2 mesh has tables of K = 10 (no 16-byte rows)
+#: nodes is no multiple of the kernel's 128-thread block, the 2D order-2
+#: mesh has tables of K = 10 (no 16-byte rows), the 2D order-3 one of
+#: K = 16, and the 3D order-3 one of K = 40 (the kernel's generic width)
 SIMPLEX_CASES = [(8, 3, "elastic3d", 1, False), (8, 3, "elastic3d", 2, False),
                  (8, 3, "elastic3d", 1, True), (8, 3, "acoustic3d", 1, True),
                  (12, 2, "elastic2d", 1, False), (9, 3, "elastic3d", 1, False),
-                 (12, 2, "elastic2d", 2, False)]
+                 (12, 2, "elastic2d", 2, False), (12, 2, "elastic2d", 3, False),
+                 (8, 3, "elastic3d", 3, False)]
 
 
 def simplex_problem(seed, n, dim, name, order, fluid, device):

@@ -63,14 +63,14 @@ def test_canonical_pair_reference_matches_jax_kernel(rng, order, bf16):
 
 
 class _SweepMapLib:
-    """Stands in for the kernel library's ``gcm_sweep_model_map``: fills
+    """Stands in for the kernel library's ``gcm_model_map``: fills
     the map of model ``name`` for every id it knows, optionally with one
     pair's velocity component moved."""
 
     def __init__(self, name, moved=False):
         self.name, self.moved = name, moved
 
-    def gcm_sweep_model_map(self, model_id, addr):
+    def gcm_model_map(self, model_id, addr):
         if model_id not in osw.STREAM_MODELS.values():
             return 1
         model = get_model(self.name)
@@ -93,10 +93,10 @@ def test_sweep_binding_holds_the_model_to_the_compiled_map(name):
     other = _SweepMapLib({"elastic3d": "acoustic3d", "acoustic3d": "elastic3d",
                           "elastic2d": "acoustic2d",
                           "acoustic2d": "elastic2d"}[name])
-    osw.check_sweep_model(good, model)
+    ofu.check_compiled_map(good, model, "sweep_stage's kernel")
     for lib in (moved, other):
         with pytest.raises(RuntimeError, match="component map"):
-            osw.check_sweep_model(lib, model)
+            ofu.check_compiled_map(lib, model, "sweep_stage's kernel")
 
 
 @pytest.mark.parametrize("name", ["elastic1d", "acoustic1d"])
@@ -104,4 +104,5 @@ def test_sweep_binding_refuses_a_model_without_a_map(name):
     """No per-sweep map is compiled for the 1D models: the binding raises
     before it asks the library."""
     with pytest.raises(ValueError, match="compiled for"):
-        osw.check_sweep_model(_SweepMapLib("elastic3d"), get_model(name))
+        ofu.check_compiled_map(_SweepMapLib("elastic3d"), get_model(name),
+                               "sweep_stage's kernel")

@@ -56,7 +56,7 @@ from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops import fused as ofu
 from gcm_tpu_torch.ops import simplex as osx
 from gcm_tpu_torch.ops.simplex import (
-    build_simplex_plan, check_simplex_model, simplex_step, simplex_sweep,
+    build_simplex_plan, simplex_step, simplex_sweep,
     simplex_sweep_reference,
 )
 from gcm_tpu_torch.scenarios import get_scenario
@@ -386,14 +386,14 @@ def test_sweep_wrapper_on_cpu_runs_the_plain_version():
 
 
 class _SimplexMapLib:
-    """Stands in for the kernel library's ``gcm_simplex_model_map`` (the
+    """Stands in for the kernel library's ``gcm_model_map`` (the
     CPU has no library): fills the map of model ``name`` for every id it
     knows, optionally with one pair's velocity component moved."""
 
     def __init__(self, name, moved=False):
         self.name, self.moved = name, moved
 
-    def gcm_simplex_model_map(self, model_id, addr):
+    def gcm_model_map(self, model_id, addr):
         if model_id not in ofu.STREAM_MODELS.values():
             return 1
         model = get_model(self.name)
@@ -416,10 +416,10 @@ def test_simplex_binding_holds_the_model_to_the_compiled_map(name):
                             "acoustic3d": "elastic3d",
                             "elastic2d": "acoustic2d",
                             "acoustic2d": "elastic2d"}[name])
-    check_simplex_model(good, model)
+    ofu.check_compiled_map(good, model, "the simplex kernel")
     for lib in (moved, other):
         with pytest.raises(RuntimeError, match="component map"):
-            check_simplex_model(lib, model)
+            ofu.check_compiled_map(lib, model, "the simplex kernel")
 
 
 @pytest.mark.parametrize("name", ["elastic1d", "acoustic1d"])
@@ -427,11 +427,12 @@ def test_simplex_binding_refuses_a_model_without_a_map(name):
     """No simplex map is compiled for the 1D models: the binding raises
     before it asks the library."""
     class Unasked:
-        def gcm_simplex_model_map(self, *args):
+        def gcm_model_map(self, *args):
             raise AssertionError("the library was asked")
 
     with pytest.raises(ValueError, match="compiled for"):
-        check_simplex_model(Unasked(), get_model(name))
+        ofu.check_compiled_map(Unasked(), get_model(name),
+                               "the simplex kernel")
 
 
 @pytest.mark.parametrize("mesh", ["3d", "3d-fluid", "2d"])

@@ -100,13 +100,12 @@ def test_slab_reference_folds_correctors_as_jax(rng, bf16):
 
 
 #: one 2D step along (1, 0), and two steps a pass in every pair of the two
-#: sweep orders, on float32 and bf16 stacks
-SEQS_2D = [(True, ((1, 0),))] + [
-    (k % 2 == 0, seq) for k, seq in enumerate(itertools.product(
-        ((0, 1), (1, 0)), repeat=2))]
+#: sweep orders
+SEQS_2D = [((1, 0),)] + list(itertools.product(((0, 1), (1, 0)), repeat=2))
 
 
-@pytest.mark.parametrize("bf16,seq", SEQS_2D, ids=str)
+@pytest.mark.parametrize("seq", SEQS_2D, ids=str)
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
 def test_2d_reference_matches_jax_kernel(rng, order, bf16, seq):
     model, ju, jmat, tu, tmat, dt = problem(rng, "elastic2d", (16, 24),

@@ -156,13 +156,13 @@ def test_interior_and_ring_references_make_the_step(rng, case):
 
 
 class _MapLib:
-    """Stands in for the kernel library's ``gcm_stream_model_map``: fills
+    """Stands in for the kernel library's ``gcm_model_map``: fills
     the map of a model, optionally with one stress index moved."""
 
     def __init__(self, name, moved=False):
         self.name, self.moved = name, moved
 
-    def gcm_stream_model_map(self, model_id, addr):
+    def gcm_model_map(self, model_id, addr):
         if model_id not in ofu.STREAM_MODELS.values():
             return 1
         model = get_model(self.name)
@@ -193,13 +193,13 @@ def test_binding_holds_the_model_to_the_compiled_map(name):
     # distinct live stand-ins: the check is remembered a model and library
     good, moved = _MapLib(name), _MapLib(name, moved=True)
     other = _MapLib(OTHER[name])
-    ofu.check_stream_model(good, model, params)
+    ofu.check_compiled_map(good, model, "the fused kernels")
     for lib in (moved, other):
         with pytest.raises(RuntimeError, match="component map"):
-            ofu.check_stream_model(lib, model, params)
+            ofu.check_compiled_map(lib, model, "the fused kernels")
     elastic1d = get_model("elastic1d")
     p1 = ofu._params(elastic1d, (8,), len(ofu.mat_layout(elastic1d)), 1.0,
                      (1.0,), None, (0,), ())
     assert p1.model == -1
     with pytest.raises(ValueError, match="compiled for"):
-        ofu.check_stream_model(good, elastic1d, p1)
+        ofu.check_compiled_map(good, elastic1d, "the fused kernels")

@@ -42,6 +42,10 @@ enqueueing), on that state:
   ``simplex3d_layered`` at n=65 (274,625 nodes, the simplex path's mesh),
   the mean over the three axes of each axis's median (the host builds the
   mesh and its foot tables first, about a minute a process);
+- ``path_simplex``: wall ms a step of ``SimplexEngine.run()`` on that mesh
+  and its tables over the simplex path's 0.08 s of simulated time (422
+  steps, 3 sweeps a step; host clock, warmed up), with ``--path-runs N``
+  the median of N runs;
 - ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``,
   ``path_pair_2d``: wall ms a step of ``Engine.run()`` (host clock, the
   card synchronised before and after, warmed up) over 100 steps of the
@@ -82,7 +86,7 @@ PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded",
 CANON = (2, 0, 1)
 PAIR = (CANON, (1, 0, 2))
 ALL_KEYS = (KEYS + KEYS_2D + tuple(f"ortho_{k}" for k in KEYS + KEYS_2D)
-            + HOST_KEYS + ("simplex",) + PATH_KEYS)
+            + HOST_KEYS + ("simplex", "path_simplex") + PATH_KEYS)
 
 
 def _orthotropic(m, cls):
@@ -243,27 +247,42 @@ def child(root, reps, keys, path_runs):
     if cls is not None and set(KEYS_2D) & okeys:
         out.update({f"ortho_{k}": v for k, v in _time_2d(
             _orthoize(task2, cls), reps, okeys).items()})
-    if "simplex" in keys:
-        out.update(_time_simplex(reps))
+    if {"simplex", "path_simplex"} & keys:
+        out.update(_time_simplex(reps, keys, path_runs))
     out.update(_time_paths(keys, path_runs))
     print(json.dumps(out), flush=True)
 
 
-def _time_simplex(reps):
-    """``simplex``: the simplex sweep on the 65^3 path's state."""
+def _time_simplex(reps, keys, runs):
+    """``simplex``: the simplex sweep on the 65^3 path's state;
+    ``path_simplex``: wall ms a step of the simplex path on the same mesh
+    and tables, the median of ``runs`` runs."""
     from gcm_tpu_torch.engine_simplex import SimplexEngine
     from gcm_tpu_torch.ops.simplex import simplex_sweep
     from gcm_tpu_torch.scenarios import get_scenario
+    from gcm_tpu_torch.task import TimeSpec
 
     task = get_scenario("simplex3d_layered", n=65, nsteps=20)
     t0 = time.perf_counter()
     eng = SimplexEngine.from_task(task, device="cuda")
-    setup = time.perf_counter() - t0
+    out = {"simplex_setup_s": time.perf_counter() - t0}
     eng.run()
-    ms = [_median_ms(lambda a=a: simplex_sweep(eng._plan, eng.u, a), reps)
-          for a in range(3)]
-    return {"simplex": statistics.mean(ms), "simplex_by_axis": ms,
-            "simplex_setup_s": setup}
+    if "simplex" in keys:
+        ms = [_median_ms(lambda a=a: simplex_sweep(eng._plan, eng.u, a),
+                         reps) for a in range(3)]
+        out.update(simplex=statistics.mean(ms), simplex_by_axis=ms)
+    if "path_simplex" in keys:
+        def run(time_spec):
+            return SimplexEngine.from_task(
+                dataclasses.replace(task, time=time_spec), device="cuda",
+                tables=eng.tables).run()
+
+        run(TimeSpec(cfl=task.time.cfl, nsteps=2))
+        npts = float(task.grid.npoints)
+        out["path_simplex"] = statistics.median(
+            npts / run(TimeSpec(cfl=task.time.cfl, t_end=0.08))
+            .points_per_second * 1e3 for _ in range(runs))
+    return out
 
 
 def _time_paths(keys, runs):
