@@ -124,7 +124,25 @@ Phases, each of which raises (exit code != 0) on failure:
    ``elastic3d_contact`` n=256 asked for the canonical layout (300 steps,
    which stays on ``"fused"`` for orthotropic bodies, against the plain
    multi-body path); each kernel's orthotropic form timed on its path's
-   state.
+   state;
+16. outputs and resume, in a temporary directory deleted after:
+   ``elastic3d_explosion`` n=256 x 120 steps through ``run_with_outputs``
+   (``.vti`` of vz, szz and the velocity every 60 steps, checkpoints every
+   40) launches ``fused_step`` once a step, copies the state to the host at
+   steps 40, 60, 80 and 120 only, and equals ``run()``; fresh engines
+   resumed from the checkpoint at 80 and from an odd cut at 41 equal the
+   uninterrupted run (state and traces); the pair-fused body cut at an odd
+   step resumes with one single step and equals its continuation without
+   the checkpoint and the uninterrupted run (which takes the two steps
+   around the cut in one pass); the canonical contact path (2 x
+   256x256x128, 100 steps, checkpoints every 50, cut at 51) and a partly
+   broken n=32 interface (cut at 17) resume equal, no restored broken cell
+   healing; the 65^3 simplex path of phase 8 (its tables reused) writes
+   ``.vtu`` snapshots and resumes equal; a profiled ``cli.main(["run",
+   ...])`` at n=256 launches ``fused_step`` 20 times (the counters) and
+   writes a trace holding the fused kernel's events (their count, and the
+   trace's launches in order with those that have no kernel event, are
+   printed). The copy, write, save and restore times are printed.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -149,6 +167,7 @@ the last line is ``{"ok": true,
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -653,6 +672,7 @@ def simplex_path(counts, result):
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
         ms_by_axis=ms, blocks_per_sm=bps, nodes_per_block=nb,
         **_bound_entry(B_SIMPLEX * grid.npoints, flops))
+    return task, eng.tables
 
 
 # ------------------------------------------------------------- sharded paths
@@ -2313,6 +2333,353 @@ def ortho_paths(counts, result):
           f"{errc:.3e} (limit 1e-4), mask cells that differ {ndiff}")
 
 
+# ------------------------------------------------------- outputs and resume
+
+#: the outputs phase: elastic3d_explosion at 256x256x128 for 120 steps with
+#: snapshots (vz, szz and the velocity vector) every 60 steps and
+#: checkpoints every 40, so the callback fires every 20 steps and the state
+#: leaves the card at 40, 60, 80 and 120 only; resumed from the checkpoint
+#: at 80 and from an odd cut at 41. The pair-fused body runs 40 steps cut
+#: at 21, the contact path 100 cut at 51 (and n=32 from a partly broken
+#: mask, 32 steps cut at 17, before the interface breaks further), the
+#: simplex path 40 steps with snapshots and checkpoints every 20.
+NSTEPS_OUT, SNAP_OUT, CK_OUT, CUT_OUT, ODD_CUT_OUT = 120, 60, 40, 80, 41
+NSTEPS_PAIR_OUT, CUT_PAIR_OUT = 40, 21
+NSTEPS_CONTACT_OUT, CK_CONTACT_OUT, CUT_CONTACT_OUT = 100, 50, 51
+NSTEPS_CONTACT32, CUT_CONTACT32 = 32, 17
+NSTEPS_SIMPLEX_OUT, EVERY_SIMPLEX_OUT = 40, 20
+
+
+def _same_state(tag, pairs):
+    """Fail unless each (got, want) pair of tensors or arrays is equal."""
+    for name, a, b in pairs:
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+        b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
+        _check(a.shape == b.shape and torch.equal(a.cpu(), b.cpu()),
+               f"{tag}: {name} differs from the uninterrupted run "
+               f"(normalized {_norm_err(a.cpu(), b.cpu()):.3e})")
+
+
+def _through_file(ckdir, state):
+    """``state`` saved as a checkpoint and restored: (restored, save s,
+    restore s)."""
+    from gcm_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    t0 = time.perf_counter()
+    save_checkpoint(ckdir, int(state["step"]), state)
+    t1 = time.perf_counter()
+    out = restore_checkpoint(ckdir, step=int(state["step"]))
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+def _launch_record(events):
+    """The trace's kernel launch calls (``cudaLaunchKernel`` and its CUDA
+    API kin) in host order, one letter each: F a launch whose kernel event
+    is the fused step's, k another kernel's, ? a launch without a kernel
+    event."""
+    kernels = {e.get("args", {}).get("correlation"): e.get("name", "")
+               for e in events if e.get("cat") == "kernel"}
+    calls = sorted((e for e in events
+                    if e.get("cat", "").startswith("cuda_")
+                    and "LaunchKernel" in e.get("name", "")),
+                   key=lambda e: e.get("ts", 0))
+    out = []
+    for e in calls:
+        name = kernels.get(e.get("args", {}).get("correlation"))
+        out.append("?" if name is None else
+                   "F" if "fused_step_stream_kernel" in name else "k")
+    return "".join(out)
+
+
+def outputs_and_resume(counts, simplex_task, simplex_tables):
+    """Phase 16: snapshots, seismograms, checkpoints and resume of the three
+    engines at full width, and a profiled CLI run, in a temporary directory
+    that is deleted after."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch import cli
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.engine_multi import (
+        MultiBodyEngine, write_body_snapshots)
+    from gcm_tpu_torch.engine_simplex import SimplexEngine
+    from gcm_tpu_torch.scenarios import elastic3d_contact, get_scenario
+    from gcm_tpu_torch.snapshot import snapshot_fields, write_vti
+    from gcm_tpu_torch.task import SnapshotSpec, TimeSpec
+    from gcm_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="outputs_", dir=build_dir)
+    try:
+        # (a) the 3D fused path with outputs, resumed at a checkpoint
+        task = dataclasses.replace(
+            get_scenario("elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_OUT),
+            snapshots=SnapshotSpec(every=SNAP_OUT, fields=("vz", "szz")))
+        plain = Engine(task, device="cuda").run()
+        eng = Engine(task, device="cuda")
+        out = os.path.join(root, "explosion")
+        counts.zero()
+        res = eng.run_with_outputs(out, checkpoint_every=CK_OUT)
+        launched = counts.read()
+        counts.expect("outputs path", launched, fused_step=NSTEPS_OUT)
+        _check(eng.host_copies == [40, 60, 80, 120],
+               f"outputs path: host copies at steps {eng.host_copies}")
+        _same_state("outputs path against run()",
+                    [("u", res.u, plain.u),
+                     ("traces", res.traces, plain.traces)])
+        snaps = sorted(os.listdir(os.path.join(out, "snapshots")))
+        ckdir = os.path.join(out, "checkpoints")
+        cks = sorted(os.listdir(ckdir))
+        _check(snaps == ["elastic3d_explosion.pvd",
+                         "elastic3d_explosion_000060.vti",
+                         "elastic3d_explosion_000120.vti"]
+               and cks == ["step_120.npz", "step_40.npz", "step_80.npz"]
+               and os.path.exists(os.path.join(out, "elastic3d_explosion.npz")),
+               f"outputs path wrote snapshots {snaps}, checkpoints {cks}")
+        vti_mb = os.path.getsize(os.path.join(
+            out, "snapshots", "elastic3d_explosion_000060.vti")) / 1e6
+        ck_mb = os.path.getsize(os.path.join(ckdir, "step_80.npz")) / 1e6
+        t0 = time.perf_counter()
+        state = restore_checkpoint(ckdir, step=CUT_OUT)
+        t_restore = time.perf_counter() - t0
+        resumed = Engine(task, device="cuda")
+        resumed.load_state(state)
+        counts.zero()
+        rres = resumed.run()
+        counts.expect("resumed outputs path", counts.read(),
+                      fused_step=NSTEPS_OUT - CUT_OUT)
+        _same_state(f"resume at {CUT_OUT}", [
+            ("u", resumed.u, eng.u), ("traces", rres.traces, res.traces)]
+            + [(f"aux {k}", resumed.aux[k], v) for k, v in eng.aux.items()])
+        del state, resumed
+        shutil.rmtree(ckdir)
+        # (b) an odd cut
+        part = Engine(task, device="cuda")
+        part.nsteps = ODD_CUT_OUT
+        part.run()
+        state, t_save, t_restore_odd = _through_file(
+            os.path.join(root, "odd"), part.state_dict())
+        del part
+        odd = Engine(task, device="cuda")
+        odd.load_state(state)
+        ores = odd.run()
+        _same_state(f"resume at {ODD_CUT_OUT}", [
+            ("u", odd.u, eng.u), ("traces", ores.traces, res.traces)])
+        del state, odd
+        shutil.rmtree(os.path.join(root, "odd"))
+        # what the outputs cost: a copy of the state, a .vti, a checkpoint
+        torch.cuda.synchronize()
+        copy_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host = eng.u.cpu()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+        fields = {k: v for k, v in snapshot_fields(
+            eng.model, host.numpy()).items() if k in ("vz", "szz", "velocity")}
+        t0 = time.perf_counter()
+        write_vti(os.path.join(root, "t.vti"), task.grid.shape, task.grid.h,
+                  task.grid.origin, fields)
+        t_vti = time.perf_counter() - t0
+        nbytes = eng.u.numel() * eng.u.element_size()
+        print(f"outputs path {task.name} {task.grid.shape} x {NSTEPS_OUT} "
+              f"steps, snapshots every {SNAP_OUT} ({vti_mb:.1f} MB .vti), "
+              f"checkpoints every {CK_OUT} ({ck_mb:.1f} MB): run() "
+              f"{plain.points_per_second:.6g} points/s, run_with_outputs() "
+              f"{res.points_per_second:.6g} points/s ({launched['fused_step']}"
+              f" fused_step launches), equal states and traces; host copies "
+              f"at steps {eng.host_copies} (none at 20 or 100)")
+        print(f"  device-to-host copy of the {nbytes / 1e6:.1f} MB state: "
+              f"{', '.join(f'{t:.2f}' for t in copy_ms)} ms; .vti write "
+              f"{t_vti:.3f} s; checkpoint save {t_save:.3f} s (state_dict "
+              f"and file), restore {t_restore:.3f} s / {t_restore_odd:.3f} s")
+        print(f"  resumed at {CUT_OUT} (a checkpoint) and at {ODD_CUT_OUT} "
+              f"(odd): states and traces equal to the uninterrupted run (no "
+              f"aux field); {rres.points_per_second:.6g} and "
+              f"{ores.points_per_second:.6g} points/s over the steps run")
+        del eng, plain, host, fields
+
+        # (c) the pair-fused body from an odd step
+        ptask = dataclasses.replace(
+            get_scenario("elastic3d_layered", n=N_MAIN, nsteps=NSTEPS_PAIR_OUT),
+            detectors=None, temporal_block=True)
+        full = Engine(ptask, device="cuda")
+        full.run()
+        part = Engine(ptask, device="cuda")
+        part.nsteps = CUT_PAIR_OUT
+        part.run()
+        state, *_ = _through_file(os.path.join(root, "pair"),
+                                  part.state_dict())
+        pres = Engine(ptask, device="cuda")
+        pres.load_state(state)
+        counts.zero()
+        pres.run()
+        npairs = (NSTEPS_PAIR_OUT - CUT_PAIR_OUT - 1) // 2
+        counts.expect("resumed pair-fused path", counts.read(), fused_step=1,
+                      fused_step_slab=npairs, fused_step_slab_k2=npairs)
+        # the same continuation without the file
+        part.start_step, part.nsteps = CUT_PAIR_OUT, NSTEPS_PAIR_OUT
+        part.run()
+        _same_state("pair-fused resume against its continuation",
+                    [("u", pres.u, part.u)])
+        # the uninterrupted run takes steps CUT - 1 and CUT in one two-step
+        # pass, the cut run in two one-step launches: the same arithmetic
+        _same_state("pair-fused resume against the uninterrupted run",
+                    [("u", pres.u, full.u)])
+        print(f"pair-fused {ptask.name} x {NSTEPS_PAIR_OUT} cut at "
+              f"{CUT_PAIR_OUT}: one single step, then {npairs} two-step "
+              f"passes; equal to the run continued without the checkpoint "
+              f"and to the uninterrupted run")
+        del full, part, pres, state
+        shutil.rmtree(os.path.join(root, "pair"))
+
+        # (d) the canonical contact path, then a partly broken mask at n=32
+        bodies, contacts = elastic3d_contact(n=N_CONTACT,
+                                             nsteps=NSTEPS_CONTACT_OUT)
+
+        def contact(b=bodies, c=contacts, mask=None):
+            e = MultiBodyEngine(b, c, device="cuda", canonical_layout=True)
+            if mask is not None:
+                e.bonded = bonded_from_numpy({0: mask}, device="cuda")
+            return e
+
+        full = contact()
+        out = os.path.join(root, "contact")
+        counts.zero()
+        cres = full.run_with_outputs(out, checkpoint_every=CK_CONTACT_OUT)
+        counts.expect("contact outputs path", counts.read(),
+                      fused_step_slab=2 * NSTEPS_CONTACT_OUT)
+        copies = list(full.host_copies)
+        _check(copies == [50, 100], f"contact path: host copies at {copies}")
+        t0 = time.perf_counter()
+        write_body_snapshots(out, "final", full.tasks, full.model,
+                             cres.bodies, cres.bonded)
+        t_final = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(out, "checkpoints"))
+        part = contact()
+        part.nsteps = CUT_CONTACT_OUT
+        part.run()
+        state, t_csave, t_crestore = _through_file(
+            os.path.join(root, "contact_ck"), part.state_dict())
+        del part
+        cr = contact()
+        cr.load_state(state)
+        crr = cr.run()
+        _same_state(f"contact resume at {CUT_CONTACT_OUT}",
+                    [(f"body {k}", cr.us[k], full.us[k]) for k in full.us]
+                    + [(f"mask {k}", cr.bonded[k], full.bonded[k])
+                       for k in full.bonded]
+                    + [(f"traces {k}", crr.traces[k], cres.traces[k])
+                       for k in (cres.traces or {})])
+        print(f"contact path 2 x {N_CONTACT}x{N_CONTACT}x{N_CONTACT // 2} x "
+              f"{NSTEPS_CONTACT_OUT} steps, checkpoints every "
+              f"{CK_CONTACT_OUT}: {cres.points_per_second:.6g} points/s, "
+              f"host copies at {copies}; final snapshots and masks "
+              f"{t_final:.3f} s; resumed at {CUT_CONTACT_OUT} (save "
+              f"{t_csave:.3f} s, restore {t_crestore:.3f} s): bodies, masks "
+              f"and traces equal")
+        del full, cr, state
+        shutil.rmtree(os.path.join(root, "contact_ck"))
+        b32, c32 = elastic3d_contact(n=32, nsteps=NSTEPS_CONTACT32)
+        mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+            np.float32)
+        full32 = contact(b32, c32, mask).run()
+        part = contact(b32, c32, mask)
+        part.nsteps = CUT_CONTACT32
+        part.run()
+        state, *_ = _through_file(os.path.join(root, "c32"),
+                                  part.state_dict())
+        at_cut = state["bonded"]["0"]
+        r32 = contact(b32, c32)
+        r32.load_state(state)
+        rr32 = r32.run()
+        _same_state("n=32 contact resume",
+                    [(f"body {k}", rr32.bodies[k], full32.bodies[k])
+                     for k in full32.bodies]
+                    + [("mask", rr32.bonded[0], full32.bonded[0])])
+        _check((rr32.bonded[0][at_cut == 0] == 0).all()
+               and rr32.bonded[0].mean() < at_cut.mean(),
+               "n=32 contact resume: a restored broken cell healed, or the "
+               "interface did not break further")
+        print(f"contact n=32 from a partly broken mask, cut at "
+              f"{CUT_CONTACT32}: bond mean {mask.mean():.4f} at the start, "
+              f"{at_cut.mean():.4f} at the cut, {rr32.bonded[0].mean():.4f} "
+              f"at {NSTEPS_CONTACT32} steps, equal to the uninterrupted run; "
+              f"no restored broken cell healed")
+        del part, r32
+
+        # (e) the simplex path on the 65^3 mesh of phase 8
+        stask = dataclasses.replace(
+            simplex_task, time=TimeSpec(cfl=simplex_task.time.cfl,
+                                        nsteps=NSTEPS_SIMPLEX_OUT),
+            snapshots=SnapshotSpec(every=EVERY_SIMPLEX_OUT))
+
+        def sbuild():
+            return SimplexEngine.from_task(stask, device="cuda",
+                                           tables=simplex_tables)
+
+        seng = sbuild()
+        out = os.path.join(root, "simplex")
+        counts.zero()
+        sres = seng.run_with_outputs(out, checkpoint_every=EVERY_SIMPLEX_OUT)
+        counts.expect("simplex outputs path", counts.read(),
+                      simplex_sweep=3 * NSTEPS_SIMPLEX_OUT)
+        snaps = sorted(os.listdir(os.path.join(out, "snapshots")))
+        _check(seng.host_copies == [20, 40]
+               and snaps == [f"{stask.name}.pvd", f"{stask.name}_000020.vtu",
+                             f"{stask.name}_000040.vtu"],
+               f"simplex outputs: copies {seng.host_copies}, files {snaps}")
+        sr = sbuild()
+        sr.load_state(restore_checkpoint(os.path.join(out, "checkpoints"),
+                                         step=EVERY_SIMPLEX_OUT))
+        srr = sr.run()
+        _same_state("simplex resume",
+                    [("u", sr.u, seng.u), ("traces", srr.traces, sres.traces)])
+        vtu_mb = os.path.getsize(os.path.join(
+            out, "snapshots", f"{stask.name}_000020.vtu")) / 1e6
+        print(f"simplex path {simplex_task.grid.npoints} nodes x "
+              f"{NSTEPS_SIMPLEX_OUT} steps with a .vtu ({vtu_mb:.1f} MB) and "
+              f"a checkpoint every {EVERY_SIMPLEX_OUT}: "
+              f"{sres.points_per_second:.6g} points/s; resumed at "
+              f"{EVERY_SIMPLEX_OUT}: state and traces equal")
+        del seng, sr
+
+        # (f) a profiled CLI run
+        out = os.path.join(root, "profile")
+        said = io.StringIO()
+        counts.zero()
+        with contextlib.redirect_stdout(said):
+            rc = cli.main(["run", "elastic3d_explosion", "--n", str(N_MAIN),
+                           "--nsteps", "20", "--outdir", out, "--profile",
+                           "--checkpoint-every", "10"])
+        counts.expect("profiled CLI run", counts.read(), fused_step=20)
+        summary = json.loads(said.getvalue().strip().splitlines()[-1])
+        with open(os.path.join(out, "trace", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        fused = [e for e in events if e.get("cat") == "kernel"
+                 and "fused_step_stream_kernel" in e.get("name", "")]
+        cks = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        # the launch counters hold the 20 launches; the trace must hold the
+        # kernel's events
+        _check(rc == 0 and summary["kernel"] == "fused" and fused
+               and cks == ["step_10.npz", "step_20.npz"],
+               f"profiled CLI run: rc {rc}, {len(fused)} fused kernel events, "
+               f"checkpoints {cks}")
+        print(f"profiled CLI run (n={N_MAIN}, 20 steps, checkpoints every "
+              f"10): 20 fused_step launches counted, {len(fused)} "
+              f"fused_step_stream_kernel events, {len(events)} events in the "
+              f"trace; {summary['points_per_second']:.6g} points/s under the "
+              f"profiler")
+        print(f"  launch records in order: {_launch_record(events)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -2566,7 +2933,7 @@ def main() -> int:
     # ---- 8. the simplex path
     phase("simplex path")
     simplex_kernel_vs_plain()
-    simplex_path(counts, result)
+    simplex = simplex_path(counts, result)
 
     # ---- 10-11. the sharded paths
     phase("sharded paths")
@@ -2583,6 +2950,10 @@ def main() -> int:
     ortho_kernels_vs_plain()
     phase("orthotropic paths")
     ortho_paths(counts, result)
+
+    # ---- 16. outputs and resume
+    phase("outputs and resume")
+    outputs_and_resume(counts, *simplex)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

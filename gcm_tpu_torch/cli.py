@@ -5,9 +5,23 @@ Commands:
   run <scenario> [--n N] [--nsteps K]
                  [--kernel auto|torch|fused|sweep|simplex] [--device cuda|cpu]
                  [--mesh NX[,NY]] [--canonical-layout|--no-canonical-layout]
+                 [--outdir DIR] [--snapshot-every S] [--checkpoint-every C]
+                 [--resume] [--profile]
+
+``run`` writes its artifacts under ``--outdir`` (default ``out``):
+snapshots every S steps in ``snapshots/`` (``<scenario>_<step>.vti``, a
+simplex mesh's ``.vtu``, a ``.pvd`` collection of them), the seismograms
+``<scenario>.npz|.bin|.json`` where the scenario has receivers, and
+checkpoints every C steps in ``checkpoints/step_<n>.npz``; cadences are
+rounded up to the symmetrization period. ``--resume`` continues from the
+newest checkpoint there, ``--profile`` writes a ``torch.profiler`` trace to
+``trace/trace.json``. A simplex run ends with ``<scenario>_final.vtu``, a
+contact run with each body's ``<body>_final.vti`` and its bond masks as
+``.npy``.
 
 ``run`` prints one JSON summary line: the resolved kernel, points per
-second, steps, dt, grid shape (``npoints`` for a simplex mesh) and device.
+second, steps, dt, grid shape (``npoints`` for a simplex mesh), device,
+``outdir`` and ``resumed_from`` (the checkpoint's step, or null).
 Scenarios whose name starts with ``simplex`` run on
 ``engine_simplex.SimplexEngine``, with the kernels ``auto``, ``torch`` and
 ``simplex``. ``--mesh NX[,NY]`` splits the grid over NX (x) by NY (y, 3D
@@ -25,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 
 
 def _build_parser():
@@ -54,6 +70,17 @@ def _build_parser():
                         "multi-body contact scenarios, off elsewhere")
     r.add_argument("--no-canonical-layout", dest="canonical_layout",
                    action="store_false", help="the default splitting order")
+    r.add_argument("--outdir", default="out",
+                   help="directory of the run's artifacts (default: out)")
+    r.add_argument("--snapshot-every", type=int, default=None,
+                   help="write a snapshot every S steps")
+    r.add_argument("--checkpoint-every", type=int, default=0,
+                   help="write a checkpoint every C steps")
+    r.add_argument("--resume", action="store_true",
+                   help="resume from the newest checkpoint in outdir")
+    r.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace to "
+                        "<outdir>/trace/trace.json")
     return p
 
 
@@ -83,6 +110,25 @@ def _mesh(spec: str, dim: int, device: str):
     return domain_mesh(dim, devices)
 
 
+def _resume(eng, args):
+    """Load the newest checkpoint under ``--outdir`` into ``eng`` when
+    ``--resume`` asks for it; its step, or None."""
+    from gcm_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint
+
+    ckdir = os.path.join(args.outdir, "checkpoints")
+    step = latest_step(ckdir) if args.resume else None
+    if step is not None:
+        eng.load_state(restore_checkpoint(ckdir, step=step))
+        print(f"resumed from step {step}", file=sys.stderr)
+    return step
+
+
+def _trace(args):
+    from gcm_tpu_torch.utils.profiling import trace
+
+    return trace(os.path.join(args.outdir, "trace") if args.profile else None)
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     from gcm_tpu_torch.scenarios import get_scenario, list_scenarios
@@ -99,6 +145,7 @@ def main(argv=None) -> int:
     import dataclasses
 
     from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.task import SnapshotSpec
 
     kw = {k: v for k, v in (("n", args.n), ("nsteps", args.nsteps))
           if v is not None}
@@ -111,15 +158,21 @@ def main(argv=None) -> int:
         task = dataclasses.replace(task, kernel=args.kernel)
     if args.canonical_layout:
         task = dataclasses.replace(task, canonical_layout=True)
+    if args.snapshot_every is not None:
+        task = dataclasses.replace(
+            task, snapshots=SnapshotSpec(every=args.snapshot_every))
     if args.scenario.startswith("simplex"):
         if args.mesh:
             raise SystemExit("--mesh runs structured scenarios only")
-        return _run_simplex(task, args.device)
+        return _run_simplex(task, args)
     if args.mesh:
-        res = Engine(task, mesh=_mesh(args.mesh, task.grid.dim,
-                                      args.device)).run()
+        eng = Engine(task, mesh=_mesh(args.mesh, task.grid.dim, args.device))
     else:
-        res = Engine(task, device=args.device).run()
+        eng = Engine(task, device=args.device)
+    resumed = _resume(eng, args)
+    with _trace(args):
+        res = eng.run_with_outputs(args.outdir,
+                                   checkpoint_every=args.checkpoint_every)
     print(json.dumps({
         "scenario": task.name,
         "kernel": res.kernel,
@@ -130,6 +183,8 @@ def main(argv=None) -> int:
         "device": args.device,
         "mesh": args.mesh,
         "wall_seconds": res.wall_seconds,
+        "outdir": args.outdir,
+        "resumed_from": resumed,
     }))
     return 0
 
@@ -146,7 +201,8 @@ def _launch_counters():
 def _run_contact(args, kw) -> int:
     import dataclasses
 
-    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.engine_multi import (
+        MultiBodyEngine, write_body_snapshots)
     from gcm_tpu_torch.scenarios import MULTI_SCENARIOS
 
     if args.mesh:
@@ -159,10 +215,16 @@ def _run_contact(args, kw) -> int:
         else True
     eng = MultiBodyEngine(bodies, contacts, device=args.device,
                           canonical_layout=canon)
+    resumed = _resume(eng, args)
     counters = _launch_counters()
     before = {k: f.launches for k, f in counters.items()}
-    res = eng.run()
+    with _trace(args):
+        res = eng.run_with_outputs(args.outdir,
+                                   snapshot_every=args.snapshot_every or 0,
+                                   checkpoint_every=args.checkpoint_every)
     launched = {k: f.launches - before[k] for k, f in counters.items()}
+    write_body_snapshots(args.outdir, "final", eng.tasks, eng.model,
+                         res.bodies, res.bonded)
 
     def mean(m):
         if isinstance(m, dict):
@@ -182,15 +244,22 @@ def _run_contact(args, kw) -> int:
         "mat_dtype": sorted({t.mat_dtype for t in bodies.values()}),
         "device": args.device,
         "wall_seconds": res.wall_seconds,
+        "outdir": args.outdir,
+        "resumed_from": resumed,
     }))
     return 0
 
 
-def _run_simplex(task, device) -> int:
+def _run_simplex(task, args) -> int:
     from gcm_tpu_torch.engine_simplex import SimplexEngine
 
-    eng = SimplexEngine.from_task(task, device=device)
-    res = eng.run()
+    eng = SimplexEngine.from_task(task, device=args.device)
+    resumed = _resume(eng, args)
+    with _trace(args):
+        res = eng.run_with_outputs(args.outdir,
+                                   checkpoint_every=args.checkpoint_every)
+    eng.write_snapshot(os.path.join(args.outdir,
+                                    f"{args.scenario}_final.vtu"))
     print(json.dumps({
         "scenario": task.name,
         "kernel": res.kernel,
@@ -198,7 +267,9 @@ def _run_simplex(task, device) -> int:
         "nsteps": res.nsteps,
         "dt": res.dt,
         "npoints": eng.grid.npoints,
-        "device": device,
+        "device": args.device,
         "wall_seconds": res.wall_seconds,
+        "outdir": args.outdir,
+        "resumed_from": resumed,
     }))
     return 0

@@ -27,13 +27,18 @@ isotropic media only, as in JAX) and runs a 3D body on ``fused_step_slab``,
 as JAX runs its permuted bodies;
 ``temporal_block`` runs each symmetrized pair of steps as one two-step pass
 of the fused kernel when nothing happens between the two (``_pair_fused``).
+
+``state_dict``/``load_state`` checkpoint and resume a run (``start_step``),
+and ``run_with_outputs`` writes its snapshots, checkpoints and seismograms,
+copying the state off the device only at the steps where one of them fires.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time as _time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -56,7 +61,11 @@ from gcm_tpu_torch.parallel.sharding import (
 from gcm_tpu_torch.solver.gcm import (
     axes_order, canonical_axes, cfl_dt, step as solver_step,
 )
+from gcm_tpu_torch.snapshot import (
+    save_seismograms, snapshot_fields, write_pvd, write_vti,
+)
 from gcm_tpu_torch.task import Task, apply_initial
+from gcm_tpu_torch.utils.checkpoint import TraceRecord, output_callback
 
 
 def check_device(device) -> torch.device:
@@ -202,6 +211,16 @@ class Engine:
                 else np.zeros((self.nsteps, 0)))
         det_nodes = ([task.grid.index_of(p) for p in task.detectors.points]
                      if task.detectors is not None else None)
+        #: the first step run() executes (set by load_state on a resume),
+        #: and the steps completed so far
+        self.start_step = 0
+        self._done_step = 0
+        #: the detector record across a resume (None without detectors)
+        self._trace = (TraceRecord(len(det_nodes), self.model.ncomp)
+                       if det_nodes is not None else None)
+        #: the completed step at each device-to-host copy of the state made
+        #: by state_dict
+        self.host_copies: List[int] = []
         if mesh is not None:
             self._setup_mesh(src_nodes, amps, det_nodes)
             return
@@ -279,7 +298,6 @@ class Engine:
                 torch.as_tensor(amps[:, list(cols)], device=dev
                                 ).to(self.dtype))
         self._det = {}
-        self._ndet = 0 if det_nodes is None else len(det_nodes)
         for pos, node in enumerate(det_nodes or ()):
             k, local = place(node)
             self._det.setdefault(k, ([], []))
@@ -312,39 +330,6 @@ class Engine:
                 for name, v in a.items():
                     aux[name][k] = v
         return us, aux
-
-    def _run_mesh(self) -> RunResult:
-        nsteps, C = self.nsteps, self.model.ncomp
-        traces = {k: torch.empty((nsteps, len(pos), C),
-                                 device=self.mesh.devices[k], dtype=self.dtype)
-                  for k, (_, pos) in self._det.items()}
-        us, aux = list(self.u), {k: list(v) for k, v in self.aux.items()}
-        devs = [d for d in self.mesh.unique_devices() if d.type == "cuda"]
-        for d in devs:
-            torch.cuda.synchronize(d)
-        t0 = _time.perf_counter()
-        for n in range(nsteps):
-            us, aux = self._one_step_mesh(us, aux, n)
-            for k, (flat, _) in self._det.items():
-                traces[k][n] = us[k].reshape(C, -1)[:, flat].T
-        for d in devs:
-            torch.cuda.synchronize(d)
-        wall = _time.perf_counter() - t0
-        self.u, self.aux = us, aux
-        out = None
-        if self.task.detectors is not None:
-            parts = {k: t.cpu().numpy() for k, t in traces.items()}
-            out = np.empty((nsteps, self._ndet, C),
-                           dtype=next(iter(parts.values())).dtype)
-            for k, (_, pos) in self._det.items():
-                out[:, pos] = parts[k]
-        npts = int(np.prod(self.task.grid.shape))
-        return RunResult(
-            u=gather_state(us, self.mesh, device="cpu").numpy(),
-            t=nsteps * self.dt, nsteps=nsteps, dt=self.dt, traces=out,
-            wall_seconds=wall,
-            points_per_second=npts * nsteps / max(wall, 1e-12),
-            kernel=self.kernel)
 
     # ------------------------------------------------------------------ step
 
@@ -380,48 +365,180 @@ class Engine:
         """Receiver values ``[npoints, ncomp]`` in one gather."""
         return u.reshape(self.model.ncomp, -1)[:, self._det_flat].T
 
+    # ----------------------------------------------------------- checkpoint
+
+    def state_dict(self) -> Dict:
+        """The restartable state on the host, in task layout: the fields
+        ``u``, the corrector ``aux`` fields, the completed ``step`` and,
+        with detectors, the ``traces`` recorded so far (gathered from the
+        shards on a mesh). Called mid-run (from a ``run`` callback), it
+        holds the state after the step the callback was given. One
+        device-to-host copy of the state, recorded in ``host_copies``."""
+        self.host_copies.append(self._done_step)
+        if self.mesh is not None:
+            u = gather_state(self.u, self.mesh, device="cpu").numpy()
+            aux = {k: gather_state(v, self.mesh, lead=0, device="cpu").numpy()
+                   for k, v in self.aux.items()}
+        else:
+            u = self.u.cpu().numpy()
+            aux = {k: v.cpu().numpy() for k, v in self.aux.items()}
+        d = {"u": u, "aux": aux, "step": self._done_step}
+        if self._trace is not None:
+            d["traces"] = self._trace.assemble()
+        return d
+
+    def load_state(self, state: Dict) -> None:
+        """Restore a ``state_dict`` (this engine's, or the JAX engine's as
+        numpy arrays, ``utils.checkpoint.restore_checkpoint``'s output);
+        ``run()`` then runs the steps ``step .. nsteps`` and its traces
+        start with the restored rows."""
+        u = as_tensor(state["u"], self.device, self.dtype)
+        aux = {k: as_tensor(v, self.device) for k, v in
+               dict(state.get("aux", {})).items()}
+        if self.mesh is not None:
+            self.u = shard_state(u, self.mesh)
+            self.aux = {k: shard_field(v, self.mesh, lead=0)
+                        for k, v in aux.items()}
+        else:
+            self.u, self.aux = u, aux
+        self.start_step = self._done_step = int(np.asarray(state["step"]))
+        if self._trace is not None:
+            self._trace.restore(state.get("traces"))
+
     # ------------------------------------------------------------------ run
 
-    def run(self) -> RunResult:
-        """Run ``nsteps`` steps from the current state."""
+    def _sync(self) -> None:
+        devs = (self.mesh.unique_devices() if self.mesh is not None
+                else [self.device])
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _advance(self, n: int, row: int) -> None:
+        """Step ``n`` on the engine's state; its receivers into ``row``."""
         if self.mesh is not None:
-            return self._run_mesh()
-        nsteps = self.nsteps
-        traces = None
-        if self._det_flat is not None:
-            traces = torch.empty((nsteps, len(self._det_flat),
-                                  self.model.ncomp),
-                                 device=self.device, dtype=self.dtype)
-        u, aux = self.u, self.aux
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self.u, self.aux = self._one_step_mesh(self.u, self.aux, n)
+            if self._trace is not None:
+                C = self.model.ncomp
+                self._trace.put(row, *(self.u[k].reshape(C, -1)[:, flat].T
+                                       for k, (flat, _) in self._det.items()))
+            return
+        self.u, self.aux = self._one_step(self.u, self.aux, n)
+        if self._trace is not None:
+            self._trace.put(row, self._detect(self.u))
+
+    def run(self, snapshot_cb: Optional[Callable] = None,
+            cb_every: Optional[int] = None) -> RunResult:
+        """Run the remaining steps, ``start_step .. nsteps``.
+
+        ``snapshot_cb(step, u)`` is called after every step that is a
+        multiple of ``cb_every`` (default: the task's snapshot cadence),
+        rounded up to the symmetrization period (2 when symmetrized), also
+        after a resume off that grid. ``u`` is the state as it lies on the
+        device (on a mesh, the list of per-shard blocks), not a copy: the
+        callback copies what it writes (``state_dict``), so nothing leaves
+        the card, and nothing waits for it, at the steps where it writes
+        nothing. A resumed run at an odd step on the pair-fused path
+        realigns with one single step before its two-step passes.
+        """
+        period = 2 if self.task.symmetrize_stages else 1
+        every = self.task.snapshots.every if cb_every is None else cb_every
+        every = -(-every // period) * period if snapshot_cb and every else 0
+        nsteps, start = self.nsteps, int(self.start_step)
+        if self._trace is not None:
+            rows, C = max(nsteps - start, 0), self.model.ncomp
+            self._trace.start(
+                [(torch.empty((rows, len(pos), C), device=self.mesh.devices[k],
+                              dtype=self.dtype), pos)
+                 for k, (_, pos) in self._det.items()]
+                if self.mesh is not None else
+                [(torch.empty((rows, len(self._det_flat), C),
+                              device=self.device, dtype=self.dtype),
+                  slice(None))], resumed=start > 0)
+        if self.mesh is not None:
+            self.u = list(self.u)
+            self.aux = {k: list(v) for k, v in self.aux.items()}
+        pair = (self._fwd, self._fwd[::-1])
+        self._sync()
         t0 = _time.perf_counter()
-        if self._pair_fused:
-            pair = (self._fwd, self._fwd[::-1])
-            for n in range(0, nsteps - 1, 2):
-                u = self._fused_fn(self.model, u, self._mstack, self.dt,
-                                   self.task.grid.h, self.task.order,
-                                   self.task.borders, axes_seq=pair)
-            if nsteps % 2:
-                u, aux = self._one_step(u, aux, nsteps - 1)
-        else:
-            for n in range(nsteps):
-                u, aux = self._one_step(u, aux, n)
-                if traces is not None:
-                    traces[n] = self._detect(u)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        n = start
+        while n < nsteps:
+            if self._pair_fused and n % 2 == 0 and n + 2 <= nsteps:
+                self.u = self._fused_fn(self.model, self.u, self._mstack,
+                                        self.dt, self.task.grid.h,
+                                        self.task.order, self.task.borders,
+                                        axes_seq=pair)
+                n += 2
+            else:
+                self._advance(n, n - start)
+                n += 1
+            self._done_step = n
+            if every and n % every == 0:
+                snapshot_cb(n, self.u)
+        self._sync()
         wall = _time.perf_counter() - t0
-        self.u, self.aux = u, aux
 
         npts = int(np.prod(self.task.grid.shape))
+        u = (gather_state(self.u, self.mesh, device="cpu")
+             if self.mesh is not None else self.u.cpu())
         return RunResult(
-            u=u.cpu().numpy(),
+            u=u.numpy(),
             t=nsteps * self.dt,
             nsteps=nsteps,
             dt=self.dt,
-            traces=traces.cpu().numpy() if traces is not None else None,
+            traces=self._trace.assemble() if self._trace is not None
+            else None,
             wall_seconds=wall,
-            points_per_second=npts * nsteps / max(wall, 1e-12),
+            points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
             kernel=self.kernel,
         )
+
+    # ------------------------------------------------------------- outputs
+
+    def run_with_outputs(self, outdir: str,
+                         checkpoint_every: int = 0) -> RunResult:
+        """``run()`` with its artifacts under ``outdir``: a ``.vti``
+        snapshot at the task's snapshot cadence (``SnapshotSpec.fields``
+        and the velocity vector) in ``<outdir>/<snapshots.directory>``, then
+        a ``.pvd`` collection of them; checkpoints every
+        ``checkpoint_every`` steps in ``<outdir>/checkpoints``; the
+        seismograms at the end. Each cadence is rounded up to the
+        symmetrization period; the state is copied to the host once at
+        each step where either fires, and at no other
+        (``utils.checkpoint.output_callback``)."""
+        task = self.task
+        os.makedirs(outdir, exist_ok=True)
+        snapdir = os.path.join(outdir, task.snapshots.directory)
+        series = []
+
+        def snapshot(step: int, state: Dict) -> None:
+            fields = snapshot_fields(self.model, state["u"])
+            if task.snapshots.fields:
+                keep = set(task.snapshots.fields) | {"velocity"}
+                fields = {k: v for k, v in fields.items() if k in keep}
+            fname = f"{task.name}_{step:06d}.vti"
+            os.makedirs(snapdir, exist_ok=True)
+            write_vti(os.path.join(snapdir, fname), task.grid.shape,
+                      task.grid.h, task.grid.origin, fields)
+            series.append((step * self.dt, fname))
+
+        cb, every = output_callback(
+            outdir, 2 if task.symmetrize_stages else 1, task.snapshots.every,
+            checkpoint_every, self.state_dict, snapshot)
+        res = self.run(snapshot_cb=cb, cb_every=every)
+        if series:
+            write_pvd(os.path.join(snapdir, f"{task.name}.pvd"), series)
+        if res.traces is not None:
+            save_seismograms(outdir, task.name, res.traces, self.dt,
+                             task.detectors.points, self.model.comp_names)
+        return res
+
+
+def as_tensor(a, device, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """A copy of ``a`` (a tensor, or an array such as a restored
+    checkpoint's or a JAX engine's ``np.asarray``) on ``device``, in
+    ``dtype`` or its own."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype, copy=True)
+    return torch.tensor(np.asarray(a), device=device, dtype=dtype)

@@ -24,18 +24,23 @@ is conforming and lies on one axis ``ca != 0`` of a 3D model on the fused
 path, and every body is isotropic (as in JAX), the steps sweep (ca, rest)
 and its reverse, as the JAX engine sweeps its permuted storage; the port
 keeps the task layout in memory.
+
+``state_dict``/``load_state`` checkpoint and resume a run, bond masks
+included, and ``run_with_outputs`` writes per-body snapshots, checkpoints
+and seismograms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time as _time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gcm_tpu_torch.engine import check_device, resolve_kernel
+from gcm_tpu_torch.engine import as_tensor, check_device, resolve_kernel
 from gcm_tpu_torch.materials import AxisViewCache, MaterialFields
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.fused import (
@@ -50,7 +55,11 @@ from gcm_tpu_torch.solver.gcm import axes_order
 from gcm_tpu_torch.solver.multi import (
     fused_contacts_ok, step_multi, step_multi_fast, step_multi_fused,
 )
+from gcm_tpu_torch.snapshot import (
+    save_seismograms, snapshot_fields, write_pvd, write_vti,
+)
 from gcm_tpu_torch.task import Task, apply_initial
+from gcm_tpu_torch.utils.checkpoint import TraceRecord, output_callback
 
 
 @dataclasses.dataclass
@@ -225,6 +234,17 @@ class MultiBodyEngine:
                                          device=self.device))
             self.auxs[name] = aux
 
+        #: the first step run() executes (set by load_state on a resume),
+        #: and the steps completed so far
+        self.start_step = 0
+        self._done_step = 0
+        #: the detector record across a resume, per body with detectors
+        self._traces = {name: TraceRecord(len(idx), self.model.ncomp)
+                        for name, idx in self._det.items()}
+        #: the completed step at each device-to-host copy of the state made
+        #: by state_dict
+        self.host_copies: List[int] = []
+
         # sources per body: flat indices into the body's state and every
         # step's amplitude, evaluated in float64 at once
         times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
@@ -278,52 +298,167 @@ class MultiBodyEngine:
             new_auxs[name] = aux
         return us, bonded, new_auxs
 
+    # ----------------------------------------------------------- checkpoint
+
+    def state_dict(self) -> Dict:
+        """The restartable state on the host: per-body fields ``us``, the
+        fracture bond masks ``bonded`` (string keys; a non-conforming
+        contact's per-side dict), per-body corrector ``aux``, the completed
+        ``step`` and, with detectors, per-body ``traces``. Bond masks
+        matter: a resume without them would heal every crack. One
+        device-to-host copy of the state (``host_copies``)."""
+        self.host_copies.append(self._done_step)
+        d = {"us": {k: v.cpu().numpy() for k, v in self.us.items()},
+             "bonded": {str(k): _to_host(v) for k, v in self.bonded.items()},
+             "aux": {k: {ak: av.cpu().numpy() for ak, av in a.items()}
+                     for k, a in self.auxs.items()},
+             "step": self._done_step}
+        if self._traces:
+            d["traces"] = self._assemble_traces()
+        return d
+
+    def load_state(self, state: Dict) -> None:
+        """Restore a ``state_dict`` (this engine's or the JAX engine's, as
+        numpy arrays); ``run()`` then runs the steps ``step .. nsteps``,
+        from an odd step as well."""
+        dev, dt = self.device, self.dtype
+        self.us = {k: as_tensor(v, dev, dt) for k, v in state["us"].items()}
+        self.bonded = {
+            int(k): ({s: as_tensor(m, dev, dt) for s, m in v.items()}
+                     if isinstance(v, dict) else as_tensor(v, dev, dt))
+            for k, v in state["bonded"].items()}
+        if "aux" in state:
+            self.auxs = {k: {ak: as_tensor(av, dev) for ak, av in a.items()}
+                         for k, a in state["aux"].items()}
+        self.start_step = self._done_step = int(np.asarray(state["step"]))
+        restored = dict(state.get("traces") or {})
+        for name, record in self._traces.items():
+            record.restore(restored.get(name))
+
+    def _assemble_traces(self) -> Optional[Dict[str, np.ndarray]]:
+        """Per body with detectors, every completed step's receivers; None
+        without detectors."""
+        return ({name: r.assemble() for name, r in self._traces.items()}
+                if self._traces else None)
+
     # ------------------------------------------------------------------- run
 
     def run(self, snapshot_cb=None, snapshot_every: int = 0
             ) -> MultiRunResult:
-        """Run ``nsteps`` steps from the current state; optionally call
-        ``snapshot_cb(step, {name: np.ndarray})`` every ``snapshot_every``
-        steps, rounded up to a multiple of the symmetrization period (2 when
-        symmetrized), within the whole periods, as the JAX engine fires
-        between its scan chunks; a trailing odd step fires none."""
+        """Run the steps ``start_step .. nsteps``; optionally call
+        ``snapshot_cb(step, {name: u})`` after every step that is a
+        multiple of ``snapshot_every`` rounded up to the symmetrization
+        period (2 when symmetrized), also after a resume off that grid.
+        The states are the bodies' tensors on the device, not copies."""
         period = 2 if self.symmetrize else 1
-        nsteps = self.nsteps
-        nfull = (nsteps // period) * period
+        nsteps, start = self.nsteps, int(self.start_step)
         every = 0
         if snapshot_cb is not None and snapshot_every:
             every = max(period, -(-snapshot_every // period) * period)
         C = self.model.ncomp
-        traces = {name: torch.empty((nsteps, len(idx), C), device=self.device,
-                                    dtype=self.dtype)
-                  for name, idx in self._det.items()}
-        us, bonded, auxs = dict(self.us), dict(self.bonded), dict(self.auxs)
+        for name, record in self._traces.items():
+            record.start([(torch.empty(
+                (max(nsteps - start, 0), len(self._det[name]), C),
+                device=self.device, dtype=self.dtype), slice(None))],
+                resumed=start > 0)
+        self.us, self.bonded = dict(self.us), dict(self.bonded)
+        self.auxs = dict(self.auxs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = _time.perf_counter()
-        for n in range(nsteps):
-            us, bonded, auxs = self._one_step(us, bonded, auxs, n)
+        for n in range(start, nsteps):
+            self.us, self.bonded, self.auxs = self._one_step(
+                self.us, self.bonded, self.auxs, n)
             for name, idx in self._det.items():
-                traces[name][n] = us[name].reshape(C, -1)[:, idx].T
-            if every and (n + 1) % every == 0 and n + 1 <= nfull:
-                snapshot_cb(n + 1, {k: v.cpu().numpy()
-                                    for k, v in us.items()})
+                self._traces[name].put(
+                    n - start, self.us[name].reshape(C, -1)[:, idx].T)
+            self._done_step = n + 1
+            if every and (n + 1) % every == 0:
+                snapshot_cb(n + 1, self.us)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
-        self.us, self.bonded, self.auxs = us, bonded, auxs
         npts = sum(int(np.prod(t.grid.shape)) for t in self.tasks.values())
-
-        def host(v):
-            return ({k: x.cpu().numpy() for k, x in v.items()}
-                    if isinstance(v, dict) else v.cpu().numpy())
-
         return MultiRunResult(
-            bodies={k: v.cpu().numpy() for k, v in us.items()},
-            bonded={k: host(v) for k, v in bonded.items()},
+            bodies={k: v.cpu().numpy() for k, v in self.us.items()},
+            bonded={k: _to_host(v) for k, v in self.bonded.items()},
             t=nsteps * self.dt, nsteps=nsteps, dt=self.dt,
             wall_seconds=wall,
-            points_per_second=npts * nsteps / max(wall, 1e-12),
-            traces=({k: t.cpu().numpy() for k, t in traces.items()}
-                    if traces else None),
+            points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
+            traces=self._assemble_traces(),
             path=self.path)
+
+    # ------------------------------------------------------------- outputs
+
+    def write_snapshots(self, outdir: str, tag: str = "final") -> None:
+        """Per body a ``<name>_<tag>.vti`` of the engine's current fields,
+        and each bond mask as ``contact<i>_bonded[_<side>]_<tag>.npy``
+        (``write_body_snapshots`` on a copy of the state)."""
+        write_body_snapshots(outdir, tag, self.tasks, self.model,
+                             {k: v.cpu().numpy() for k, v in self.us.items()},
+                             {k: _to_host(v) for k, v in self.bonded.items()})
+
+    def run_with_outputs(self, outdir: str, snapshot_every: int = 0,
+                         checkpoint_every: int = 0) -> MultiRunResult:
+        """``run()`` with its artifacts under ``outdir``: every
+        ``snapshot_every`` steps a ``<name>_<step>.vti`` per body in
+        ``<outdir>/snapshots``, then a ``<name>.pvd`` per body; checkpoints
+        every ``checkpoint_every`` steps in ``<outdir>/checkpoints``; each
+        body's seismograms at the end. Each cadence is rounded up to the
+        symmetrization period; the state is copied to the host once at
+        each step where either fires, and at no other."""
+        os.makedirs(outdir, exist_ok=True)
+        snapdir = os.path.join(outdir, "snapshots")
+        series = {name: [] for name in self.tasks}
+
+        def snapshot(step: int, state: Dict) -> None:
+            files = write_body_snapshots(snapdir, f"{step:06d}", self.tasks,
+                                         self.model, state["us"])
+            for name, fname in files.items():
+                series[name].append((step * self.dt, fname))
+
+        cb, every = output_callback(
+            outdir, 2 if self.symmetrize else 1, snapshot_every,
+            checkpoint_every, self.state_dict, snapshot)
+        res = self.run(snapshot_cb=cb, snapshot_every=every)
+        for name, entries in series.items():
+            if entries:
+                write_pvd(os.path.join(snapdir, f"{name}.pvd"), entries)
+        for name, tr in (res.traces or {}).items():
+            task = self.tasks[name]
+            save_seismograms(outdir, task.name, tr, res.dt,
+                             task.detectors.points, self.model.comp_names)
+        return res
+
+
+def _to_host(mask):
+    """A bond mask (a tensor, or a non-conforming contact's per-side dict
+    of them) as numpy."""
+    if isinstance(mask, dict):
+        return {s: v.cpu().numpy() for s, v in mask.items()}
+    return mask.cpu().numpy()
+
+
+def write_body_snapshots(outdir: str, tag: str, tasks: Dict[str, Task],
+                         model, us: Dict[str, np.ndarray],
+                         bonded: Optional[Dict] = None) -> Dict[str, str]:
+    """Per body a ``<name>_<tag>.vti`` of its host fields ``us[name]`` in
+    ``outdir`` and, given ``bonded`` (host masks, as ``MultiRunResult``
+    holds them), each bond mask as ``contact<i>_bonded[_<side>]_<tag>.npy``.
+    Returns each body's ``.vti`` file name."""
+    os.makedirs(outdir, exist_ok=True)
+    files = {}
+    for name, task in tasks.items():
+        files[name] = f"{name}_{tag}.vti"
+        write_vti(os.path.join(outdir, files[name]), task.grid.shape,
+                  task.grid.h, task.grid.origin,
+                  snapshot_fields(model, us[name]))
+    for ci, mask in (bonded or {}).items():
+        if isinstance(mask, dict):   # non-conforming: per-side masks
+            for side, m in mask.items():
+                np.save(os.path.join(
+                    outdir, f"contact{ci}_bonded_{side}_{tag}.npy"), m)
+        else:
+            np.save(os.path.join(outdir, f"contact{ci}_bonded_{tag}.npy"),
+                    mask)
+    return files

@@ -7,19 +7,23 @@ and detector gathers after each step, in the JAX engine's order. Its
 ``lax.scan`` becomes a Python loop. ``kernel="simplex"`` sweeps with the
 CUDA kernel (``ops/simplex.py``), ``kernel="torch"`` with the plain gather
 sweep (``solver/simplex_gcm.py``); ``"auto"`` takes the kernel on a CUDA
-device, whatever the mesh size.
+device, whatever the mesh size. ``state_dict``/``load_state`` checkpoint
+and resume a run, guarded by the mesh's node fingerprint, and
+``run_with_outputs`` writes ``.vtu`` snapshots, checkpoints and seismograms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time as _time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gcm_tpu_torch.engine import check_device
+from gcm_tpu_torch.engine import as_tensor, check_device
 from gcm_tpu_torch.grids.simplex import (
     FootTables, SimplexGrid, build_foot_tables,
 )
@@ -28,7 +32,9 @@ from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.simplex import build_simplex_plan, simplex_step
 from gcm_tpu_torch.solver import simplex_gcm
 from gcm_tpu_torch.solver.simplex_gcm import NodeBorders, build_node_borders
+from gcm_tpu_torch.snapshot import save_seismograms, write_pvd, write_vtu
 from gcm_tpu_torch.task import SIMPLEX_KERNELS, BorderSpec
+from gcm_tpu_torch.utils.checkpoint import TraceRecord, output_callback
 
 
 def resolve_simplex_kernel(kernel: str, device) -> str:
@@ -157,6 +163,18 @@ class SimplexEngine:
                                           device=self.device))
         self.nsteps = nsteps
         self.task = None
+        #: the task's SnapshotSpec (set by from_task)
+        self.snapshots = None
+        #: the first step run() executes (set by load_state on a resume),
+        #: and the steps completed so far
+        self.start_step = 0
+        self._done_step = 0
+        #: the detector record across a resume (None without detectors)
+        self._trace = (TraceRecord(len(self._det_idx), self.model.ncomp)
+                       if self._det_idx is not None else None)
+        #: the completed step at each device-to-host copy of the state
+        #: made by state_dict
+        self.host_copies: List[int] = []
 
     @classmethod
     def from_task(cls, task, device="cuda", dtype=torch.float32,
@@ -188,6 +206,7 @@ class SimplexEngine:
         )
         eng.nsteps = task.time.steps_for(eng.dt)
         eng.task = task
+        eng.snapshots = task.snapshots
         return eng
 
     def _step(self, u: torch.Tensor, axes) -> torch.Tensor:
@@ -197,50 +216,170 @@ class SimplexEngine:
                                         self._dev_tables, self._dev_border,
                                         axes)
 
-    def run(self, nsteps: Optional[int] = None) -> SimplexRunResult:
-        """Run ``nsteps`` steps (default: the task's) from the current
-        state."""
+    # ----------------------------------------------------------- checkpoint
+
+    def state_dict(self) -> Dict:
+        """The restartable state on the host: the fields ``u``, the
+        corrector ``aux`` fields, the completed ``step``, the mesh's node
+        fingerprint ``points_md5`` (per-node fields mean nothing in another
+        node numbering) and, with detectors, the ``traces`` recorded so
+        far. One device-to-host copy of the state (``host_copies``)."""
+        self.host_copies.append(self._done_step)
+        d = {"u": self.u.cpu().numpy(),
+             "aux": {k: v.cpu().numpy() for k, v in self.aux.items()},
+             "step": self._done_step,
+             "points_md5": _points_fingerprint(self.grid)}
+        if self._trace is not None:
+            d["traces"] = self._trace.assemble()
+        return d
+
+    def load_state(self, state: Dict) -> None:
+        """Restore a ``state_dict`` (this engine's or the JAX engine's, as
+        numpy arrays); raises if it was saved under another node numbering.
+        ``run()`` then runs the steps ``step .. nsteps``."""
+        _check_points_fingerprint(state.get("points_md5"), self.grid)
+        self.u = as_tensor(state["u"], self.device, self.dtype)
+        self.aux = {k: as_tensor(v, self.device)
+                    for k, v in dict(state.get("aux", {})).items()}
+        self.start_step = self._done_step = int(np.asarray(state["step"]))
+        if self._trace is not None:
+            self._trace.restore(state.get("traces"))
+
+    # ------------------------------------------------------------------ run
+
+    def run(self, nsteps: Optional[int] = None, snapshot_cb=None,
+            cb_every: Optional[int] = None) -> SimplexRunResult:
+        """Run the steps ``start_step .. nsteps`` (default: the task's).
+
+        ``snapshot_cb(step, u)`` is called after every step that is a
+        multiple of ``cb_every`` (default: the task's snapshot cadence),
+        rounded up to the symmetrization period of 2, also after a resume
+        off that grid; ``u`` is the device state, not a copy.
+        """
         nsteps = self.nsteps if nsteps is None else nsteps
         if nsteps is None:
             raise ValueError("nsteps not given and engine has no task")
         model = self.model
         axes_fwd = tuple(range(model.dim))
+        start = int(self.start_step)
+        if cb_every is None:
+            cb_every = self.snapshots.every if self.snapshots else 0
+        every = -(-cb_every // 2) * 2 if snapshot_cb and cb_every else 0
         # every step's source amplitudes, in float64, cast once
         times = (np.arange(nsteps, dtype=np.float64) + 1.0) * self.dt
         amps = (np.stack([np.broadcast_to(s.wavelet(times) * self.dt, nsteps)
                           for _, _, s in self._srcs], axis=1)
                 if self._srcs else np.zeros((nsteps, 0)))
         amps = torch.as_tensor(amps, device=self.device).to(self.dtype)
-        traces = None
-        if self._det_idx is not None:
-            traces = torch.empty((nsteps, len(self._det_idx), model.ncomp),
-                                 device=self.device, dtype=self.dtype)
+        if self._trace is not None:
+            self._trace.start([(torch.empty(
+                (max(nsteps - start, 0), len(self._det_idx), model.ncomp),
+                device=self.device, dtype=self.dtype), slice(None))],
+                resumed=start > 0)
         u, aux = self.u, self.aux
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = _time.perf_counter()
-        for n in range(nsteps):
+        for n in range(start, nsteps):
             u = self._step(u, axes_fwd if n % 2 == 0 else axes_fwd[::-1])
             if len(self._src_flat):
                 # sources land after the sweeps, before the correctors
                 u.view(-1).index_add_(0, self._src_flat, amps[n])
             for corr in self.correctors:
                 u, aux = corr(model, u, aux, self.dt)
-            if traces is not None:
-                traces[n] = u[:, self._det_idx].T
+            if self._trace is not None:
+                self._trace.put(n - start, u[:, self._det_idx].T)
+            self.u, self.aux = u, aux
+            self._done_step = n + 1
+            if every and (n + 1) % every == 0:
+                snapshot_cb(n + 1, u)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
-        self.u, self.aux = u, aux
         return SimplexRunResult(
             u=u.cpu().numpy(),
             nsteps=nsteps,
             dt=self.dt,
             wall_seconds=wall,
-            points_per_second=self.grid.npoints * nsteps / max(wall, 1e-12),
-            traces=traces.cpu().numpy() if traces is not None else None,
+            points_per_second=(self.grid.npoints * (nsteps - start)
+                               / max(wall, 1e-12)),
+            traces=self._trace.assemble() if self._trace is not None
+            else None,
             kernel=self.kernel,
         )
+
+    # ------------------------------------------------------------- outputs
+
+    def run_with_outputs(self, outdir: str,
+                         checkpoint_every: int = 0) -> SimplexRunResult:
+        """``run()`` with its artifacts under ``outdir``, as
+        ``Engine.run_with_outputs``: a ``.vtu`` snapshot at the snapshot
+        cadence, then a ``.pvd`` of them; checkpoints in
+        ``<outdir>/checkpoints``; the seismograms at the end. The state is
+        copied to the host once at each step where either cadence fires."""
+        os.makedirs(outdir, exist_ok=True)
+        snap = self.snapshots
+        snapdir = os.path.join(outdir, snap.directory if snap is not None
+                               else "snapshots")
+        series = []
+
+        def snapshot(step: int, state: Dict) -> None:
+            fname = f"{self.name}_{step:06d}.vtu"
+            os.makedirs(snapdir, exist_ok=True)
+            self.write_snapshot(os.path.join(snapdir, fname), state)
+            series.append((step * self.dt, fname))
+
+        cb, every = output_callback(
+            outdir, 2, snap.every if snap is not None else 0,
+            checkpoint_every, self.state_dict, snapshot)
+        res = self.run(snapshot_cb=cb, cb_every=every)
+        if series:
+            write_pvd(os.path.join(snapdir, f"{self.name}.pvd"), series)
+        if res.traces is not None and self.task is not None \
+                and self.task.detectors is not None:
+            save_seismograms(outdir, self.name, res.traces, self.dt,
+                             self.task.detectors.points,
+                             self.model.comp_names)
+        return res
+
+    def write_snapshot(self, path: str, state: Optional[Dict] = None
+                       ) -> None:
+        """The state as a ``.vtu``: each component, the velocity vector and
+        the corrector aux fields; ``state`` is a ``state_dict()`` already
+        taken at this step (default: a new one)."""
+        state = self.state_dict() if state is None else state
+        u = state["u"]
+        fields = {n: u[i] for i, n in enumerate(self.model.comp_names)}
+        fields["velocity"] = u[self.model.vel_slice]
+        fields.update(state["aux"])
+        write_vtu(path, self.grid.points, self.grid.cells, fields)
+
+
+def _points_fingerprint(grid) -> Optional[np.ndarray]:
+    """md5 (a [16] uint8 array) of the node coordinates in storage order:
+    it changes whenever the node numbering does (another mesh, a locality
+    reorder), which is what makes a per-node checkpoint unresumable. The
+    same digest as the JAX package's on the same mesh."""
+    if grid is None or getattr(grid, "points", None) is None:
+        return None
+    digest = hashlib.md5(np.ascontiguousarray(grid.points).tobytes()).digest()
+    return np.frombuffer(digest, np.uint8).copy()
+
+
+def _check_points_fingerprint(saved, grid) -> None:
+    """Raise when a checkpoint's node numbering is not the grid's; a
+    checkpoint without a fingerprint (saved is None) loads unverified."""
+    if saved is None:
+        return
+    cur = _points_fingerprint(grid)
+    if cur is not None and not np.array_equal(np.asarray(saved), cur):
+        raise ValueError(
+            "checkpoint node numbering mismatch: the saved fields "
+            "were written under a different node order than this grid. "
+            "Imported meshes (from_cells/load_msh) are locality-reordered "
+            "by default: rebuild the grid with the reorder setting the "
+            "checkpoint was written under, or remap external data with "
+            "grid.node_order.")
 
 
 def _material_fields(material, npoints: int, device,

@@ -654,22 +654,32 @@ def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
     assert gaux.max().item() > 1e-4
 
 
+def aux_excess(got, want, rtol=1e-5, atol=1e-6):
+    """The largest ``|got - want| / (atol + rtol |want|)``: at most 1 where
+    ``torch.testing.assert_close(got, want, rtol=rtol, atol=atol)``
+    passes."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("order", [2, 4])
 @pytest.mark.parametrize("shape,smooth", [((37, 61), True), ((64, 128), True),
-                                          ((37, 61), False)])
+                                          ((37, 61), False),
+                                          ((64, 128), False)])
 def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, smooth,
                                                        order, bf16):
     """Maxwell + damage folded into the row-streamed 2D body, on unaligned
     and aligned rows, both sweep orders in turn, held a step at a time,
-    from a smooth state and, on the unaligned rows, from the random one.
-    On 64 x 128 cells the random state's damage sits on its threshold's
-    knife-edge in enough cells that the float32 plain version itself
-    strays from its float64 form by up to 1.55 x the aux tolerance in
-    three steps, and the 2D box-tile kernel misses the tolerance there
-    by the same 1.21e-6 in the same cell as this body
-    (tools/torch_fold_drift.py, ROADMAP.md queue C)."""
+    from a smooth state and from the random one. On 64 x 128 cells the
+    random state's damage sits on its threshold's knife-edge in enough
+    cells that the float32 plain version itself strays from its float64
+    form by up to 1.55 x the aux tolerance in three steps
+    (tools/torch_fold_drift.py). So that case is held to the float64 plain
+    step, by the rule PERF.md section 2 states for a kernel on a path's
+    own state: state and aux each within their limit (2e-6 normalized;
+    rtol 1e-5, atol 1e-6), or within twice the float32 plain step's own
+    distance from the float64 one."""
     model, u, ms, dt = card_problem(5, "elastic2d", shape, cuda)
     for a in range(1, 3) if smooth else ():   # off the damage knife-edges
         u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
@@ -681,16 +691,27 @@ def test_2d_folded_correctors_a_step_at_a_time_on_card(cuda, shape, smooth,
     h = (10.0, 11.0)
     got, gaux = u, torch.zeros((1,) + shape, device=cuda)
     want, waux = u, gaux
+    knife_edge = shape == (64, 128) and not smooth
     for n in range(3):
         axes = (0, 1) if n % 2 == 0 else (1, 0)
+        held, held_aux = want, waux
         got, gaux = fused_step_2d(model, got, ms, dt, h, order, borders(2),
                                   axes, correctors=specs, aux=gaux)
         want, waux = fused_step_2d_reference(
-            model, want, ms, dt, h, order, borders(2), axes,
-            correctors=specs, aux=waux)
+            model, held, ms, dt, h, order, borders(2), axes,
+            correctors=specs, aux=held_aux)
         torch.cuda.synchronize()
-        assert norm_err(got, want) < 2e-6
-        torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
+        if knife_edge:
+            want64, waux64 = fused_step_2d_reference(
+                model, held.double(), ms.double(), dt, h, order, borders(2),
+                axes, correctors=specs, aux=held_aux.double())
+            err, err32 = norm_err(got, want64), norm_err(want, want64)
+            assert err < 2e-6 or err < 2 * err32, (n, err, err32)
+            ex, ex32 = aux_excess(gaux, waux64), aux_excess(waux, waux64)
+            assert ex <= 1 or ex < 2 * ex32, (n, ex, ex32)
+        else:
+            assert norm_err(got, want) < 2e-6
+            torch.testing.assert_close(gaux, waux, rtol=1e-5, atol=1e-6)
         want, waux = got, gaux    # held a step at a time
     assert gaux.max().item() > 1e-4
 
@@ -1237,3 +1258,127 @@ def test_ortho_engine_takes_the_kernels_on_card(cuda, kernel):
     assert launched == {"fused": [7, 0, 0], "sweep": [0, 0, 21]}[kernel]
     want = Engine(dataclasses.replace(task, kernel="torch"), device=cuda).run()
     assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 1e-5
+
+
+# ------------------------------------------------------- outputs and resume
+
+def _resumed_on_card(build, cut, tmp_path):
+    """``build()`` run to ``cut``, checkpointed, restored into a fresh
+    engine and run to the end: (that engine, its result, the cut state)."""
+    from gcm_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    part = build()
+    part.nsteps = cut
+    part.run()
+    save_checkpoint(str(tmp_path), cut, part.state_dict())
+    state = restore_checkpoint(str(tmp_path), step=cut)
+    eng = build()
+    eng.load_state(state)
+    return eng, eng.run(), state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", [5, 6])
+def test_fused_engine_resumes_exactly_on_card(cuda, tmp_path, cut):
+    """kernel="fused" with a source and receivers: the resumed run launches
+    the kernel once a step from the cut and equals the uninterrupted one,
+    state and traces (the same launches in the same order)."""
+    task = get_scenario("elastic3d_explosion", n=32, nsteps=12)
+    full = Engine(task, device=cuda)
+    want = full.run()
+    before = fused_step.launches
+    eng, got, _ = _resumed_on_card(lambda: Engine(task, device=cuda), cut,
+                                   tmp_path)
+    assert fused_step.launches - before == 12
+    assert got.kernel == "fused" and eng.start_step == cut
+    assert torch.equal(eng.u, full.u)
+    np.testing.assert_array_equal(got.traces, want.traces)
+
+
+@pytest.mark.gpu
+def test_pair_fused_engine_resumes_on_card(cuda, tmp_path):
+    """temporal_block from an odd cut: one single step, then two-step
+    passes; equal to the same run continued without the checkpoint, and to
+    the uninterrupted run, which takes the two steps around the cut in one
+    pass."""
+    task = dataclasses.replace(
+        get_scenario("elastic3d_layered", n=32, nsteps=10),
+        detectors=None, temporal_block=True)
+    from gcm_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    full = Engine(task, device=cuda)
+    full.run()
+    part = Engine(task, device=cuda)
+    part.nsteps = 5
+    part.run()
+    save_checkpoint(str(tmp_path), 5, part.state_dict())
+    eng = Engine(task, device=cuda)
+    eng.load_state(restore_checkpoint(str(tmp_path)))
+    assert eng._pair_fused
+    before = (fused_step.launches, fused_step_slab.pair_launches)
+    eng.run()
+    assert (fused_step.launches - before[0],
+            fused_step_slab.pair_launches - before[1]) == (1, 2)
+    part.start_step, part.nsteps = 5, 10
+    part.run()
+    assert torch.equal(eng.u, part.u)
+    assert torch.equal(eng.u, full.u)
+    assert full.u.abs().max().item() > 0
+
+
+@pytest.mark.gpu
+def test_contact_engine_resumes_exactly_on_card(cuda, tmp_path):
+    """The canonical contact path from a partly broken bond mask, cut at an
+    odd step: bodies, masks and traces equal the uninterrupted run, and no
+    restored broken cell heals."""
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    bodies, contacts = elastic3d_contact(n=32, nsteps=32)
+    mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+        np.float32)
+
+    def build():
+        e = MultiBodyEngine(bodies, contacts, device=cuda,
+                            canonical_layout=True)
+        e.bonded = bonded_from_numpy({0: mask}, device=cuda)
+        return e
+
+    want = build().run()
+    eng, got, state = _resumed_on_card(build, 17, tmp_path)
+    assert got.path == "fused_canonical"
+    for k in want.bodies:
+        np.testing.assert_array_equal(got.bodies[k], want.bodies[k])
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+    at_cut = state["bonded"]["0"]
+    assert (got.bonded[0][at_cut == 0] == 0).all()
+    assert got.bonded[0].mean() < at_cut.mean()
+
+
+@pytest.mark.gpu
+def test_run_with_outputs_on_card(cuda, tmp_path):
+    """Snapshots every 6 and checkpoints every 4 steps: the state leaves the
+    card at 4, 6, 8 and 12 only, the files are written, and the run equals
+    run() without outputs."""
+    import os
+
+    from gcm_tpu_torch.task import SnapshotSpec
+
+    task = dataclasses.replace(
+        get_scenario("elastic3d_explosion", n=32, nsteps=12),
+        snapshots=SnapshotSpec(every=6))
+    want = Engine(task, device=cuda).run()
+    eng = Engine(task, device=cuda)
+    got = eng.run_with_outputs(str(tmp_path), checkpoint_every=4)
+    assert eng.host_copies == [4, 6, 8, 12]
+    np.testing.assert_array_equal(got.u, want.u)
+    np.testing.assert_array_equal(got.traces, want.traces)
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "step_12.npz", "step_4.npz", "step_8.npz"]
+    assert sorted(os.listdir(tmp_path / "snapshots")) == [
+        "elastic3d_explosion.pvd", "elastic3d_explosion_000006.vti",
+        "elastic3d_explosion_000012.vti"]
+    assert (tmp_path / "elastic3d_explosion.npz").exists()

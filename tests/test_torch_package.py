@@ -32,7 +32,10 @@ assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.parallel.fused_spmd", "gcm_tpu_torch.solver.contact",
         "gcm_tpu_torch.solver.contact_nc", "gcm_tpu_torch.solver.multi",
         "gcm_tpu_torch.engine_multi", "gcm_tpu_torch.oracle.oracle",
-        "gcm_tpu_torch.oracle.oracle_ortho"} <= set(names), names
+        "gcm_tpu_torch.oracle.oracle_ortho", "gcm_tpu_torch.snapshot.vtk",
+        "gcm_tpu_torch.snapshot.seismo", "gcm_tpu_torch.utils.checkpoint",
+        "gcm_tpu_torch.utils.energy", "gcm_tpu_torch.utils.linal",
+        "gcm_tpu_torch.utils.profiling"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -50,7 +53,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 def _assert_refused(proc):
@@ -72,7 +75,7 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
     _assert_refused(_run(["chip_smoke.py"], cwd=tmp_path))
 
 
-def test_cli_list_and_run_on_cpu():
+def test_cli_list_and_run_on_cpu(tmp_path):
     proc = _run(["-m", "gcm_tpu_torch", "list"])
     assert proc.returncode == 0, proc.stderr
     assert [line.split()[0] for line in proc.stdout.splitlines()] == [
@@ -82,7 +85,8 @@ def test_cli_list_and_run_on_cpu():
         "elastic2d_basin_refined", "elastic3d_contact"]
     assert proc.stdout.count("(multi-body") == 2
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
-                 "--n", "12", "--nsteps", "2", "--device", "cpu"])
+                 "--n", "12", "--nsteps", "2", "--device", "cpu",
+                 "--outdir", str(tmp_path)])
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["kernel"] == "torch"
@@ -90,33 +94,38 @@ def test_cli_list_and_run_on_cpu():
     assert summary["nsteps"] == 2
     assert summary["shape"] == [12, 12, 8]
     assert summary["points_per_second"] > 0 and summary["dt"] > 0
+    assert summary["outdir"] == str(tmp_path)
+    assert summary["resumed_from"] is None
+    assert (tmp_path / "elastic3d_explosion.npz").exists()
 
 
-def test_cli_runs_the_sweep_path_on_cpu():
+def test_cli_runs_the_sweep_path_on_cpu(tmp_path):
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic2d_viscoelastic",
                  "--n", "16", "--nsteps", "3", "--kernel", "sweep",
-                 "--device", "cpu"])
+                 "--device", "cpu", "--outdir", str(tmp_path)])
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["kernel"] == "sweep" and summary["shape"] == [16, 16]
 
 
-def test_cli_runs_a_mesh_on_cpu():
+def test_cli_runs_a_mesh_on_cpu(tmp_path):
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_explosion",
                  "--n", "16", "--nsteps", "2", "--kernel", "fused",
-                 "--device", "cpu", "--mesh", "2,2"])
+                 "--device", "cpu", "--mesh", "2,2", "--outdir",
+                 str(tmp_path)])
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["kernel"] == "fused" and summary["mesh"] == "2,2"
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic2d_ps", "--n", "16",
-                 "--nsteps", "2", "--device", "cpu", "--mesh", "2,2"])
+                 "--nsteps", "2", "--device", "cpu", "--mesh", "2,2",
+                 "--outdir", str(tmp_path)])
     assert proc.returncode != 0 and "x only" in proc.stderr
 
 
-def test_cli_runs_a_contact_scenario_on_cpu():
+def test_cli_runs_a_contact_scenario_on_cpu(tmp_path):
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_contact", "--n",
                  "12", "--nsteps", "2", "--kernel", "fused", "--device",
-                 "cpu"])
+                 "cpu", "--outdir", str(tmp_path)])
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["path"] == "fused_canonical"
@@ -124,6 +133,6 @@ def test_cli_runs_a_contact_scenario_on_cpu():
     assert summary["mat_dtype"] == ["f32"] and summary["launches"] == {}
     proc = _run(["-m", "gcm_tpu_torch", "run", "elastic3d_contact", "--n",
                  "12", "--nsteps", "2", "--kernel", "fused", "--device",
-                 "cpu", "--no-canonical-layout"])
+                 "cpu", "--no-canonical-layout", "--outdir", str(tmp_path)])
     assert json.loads(proc.stdout.strip().splitlines()[-1])["path"] == \
         "fused"

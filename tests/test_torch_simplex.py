@@ -482,10 +482,11 @@ def test_engine_refuses_what_the_port_does_not_run():
         SimplexEngine(task.grid, "elastic3d", ortho, device="cpu")
 
 
-def test_cli_runs_a_simplex_scenario_on_cpu():
+def test_cli_runs_a_simplex_scenario_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "gcm_tpu_torch", "run", "simplex3d_layered",
-         "--n", "7", "--nsteps", "3", "--device", "cpu"],
+         "--n", "7", "--nsteps", "3", "--device", "cpu", "--outdir",
+         str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -495,5 +496,5 @@ def test_cli_runs_a_simplex_scenario_on_cpu():
     proc = subprocess.run(
         [sys.executable, "-m", "gcm_tpu_torch", "run", "simplex3d_layered",
          "--n", "5", "--nsteps", "1", "--kernel", "simplex", "--device",
-         "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+         "cpu", "--outdir", str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0

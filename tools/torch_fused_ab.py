@@ -46,17 +46,22 @@ enqueueing), on that state:
   and its tables over the simplex path's 0.08 s of simulated time (422
   steps, 3 sweeps a step; host clock, warmed up), with ``--path-runs N``
   the median of N runs;
-- ``path_pair``, ``path_sweep``, ``path_2d``, ``path_2d_sharded``,
-  ``path_pair_2d``: wall ms a step of ``Engine.run()`` (host clock, the
-  card synchronised before and after, warmed up) over 100 steps of the
-  pair-fused path (``elastic3d_layered`` n=256, no receivers,
-  ``temporal_block=True``: 50 two-step passes) and of the per-sweep path
-  (``elastic3d_explosion`` n=256, ``kernel="sweep"``), over 300 steps of
+- ``path_fused``, ``path_sharded``, ``path_pair``, ``path_sweep``,
+  ``path_2d``, ``path_2d_sharded``, ``path_pair_2d``: wall ms a step of
+  ``Engine.run()`` (host clock, the card synchronised before and after,
+  warmed up) over 100 steps of the 3D fused path (``elastic3d_explosion``
+  n=256 with its receivers) and of the same on a 2x2 mesh of four
+  co-resident shards of cuda:0, of the pair-fused path
+  (``elastic3d_layered`` n=256, no receivers, ``temporal_block=True``: 50
+  two-step passes) and of the per-sweep path (``elastic3d_explosion``
+  n=256, ``kernel="sweep"``), over 300 steps of
   the 2D path (``elastic2d_viscoelastic`` n=2048) and of the same on sx = 4
   shards of cuda:0, and over 100 steps of the 2D pair-fused path
   (``elastic2d_ps`` n=2048, no receivers, ``temporal_block=True``: 50
-  two-step passes); with ``--path-runs N`` the median of N runs in the
-  process.
+  two-step passes); ``path_contact``: wall ms a step of
+  ``MultiBodyEngine.run()`` on the canonical contact path
+  (``elastic3d_contact`` n=256, two bodies of 256x256x128) over 100 steps;
+  with ``--path-runs N`` the median of N runs in the process.
 
 A checkout that has orthotropic media also times the kernel keys with
 every layer made orthotropic (c33 = lam+2mu, c11 = 1.3 c33, c22 = 1.1 c33,
@@ -80,8 +85,8 @@ KEYS = ("fused_step", "slab_f32", "slab_bf16", "pair_f32", "pair_bf16",
 KEYS_2D = ("fused_2d_f32", "fused_2d_bf16", "pair_2d", "spmd_2d_interior",
            "spmd_2d_ring")
 HOST_KEYS = ("host_spmd_2d_interior", "host_spmd_2d_ring")
-PATH_KEYS = ("path_pair", "path_sweep", "path_2d", "path_2d_sharded",
-             "path_pair_2d")
+PATH_KEYS = ("path_fused", "path_sharded", "path_pair", "path_sweep",
+             "path_2d", "path_2d_sharded", "path_pair_2d", "path_contact")
 #: the canonical contact order and the pair of steps a two-step pass runs
 CANON = (2, 0, 1)
 PAIR = (CANON, (1, 0, 2))
@@ -296,13 +301,14 @@ def _time_paths(keys, runs):
     from gcm_tpu_torch.scenarios import get_scenario
 
     visco2d = get_scenario("elastic2d_viscoelastic", n=2048, nsteps=300)
+    explosion = get_scenario("elastic3d_explosion", n=256, nsteps=100)
     tasks = {
+        "path_fused": explosion,
+        "path_sharded": explosion,
         "path_pair": dataclasses.replace(
             get_scenario("elastic3d_layered", n=256, nsteps=100),
             detectors=None, temporal_block=True),
-        "path_sweep": dataclasses.replace(
-            get_scenario("elastic3d_explosion", n=256, nsteps=100),
-            kernel="sweep"),
+        "path_sweep": dataclasses.replace(explosion, kernel="sweep"),
         "path_2d": visco2d,
         "path_2d_sharded": visco2d,
         "path_pair_2d": dataclasses.replace(
@@ -313,15 +319,34 @@ def _time_paths(keys, runs):
     for key, task in tasks.items():
         if key not in keys:
             continue
-        kw = (dict(mesh=domain_mesh(2, [torch.device("cuda", 0)] * 4))
-              if key == "path_2d_sharded" else dict(device="cuda"))
+        kw = (dict(mesh=domain_mesh(2 if key == "path_2d_sharded" else 3,
+                                    [torch.device("cuda", 0)] * 4))
+              if key in ("path_sharded", "path_2d_sharded")
+              else dict(device="cuda"))
         Engine(dataclasses.replace(task, time=dataclasses.replace(
             task.time, nsteps=2)), **kw).run()
         npts = float(np.prod(task.grid.shape))
         out[key] = statistics.median(
             npts / Engine(task, **kw).run().points_per_second * 1e3
             for _ in range(runs))
+    if "path_contact" in keys:
+        out["path_contact"] = _time_contact(runs)
     return out
+
+
+def _time_contact(runs):
+    """Wall ms a step of the canonical contact path, the median of
+    ``runs`` runs."""
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    def run(nsteps):
+        return MultiBodyEngine(*elastic3d_contact(n=256, nsteps=nsteps),
+                               device="cuda", canonical_layout=True).run()
+
+    run(2)
+    res = [run(100) for _ in range(runs)]
+    return statistics.median(r.wall_seconds / r.nsteps * 1e3 for r in res)
 
 
 def main():
