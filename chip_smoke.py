@@ -142,7 +142,23 @@ Phases, each of which raises (exit code != 0) on failure:
    ...])`` at n=256 launches ``fused_step`` 20 times (the counters) and
    writes a trace holding the fused kernel's events (their count, and the
    trace's launches in order with those that have no kernel event, are
-   printed). The copy, write, save and restore times are printed.
+   printed). The copy, write, save and restore times are printed;
+17. the simplex contact path: ``SimplexMultiEngine`` at bench.py's simplex
+   contact configuration (two jittered 25x49x49 tet boxes, 120,050 nodes,
+   bonded across x with a 5e5 Pa strength, random stresses) for 200 steps
+   launches ``simplex_sweep`` 6 times a step (its points/s, untraced idle
+   share, host setup and intact bond share printed) and after 100 steps
+   agrees with the plain path (under 1e-4; the bond cells that differ
+   printed); the kernel on the path's state against its plain version and
+   timed, and the host time of one contact fixup; a resume at step 31 of
+   60 through a checkpoint file equals the uninterrupted run; a tensile
+   pulse through two 17x33x33 lattices breaks bonds on both paths with
+   equal masks, a compressive one none; a non-conforming pair (h against
+   h/2) agrees with its plain path (under 1e-4) with bonds partly broken;
+   the orthotropic ``simplex3d_layered`` at n=33 resolves to ``"torch"``
+   (no kernel launch), stays finite and spreads farther along the stiffer
+   x axis, and its isotropic limit agrees with the isotropic kernel path
+   after 50 steps (under 1e-4).
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -160,7 +176,9 @@ form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
 (``fused_step_2d``, its two-step pass ``fused_step_2d_k2``,
 ``fused_spmd_2d`` with ``interior_ms`` and ``ring_ms``) carry their
 occupancy too, and ``simplex_sweep`` its blocks an SM and nodes a block;
-the last line is ``{"ok": true,
+``simplex_sweep`` also carries its launches, error, times and bound on the
+simplex contact path (``contact_*``) and that path's rate, idle share and
+host setup; the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2680,6 +2698,353 @@ def outputs_and_resume(counts, simplex_task, simplex_tables):
         shutil.rmtree(root, ignore_errors=True)
 
 
+
+# ------------------------------------------------------- simplex contact
+
+#: the simplex contact path, bench.py:249-273 (the unstructured analogue of
+#: BASELINE config 4): two jittered tet boxes of 25 x 49 x 49 = 60,025
+#: nodes meeting at x = 0.5 (the faces are not jittered, so the 2,401
+#: interface nodes pair), rock, stresses 1e5 N(0, 1) from
+#: default_rng(0), bonded with a 5e5 Pa tensile strength. 200 steps on the
+#: kernel path, 100 against the plain path, the resume cut at 31 of 60.
+N_SC, HALF_SC, NSTEPS_SC, NSTEPS_SC_CMP = 49, 25, 200, 100
+NSTEPS_SC_RESUME, CUT_SC = 60, 31
+#: the tensile pulse: two 17 x 33 x 33 lattices (h = 0.5 m) meeting at
+#: x = 8 m, a P pulse 3 m short of the interface, 20 steps (the JAX
+#: package's 2D test, tests/test_simplex_contact.py:88, in 3D)
+N_SC_PULSE, NSTEPS_SC_PULSE = 33, 20
+#: the non-conforming pair: 13 x 25 x 25 nodes (h = 1 m) against
+#: 25 x 49 x 49 (h = 0.5 m), jittered, 40 steps
+NSTEPS_SC_NC = 40
+#: the orthotropic simplex3d_layered at n=33: 130 steps (the Ricker source
+#: peaks at step ~90, and the P front then stays ~20 m short of the sides);
+#: its isotropic limit against the isotropic kernel path after 50 steps
+N_SC_ORTHO, NSTEPS_SC_ORTHO, NSTEPS_SC_ISO = 33, 130, 50
+
+
+def _bench_contact_bodies():
+    """The bodies and contact of bench.py's simplex contact case."""
+    from gcm_tpu_torch.engine_simplex import SimplexBody
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+    from gcm_tpu_torch.materials import IsotropicMaterial
+    from gcm_tpu_torch.solver.simplex_contact import SimplexContactSpec
+
+    rng = np.random.default_rng(0)
+    g_a = SimplexGrid.box((0, 0, 0), (0.5, 1, 1), (HALF_SC, N_SC, N_SC),
+                          jitter=0.12)
+    g_b = SimplexGrid.box((0.5, 0, 0), (1.0, 1, 1),
+                          (N_SC - HALF_SC + 1, N_SC, N_SC), jitter=0.12)
+    rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
+
+    def u0_of(g):
+        u = np.zeros((9, g.npoints), np.float32)
+        u[3:] = 1e5 * rng.standard_normal((6, g.npoints)).astype(np.float32)
+        return u
+
+    bodies = {"a": SimplexBody(g_a, rock, u0=u0_of(g_a)),
+              "b": SimplexBody(g_b, rock, u0=u0_of(g_b))}
+    return bodies, [SimplexContactSpec("a", "b", axis=0, kind="bonded",
+                                       tensile_strength=5e5)]
+
+
+def _mask_cells(mask):
+    """A bond mask (per-side dict where non-conforming) as one array."""
+    if isinstance(mask, dict):
+        return np.concatenate([mask["a"], mask["b"]])
+    return mask
+
+
+def _simplex_steps(eng, n):
+    """n more steps of a simplex multi-body engine from its state."""
+    def run():
+        us, bonded, auxs = eng.us, eng.bonded, eng.auxs
+        amps = torch.zeros((n, 0), device="cuda")
+        for i in range(n):
+            us, bonded, auxs = eng._one_step(us, bonded, auxs, i, amps)
+    return run
+
+
+def simplex_contact_path(counts, result):
+    """Phase 17: SimplexMultiEngine on the simplex_sweep kernel, at bench.py's
+    simplex contact configuration; a tensile pulse, a non-conforming pair,
+    orthotropic simplex media and a resume."""
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch.engine_simplex import (
+        SimplexBody, SimplexEngine, SimplexMultiEngine)
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+    from gcm_tpu_torch.materials import IsotropicMaterial, OrthotropicMaterial
+    from gcm_tpu_torch.ops.simplex import simplex_sweep, simplex_sweep_reference
+    from gcm_tpu_torch.scenarios import get_scenario
+    from gcm_tpu_torch.solver.simplex_contact import (
+        SimplexContactSpec, apply_simplex_contact_post)
+    from gcm_tpu_torch.task import TimeSpec
+
+    # ---- (a) the bench configuration
+    t0 = time.perf_counter()
+    bodies, contacts = _bench_contact_bodies()
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = SimplexMultiEngine(bodies, contacts, "elastic3d", cfl=0.8,
+                             device="cuda")
+    t_setup = time.perf_counter() - t0
+    npts = sum(b.grid.npoints for b in bodies.values())
+    ia, ib = eng._pairs[0]
+    print(f"simplex contact setup on the host CPU: Delaunay {t_mesh:.1f} s; "
+          f"foot tables, pairing and plans {t_setup:.1f} s ({npts} nodes, "
+          f"{len(ia)} interface pairs); dt {eng.dt:.6g} s")
+
+    def sibling(kernel):
+        return SimplexMultiEngine(bodies, contacts, "elastic3d", cfl=0.8,
+                                  kernel=kernel, device="cuda",
+                                  tables=eng.tables)
+
+    for kern in ("auto", "torch"):
+        sibling(kern).run(2)
+    counts.zero()
+    res = eng.run(NSTEPS_SC)
+    launched = counts.read()
+    _check(res.kernels == {"a": "simplex", "b": "simplex"},
+           f"simplex contact path resolved to {res.kernels}")
+    counts.expect("simplex contact path", launched,
+                  simplex_sweep=6 * NSTEPS_SC)
+    _check(all(np.isfinite(v).all() and v.shape == (9, b.grid.npoints)
+               for v, b in zip(res.bodies.values(), bodies.values())),
+           "simplex contact path: state not finite or of wrong shape")
+    intact = float(res.bonded[0].mean())
+    step_ms = res.wall_seconds / NSTEPS_SC * 1e3
+    print(f"simplex contact path 2 x {HALF_SC}x{N_SC}x{N_SC} ({npts} nodes) "
+          f"x {NSTEPS_SC} steps: {res.points_per_second:.6g} points/s, "
+          f"{step_ms:.4f} ms a step, {launched['simplex_sweep']} "
+          f"simplex_sweep launches; bonds intact {intact:.6f} "
+          f"({int((res.bonded[0] < 0.5).sum())} of {res.bonded[0].size} "
+          f"broken)")
+    idle = _idle_share(_simplex_steps(eng, 50), 50, step_ms)
+    res_k = sibling("auto").run(NSTEPS_SC_CMP)
+    res_t = sibling("torch").run(NSTEPS_SC_CMP)
+    err = _bodies_err(res_k, res_t)
+    ndiff = int((res_k.bonded[0] != res_t.bonded[0]).sum())
+    print(f"  after {NSTEPS_SC_CMP} steps: kernel path "
+          f"{res_k.points_per_second:.6g} vs plain "
+          f"{res_t.points_per_second:.6g} points/s, normalized error "
+          f"{err:.3e} (limit 1e-4), bond cells that differ: {ndiff}")
+    if ndiff:
+        # a bond whose normal traction lies within round-off of the
+        # strength can break in one float32 version and not the other
+        free = [dataclasses.replace(c, tensile_strength=None)
+                for c in contacts]
+        err0 = _bodies_err(*(SimplexMultiEngine(
+            bodies, free, "elastic3d", cfl=0.8, kernel=k, device="cuda",
+            tables=eng.tables).run(NSTEPS_SC_CMP) for k in ("auto", "torch")))
+        print(f"  {ndiff} bond cells differ; without fracture the two paths "
+              f"agree to {err0:.3e} (limit 1e-4)")
+        _check(err0 < PATH_TOL and ndiff <= 0.001 * len(ia),
+               f"simplex contact: {ndiff} bond cells differ, error without "
+               f"fracture {err0:.3e}")
+    else:
+        _check(err < PATH_TOL, f"simplex contact vs plain: err {err:.3e}")
+
+    # the kernel on the path's own state (body a), each axis, and the host
+    # time of one contact fixup
+    plan = eng._sweeps["a"].plan
+    ms, plain_ms, max_abs = [], [], 0.0
+    for axis in range(3):
+        a = (plan, eng.us["a"], axis)
+        *_, e = _hold_on_path_state(
+            f"simplex_sweep on the contact path's state, axis {axis}",
+            simplex_sweep, simplex_sweep_reference, a)
+        max_abs = max(max_abs, e)
+        ms.append(_time_ms(lambda: simplex_sweep(*a), 50))
+        plain_ms.append(_time_ms(lambda: simplex_sweep_reference(*a), 10))
+    ua, ub = eng.us["a"].clone(), eng.us["b"].clone()
+    st = eng.model.stage(0)
+    va = eng._sweeps["a"].views.axis_view(0, st)
+    vb = eng._sweeps["b"].views.axis_view(0, st)
+    fix = (contacts[0], eng.model, eng.us["a"], ua, eng.us["b"], ub, va, vb,
+           ia, ib, eng.bonded[0])
+    apply_simplex_contact_post(*fix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        apply_simplex_contact_post(*fix)
+    torch.cuda.synchronize()
+    fix_ms = (time.perf_counter() - t0) / 50 * 1e3
+    fix_dev = _time_ms(lambda: apply_simplex_contact_post(*fix), 20)
+    N = bodies["a"].grid.npoints
+    K = next(iter(eng.tables["a"].values())).ids.shape[1]
+    flops = N * sum(len(s.pairs) * (8 * K + 20) for s in eng.model.stages) / 3
+    bound = _bound_entry(B_SIMPLEX * N, flops)
+    print(f"simplex_sweep at {tuple(eng.us['a'].shape)}: kernel "
+          f"{np.mean(ms):.4f} ms a sweep ({', '.join(f'{m:.4f}' for m in ms)}"
+          f"), plain {np.mean(plain_ms):.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms; 6 sweeps {6 * np.mean(ms):.4f} ms of "
+          f"a {step_ms:.4f} ms step; one contact fixup: host "
+          f"{fix_ms:.4f} ms a call, device {fix_dev:.4f} ms")
+    result["simplex_sweep"].update(
+        contact_launches=launched["simplex_sweep"],
+        contact_max_abs_err=max_abs, contact_ms=float(np.mean(ms)),
+        contact_plain_ms=float(np.mean(plain_ms)),
+        contact_bound_ms=bound["bound_ms"],
+        contact_points_per_s=res.points_per_second,
+        contact_idle_share=idle, contact_setup_s=t_setup + t_mesh)
+    del res_k, res_t, ua, ub, fix
+
+    # ---- (e) a resume at an odd step, through a checkpoint file
+    root = tempfile.mkdtemp(prefix="simplex_contact_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        full = sibling("auto")
+        rf = full.run(NSTEPS_SC_RESUME)
+        part = sibling("auto")
+        part.run(CUT_SC)
+        state, t_save, t_restore = _through_file(root, part.state_dict())
+        resumed = sibling("auto")
+        resumed.load_state(state)
+        counts.zero()
+        rr = resumed.run(NSTEPS_SC_RESUME)
+        counts.expect("simplex contact resume", counts.read(),
+                      simplex_sweep=6 * (NSTEPS_SC_RESUME - CUT_SC))
+        _same_state("simplex contact resume",
+                    [(f"body {k}", rr.bodies[k], rf.bodies[k])
+                     for k in rf.bodies]
+                    + [("bond mask", rr.bonded[0], rf.bonded[0])])
+        print(f"simplex contact resume: cut at {CUT_SC} of "
+              f"{NSTEPS_SC_RESUME}, checkpoint save {t_save:.3f} s, restore "
+              f"{t_restore:.3f} s; state and bond mask equal the "
+              f"uninterrupted run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del eng, full, part, resumed
+
+    # ---- (b) a tensile pulse through two lattices
+    rock = IsotropicMaterial.from_speeds(rho=1000.0, cp=2000.0, cs=1100.0)
+    n = N_SC_PULSE
+    ga = SimplexGrid.box((0, 0, 0), (8.0, 16.0, 16.0), ((n + 1) // 2, n, n))
+    gb = SimplexGrid.box((8.0, 0, 0), (16.0, 16.0, 16.0),
+                         ((n + 1) // 2, n, n))
+    z = rock.rho * rock.cp
+    prof = np.exp(-((ga.points[:, 0] - 5.0) ** 2) / 2.0)
+    spec = [SimplexContactSpec("a", "b", axis=0, tensile_strength=2e5)]
+
+    def pulse(sign, kernel, tables=None):
+        u0 = np.zeros((9, ga.npoints))
+        u0[3] = sign * 1e6 * prof
+        u0[0] = -sign * 1e6 * prof / z
+        e = SimplexMultiEngine(
+            {"a": SimplexBody(ga, rock, u0=u0), "b": SimplexBody(gb, rock)},
+            spec, "elastic3d", cfl=0.6, kernel=kernel, device="cuda",
+            tables=tables)
+        return e, e.run(NSTEPS_SC_PULSE)
+
+    pe, tk = pulse(+1, "auto")
+    _, tt = pulse(+1, "torch", pe.tables)
+    _, ck = pulse(-1, "auto", pe.tables)
+    perr = _bodies_err(tk, tt)
+    sb = (np.abs(ck.bodies["b"][3]).max(), np.abs(tk.bodies["b"][3]).max())
+    _check((tk.bonded[0] == 0).any() and np.array_equal(tk.bonded[0],
+                                                        tt.bonded[0])
+           and (ck.bonded[0] == 1).all() and perr < PATH_TOL
+           and sb[0] > 3 * sb[1],
+           f"tensile pulse: broken {int((tk.bonded[0] == 0).sum())} kernel, "
+           f"{int((tt.bonded[0] == 0).sum())} plain, compression broken "
+           f"{int((ck.bonded[0] == 0).sum())}, error {perr:.3e}, |sxx| in b "
+           f"{sb}")
+    print(f"tensile pulse 2 x {(n + 1) // 2}x{n}x{n} x {NSTEPS_SC_PULSE} "
+          f"steps: tension breaks {int((tk.bonded[0] == 0).sum())} of "
+          f"{tk.bonded[0].size} bonds on both paths (masks equal, state "
+          f"error {perr:.3e}), compression none; transmitted max|sxx| "
+          f"{sb[0]:.4e} intact against {sb[1]:.4e} broken")
+    del pe
+
+    # ---- (c) a non-conforming pair (h against h/2)
+    ga = SimplexGrid.box((0, 0, 0), (12.0, 24.0, 24.0), (13, 25, 25),
+                         jitter=0.2, seed=3)
+    gb = SimplexGrid.box((12.0, 0, 0), (24.0, 24.0, 24.0), (25, 49, 49),
+                         jitter=0.2, seed=4)
+    p = ga.points
+    prof = 1e6 * np.exp(-((p[:, 0] - 8.0) / 2.0) ** 2
+                        - (((p[:, 1:] - 12.0) / 6.0) ** 2).sum(1))
+    u0 = np.zeros((9, ga.npoints))
+    u0[3] = prof
+    u0[6] = u0[8] = rock.lam / (rock.lam + 2 * rock.mu) * prof
+    u0[0] = -prof / z
+    spec = [SimplexContactSpec("a", "b", axis=0, tensile_strength=3e5)]
+
+    def nc(kernel, tables=None):
+        e = SimplexMultiEngine(
+            {"a": SimplexBody(ga, rock, u0=u0), "b": SimplexBody(gb, rock)},
+            spec, "elastic3d", cfl=0.8, kernel=kernel, device="cuda",
+            tables=tables)
+        return e, e.run(NSTEPS_SC_NC)
+
+    ne, nk = nc("auto")
+    _, nt = nc("torch", ne.tables)
+    _check(0 in ne._ncmaps, "non-conforming pair paired its nodes")
+    nerr = _bodies_err(nk, nt)
+    mk, mt = _mask_cells(nk.bonded[0]), _mask_cells(nt.bonded[0])
+    _check(nerr < PATH_TOL and 0 < mk.mean() < 1,
+           f"non-conforming pair: error {nerr:.3e}, bond mean {mk.mean()}")
+    print(f"non-conforming pair {ga.npoints} + {gb.npoints} nodes x "
+          f"{NSTEPS_SC_NC} steps: kernel {nk.points_per_second:.6g} vs plain "
+          f"{nt.points_per_second:.6g} points/s, normalized error {nerr:.3e} "
+          f"(limit 1e-4); bonds intact {mk.mean():.4f}, cells that differ "
+          f"{int((mk != mt).sum())}")
+    del ne
+
+    # ---- (d) orthotropic simplex3d_layered on the per-pair plain path
+    base = get_scenario("simplex3d_layered", n=N_SC_ORTHO)
+
+    def layered(make, nsteps, kernel="auto"):
+        return dataclasses.replace(
+            base, default_material=make(base.default_material),
+            materials=tuple(dataclasses.replace(r, material=make(r.material))
+                            for r in base.materials),
+            time=TimeSpec(cfl=base.time.cfl, nsteps=nsteps), kernel=kernel)
+
+    counts.zero()
+    oe = SimplexEngine.from_task(layered(_orthotropic, NSTEPS_SC_ORTHO),
+                                 device="cuda")
+    ores = oe.run()
+    counts.expect("orthotropic simplex path", counts.read())
+    _check(ores.kernel == "torch" and np.isfinite(ores.u).all(),
+           f"orthotropic simplex: kernel {ores.kernel!r}, finite "
+           f"{np.isfinite(ores.u).all()}")
+    # the wave's spread on the source's horizontal plane: |v|^2-weighted
+    # second moments along x (c11 = 1.3 c33) and y (c22 = 1.1 c33)
+    pts = base.grid.points
+    src = np.asarray(base.sources[0].position)
+    h = 150.0 / (N_SC_ORTHO - 1)
+    plane = np.abs(pts[:, 2] - src[2]) < 0.6 * h
+    w = (ores.u[:3, plane] ** 2).sum(0)
+    mx, my = (float(np.sqrt((w * (pts[plane, a] - src[a]) ** 2).sum()
+                            / w.sum())) for a in (0, 1))
+    lit = pts[plane][w > (0.02 ** 2) * w.max()]
+    reach = [float(np.abs(lit[:, a] - src[a]).max()) for a in (0, 1)]
+    _check(mx > my and reach[0] >= reach[1],
+           f"orthotropic simplex: spread x {mx:.2f} m, y {my:.2f} m, reach "
+           f"{reach}")
+    iso = SimplexEngine.from_task(layered(lambda m: m, NSTEPS_SC_ISO),
+                                  device="cuda").run()
+    lim = SimplexEngine.from_task(layered(OrthotropicMaterial.from_isotropic,
+                                          NSTEPS_SC_ISO),
+                                  device="cuda").run()
+    lerr = _np_err(lim.u, iso.u)
+    _check(iso.kernel == "simplex" and lim.kernel == "torch"
+           and lerr < PATH_TOL,
+           f"orthotropic isotropic limit: {lim.kernel} vs {iso.kernel}, "
+           f"err {lerr:.3e}")
+    print(f"orthotropic simplex3d_layered n={N_SC_ORTHO} "
+          f"({base.grid.npoints} nodes, {len(oe.tables)} per-pair tables) x "
+          f"{NSTEPS_SC_ORTHO} steps on the plain path: "
+          f"{ores.points_per_second:.6g} points/s; spread on the source "
+          f"plane x {mx:.2f} m, y {my:.2f} m (ratio {mx / my:.4f}, "
+          f"sqrt(c11/c22) = {np.sqrt(1.3 / 1.1):.4f}), 2% reach x "
+          f"{reach[0]:.1f} m, y {reach[1]:.1f} m; isotropic limit vs the "
+          f"isotropic kernel path after {NSTEPS_SC_ISO} steps: normalized "
+          f"error {lerr:.3e} (limit 1e-4)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -2954,6 +3319,10 @@ def main() -> int:
     # ---- 16. outputs and resume
     phase("outputs and resume")
     outputs_and_resume(counts, *simplex)
+
+    # ---- 17. the simplex contact path
+    phase("simplex contact path")
+    simplex_contact_path(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

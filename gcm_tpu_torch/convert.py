@@ -5,8 +5,8 @@ Both packages then start from identical parameters: the six leaves of a
 ``OrthotropicMaterialFields``, a state array, an
 engine's corrector aux fields, on simplex meshes the foot tables and
 ``NodeBorders``, and for multi-body runs the contacts' bond masks and
-non-conforming interface maps, handed over as numpy arrays (``np.asarray``
-of the JAX arrays).
+non-conforming interface maps (structured and simplex), handed over as
+numpy arrays (``np.asarray`` of the JAX arrays).
 """
 
 from __future__ import annotations
@@ -109,3 +109,15 @@ def interface_maps_from_numpy(maps):
                             for m in sm.from_other))
 
     return InterfaceMaps(a=side(maps.a), b=side(maps.b))
+
+
+def simplex_interface_maps_from_numpy(maps):
+    """The port's SimplexInterfaceMaps from a JAX ``SimplexInterfaceMaps``
+    (or anything with its fields): ``idx_*`` and ``nbr_*`` as int32,
+    ``w_*`` as float64 numpy arrays, copied."""
+    from gcm_tpu_torch.solver.simplex_contact import SimplexInterfaceMaps
+
+    return SimplexInterfaceMaps(
+        **{f: np.array(getattr(maps, f), np.int32)
+           for f in ("idx_a", "idx_b", "nbr_a", "nbr_b")},
+        **{f: np.array(getattr(maps, f), np.float64) for f in ("w_a", "w_b")})

@@ -4,12 +4,16 @@ simplex-mesh ones and the multi-body contact ones.
 Counterpart of ``gcm_tpu/scenarios.py`` (registry, ``acoustic1d``,
 ``elastic2d_ps``, ``elastic3d_layered``, ``elastic3d_explosion``,
 ``elastic2d_viscoelastic``, ``simplex2d_canyon_layered``,
-``simplex3d_layered``, and the unregistered ``elastic3d_contact`` and
-``elastic2d_basin_refined``), with the same names, defaults and parameters.
-The simplex scenarios return a :class:`~gcm_tpu_torch.task.SimplexTask`,
-run by ``engine_simplex.SimplexEngine.from_task``; the contact scenarios
-return ``(bodies, contacts)`` for ``engine_multi.MultiBodyEngine`` and are
-listed in :data:`MULTI_SCENARIOS`.
+``simplex3d_layered``, and the unregistered ``elastic3d_contact``,
+``elastic2d_basin_refined``, ``simplex2d_acoustic`` and
+``simplex3d_elastic``), with the same names, defaults and parameters.
+The registered simplex scenarios return a
+:class:`~gcm_tpu_torch.task.SimplexTask`, run by
+``engine_simplex.SimplexEngine.from_task``; ``simplex2d_acoustic`` and
+``simplex3d_elastic`` return a ready ``SimplexEngine`` (on the card unless
+``device`` says otherwise); the contact scenarios return ``(bodies,
+contacts)`` for ``engine_multi.MultiBodyEngine`` and are listed in
+:data:`MULTI_SCENARIOS`.
 """
 
 from __future__ import annotations
@@ -271,6 +275,38 @@ def elastic2d_viscoelastic(n: int = 256, nsteps: int = 200,
         correctors=(MaxwellCorrector(tau=tau),),
         time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2,
     )
+
+
+def simplex2d_acoustic(n: int = 61, jitter: float = 0.2, device="cuda"):
+    """BASELINE config 5 (2D): an acoustic pulse on a jittered triangle
+    mesh, as a ready ``SimplexEngine`` on ``device``."""
+    from gcm_tpu_torch.engine_simplex import SimplexEngine
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+
+    L = 100.0
+    g = SimplexGrid.box((0.0, 0.0), (L, L), (n, n), jitter=jitter)
+    water = IsotropicMaterial.from_speeds(rho=1000.0, cp=1500.0)
+    u0 = np.zeros((3, g.npoints))
+    r2 = ((g.points - L / 2) ** 2).sum(1)
+    u0[2] = 1.0e5 * np.exp(-r2 / (2 * (L / 20) ** 2))
+    return SimplexEngine(g, "acoustic2d", water, u0=u0, device=device)
+
+
+def simplex3d_elastic(n: int = 21, jitter: float = 0.15, device="cuda"):
+    """BASELINE config 5 (3D): an elastic pulse on a jittered tet mesh, as
+    a ready ``SimplexEngine`` on ``device``."""
+    from gcm_tpu_torch.engine_simplex import SimplexEngine
+    from gcm_tpu_torch.grids.simplex import SimplexGrid
+
+    L = 100.0
+    g = SimplexGrid.box((0.0,) * 3, (L,) * 3, (n,) * 3, jitter=jitter)
+    rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
+    u0 = np.zeros((9, g.npoints))
+    r2 = ((g.points - L / 2) ** 2).sum(1)
+    ball = np.exp(-r2 / (2 * (L / 15) ** 2))
+    for c in (3, 6, 8):  # sxx, syy, szz
+        u0[c] = 1.0e6 * ball
+    return SimplexEngine(g, "elastic3d", rock, u0=u0, device=device)
 
 
 @register

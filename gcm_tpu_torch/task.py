@@ -30,7 +30,8 @@ AnyMaterial = Union[IsotropicMaterial, OrthotropicMaterial]
 #: takes the per-sweep CUDA kernel, one launch per axis
 KERNELS = ("auto", "torch", "fused", "sweep")
 #: compute paths of a SimplexTask: "auto" resolves to the simplex sweep
-#: kernel on a CUDA device and to the plain torch sweep elsewhere
+#: kernel on a CUDA device for isotropic media and to the plain torch sweep
+#: elsewhere
 SIMPLEX_KERNELS = ("auto", "torch", "simplex")
 
 
@@ -470,7 +471,7 @@ class SimplexTask:
     name: str
     model: str                          # gcm_tpu_torch.models.get_model key
     grid: "object"                      # SimplexGrid
-    default_material: IsotropicMaterial
+    default_material: AnyMaterial
     materials: Tuple[MaterialRegion, ...] = ()
     initial: Tuple[InitialCondition, ...] = ()
     border_default: BorderSpec = dataclasses.field(
@@ -484,7 +485,9 @@ class SimplexTask:
     #: characteristic interpolation order: 1 = barycentric over the
     #: containing cell, 2 = least-squares quadratic reconstruction tables
     order: int = 1
-    kernel: str = "auto"                # "auto" | "torch" | "simplex"
+    #: "auto" | "torch" | "simplex"; orthotropic media resolve "auto" to
+    #: "torch" and refuse "simplex"
+    kernel: str = "auto"
 
     def __post_init__(self):
         if self.kernel not in SIMPLEX_KERNELS:
@@ -494,30 +497,48 @@ class SimplexTask:
     @property
     def is_orthotropic(self) -> bool:
         mats = (self.default_material,) + tuple(r.material for r in self.materials)
-        return any(not isinstance(m, IsotropicMaterial) for m in mats)
+        return any(isinstance(m, OrthotropicMaterial) for m in mats)
 
-    def material_fields(self, device="cpu",
-                        dtype=torch.float32) -> MaterialFields:
-        """Rasterize regions into per-node fields over the mesh nodes,
-        from float64 parameters as the JAX package rasterizes them.
-        Isotropic media only: orthotropic media on simplex meshes (per-pair
-        foot tables) are not ported yet."""
-        if self.is_orthotropic:
-            raise NotImplementedError(
-                "orthotropic media on simplex meshes are not ported to "
-                "gcm_tpu_torch yet")
+    def material_fields(self, device="cpu", dtype=torch.float32
+                        ) -> Union[MaterialFields, OrthotropicMaterialFields]:
+        """Rasterize regions into per-node fields over the mesh nodes, from
+        float64 parameters as the JAX package rasterizes them, each cast
+        once to ``dtype``: ``MaterialFields`` when every material is
+        isotropic, else ``OrthotropicMaterialFields`` (isotropic regions
+        embed through their orthotropic limit)."""
         pts = np.asarray(self.grid.points)
-        m0 = self.default_material
-        rho = np.full(len(pts), m0.rho, dtype=np.float64)
-        lam = np.full(len(pts), m0.lam, dtype=np.float64)
-        mu = np.full(len(pts), m0.mu, dtype=np.float64)
+        n = len(pts)
+        if not self.is_orthotropic:
+            m0 = self.default_material
+            rho = np.full(n, m0.rho, dtype=np.float64)
+            lam = np.full(n, m0.lam, dtype=np.float64)
+            mu = np.full(n, m0.mu, dtype=np.float64)
+            for region in self.materials:
+                msk = region.area.contains(pts)
+                rho[msk] = region.material.rho
+                lam[msk] = region.material.lam
+                mu[msk] = region.material.mu
+            return MaterialFields.from_arrays(rho, lam, mu, device=device,
+                                              dtype=dtype)
+
+        def as_ortho(m: AnyMaterial) -> OrthotropicMaterial:
+            if isinstance(m, OrthotropicMaterial):
+                return m
+            return OrthotropicMaterial.from_isotropic(m)
+
+        m0 = as_ortho(self.default_material)
+        rho = np.full(n, m0.rho, dtype=np.float64)
+        cons = {k: np.full(n, v, dtype=np.float64)
+                for k, v in m0.constants().items()}
         for region in self.materials:
             msk = region.area.contains(pts)
-            rho[msk] = region.material.rho
-            lam[msk] = region.material.lam
-            mu[msk] = region.material.mu
-        return MaterialFields.from_arrays(rho, lam, mu, device=device,
-                                          dtype=dtype)
+            mo = as_ortho(region.material)
+            rho[msk] = mo.rho
+            for k, v in mo.constants().items():
+                cons[k][msk] = v
+        return OrthotropicMaterialFields.from_constants(rho, cons,
+                                                        device=device,
+                                                        dtype=dtype)
 
     def initial_state(self, model) -> np.ndarray:
         """Rasterize InitialConditions into a fresh ``u0 [ncomp, N]``;

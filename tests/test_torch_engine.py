@@ -244,7 +244,8 @@ def test_task_rejects_unknown_kernels_and_tpu_knobs(knob, value):
 
 def test_task_refuses_orthotropic_media():
     """A structured Task takes orthotropic media: its fields equal JAX's
-    (float64 constants cast once); a SimplexTask still refuses them."""
+    (float64 constants cast once); so does a SimplexTask, which refused
+    them before the port's simplex meshes took orthotropic media."""
     from gcm_tpu.materials import OrthotropicMaterial as JOrthotropic
     from gcm_tpu_torch.materials import (
         OrthotropicMaterial, OrthotropicMaterialFields)
@@ -262,9 +263,15 @@ def test_task_refuses_orthotropic_media():
         np.testing.assert_array_equal(getattr(got, f.name).numpy(),
                                       np.asarray(getattr(want, f.name)))
     simplex = get_scenario("simplex3d_layered", n=5)
-    with pytest.raises(NotImplementedError, match="simplex"):
-        dataclasses.replace(simplex, default_material=OrthotropicMaterial(
-            **consts)).material_fields()
+    jsimplex = jget_scenario("simplex3d_layered", n=5)
+    got = dataclasses.replace(simplex, default_material=OrthotropicMaterial(
+        **consts)).material_fields(dtype=torch.float64)
+    want = dataclasses.replace(jsimplex, default_material=JOrthotropic(
+        **consts)).material_fields(xp=jnp, dtype=jnp.float64)
+    assert isinstance(got, OrthotropicMaterialFields)
+    for f in dataclasses.fields(got):
+        np.testing.assert_array_equal(getattr(got, f.name).numpy(),
+                                      np.asarray(getattr(want, f.name)))
 
 
 def test_scenarios_and_materials_match_jax():

@@ -391,6 +391,96 @@ def test_simplex_kernel_rejects_what_it_does_not_take(cuda):
                       u, 0)
 
 
+
+#: multi-body cases (dim, conforming, tensile strength, order): two boxes
+#: meeting at x = 0.5, body b meshed at h/2 where the interface does not
+#: conform; jittered at order 1, lattices at order 2 (the order-2 tables
+#: grow without bound on jittered 3D meshes, one body alone too)
+SIMPLEX_MULTI_CASES = [(2, True, None, 1), (2, True, 3e5, 2),
+                       (2, False, 3e5, 1), (3, True, 3e5, 1),
+                       (3, True, None, 2), (3, False, None, 1),
+                       (3, False, 3e5, 2)]
+
+
+def simplex_pair(dim, conforming, strength, order, kernel, device,
+                 tables=None):
+    """Two rock bodies bonded across x = 0.5, a P pulse in body a heading
+    for the interface, peaked at the middle of the plane (so the interface
+    breaks there first where fracture is on)."""
+    from gcm_tpu_torch.engine_simplex import SimplexBody, SimplexMultiEngine
+    from gcm_tpu_torch.materials import IsotropicMaterial
+    from gcm_tpu_torch.solver.simplex_contact import SimplexContactSpec
+
+    n = 9 if dim == 3 else 17
+    nb = n if conforming else 2 * n - 1
+    jitter = 0.15 if order == 1 else 0.0
+    ga = SimplexGrid.box((0.0,) * dim, (0.5,) + (1.0,) * (dim - 1),
+                         ((n + 1) // 2,) + (n,) * (dim - 1), jitter=jitter,
+                         seed=1)
+    gb = SimplexGrid.box((0.5,) + (0.0,) * (dim - 1), (1.0,) * dim,
+                         ((nb + 1) // 2,) + (nb,) * (dim - 1), jitter=jitter,
+                         seed=2)
+    rock = IsotropicMaterial.from_speeds(2500.0, 4000.0, 2300.0)
+    model = get_model(f"elastic{dim}d")
+    p = ga.points
+    prof = 1e6 * np.exp(-((p[:, 0] - 0.35) / 0.08) ** 2
+                        - (((p[:, 1:] - 0.5) / 0.3) ** 2).sum(1))
+    u0 = np.zeros((model.ncomp, ga.npoints))
+    kappa = rock.lam / (rock.lam + 2 * rock.mu)
+    u0[model.comp("sxx")] = prof
+    for c in ("syy", "szz")[:dim - 1]:
+        u0[model.comp(c)] = kappa * prof
+    u0[model.comp("vx")] = -prof / (rock.rho * rock.cp)
+    return SimplexMultiEngine(
+        {"a": SimplexBody(ga, rock, u0=u0), "b": SimplexBody(gb, rock)},
+        [SimplexContactSpec("a", "b", axis=0, tensile_strength=strength)],
+        model_name=model.name, order=order, kernel=kernel, device=device,
+        tables=tables)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SIMPLEX_MULTI_CASES, ids=str)
+def test_simplex_multi_kernel_path_matches_plain_on_card(cuda, case):
+    dim, conforming, strength, order = case
+    nsteps = 24
+    eng = simplex_pair(*case, "auto", cuda)
+    assert (0 in eng._pairs) == conforming
+    before = simplex_sweep.launches
+    got = eng.run(nsteps)
+    assert got.kernels == {"a": "simplex", "b": "simplex"}
+    assert simplex_sweep.launches == before + 2 * dim * nsteps
+    plain = simplex_pair(*case, "torch", cuda, tables=eng.tables)
+    before = simplex_sweep.launches
+    want = plain.run(nsteps)
+    assert simplex_sweep.launches == before
+    for name in ("a", "b"):
+        assert norm_err(torch.from_numpy(got.bodies[name]),
+                        torch.from_numpy(want.bodies[name])) < 1e-4
+    assert np.abs(got.bodies["b"]).max() > 0
+    if strength is not None:
+        masks = (got.bonded[0], want.bonded[0])
+        if not conforming:
+            masks = tuple(np.concatenate([m["a"], m["b"]]) for m in masks)
+        np.testing.assert_array_equal(*masks)
+        assert 0 < masks[0].mean() < 1
+
+
+@pytest.mark.gpu
+def test_simplex_orthotropic_media_take_the_plain_path_on_card(cuda):
+    from gcm_tpu_torch.materials import OrthotropicMaterial
+
+    task = get_scenario("simplex3d_layered", n=9, nsteps=4)
+    ortho = OrthotropicMaterial.from_isotropic(task.default_material)
+    task = dataclasses.replace(task, default_material=ortho)
+    before = simplex_sweep.launches
+    got = SimplexEngine.from_task(task, device=cuda).run()
+    assert got.kernel == "torch" and simplex_sweep.launches == before
+    assert np.isfinite(got.u).all()
+    with pytest.raises(ValueError, match="isotropic"):
+        SimplexEngine.from_task(dataclasses.replace(task, kernel="simplex"),
+                                device=cuda)
+
+
 # -------------------------------------------------------------- sharded
 
 #: (global shape, mesh shape, order, axes): tile-multiple, ragged and

@@ -39,9 +39,7 @@ import gcm_tpu.ops.pallas_simplex as psx
 from gcm_tpu import native
 from gcm_tpu import task as jtask
 from gcm_tpu.grids import simplex as jsimplex
-from gcm_tpu.materials import IsotropicMaterial as JIsotropicMaterial
 from gcm_tpu.materials import MaterialFields as JMaterialFields
-from gcm_tpu.materials import OrthotropicMaterial
 from gcm_tpu.models.spec import get_model as jget_model
 from gcm_tpu.solver import simplex_gcm as jsgcm
 from gcm_tpu_torch import task as ttask
@@ -52,6 +50,9 @@ from gcm_tpu_torch.convert import (
 from gcm_tpu_torch.engine_simplex import SimplexEngine, resolve_simplex_kernel
 from gcm_tpu_torch.grids import simplex as tsimplex
 from gcm_tpu_torch.grids.locate import MAX_STEPS, walk_locate
+from gcm_tpu_torch.materials import (
+    IsotropicMaterial, OrthotropicMaterial, OrthotropicMaterialFields,
+)
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops import fused as ofu
 from gcm_tpu_torch.ops import simplex as osx
@@ -474,12 +475,18 @@ def test_engine_refuses_what_the_port_does_not_run():
                                 device="cpu")
     with pytest.raises(ValueError):
         dataclasses.replace(task, kernel="fused")
-    ortho = OrthotropicMaterial.from_isotropic(JIsotropicMaterial(
+    # orthotropic media run on the plain per-pair path and refuse the kernel
+    ortho = OrthotropicMaterial.from_isotropic(IsotropicMaterial(
         2500.0, 1e9, 5e8))
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(task, default_material=ortho).material_fields()
-    with pytest.raises(NotImplementedError):
-        SimplexEngine(task.grid, "elastic3d", ortho, device="cpu")
+    fields = dataclasses.replace(task, default_material=ortho
+                                 ).material_fields()
+    assert isinstance(fields, OrthotropicMaterialFields)
+    assert resolve_simplex_kernel("auto", "cuda", fields) == "torch"
+    eng = SimplexEngine(task.grid, "elastic3d", ortho, device="cpu")
+    assert eng.kernel == "torch" and (0, 1, 1) in eng.tables
+    with pytest.raises(ValueError, match="isotropic"):
+        SimplexEngine(task.grid, "elastic3d", ortho, device="cpu",
+                      kernel="simplex")
 
 
 def test_cli_runs_a_simplex_scenario_on_cpu(tmp_path):

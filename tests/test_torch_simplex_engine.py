@@ -86,3 +86,32 @@ def test_engine_on_jax_tables_with_a_corrector():
     again = SimplexEngine.from_task(task, device="cpu", dtype=torch.float64,
                                     tables=eng.tables).run()
     np.testing.assert_array_equal(again.u, got.u)
+
+
+@pytest.mark.parametrize("helper,n,nsteps", [("simplex2d_acoustic", 15, 7),
+                                             ("simplex3d_elastic", 13, 5)])
+def test_unregistered_simplex_helpers_match_jax(helper, n, nsteps):
+    """``simplex2d_acoustic`` and ``simplex3d_elastic`` build the JAX
+    helpers' engines (mesh, medium, pulse, dt; float32; tables equal except
+    at the feet JAX's walk cycled on) and run their steps; on JAX's own
+    tables the port's engine runs JAX's."""
+    import gcm_tpu.scenarios as jscen
+
+    import gcm_tpu_torch.scenarios as tscen
+    from test_torch_simplex import assert_tables_agree, jax_walk_faults
+
+    jeng = getattr(jscen, helper)(n=n)
+    eng = getattr(tscen, helper)(n=n, device="cpu")
+    assert eng.device.type == "cpu" and eng.dtype == torch.float32
+    assert np.array_equal(eng.grid.points, jeng.grid.points)
+    np.testing.assert_array_equal(eng.u.numpy(), np.asarray(jeng.u))
+    assert eng.dt == pytest.approx(jeng.dt, rel=1e-6)
+    waves = {"p": np.asarray(jeng.mat.cp), "s": np.asarray(jeng.mat.cs)}
+    faults = jax_walk_faults(jeng.grid, jeng.tables, waves, jeng.dt)
+    assert sum(int(f.sum()) for f in faults.values()) <= 2 * len(faults)
+    assert_tables_agree(eng.tables, jeng.tables, faults, eng.grid.npoints)
+    assert eng.run(nsteps).kernel == "torch"
+    on_jax = SimplexEngine(eng.grid, jeng.model.name, eng.mat,
+                           u0=np.array(jeng.u), device="cpu",
+                           tables=foot_tables_from_numpy(jeng.tables))
+    assert norm_err(on_jax.run(nsteps).u, jeng.run(nsteps).u) < 1e-5
