@@ -159,6 +159,30 @@ Phases, each of which raises (exit code != 0) on failure:
    (no kernel launch), stays finite and spreads farther along the stiffer
    x axis, and its isotropic limit agrees with the isotropic kernel path
    after 50 steps (under 1e-4).
+18. the contact path on a mesh, every shard on cuda:0: the contact bodies
+   of phase 13 with ``canonical_layout=True`` on 2x2 shards for 300 steps
+   resolve to ``"fused_spmd"`` in (0, 1, 2) / (2, 1, 0) (a 2-axis mesh, as
+   in JAX), launch ``fused_spmd_interior`` and ``fused_spmd_ring`` 8 times
+   a step each (2 bodies x 4 shards) and no unsharded kernel, and agree
+   with the unsharded path in the same order after 100 steps (under 2e-6,
+   bond masks equal; the error after 300 printed); its points/s, untraced
+   idle share, the host ms of the put-together contact fixup inside its
+   step loop (and of one fixup called alone, with its device ms), and
+   both SPMD kernels on its own shard beside their plain versions and
+   bounds; both SPMD kernels against their plain versions in the canonical
+   orders (2, 0, 1) and (1, 0, 2) on 2x2, 4x1 and one-axis sx = 4 shards
+   (``SPMD_CANON_CASES``, under 2e-6 a step), then the canonical order on
+   the sx = 4 mesh (``"fused_canonical_spmd"``, 100 steps) against the
+   unsharded ``"fused_canonical"`` path, ``kernel="sweep"`` on 2x2
+   (``"sweep_spmd"``, ``sweep_stage`` 24 times a step) against the
+   unsharded per-sweep path, with ``sweep_stage`` held against its plain
+   version on a shard's halo-extended blocks along each axis, orthotropic bodies on 2x2 (``"fused_spmd"``,
+   13-field stacks) against theirs (each under 2e-6, masks equal); the
+   partly broken n=32 interface on 2x2 against the unsharded run (masks
+   equal) and resumed from step 17 bit for bit with no broken cell
+   healing; the 2x2 run cut at step 51 of 100 through a checkpoint file
+   equal to its uninterrupted run, and an unsharded engine's checkpoint
+   resumed on the mesh (under 2e-6 of the unsharded run, masks equal).
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -178,7 +202,12 @@ form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
 occupancy too, and ``simplex_sweep`` its blocks an SM and nodes a block;
 ``simplex_sweep`` also carries its launches, error, times and bound on the
 simplex contact path (``contact_*``) and that path's rate, idle share and
-host setup; the last line is ``{"ok": true,
+host setup; ``fused_spmd_interior`` and ``fused_spmd_ring`` carry their
+launches on the 2x2 contact mesh path, their error, times and bounds on
+its shard, its rate, idle share and the contact fixup's host ms in the
+step loop and alone (``contact_mesh_*``), and ``sweep_stage`` its
+launches, rate, error, times and bound on the per-sweep contact mesh
+path's shard blocks; the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -857,6 +886,61 @@ def _step_ms(res, task):
     return float(np.prod(task.grid.shape)) / res.points_per_second * 1e3
 
 
+def _spmd_steps_vs_plain(rng, cases):
+    """Both SPMD kernels against their plain versions on every shard of
+    random heterogeneous problems, and each sharded step against the
+    unsharded plain step, all under 2e-6: ``cases`` of (global shape,
+    DomainMesh, order, axes). Returns (worst kernel error, launches)."""
+    from gcm_tpu_torch.ops.fused import fused_step_reference
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import (
+        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
+    from gcm_tpu_torch.parallel.sharding import gather_state, shard_state
+
+    h3 = (10.0, 12.0, 9.0)
+    worst, nk = 0.0, 0
+
+    def hold(tag, got, want):
+        err = _norm_err(got, want)
+        _check(err < 2e-6, f"{tag}: err {err:.3e}")
+        return err
+
+    for shape, mesh, order, axes in cases:
+        model, u, mat, ms, dt = _problem(rng, shape, "elastic3d")
+        mext = extended_mstack(model, mat, mesh, order)
+        us = shard_state(u, mesh)
+        slabs = exchange_slabs(us, mesh, stencil_radius(order))
+        bc = _borders(3)
+        where = f"{shape} on {mesh.shape} {mesh.axis_names} order {order} " \
+            f"axes {axes}"
+        for k, uk in enumerate(us):
+            args = (model, uk, mext[k], dt, h3, order, bc, axes)
+            got = fused_spmd_interior(*args, out=torch.zeros_like(uk))
+            want = fused_spmd_interior_reference(
+                *args, out=torch.zeros_like(uk))
+            f = face_flags(mesh, k)
+            ring = fused_spmd_ring(model, uk, mext[k], slabs[k], f,
+                                   torch.zeros_like(uk), dt, h3, order, bc,
+                                   axes)
+            torch.cuda.synchronize()
+            tag = f"{where} shard {k}"
+            worst = max(worst, hold(f"fused_spmd_interior {tag}", got, want),
+                        hold(f"fused_spmd_ring {tag}", ring,
+                             fused_spmd_ring_reference(
+                                 model, uk, mext[k], slabs[k], f,
+                                 torch.zeros_like(uk), dt, h3, order, bc,
+                                 axes)))
+            nk += 2
+        step = make_fused_spmd_step(model, mesh, dt, h3, order, bc)
+        hold(f"sharded step {where}",
+             gather_state(step(us, mext, axes), mesh),
+             fused_step_reference(model, u, ms, dt, h3, order, bc, axes))
+    return worst, nk
+
+
 def spmd_kernels_vs_plain():
     """The SPMD kernels against their plain versions on the card, one
     launch each, on random heterogeneous problems whose shards lie on
@@ -896,35 +980,9 @@ def spmd_kernels_vs_plain():
               ((96, 20, 16), (4, 1), 1, (0, 1, 2)),
               ((96, 20, 16), (4, 1), 2, (2, 1, 0)),
               ((32, 16, 16), (4, 1), 2, (0, 1, 2))]
-    for shape, mshape, order, axes in cases:
-        model, u, mat, ms, dt = _problem(rng, shape, "elastic3d")
-        mesh = domain_mesh(3, [dev] * int(np.prod(mshape)), mshape)
-        mext = extended_mstack(model, mat, mesh, order)
-        us = shard_state(u, mesh)
-        slabs = exchange_slabs(us, mesh, stencil_radius(order))
-        bc = _borders(3)
-        for k, uk in enumerate(us):
-            args = (model, uk, mext[k], dt, h3, order, bc, axes)
-            got = fused_spmd_interior(*args, out=torch.zeros_like(uk))
-            want = fused_spmd_interior_reference(
-                *args, out=torch.zeros_like(uk))
-            f = face_flags(mesh, k)
-            ring = fused_spmd_ring(model, uk, mext[k], slabs[k], f,
-                                   torch.zeros_like(uk), dt, h3, order, bc,
-                                   axes)
-            torch.cuda.synchronize()
-            tag = f"{shape} on {mshape} order {order} axes {axes} shard {k}"
-            worst = max(worst, hold(f"fused_spmd_interior {tag}", got, want),
-                        hold(f"fused_spmd_ring {tag}", ring,
-                             fused_spmd_ring_reference(
-                                 model, uk, mext[k], slabs[k], f,
-                                 torch.zeros_like(uk), dt, h3, order, bc,
-                                 axes)))
-            nk += 2
-        step = make_fused_spmd_step(model, mesh, dt, h3, order, bc)
-        hold(f"sharded step {shape} on {mshape} order {order} axes {axes}",
-             gather_state(step(us, mext, axes), mesh),
-             fused_step_reference(model, u, ms, dt, h3, order, bc, axes))
+    worst, nk = _spmd_steps_vs_plain(rng, [
+        (shape, domain_mesh(3, [dev] * int(np.prod(mshape)), mshape), order,
+         axes) for shape, mshape, order, axes in cases])
     print(f"fused_spmd_interior/ring vs plain: {nk} launches over "
           f"{len(cases)} problems, worst normalized error {worst:.3e} (limit "
           "2e-6); every sharded step vs the unsharded plain step under 2e-6")
@@ -1071,15 +1129,68 @@ def spmd_kernels_vs_plain():
           "2e-6")
 
 
+def _spmd_kernels_on_shard(tag, model, us, mexts, mesh, k, dt, h, order,
+                           bc, axes):
+    """Both SPMD kernels on shard ``k`` of a path's own sharded state: each
+    held against its plain version (``_hold_on_path_state``), then timed
+    beside it. Returns ``({name: {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by}}, the interior launch's arguments)``."""
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_interior_reference, fused_spmd_ring,
+        fused_spmd_ring_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs, face_flags
+
+    r = stencil_radius(order)
+    u0, m0 = us[k], mexts[k]
+    slabs = exchange_slabs(us, mesh, r)[k]
+    f0 = face_flags(mesh, k)
+    where = f"{tag}shard {k} {tuple(u0.shape)}, axes {tuple(axes)}"
+    iargs = (model, u0, m0, dt, h, order, bc, axes)
+    *_, e_in = _hold_on_path_state(
+        f"fused_spmd_interior on {where}",
+        lambda *a: fused_spmd_interior(*a, out=torch.zeros_like(u0)),
+        lambda *a: fused_spmd_interior_reference(
+            *a, out=torch.zeros_like(a[1])), iargs)
+    rargs = (model, u0, m0, slabs, f0)
+    rrest = (dt, h, order, bc, axes)
+    *_, e_ring = _hold_on_path_state(
+        f"fused_spmd_ring on {where}",
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring(
+            m, u, me, sl, f, torch.zeros_like(u), *rest),
+        lambda m, u, me, sl, f, *rest: fused_spmd_ring_reference(
+            m, u, me, tuple(x.to(u.dtype) for x in sl), f,
+            torch.zeros_like(u), *rest), rargs + rrest)
+    base = torch.zeros_like(u0)
+    t_in = _time_ms(lambda: fused_spmd_interior(*iargs, out=base), 50)
+    p_in = _time_ms(lambda: fused_spmd_interior_reference(*iargs, out=base),
+                    5)
+    t_ring = _time_ms(lambda: fused_spmd_ring(*rargs, base, *rrest), 50)
+    p_ring = _time_ms(lambda: fused_spmd_ring_reference(*rargs, base,
+                                                        *rrest), 5)
+    out = {}
+    for name, which, ms, plain, e in (
+            ("fused_spmd_interior", "interior", t_in, p_in, e_in),
+            ("fused_spmd_ring", "ring", t_ring, p_ring, e_ring)):
+        nbytes, cells = _spmd_bytes(model, u0.shape, r, which, m0.shape[0])
+        bms, by = _bound(nbytes, _step_flops(model, order, cells))
+        out[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=bms,
+                         bound_by=by)
+    print(f"fused_spmd_interior on {where}: kernel {t_in:.4f} ms, plain "
+          f"{p_in:.4f} ms, bound {out['fused_spmd_interior']['bound_ms']:.4f}"
+          f" ms; fused_spmd_ring: kernel {t_ring:.4f} ms, plain "
+          f"{p_ring:.4f} ms, bound {out['fused_spmd_ring']['bound_ms']:.4f}"
+          " ms")
+    return out, iargs
+
+
 def sharded_paths(counts, result):
     """Phases 10-11: the sharded 3D, folded-corrector, 2D and per-sweep
     paths on meshes whose shards lie on cuda:0 together."""
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.ops.fused import fused_step, stack_mats
     from gcm_tpu_torch.ops.fused_spmd import (
-        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_interior,
-        fused_spmd_interior_reference, fused_spmd_occupancy, fused_spmd_ring,
-        fused_spmd_ring_reference)
+        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_occupancy)
     from gcm_tpu_torch.ops.interp import stencil_radius
     from gcm_tpu_torch.parallel.fused_spmd import (
         exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
@@ -1156,46 +1267,14 @@ def sharded_paths(counts, result):
     del one, got, want, u_glob
 
     # each kernel on shard 0 of the path's own state
-    r = stencil_radius(order)
-    u0, m0 = eng.u[0], eng._carry[0]
-    slabs = exchange_slabs(eng.u, mesh4, r)
-    f0 = face_flags(mesh4, 0)
-    iargs = (model, u0, m0, eng.dt, h, order, bc, axes)
-    *_, e_in = _hold_on_path_state(
-        f"fused_spmd_interior on shard 0 {tuple(u0.shape)}",
-        lambda *a: fused_spmd_interior(*a, out=torch.zeros_like(u0)),
-        lambda *a: fused_spmd_interior_reference(
-            *a, out=torch.zeros_like(a[1])), iargs)
-    rargs = (model, u0, m0, slabs[0], f0)
-    rrest = (eng.dt, h, order, bc, axes)
-    *_, e_ring = _hold_on_path_state(
-        f"fused_spmd_ring on shard 0 {tuple(u0.shape)}",
-        lambda m, u, me, sl, f, *rest: fused_spmd_ring(
-            m, u, me, sl, f, torch.zeros_like(u), *rest),
-        lambda m, u, me, sl, f, *rest: fused_spmd_ring_reference(
-            m, u, me, tuple(x.to(u.dtype) for x in sl), f,
-            torch.zeros_like(u), *rest), rargs + rrest)
-    base = torch.zeros_like(u0)
-    t_in = _time_ms(lambda: fused_spmd_interior(*iargs, out=base), 50)
-    p_in = _time_ms(lambda: fused_spmd_interior_reference(*iargs, out=base),
-                    5)
-    t_ring = _time_ms(lambda: fused_spmd_ring(*rargs, base, *rrest), 50)
-    p_ring = _time_ms(lambda: fused_spmd_ring_reference(*rargs, base,
-                                                        *rrest), 5)
-    print(f"fused_spmd_interior at shard {tuple(u0.shape)}: kernel "
-          f"{t_in:.4f} ms, plain {p_in:.4f} ms; fused_spmd_ring: kernel "
-          f"{t_ring:.4f} ms, plain {p_ring:.4f} ms")
-    for name, which, ms, plain, e in (
-            ("fused_spmd_interior", "interior", t_in, p_in, e_in),
-            ("fused_spmd_ring", "ring", t_ring, p_ring, e_ring)):
-        nbytes, cells = _spmd_bytes(model, u0.shape, r, which, m0.shape[0])
-        bms, by = _bound(nbytes, _step_flops(model, order, cells))
-        result[name] = dict(launches=launched[name], max_abs_err=e, ms=ms,
-                            plain_ms=plain, bound_ms=bms, bound_by=by,
+    entries, iargs = _spmd_kernels_on_shard(
+        "", model, eng.u, eng._carry, mesh4, 0, eng.dt, h, order, bc, axes)
+    for name, entry in entries.items():
+        result[name] = dict(launches=launched[name], **entry,
                             library_ms=None, **_occupancy(
                                 fused_spmd_occupancy(
-                                    *iargs, ring=which == "ring")))
-    del eng, res, ref, slabs, base, u0, m0
+                                    *iargs, ring=name.endswith("ring"))))
+    del eng, res, ref, iargs
 
     # ---- 11. the sharded folded-corrector path
     base6 = get_scenario("elastic3d_layered", n=N_MAIN,
@@ -3045,6 +3124,377 @@ def simplex_contact_path(counts, result):
           f"error {lerr:.3e} (limit 1e-4)")
 
 
+#: the contact path on a mesh (phase 18), every shard on cuda:0: the
+#: contact bodies of phase 13 (2 x 256x256x128) on 2x2 for NSTEPS_CONTACT
+#: steps, held to the unsharded path after NSTEPS_MESH_CMP (the canonical
+#: order on sx = 4, the per-sweep and orthotropic runs and the resume cut at
+#: CUT_MESH take that many too); the partly broken n=32 interface of phase
+#: 16 for NSTEPS_CONTACT32 steps, cut at CUT_CONTACT32
+NSTEPS_MESH_CMP, CUT_MESH = 100, 51
+#: the SPMD kernels in the canonical orders under a mesh, against their
+#: plain versions: (global shape, mesh, order, axes), on 2x2, 4x1 and a
+#: one-axis sx = 4 mesh, ragged and tile-multiple shards
+SPMD_CANON_CASES = (((64, 48, 40), "2x2", 2, (2, 0, 1)),
+                    ((64, 48, 40), "2x2", 1, (1, 0, 2)),
+                    ((50, 38, 20), "2x2", 3, (2, 0, 1)),
+                    ((96, 20, 24), "4x1", 2, (1, 0, 2)),
+                    ((96, 20, 24), "4x1", 3, (2, 0, 1)),
+                    ((96, 36, 20), "sx4", 2, (2, 0, 1)),
+                    ((96, 36, 20), "sx4", 1, (1, 0, 2)),
+                    ((72, 45, 33), "sx4", 2, (1, 0, 2)))
+
+
+def contact_mesh_path(counts, result):
+    """Phase 18: MultiBodyEngine(mesh=) on meshes whose shards all lie on
+    cuda:0: (a) the fused SPMD composition on 2x2, (b) the canonical order
+    on a one-axis mesh, after the SPMD kernels in its orders, (c) the
+    per-sweep composition, (d) orthotropic bodies, (e) the partly broken
+    n=32 interface with a resume, (f) resumes of the 2x2 run."""
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.parallel.sharding import DomainMesh, domain_mesh
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+    import gcm_tpu_torch.solver.multi as smulti
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+    from gcm_tpu_torch.parallel.halo import halo_exchange
+    from gcm_tpu_torch.parallel.sharding import AXIS_OF
+    from gcm_tpu_torch.solver.gcm import stage
+    from gcm_tpu_torch.solver.multi import apply_contact_fixups
+
+    dev = torch.device("cuda", 0)
+    meshes = {"2x2": domain_mesh(3, [dev] * 4, (2, 2)),
+              "4x1": domain_mesh(3, [dev] * 4, (4, 1)),
+              "sx4": DomainMesh((dev,) * 4, (4,), ("sx",))}
+    mesh22 = meshes["2x2"]
+    bodies, contacts = elastic3d_contact(n=N_CONTACT, nsteps=NSTEPS_CONTACT)
+    npts = sum(int(np.prod(t.grid.shape)) for t in bodies.values())
+
+    def with_(b, **kw):
+        return {k: dataclasses.replace(t, **kw) for k, t in b.items()}
+
+    def steps(b, n):
+        return with_(b, time=dataclasses.replace(b["upper"].time, nsteps=n))
+
+    def build(b, c=contacts, mesh=None, mask=None, canon=True):
+        """The contact engine, canonical_layout=True as the CLI asks it
+        (``canon=False``: the unsharded path in the default order)."""
+        e = MultiBodyEngine(b, c, device=None if mesh else dev, mesh=mesh,
+                            canonical_layout=canon)
+        if mask is not None:
+            e.bonded = bonded_from_numpy({0: mask}, device="cuda")
+        return e
+
+    def drive(tag, eng, **want):
+        """One run, the counters zeroed just before it and read after."""
+        counts.zero()
+        res = eng.run()
+        launched = counts.read()
+        counts.expect(tag, launched, **want)
+        _check(all(np.isfinite(v).all() for v in res.bodies.values()),
+               f"{tag}: state not finite")
+        return res, launched
+
+    def masks_equal(tag, got, want):
+        for ci in want.bonded:
+            nd = int((got.bonded[ci] != want.bonded[ci]).sum())
+            _check(nd == 0, f"{tag}: {nd} bond mask cells differ")
+
+    def idle(eng, res, n=20):
+        return _idle_share(_multi_steps(eng, n), n,
+                           npts / res.points_per_second * 1e3)
+
+    per_step = 2 * 4                  # bodies x shards
+    build(steps(bodies, 2), mesh=mesh22).run()
+
+    # ---- (a) the fused SPMD composition on 2x2, canonical_layout asked
+    eng = build(bodies, mesh=mesh22)
+    _check(eng.path == "fused_spmd" and eng._fwd == (0, 1, 2),
+           f"2x2 contact path: {eng.path!r} in {eng._fwd}, not fused_spmd "
+           "in (0, 1, 2) as JAX on a 2-axis mesh")
+    res, launched = drive("2x2 contact mesh path", eng,
+                          fused_spmd_interior=per_step * NSTEPS_CONTACT,
+                          fused_spmd_ring=per_step * NSTEPS_CONTACT)
+    v_up = float(np.abs(res.bodies["upper"][:3]).max())
+    _check(v_up > 0, "2x2 contact mesh path: the upper body did not move")
+    ref300 = build(bodies, canon=False).run()   # the same order, unsharded
+    err300 = _bodies_err(res, ref300)
+    nd300 = int((res.bonded[0] != ref300.bonded[0]).sum())
+    b100 = steps(bodies, NSTEPS_MESH_CMP)
+    r100 = build(b100, mesh=mesh22).run()
+    u100 = build(b100, canon=False).run()
+    err100 = _bodies_err(r100, u100)
+    _check(err100 < 2e-6, f"2x2 contact mesh vs unsharded after "
+           f"{NSTEPS_MESH_CMP} steps: err {err100:.3e}")
+    masks_equal("2x2 contact mesh path", r100, u100)
+    print(f"contact mesh path 2 x {N_CONTACT}x{N_CONTACT}x{N_CONTACT // 2} "
+          f"on 2x2 shards of cuda:0 x {NSTEPS_CONTACT} steps (order "
+          f"{eng._fwd}): {res.points_per_second:.6g} points/s (unsharded "
+          f"fused {ref300.points_per_second:.6g}); "
+          f"{launched['fused_spmd_interior']} interior + "
+          f"{launched['fused_spmd_ring']} ring launches, 0 fused_step or "
+          f"fused_step_slab; upper max|v| {v_up:.4e}; vs unsharded after "
+          f"{NSTEPS_MESH_CMP} steps {err100:.3e} (limit 2e-6, masks equal), "
+          f"after {NSTEPS_CONTACT} {err300:.3e} (bond cells that differ "
+          f"{nd300}, bond mean {res.bonded[0].mean():.6f})")
+    # one put-together contact fixup on the path's state: the host's time
+    # to enqueue a call, a call's wall time with the card synchronised
+    # after it, and its device time queued behind a spin kernel
+    out = {k: [b.clone() for b in v] for k, v in eng.us.items()}
+    fix = (eng.model, eng.us, out, eng.mats, eng.dt, eng.hs, eng.order,
+           eng.borders, eng.contacts, eng.bonded, eng._fwd, eng._faces)
+    apply_contact_fixups(*fix)
+    torch.cuda.synchronize()
+    enqueue, wall = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        apply_contact_fixups(*fix)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    fix_ms = float(np.median(enqueue)) * 1e3
+    fix_wall = float(np.median(wall)) * 1e3
+    fix_dev = _time_ms(lambda: apply_contact_fixups(*fix), 10)
+    # the metric: the fixup's host time inside the step loop, each call of
+    # 20 untraced steps timed where the step makes it
+    real_fixups, calls = smulti.apply_contact_fixups, []
+
+    def timed_fixups(*a, **kw):
+        t0 = time.perf_counter()
+        r = real_fixups(*a, **kw)
+        calls.append(time.perf_counter() - t0)
+        return r
+
+    smulti.apply_contact_fixups = timed_fixups
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _multi_steps(eng, 20)()
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        smulti.apply_contact_fixups = real_fixups
+    _check(len(calls) == 20, f"{len(calls)} contact fixups in 20 steps")
+    fix_loop_ms = float(np.median(calls)) * 1e3
+    fix_share = sum(calls) * 1e3 / loop_ms
+    print(f"contact fixup in the step loop (2 slabs of (r + 1) x "
+          f"{N_CONTACT} x {N_CONTACT} gathered from 4 shards, the face rows "
+          f"scattered back), 20 untraced steps in {loop_ms:.4f} ms: host "
+          f"{fix_loop_ms:.4f} ms a step (median), {fix_share:.4f} of the "
+          f"loop's wall; the same fixup called alone: host {fix_ms:.4f} ms "
+          f"to enqueue, {fix_wall:.4f} ms with the card synchronised, device "
+          f"{fix_dev:.4f} ms queued; a step of the timed run "
+          f"{npts / res.points_per_second * 1e3:.4f} ms")
+    idle_a = idle(eng, res)
+    entries, _ = _spmd_kernels_on_shard(
+        "the contact mesh path's upper body, ", eng.model, eng.us["upper"],
+        eng._mstacks["upper"], mesh22, 0, eng.dt, eng.hs["upper"],
+        eng.order, eng._kernel_bcs["upper"], eng._fwd)
+    for name, entry in entries.items():
+        result[name].update(
+            contact_mesh_launches=launched[name],
+            contact_mesh_points_per_s=res.points_per_second,
+            contact_mesh_idle_share=idle_a,
+            contact_mesh_fixup_host_ms=fix_loop_ms,
+            contact_mesh_fixup_host_share=fix_share,
+            contact_mesh_fixup_isolated_host_ms=fix_ms,
+            **{f"contact_mesh_{k}": v for k, v in entry.items()})
+    del eng, res, ref300, out, fix
+
+    # ---- (b) the SPMD kernels in the canonical orders, then the
+    # canonical order on a one-axis mesh
+    _spmd_canonical_vs_plain(meshes)
+    eng = build(b100, mesh=meshes["sx4"])
+    _check(eng.path == "fused_canonical_spmd" and eng._fwd == (2, 0, 1)
+           and eng.mesh.axis_names == ("sx",),
+           f"sx=4 contact path: {eng.path!r} in {eng._fwd}")
+    rc, _ = drive("canonical contact mesh path", eng,
+                  fused_spmd_interior=per_step * NSTEPS_MESH_CMP,
+                  fused_spmd_ring=per_step * NSTEPS_MESH_CMP)
+    ref = build(b100)
+    _check(ref.path == "fused_canonical", f"unsharded: {ref.path!r}")
+    uc = ref.run()
+    errc = _bodies_err(rc, uc)
+    _check(errc < 2e-6, f"canonical contact mesh vs unsharded canonical: "
+           f"err {errc:.3e}")
+    masks_equal("canonical contact mesh path", rc, uc)
+    print(f"canonical contact mesh path on sx=4 shards x {NSTEPS_MESH_CMP} "
+          f"steps, order {eng._fwd}: {rc.points_per_second:.6g} points/s "
+          f"(unsharded fused_canonical {uc.points_per_second:.6g}); vs "
+          f"unsharded {errc:.3e} (limit 2e-6), masks equal")
+    idle(eng, rc)
+    _spmd_kernels_on_shard(
+        "the canonical mesh path's lower body, ", eng.model, eng.us["lower"],
+        eng._mstacks["lower"], eng.mesh, 1, eng.dt, eng.hs["lower"],
+        eng.order, eng._kernel_bcs["lower"], eng._fwd)
+    del eng, rc, uc
+
+    # ---- (c) the per-sweep composition on 2x2
+    bs = with_(b100, kernel="sweep")
+    eng = build(bs, mesh=mesh22)
+    _check(eng.path == "sweep_spmd", f"sweep contact mesh: {eng.path!r}")
+    rs, ls = drive("per-sweep contact mesh path", eng,
+                   sweep_stage=3 * per_step * NSTEPS_MESH_CMP)
+    us_ = build(bs).run()
+    errs = _bodies_err(rs, us_)
+    _check(errs < 2e-6, f"per-sweep contact mesh vs unsharded: {errs:.3e}")
+    masks_equal("per-sweep contact mesh path", rs, us_)
+    print(f"per-sweep contact mesh path on 2x2 x {NSTEPS_MESH_CMP} steps: "
+          f"{rs.points_per_second:.6g} points/s (unsharded sweep "
+          f"{us_.points_per_second:.6g}); {ls['sweep_stage']} sweep_stage "
+          f"launches; vs unsharded {errs:.3e} (limit 2e-6)")
+    idle(eng, rs, 10)
+    # sweep_stage on shard 0's own blocks, halo-extended along each split
+    # axis as the path gives them, against its plain version
+    split = {AXIS_OF[n]: n for n in eng.mesh.axis_names}
+    r, k, sw = stencil_radius(eng.order), 0, []
+    for axis in range(3):
+        mats_k = eng._sweep_mats["upper"][k]
+        if axis in split:
+            u = halo_exchange(eng.us["upper"], eng.mesh, split[axis],
+                              axis + 1, r)[k]
+            mat = mats_k[f"ax{axis}"].mat
+        else:
+            u, mat = eng.us["upper"][k], mats_k["base"].mat
+        a = (eng.model, u, mat, eng.dt, eng.hs["upper"], axis, eng.order,
+             None)
+        *_, e = _hold_on_path_state(
+            f"sweep_stage on the per-sweep contact mesh path's upper shard "
+            f"{k} {tuple(u.shape)}, axis {axis}", sweep_stage,
+            lambda model, u, mat, *rest: stage(
+                model, u, _mat_as(mat, u.dtype), *rest), a)
+        npts_k = u[0].numel()
+        bms, by = _bound(B_SWEEP * npts_k, _step_flops(
+            eng.model, eng.order, npts_k) / 3)
+        sw.append((e, _time_ms(lambda: sweep_stage(*a), 20),
+                   _time_ms(lambda: stage(*a), 5), bms, by))
+        print(f"sweep_stage at {tuple(u.shape)} axis {axis}: kernel "
+              f"{sw[-1][1]:.4f} ms, plain {sw[-1][2]:.4f} ms, bound "
+              f"{bms:.4f} ms")
+    result["sweep_stage"].update(
+        contact_mesh_launches=ls["sweep_stage"],
+        contact_mesh_points_per_s=rs.points_per_second,
+        contact_mesh_max_abs_err=max(x[0] for x in sw),
+        contact_mesh_ms=float(np.mean([x[1] for x in sw])),
+        contact_mesh_plain_ms=float(np.mean([x[2] for x in sw])),
+        contact_mesh_bound_ms=float(np.mean([x[3] for x in sw])),
+        contact_mesh_bound_by=sw[0][4],
+        contact_mesh_ms_by_axis=[x[1] for x in sw])
+    del eng, rs, us_
+
+    # ---- (d) orthotropic bodies on 2x2: the 13-field stacks, no canonical
+    # order (isotropic only, as in JAX)
+    bo = {k: _orthoize(t) for k, t in b100.items()}
+    eng = build(bo, mesh=mesh22)
+    _check(eng.path == "fused_spmd" and eng._fwd == (0, 1, 2)
+           and eng._mstacks["upper"][0].shape[0] == 13,
+           f"orthotropic contact mesh: {eng.path!r} in {eng._fwd}")
+    ro, _ = drive("orthotropic contact mesh path", eng,
+                  fused_spmd_interior=per_step * NSTEPS_MESH_CMP,
+                  fused_spmd_ring=per_step * NSTEPS_MESH_CMP)
+    ref = build(bo)
+    _check(ref.path == "fused", f"unsharded orthotropic: {ref.path!r}")
+    uo = ref.run()
+    erro = _bodies_err(ro, uo)
+    _check(erro < 2e-6, f"orthotropic contact mesh vs unsharded: "
+           f"{erro:.3e}")
+    masks_equal("orthotropic contact mesh path", ro, uo)
+    print(f"orthotropic contact mesh path on 2x2 x {NSTEPS_MESH_CMP} steps: "
+          f"{ro.points_per_second:.6g} points/s (unsharded "
+          f"{uo.points_per_second:.6g}); vs unsharded {erro:.3e} (limit "
+          f"2e-6)")
+    idle(eng, ro, 10)
+    del eng, ro, uo
+
+    root = tempfile.mkdtemp(prefix="contact_mesh_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        # ---- (e) the partly broken n=32 interface, cut and resumed
+        b32, c32 = elastic3d_contact(n=32, nsteps=NSTEPS_CONTACT32)
+        mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+            np.float32)
+        full = build(b32, c32, mesh22, mask)
+        _check(full.path == "fused_spmd", f"n=32 mesh path: {full.path!r}")
+        f32r = full.run()
+        u32 = build(b32, c32, None, mask, canon=False).run()
+        err32 = _bodies_err(f32r, u32)
+        masks_equal("n=32 contact mesh path", f32r, u32)
+        _check(err32 < 2e-6, f"n=32 contact mesh vs unsharded: {err32:.3e}")
+        part = build(b32, c32, mesh22, mask)
+        part.nsteps = CUT_CONTACT32
+        part.run()
+        state, *_ = _through_file(os.path.join(root, "c32"),
+                                  part.state_dict())
+        at_cut = state["bonded"]["0"]
+        again = build(b32, c32, mesh22)
+        again.load_state(state)
+        rr = again.run()
+        _same_state("n=32 contact mesh resume",
+                    [(f"body {k}", rr.bodies[k], f32r.bodies[k])
+                     for k in f32r.bodies]
+                    + [("mask", rr.bonded[0], f32r.bonded[0])])
+        _check((rr.bonded[0][at_cut == 0] == 0).all()
+               and rr.bonded[0].mean() < at_cut.mean(),
+               "n=32 contact mesh resume: a restored broken cell healed, or "
+               "the interface did not break further")
+        print(f"n=32 contact on 2x2 from a partly broken mask: vs unsharded "
+              f"{err32:.3e}, masks equal; bond mean {mask.mean():.4f} at the "
+              f"start, {at_cut.mean():.4f} at the cut {CUT_CONTACT32}, "
+              f"{rr.bonded[0].mean():.4f} at {NSTEPS_CONTACT32} steps; the "
+              f"resume equal to the uninterrupted run, no broken cell healed")
+
+        # ---- (f) the 2x2 run of (a) at 100 steps cut at an odd step, and
+        # an unsharded engine's checkpoint resumed on the mesh
+        part = build(b100, mesh=mesh22)
+        part.nsteps = CUT_MESH
+        part.run()
+        state, t_save, t_restore = _through_file(os.path.join(root, "a"),
+                                                 part.state_dict())
+        again = build(b100, mesh=mesh22)
+        again.load_state(state)
+        rr = again.run()
+        _same_state(f"contact mesh resume at {CUT_MESH}",
+                    [(f"body {k}", rr.bodies[k], r100.bodies[k])
+                     for k in r100.bodies]
+                    + [("mask", rr.bonded[0], r100.bonded[0])])
+        part = build(b100, canon=False)
+        part.nsteps = CUT_MESH
+        part.run()
+        state, *_ = _through_file(os.path.join(root, "u"), part.state_dict())
+        again = build(b100, mesh=mesh22)
+        again.load_state(state)
+        ru = again.run()
+        erru = _bodies_err(ru, u100)
+        _check(erru < 2e-6, f"unsharded checkpoint resumed on the mesh: "
+               f"{erru:.3e}")
+        masks_equal("unsharded checkpoint resumed on the mesh", ru, u100)
+        print(f"contact mesh path cut at {CUT_MESH} of {NSTEPS_MESH_CMP} "
+              f"(save {t_save:.3f} s, restore {t_restore:.3f} s): equal to "
+              f"the uninterrupted 2x2 run; an unsharded checkpoint at "
+              f"{CUT_MESH} resumed on 2x2: {erru:.3e} from the unsharded run "
+              f"(limit 2e-6), masks equal")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _spmd_canonical_vs_plain(meshes):
+    """Both SPMD kernels against their plain versions in the canonical
+    orders under a mesh, (2, 0, 1) and (1, 0, 2), on the cases of
+    ``SPMD_CANON_CASES`` (``_spmd_steps_vs_plain``)."""
+    worst, nk = _spmd_steps_vs_plain(np.random.default_rng(18), [
+        (shape, meshes[m], order, axes)
+        for shape, m, order, axes in SPMD_CANON_CASES])
+    print(f"fused_spmd_interior/ring in the canonical orders (2, 0, 1) and "
+          f"(1, 0, 2) on 2x2, 4x1 and sx=4 shards: {nk} launches over "
+          f"{len(SPMD_CANON_CASES)} problems, worst normalized error "
+          f"{worst:.3e} (limit 2e-6); every sharded step vs the unsharded "
+          "plain step under 2e-6")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -3323,6 +3773,10 @@ def main() -> int:
     # ---- 17. the simplex contact path
     phase("simplex contact path")
     simplex_contact_path(counts, result)
+
+    # ---- 18. the contact path on a mesh
+    phase("contact mesh path")
+    contact_mesh_path(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

@@ -31,8 +31,11 @@ or, with ``--device cpu``, co-resident on the CPU.
 The multi-body contact scenarios (``elastic3d_contact``,
 ``elastic2d_basin_refined``) run on ``engine_multi.MultiBodyEngine``, in the
 canonical splitting order unless ``--no-canonical-layout`` (as the JAX
-CLI); their summary names the resolved multi-body path, the kernel launches
-of the run, the mean of each bond mask and the material stack's type.
+CLI; a mesh of two axes keeps the default order, as in JAX); ``--mesh``
+splits every body as above, by the bodies' dimension (a 2D body over x
+only). Their summary names the resolved multi-body path (``_spmd`` on a
+mesh), the kernel launches of the run, the mean of each bond mask, the
+material stack's type and the mesh.
 """
 
 from __future__ import annotations
@@ -192,10 +195,13 @@ def main(argv=None) -> int:
 def _launch_counters():
     from gcm_tpu_torch.ops.fused import (
         fused_step, fused_step_2d, fused_step_slab)
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_ring)
     from gcm_tpu_torch.ops.sweep import sweep_stage
 
     return {f.__name__: f for f in (fused_step, fused_step_slab,
-                                    fused_step_2d, sweep_stage)}
+                                    fused_step_2d, sweep_stage,
+                                    fused_spmd_interior, fused_spmd_ring)}
 
 
 def _run_contact(args, kw) -> int:
@@ -205,16 +211,19 @@ def _run_contact(args, kw) -> int:
         MultiBodyEngine, write_body_snapshots)
     from gcm_tpu_torch.scenarios import MULTI_SCENARIOS
 
-    if args.mesh:
-        raise SystemExit("--mesh does not run the multi-body scenarios yet")
     bodies, contacts = MULTI_SCENARIOS[args.scenario](**kw)
     if args.kernel is not None:
         bodies = {k: dataclasses.replace(t, kernel=args.kernel)
                   for k, t in bodies.items()}
     canon = args.canonical_layout if args.canonical_layout is not None \
         else True
-    eng = MultiBodyEngine(bodies, contacts, device=args.device,
-                          canonical_layout=canon)
+    mesh = None
+    if args.mesh:
+        dim = next(iter(bodies.values())).grid.dim
+        mesh = _mesh(args.mesh, dim, args.device)
+    eng = MultiBodyEngine(bodies, contacts,
+                          device=None if mesh else args.device,
+                          canonical_layout=canon, mesh=mesh)
     resumed = _resume(eng, args)
     counters = _launch_counters()
     before = {k: f.launches for k, f in counters.items()}
@@ -243,6 +252,7 @@ def _run_contact(args, kw) -> int:
         "bonded_mean": {str(k): mean(v) for k, v in res.bonded.items()},
         "mat_dtype": sorted({t.mat_dtype for t in bodies.values()}),
         "device": args.device,
+        "mesh": args.mesh,
         "wall_seconds": res.wall_seconds,
         "outdir": args.outdir,
         "resumed_from": resumed,

@@ -56,7 +56,8 @@ from gcm_tpu_torch.parallel.fused_spmd import (
 )
 from gcm_tpu_torch.parallel.halo import extend_mats_once, make_spmd_step
 from gcm_tpu_torch.parallel.sharding import (
-    block_shape, gather_state, shard_field, shard_mats, shard_state,
+    DomainMesh, block_shape, gather_state, place, shard_field, shard_mats,
+    shard_state,
 )
 from gcm_tpu_torch.solver.gcm import (
     axes_order, canonical_axes, cfl_dt, step as solver_step,
@@ -94,6 +95,59 @@ def _disagree(device: torch.device, mesh_device: torch.device) -> bool:
         device.index is not None and device.index != (mesh_device.index or 0))
 
 
+def mesh_device(mesh, device=None) -> torch.device:
+    """The first shard's device of ``mesh`` (a ``DomainMesh``), which holds
+    what an engine keeps whole; raises if a device of the mesh is a CUDA
+    device torch does not see, or if ``device`` disagrees with one."""
+    if not isinstance(mesh, DomainMesh):
+        raise TypeError(f"mesh must be a parallel.sharding.DomainMesh, not "
+                        f"{type(mesh).__name__}")
+    for d in mesh.devices:
+        check_device(d)
+    if device is not None and any(
+            _disagree(torch.device(device), d) for d in mesh.devices):
+        raise ValueError(f"device {device} disagrees with the mesh's "
+                         f"devices {mesh.devices}")
+    return mesh.devices[0]
+
+
+def shard_sources(mesh, block, ncomp: int, nodes, amps: np.ndarray,
+                  dtype: torch.dtype) -> Dict[int, tuple]:
+    """Per shard ``k`` holding a source, ``(flat, amps_k)``: the flat
+    indices into its state ``[ncomp, *block]`` of the source entries
+    ``nodes`` (``(comp, *node)`` each, global nodes) that lie on it, and
+    their columns of ``amps`` (``[nsteps, len(nodes)]``), on its device."""
+    cshape = (ncomp,) + tuple(block)
+    by_shard: Dict[int, list] = {}
+    for col, (comp, *node) in enumerate(nodes):
+        k, local = place(mesh, block, node)
+        by_shard.setdefault(k, []).append(
+            (np.ravel_multi_index((comp,) + local, cshape), col))
+    out = {}
+    for k, items in by_shard.items():
+        dev = mesh.devices[k]
+        flat, cols = zip(*items)
+        out[k] = (torch.as_tensor(np.asarray(flat, np.int64), device=dev),
+                  torch.as_tensor(amps[:, list(cols)], device=dev).to(dtype))
+    return out
+
+
+def shard_detectors(mesh, block, nodes) -> Dict[int, tuple]:
+    """Per shard ``k`` holding a receiver, ``(flat, positions)``: the flat
+    spatial indices into its block of the receivers among the global
+    ``nodes`` that lie on it (on its device), and their positions in
+    ``nodes``."""
+    det: Dict[int, tuple] = {}
+    for pos, node in enumerate(nodes or ()):
+        k, local = place(mesh, block, node)
+        det.setdefault(k, ([], []))
+        det[k][0].append(np.ravel_multi_index(local, tuple(block)))
+        det[k][1].append(pos)
+    return {k: (torch.as_tensor(np.asarray(f, np.int64),
+                                device=mesh.devices[k]), np.asarray(p))
+            for k, (f, p) in det.items()}
+
+
 @dataclasses.dataclass
 class RunResult:
     u: np.ndarray                       # final state [ncomp, *spatial]
@@ -125,13 +179,7 @@ class Engine:
             raise ValueError("model dim != grid dim")
         self.mesh = mesh
         if mesh is not None:
-            for d in mesh.devices:
-                check_device(d)
-            if device is not None and any(
-                    _disagree(torch.device(device), d) for d in mesh.devices):
-                raise ValueError(f"device {device} disagrees with the mesh's "
-                                 f"devices {mesh.devices}")
-            device = mesh.devices[0]
+            device = mesh_device(mesh, device)
         self.device = check_device("cuda" if device is None else device)
         self.dtype = dtype
         #: resolved compute path ("auto" -> device-dependent)
@@ -272,41 +320,11 @@ class Engine:
             self._spmd_step = make_spmd_step(
                 *args, use_kernel=self.kernel == "sweep")
 
-        def place(node):
-            """(shard, local node) of a global spatial node."""
-            i = node[0] // bshape[0]
-            j = node[1] // bshape[1] if "sy" in mesh.axis_names else 0
-            local = (node[0] - i * bshape[0],) + (
-                (node[1] - j * bshape[1],) + tuple(node[2:])
-                if "sy" in mesh.axis_names else tuple(node[1:]))
-            return mesh.index(i, j), local
-
         # each source node and detector belongs to exactly one shard: its
         # local flat index there, mapped once
-        cshape = (model.ncomp,) + bshape
-        by_shard: Dict[int, list] = {}
-        for col, (comp, *node) in enumerate(src_nodes):
-            k, local = place(node)
-            by_shard.setdefault(k, []).append(
-                (np.ravel_multi_index((comp,) + local, cshape), col))
-        self._src = {}
-        for k, items in by_shard.items():
-            dev = mesh.devices[k]
-            flat, cols = zip(*items)
-            self._src[k] = (
-                torch.as_tensor(np.asarray(flat, np.int64), device=dev),
-                torch.as_tensor(amps[:, list(cols)], device=dev
-                                ).to(self.dtype))
-        self._det = {}
-        for pos, node in enumerate(det_nodes or ()):
-            k, local = place(node)
-            self._det.setdefault(k, ([], []))
-            self._det[k][0].append(np.ravel_multi_index(local, bshape))
-            self._det[k][1].append(pos)
-        self._det = {k: (torch.as_tensor(np.asarray(f, np.int64),
-                                         device=mesh.devices[k]),
-                         np.asarray(p))
-                     for k, (f, p) in self._det.items()}
+        self._src = shard_sources(mesh, bshape, model.ncomp, src_nodes, amps,
+                                  self.dtype)
+        self._det = shard_detectors(mesh, bshape, det_nodes)
 
     def _one_step_mesh(self, us, aux, n: int):
         task, model = self.task, self.model

@@ -219,7 +219,10 @@ def make_fused_spmd_step(model: Model, mesh: DomainMesh, dt: float,
     (:func:`extended_mstack`, same order), ``aux`` (with damage
     ``correctors``, specs of ``ops.fused.fold_corrector_specs``) one
     ``(naux, nxl, nyl, nz)`` stack per shard; the folded correctors run in
-    both launches. ``axes`` is (0, 1, 2) or (2, 1, 0).
+    both launches. ``axes`` is any order of the three axes: (0, 1, 2) and
+    (2, 1, 0) on a single body, and on contact bodies also the canonical
+    order under a one-axis mesh, (ca, rest) and its reverse ((2, 0, 1) and
+    (1, 0, 2) for a z contact, ``engine_multi.MultiBodyEngine``).
 
     On a one-shard mesh the step is the single-card ``fused_step``;
     ``force_spmd=True`` keeps the interior/ring split on any mesh.
@@ -236,8 +239,9 @@ def make_fused_spmd_step(model: Model, mesh: DomainMesh, dt: float,
 
     def step(us, mexts, axes: Optional[Tuple[int, ...]] = None, aux=None):
         axes = tuple(axes) if axes is not None else (0, 1, 2)
-        if axes not in ((0, 1, 2), (2, 1, 0)):
-            raise ValueError(f"unsupported axes order {axes}")
+        if sorted(axes) != [0, 1, 2]:
+            raise ValueError(f"unsupported axes order {axes}: not an "
+                             "order of the 3 axes")
         if naux and aux is None:
             raise ValueError("damage correctors need the aux array")
         kw = dict(correctors=specs or None)

@@ -5,7 +5,8 @@ block extended by an r-deep halo of its neighbours' rows (edge-replicated
 at a domain face) and crops the halo off again. Border conditions: the
 sweep runs border-free on the extended block; the shards on a domain face
 then apply the exactly equivalent post-fixup
-(``solver.boundary.apply_borders_post``).
+(:func:`borders_post`, ``solver.boundary.apply_borders_post`` on each such
+shard), which the multi-body engine's per-sweep composition shares.
 
 With ``use_kernel=True`` the sweep is the per-sweep CUDA kernel
 (``ops.sweep.sweep_stage``, which runs its plain version on CPU tensors);
@@ -169,19 +170,31 @@ def make_spmd_step(model: Model, mesh: DomainMesh, dt: float,
 
     def step(us, mats, axes: Optional[Tuple[int, ...]] = None):
         axes = tuple(range(model.dim)) if axes is None else tuple(axes)
-        base = [m["base"] if isinstance(m, dict) else m for m in mats]
         for axis in axes:
             new = _sweep_all(model, mesh, raw, names, r, us, mats, axis)
             if borders:
-                name = names.get(axis)
-                for k in range(len(us)):
-                    lo_k, hi_k = ((None, None) if name is None
-                                  else _neighbours(mesh, name, k))
-                    if lo_k is None or hi_k is None:   # on a domain face
-                        new[k] = apply_borders_post(
-                            model, us[k], new[k], base[k], axis, borders,
-                            (lo_k is None, hi_k is None))
+                new = borders_post(model, mesh, us, new, mats, axis, borders)
             us = new
         return us
 
     return step
+
+
+def borders_post(model: Model, mesh: DomainMesh, us: Sequence[torch.Tensor],
+                 new: Sequence[torch.Tensor], mats: Sequence, axis: int,
+                 borders: Borders) -> List[torch.Tensor]:
+    """The border post-fixup of a border-free sweep along ``axis`` across
+    the shards (``solver.boundary.apply_borders_post``): ``us`` before the
+    sweep, ``new`` after it, ``mats`` per shard (plain or from
+    :func:`extend_mats_once`). Only the shards on a domain face of
+    ``axis`` are corrected, on that face."""
+    name = _spatial_names(model.dim, mesh).get(axis)
+    out = list(new)
+    for k, m in enumerate(mats):
+        lo_k, hi_k = ((None, None) if name is None
+                      else _neighbours(mesh, name, k))
+        if lo_k is None or hi_k is None:   # on a domain face
+            out[k] = apply_borders_post(
+                model, us[k], new[k], m["base"] if isinstance(m, dict) else m,
+                axis, borders, (lo_k is None, hi_k is None))
+    return out

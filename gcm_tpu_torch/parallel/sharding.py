@@ -155,10 +155,81 @@ def gather_state(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
                  lead: int = 1, device=None) -> torch.Tensor:
     """Join per-shard blocks back into the global field, on ``device``
     (default: the first block's)."""
-    device = blocks[0].device if device is None else torch.device(device)
-    nsx, nsy = mesh.axis_size("sx"), mesh.axis_size("sy")
+    return _join(blocks, mesh, range(mesh.axis_size("sx")),
+                 range(mesh.axis_size("sy")), lead, device)
+
+
+def _join(parts, mesh: DomainMesh, xs, ys, lead: int, device):
+    """The parts of the shards at positions ``xs`` x ``ys`` (indexed by
+    shard), joined along the axes the mesh splits, on ``device``."""
+    device = (parts[mesh.index(xs[0], ys[0])].device if device is None
+              else torch.device(device))
     rows = []
-    for i in range(nsx):
-        row = [blocks[mesh.index(i, j)].to(device) for j in range(nsy)]
-        rows.append(torch.cat(row, dim=lead + 1) if nsy > 1 else row[0])
-    return torch.cat(rows, dim=lead) if nsx > 1 else rows[0]
+    for i in xs:
+        row = [parts[mesh.index(i, j)].to(device) for j in ys]
+        rows.append(torch.cat(row, dim=lead + 1) if len(row) > 1 else row[0])
+    return torch.cat(rows, dim=lead) if len(rows) > 1 else rows[0]
+
+
+def place(mesh: DomainMesh, block: Sequence[int], node: Sequence[int]
+          ) -> Tuple[int, Tuple[int, ...]]:
+    """``(shard, local node)`` of a global spatial node, for blocks of
+    extents ``block``."""
+    i = node[0] // block[0]
+    if len(node) == 1:
+        return mesh.index(i, 0), (node[0] - i * block[0],)
+    j = node[1] // block[1]
+    return mesh.index(i, j), (node[0] - i * block[0],
+                              node[1] - j * block[1]) + tuple(node[2:])
+
+
+def _face_positions(mesh: DomainMesh, axis: int, side: int):
+    """The shard positions along 'sx' and 'sy' whose blocks hold the face
+    ``(axis, side)``: the edge row along the mesh axis that splits
+    ``axis``, every position along the other."""
+    pos = []
+    for name in ("sx", "sy"):
+        n = mesh.axis_size(name)
+        pos.append([(0, n - 1)[side]] if AXIS_OF[name] == axis
+                   else list(range(n)))
+    return pos
+
+
+def _face_slice(f: torch.Tensor, ax: int, side: int, depth: int):
+    n = f.shape[ax]
+    return f.narrow(ax, n - depth if side else 0, depth)
+
+
+def gather_face(blocks: Sequence[torch.Tensor], mesh: DomainMesh, axis: int,
+                side: int, depth: int, lead: int = 1,
+                device=None) -> torch.Tensor:
+    """The ``depth``-deep slab at the global face ``(axis, side)`` of a
+    sharded field (``side`` 0 the low face, 1 the high one), joined on
+    ``device`` (default: the first shard's). Along a split axis the face
+    lies on the edge shards, and ``depth`` must not exceed their blocks."""
+    xs, ys = _face_positions(mesh, axis, side)
+    parts = {mesh.index(i, j): _face_slice(blocks[mesh.index(i, j)],
+                                           lead + axis, side, depth)
+             for i in xs for j in ys}
+    return _join(parts, mesh, xs, ys, lead,
+                 mesh.devices[0] if device is None else device)
+
+
+def scatter_face(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
+                 axis: int, side: int, rows: torch.Tensor,
+                 lead: int = 1) -> None:
+    """Write the global face slab ``rows`` (as :func:`gather_face` gives
+    it, of any depth) into the blocks that hold face ``(axis, side)``, in
+    place."""
+    xs, ys = _face_positions(mesh, axis, side)
+    depth = rows.shape[lead + axis]
+    for i in xs:
+        for j in ys:
+            b = blocks[mesh.index(i, j)]
+            part = rows
+            for name, p in (("sx", i), ("sy", j)):
+                a = AXIS_OF[name]
+                if a != axis and a < b.ndim - lead:
+                    n = b.shape[lead + a]
+                    part = part.narrow(lead + a, p * n, n)
+            _face_slice(b, lead + axis, side, depth).copy_(part)

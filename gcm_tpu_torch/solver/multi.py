@@ -144,44 +144,108 @@ def step_multi(model: Model, us: BodyStates, mats: Dict[str, MaterialFields],
     return us, bonded
 
 
+# ------------------------------------------------------------ face access
+
+def _slab_idx(dim: int, a: int, side: int, n: int) -> Tuple:
+    """Index of the ``n``-deep slab at face ``(a, side)`` of a state."""
+    sl = [slice(None)] * dim
+    sl[a] = slice(-n, None) if side == 1 else slice(0, n)
+    return (slice(None),) + tuple(sl)
+
+
+def _mat_slice(mat, idx: Tuple):
+    """The fields of ``mat`` (isotropic or orthotropic) cut to ``idx``."""
+    return dataclasses.replace(mat, **{f.name: getattr(mat, f.name)[idx]
+                                       for f in dataclasses.fields(mat)})
+
+
+class WholeFaces:
+    """How the contact phases read and write the bodies' faces when each
+    body is one tensor (``mats``: each body's material fields, or their
+    ``AxisViewCache``). A post-fixup reads the whole body and its whole
+    per-axis view and gives the whole new body; the fused composition's
+    fixups read views of the face slabs and write the face rows in place.
+    ``parallel.faces.ShardedFaces`` does the same on the shards of a mesh,
+    so the contact algebra never sees how a body is held."""
+
+    def __init__(self, model: Model, mats: Dict[str, object]):
+        self.model, self.mats = model, mats
+
+    def face(self, name: str, u, axis: int, side: int):
+        """What a post-fixup of face ``(axis, side)`` reads of ``u``."""
+        return u
+
+    def face_view(self, name: str, axis: int, side: int):
+        """The material view along ``axis`` that goes with :meth:`face`."""
+        return self.mats[name].axis_view(axis, self.model.stage(axis))
+
+    def put_face(self, name: str, u, axis: int, side: int, new):
+        """``u`` with the post-fixed :meth:`face` ``new`` in place."""
+        return new
+
+    def slab(self, name: str, u, axis: int, side: int, depth: int):
+        """The ``depth``-deep slab of ``u`` at face ``(axis, side)``."""
+        return u[_slab_idx(self.model.dim, axis, side, depth)]
+
+    def mat_slab(self, name: str, axis: int, side: int, depth: int):
+        """The material fields of :meth:`slab`."""
+        return _mat_slice(self.mats[name],
+                          _slab_idx(self.model.dim, axis, side, depth)[1:])
+
+    def put_row(self, name: str, u, axis: int, side: int, row):
+        """``u`` with its face row at ``(axis, side)`` overwritten by
+        ``row``, in place."""
+        u[_slab_idx(self.model.dim, axis, side, 1)] = row
+        return u
+
+    def borders_post(self, name: str, u, u_raw, axis: int, bcs):
+        """The border post-fixup of a border-free sweep of body ``name``."""
+        return apply_borders_post(self.model, u, u_raw, self.mats[name],
+                                  axis, bcs)
+
+
 def stage_multi_fast(model: Model, us: BodyStates,
                      mats: Dict[str, MaterialFields], axis: int,
                      borders: BodyBorders, contacts: Sequence[ContactSpec],
                      bonded: BondedState, raw_stage,
-                     ncmaps: Optional[Dict[int, object]] = None
+                     ncmaps: Optional[Dict[int, object]] = None,
+                     faces: Optional[WholeFaces] = None
                      ) -> Tuple[BodyStates, BondedState]:
     """One sweep with a raw kernel sweep per body and fixups:
     ``raw_stage(name, u, axis)`` sweeps one body with no borders (the
     per-sweep kernel); borders and contacts then follow as slab fixups
     (``apply_borders_post``, ``apply_contact_post``,
     ``apply_contact_nc_post``), exact because the reconstruction is
-    invertible."""
+    invertible. ``faces`` says how the bodies are held (default: whole
+    tensors, :class:`WholeFaces` of ``mats``)."""
     ncmaps = ncmaps or {}
-    st = model.stage(axis)
-    views = {name: mats[name].axis_view(axis, st) for name in us}
+    faces = faces or WholeFaces(model, mats)
     full_faces = _full_contact_faces(contacts, axis, ncmaps)
     out: BodyStates = {}
     for name, u in us.items():
         u_raw = raw_stage(name, u, axis)
         bcs = {f: b for f, b in borders.get(name, {}).items()
                if f[0] == axis and (name,) + f not in full_faces}
-        out[name] = (apply_borders_post(model, u, u_raw, mats[name], axis,
-                                        bcs) if bcs else u_raw)
+        out[name] = (faces.borders_post(name, u, u_raw, axis, bcs) if bcs
+                     else u_raw)
     new_bonded = dict(bonded)
     for ci, c in enumerate(contacts):
         if c.axis != axis:
             continue
+        sides = ((c.body_a, 1), (c.body_b, 0))
+        (olda, newa), (oldb, newb) = (
+            (faces.face(n, us[n], axis, s), faces.face(n, out[n], axis, s))
+            for n, s in sides)
+        va, vb = (faces.face_view(n, axis, s) for n, s in sides)
         if ci in ncmaps:
             ua, ub, nb = apply_contact_nc_post(
-                c, model, ncmaps[ci], us[c.body_a], out[c.body_a],
-                us[c.body_b], out[c.body_b], views[c.body_a],
-                views[c.body_b], bonded.get(ci))
-        else:
-            ua, ub, nb = apply_contact_post(
-                c, model, us[c.body_a], out[c.body_a], us[c.body_b],
-                out[c.body_b], views[c.body_a], views[c.body_b],
+                c, model, ncmaps[ci], olda, newa, oldb, newb, va, vb,
                 bonded.get(ci))
-        out[c.body_a], out[c.body_b] = ua, ub
+        else:
+            ua, ub, nb = apply_contact_post(c, model, olda, newa, oldb, newb,
+                                            va, vb, bonded.get(ci))
+        for (n, s), new in zip(sides, (ua, ub)):
+            out[n] = faces.put_face(n, out[n], axis, s, new)
         if nb is not None:
             new_bonded[ci] = nb
     return out, new_bonded
@@ -191,12 +255,13 @@ def step_multi_fast(model: Model, us: BodyStates,
                     mats: Dict[str, MaterialFields], borders: BodyBorders,
                     contacts: Sequence[ContactSpec], bonded: BondedState,
                     raw_stage, axes: Optional[Sequence[int]] = None,
-                    ncmaps: Optional[Dict[int, object]] = None
+                    ncmaps: Optional[Dict[int, object]] = None,
+                    faces: Optional[WholeFaces] = None
                     ) -> Tuple[BodyStates, BondedState]:
     """One step of :func:`stage_multi_fast` along each of ``axes``."""
     for a in (axes if axes is not None else range(model.dim)):
         us, bonded = stage_multi_fast(model, us, mats, a, borders, contacts,
-                                      bonded, raw_stage, ncmaps)
+                                      bonded, raw_stage, ncmaps, faces)
     return us, bonded
 
 
@@ -230,28 +295,24 @@ def step_multi_fused(model: Model, us: BodyStates,
                      hs: Dict[str, Sequence[float]], order: int,
                      borders: BodyBorders, contacts: Sequence[ContactSpec],
                      bonded: BondedState, fused_body,
-                     axes: Optional[Sequence[int]] = None
+                     axes: Optional[Sequence[int]] = None,
+                     faces: Optional[WholeFaces] = None
                      ) -> Tuple[BodyStates, BondedState]:
     """A whole step per body in one pass, then the contact face rows.
 
     ``fused_body(name, u, axes)`` runs a body's full step (its non-contact
     borders in place, a raw edge clamp at whole-face contacts): the fused
-    kernel. Only the interface face row of the sweep along the contact axis
-    reads out-of-domain values, and the later sweeps never move data
-    across that axis, so every other cell is already right; the face row is
-    recomputed from the pre-step state on an (r+1)-deep slab by
+    kernel, or the fused SPMD step across the shards of a mesh. Only the
+    interface face row of the sweep along the contact axis reads
+    out-of-domain values, and the later sweeps never move data across that
+    axis, so every other cell is already right; the face row is recomputed
+    from the pre-step state on an (r+1)-deep slab by
     :func:`apply_contact_fixups`. Eligibility is :func:`fused_contacts_ok`.
     """
     axes = tuple(axes) if axes is not None else tuple(range(model.dim))
     out = {name: fused_body(name, u, axes) for name, u in us.items()}
     return apply_contact_fixups(model, us, out, mats, dt, hs, order, borders,
-                                contacts, bonded, axes)
-
-
-def _mat_slice(mat, idx: Tuple):
-    """The fields of ``mat`` (isotropic or orthotropic) cut to ``idx``."""
-    return dataclasses.replace(mat, **{f.name: getattr(mat, f.name)[idx]
-                                       for f in dataclasses.fields(mat)})
+                                contacts, bonded, axes, faces)
 
 
 def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
@@ -259,7 +320,8 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
                          hs: Dict[str, Sequence[float]], order: int,
                          borders: BodyBorders,
                          contacts: Sequence[ContactSpec],
-                         bonded: BondedState, axes: Tuple[int, ...]
+                         bonded: BondedState, axes: Tuple[int, ...],
+                         faces: Optional[WholeFaces] = None
                          ) -> Tuple[BodyStates, BondedState]:
     """The face-row phase of :func:`step_multi_fused`, on the pre-step
     states ``us`` and the raw fused outputs ``out`` (whose face rows it
@@ -269,16 +331,14 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
     contact solve to the face row, and redo the later sweeps on that row.
     The slabs keep the task layout: each sweep runs along its own tensor
     dimension (the JAX package moves the contact axis first, for the TPU's
-    lanes; both are exact)."""
+    lanes; both are exact). ``faces`` reads the slabs and writes the rows
+    back (default: whole tensors, :class:`WholeFaces` of ``mats``; on a
+    mesh ``parallel.faces.ShardedFaces`` gathers the slabs from the shards and
+    scatters the rows into them), so only it knows how a body is held."""
     axes = tuple(axes)
     depth = stencil_radius(order) + 1
     dim = model.dim
-
-    def slab_idx(a: int, side: int, n: int) -> Tuple:
-        sl = [slice(None)] * dim
-        sl[a] = slice(-n, None) if side == 1 else slice(0, n)
-        return (slice(None),) + tuple(sl)
-
+    faces = faces or WholeFaces(model, mats)
     out = dict(out)
     new_bonded = dict(bonded)
     for ci, c in enumerate(contacts):
@@ -288,9 +348,8 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
         st = model.stage(a)
         pre, swept, matsl = {}, {}, {}
         for name, side in ((c.body_a, 1), (c.body_b, 0)):
-            idx = slab_idx(a, side, depth)
-            usl = us[name][idx]
-            msl = _mat_slice(mats[name], idx[1:])
+            usl = faces.slab(name, us[name], a, side, depth)
+            msl = faces.mat_slab(name, a, side, depth)
             bcs_t = {f: b for f, b in borders.get(name, {}).items()
                      if f[0] != a}
             for b_ax in before:
@@ -312,15 +371,15 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
             new_bonded[ci] = nb
         for name, ufix in ((c.body_a, ua_fix), (c.body_b, ub_fix)):
             side = 1 if name == c.body_a else 0
-            fidx = slab_idx(a, side, 1)
             # the face row of the slab: its last row on body_a's high face,
             # its first on body_b's low face
-            frow = ufix[slab_idx(a, side, 1)]
+            fidx = _slab_idx(dim, a, side, 1)
+            frow = ufix[fidx]
             mrow = _mat_slice(matsl[name], fidx[1:])
             bcs_t = {f: b for f, b in borders.get(name, {}).items()
                      if f[0] != a}
             for b_ax in after:
                 frow = stage(model, frow, mrow, dt, hs[name], b_ax, order,
                              bcs_t)
-            out[name][fidx] = frow
+            out[name] = faces.put_row(name, out[name], a, side, frow)
     return out, new_bonded

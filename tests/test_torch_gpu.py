@@ -1472,3 +1472,137 @@ def test_run_with_outputs_on_card(cuda, tmp_path):
         "elastic3d_explosion.pvd", "elastic3d_explosion_000006.vti",
         "elastic3d_explosion_000012.vti"]
     assert (tmp_path / "elastic3d_explosion.npz").exists()
+
+
+# ------------------------------------------------- multi-body on a mesh
+
+def _mesh_contact_engine(cuda, mesh_name, kernel="auto", canon=True,
+                         nsteps=32):
+    """elastic3d_contact at n=32 from a partly broken bond mask on a mesh
+    whose 4 shards all lie on the card (``mesh_name`` "2x2" or the one-axis
+    "sx4"), or unsharded (None)."""
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.parallel.sharding import DomainMesh, domain_mesh
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    bodies, contacts = elastic3d_contact(n=32, nsteps=nsteps)
+    bodies = {k: dataclasses.replace(t, kernel=kernel)
+              for k, t in bodies.items()}
+    mesh = {None: None,
+            "2x2": domain_mesh(3, [cuda] * 4, (2, 2)),
+            "sx4": DomainMesh((cuda,) * 4, (4,), ("sx",))}[mesh_name]
+    eng = MultiBodyEngine(bodies, contacts, device=None if mesh else cuda,
+                          mesh=mesh, canonical_layout=canon)
+    mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+        np.float32)
+    eng.bonded = bonded_from_numpy({0: mask}, device=cuda)
+    return eng, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_name,kernel,canon,path", [
+    ("2x2", "auto", True, "fused_spmd"),
+    ("sx4", "auto", True, "fused_canonical_spmd"),
+    ("2x2", "sweep", False, "sweep_spmd")])
+def test_contact_mesh_paths_on_card(cuda, mesh_name, kernel, canon, path):
+    """MultiBodyEngine on 4 shards of the card: each form launches its
+    kernels on every shard of both bodies a step (the SPMD ring kernel 8
+    times, and the interior one as often where a shard has interior tiles:
+    the 2x2 shards of 16 x 16 rows are all ring; or the sweep kernel 24
+    times) and no unsharded kernel, and agrees with the unsharded path in
+    the same order (under 2e-6, bond masks equal) as the interface breaks
+    further."""
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_ring, split_3d)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+
+    counters = (fused_spmd_interior, fused_spmd_ring, sweep_stage,
+                fused_step, fused_step_slab)
+    eng, mask = _mesh_contact_engine(cuda, mesh_name, kernel, canon)
+    assert eng.path == path
+    before = [f.launches for f in counters]
+    got = eng.run()
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    n = eng.nsteps
+    _, nxl, nyl, _ = eng.us["upper"][0].shape
+    inner = split_3d(nxl, nyl, stencil_radius(eng.order))[3] > 0
+    assert inner == (mesh_name == "sx4")
+    assert launched == ([0, 0, 24 * n, 0, 0] if kernel == "sweep"
+                        else [8 * n * inner, 8 * n, 0, 0, 0])
+    ref, _ = _mesh_contact_engine(cuda, None, kernel, eng.canonical)
+    assert ref._fwd == eng._fwd
+    want = ref.run()
+    for k in want.bodies:
+        assert norm_err(torch.from_numpy(got.bodies[k]),
+                        torch.from_numpy(want.bodies[k])) < 2e-6
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+    assert got.bonded[0].mean() < mask.mean()      # the interface broke
+
+
+@pytest.mark.gpu
+def test_contact_on_a_y_mesh_takes_the_sweep_kernel_on_card(cuda):
+    """A y contact on a ('sy',) mesh of 4 shards of the card with
+    kernel="fused": the mesh splits the contact axis, so the per-sweep halo
+    stage runs, and it launches the sweep kernel 24 times a step (3 axes x
+    2 bodies x 4 shards), no plain sweep, and ends within 2e-6 of the
+    unsharded per-sweep path, bond masks equal."""
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.parallel.sharding import DomainMesh
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    bodies, contacts = elastic3d_contact(n=32, nsteps=16)
+    contacts = tuple(dataclasses.replace(c, axis=1) for c in contacts)
+
+    def build(kernel, mesh):
+        b = {k: dataclasses.replace(t, kernel=kernel)
+             for k, t in bodies.items()}
+        return MultiBodyEngine(b, contacts, device=None if mesh else cuda,
+                               mesh=mesh)
+
+    eng = build("fused", DomainMesh((cuda,) * 4, (4,), ("sy",)))
+    assert eng.path == "sweep_spmd"
+    before = sweep_stage.launches
+    got = eng.run()
+    assert sweep_stage.launches - before == 24 * eng.nsteps
+    ref = build("sweep", None)
+    assert ref.path == "sweep"
+    want = ref.run()
+    for k in want.bodies:
+        assert norm_err(torch.from_numpy(got.bodies[k]),
+                        torch.from_numpy(want.bodies[k])) < 2e-6
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+
+
+@pytest.mark.gpu
+def test_contact_mesh_resumes_exactly_on_card(cuda, tmp_path):
+    """The 2x2 fused SPMD contact path cut at an odd step through a
+    checkpoint equals the uninterrupted run; no restored broken cell heals;
+    an unsharded engine's checkpoint resumes on the mesh."""
+    def build():
+        return _mesh_contact_engine(cuda, "2x2")[0]
+
+    want = build().run()
+    eng, got, state = _resumed_on_card(build, 17, tmp_path / "a")
+    assert got.path == "fused_spmd"
+    for k in want.bodies:
+        np.testing.assert_array_equal(got.bodies[k], want.bodies[k])
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+    at_cut = state["bonded"]["0"]
+    assert (got.bonded[0][at_cut == 0] == 0).all()
+    assert got.bonded[0].mean() < at_cut.mean()
+
+    def unsharded():
+        return _mesh_contact_engine(cuda, None, canon=False)[0]
+
+    part = unsharded()
+    part.nsteps = 17
+    part.run()
+    eng = build()
+    eng.load_state(part.state_dict())
+    got = eng.run()
+    whole = unsharded().run()
+    for k in whole.bodies:
+        assert norm_err(torch.from_numpy(got.bodies[k]),
+                        torch.from_numpy(whole.bodies[k])) < 2e-6
+    np.testing.assert_array_equal(got.bonded[0], whole.bonded[0])

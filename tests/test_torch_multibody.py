@@ -179,7 +179,7 @@ def test_paths_and_refusals():
            for k, t in fused.items()}
     eng = MultiBodyEngine(b16, contacts, device="cpu")
     assert all(m.dtype == torch.bfloat16 for m in eng._mstacks.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DomainMesh"):
         MultiBodyEngine(bodies, contacts, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="float32"):
         MultiBodyEngine(fused, contacts, device="cpu", dtype=torch.float64)

@@ -29,7 +29,8 @@ assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.solver.simplex_gcm", "gcm_tpu_torch.ops.simplex",
         "gcm_tpu_torch.engine_simplex", "gcm_tpu_torch.ops.fused_spmd",
         "gcm_tpu_torch.parallel.sharding", "gcm_tpu_torch.parallel.halo",
-        "gcm_tpu_torch.parallel.fused_spmd", "gcm_tpu_torch.solver.contact",
+        "gcm_tpu_torch.parallel.fused_spmd", "gcm_tpu_torch.parallel.faces",
+        "gcm_tpu_torch.solver.contact",
         "gcm_tpu_torch.solver.contact_nc", "gcm_tpu_torch.solver.multi",
         "gcm_tpu_torch.engine_multi", "gcm_tpu_torch.oracle.oracle",
         "gcm_tpu_torch.oracle.oracle_ortho", "gcm_tpu_torch.snapshot.vtk",

@@ -327,7 +327,7 @@ def test_wrappers_on_cpu_run_plain_versions(rng):
                           dt, (1.0, 1.0), 2, which="both")
     with pytest.raises(ValueError, match="unsupported axes"):
         pfs.make_fused_spmd_step(model, _mesh(3, (2, 2)), dt, (1.0,) * 3, 2)(
-            shard_state(u, _mesh(3, (2, 2))), None, (0, 2, 1))
+            shard_state(u, _mesh(3, (2, 2))), None, (0, 1, 1))
     with pytest.raises(ValueError, match="stencil radius"):
         pfs.make_fused_spmd_step(model, _mesh(3, (16, 1)), dt, (1.0,) * 3,
                                  3)(shard_state(u, _mesh(3, (16, 1))), None,

@@ -84,6 +84,23 @@ FUSED_CASES = [("3d", "node"), ("3d-fluid", "absorbing"), ("2d", "free"),
                ("2d-order2", "node")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def private_native_library(tmp_path_factory):
+    """JAX's native library (its C++ point locator), built by the package's
+    own ``native._build`` into a path of this test process's own for the
+    module's tests. The package builds ``libgcm_native.so`` in place,
+    guarded by a thread lock only: test processes of a fresh checkout build
+    it at once, and one that loads a half-written file loses the library
+    for the rest of its life (``available()`` False, the walk's parity
+    cases then fail). The other port simplex test modules use this fixture
+    too."""
+    saved = native._SO, native._lib, native._build_failed
+    native._SO = str(tmp_path_factory.mktemp("native") / "libgcm_native.so")
+    native._lib, native._build_failed = None, False
+    yield
+    native._SO, native._lib, native._build_failed = saved
+
+
 def norm_err(got, want):
     """Per-component max error over the component's max magnitude."""
     got, want = np.asarray(got), np.asarray(want)

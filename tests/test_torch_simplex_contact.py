@@ -47,7 +47,9 @@ from gcm_tpu_torch.materials import IsotropicMaterial
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.solver import simplex_contact as tsc
 from gcm_tpu_torch.solver.correctors import MaxwellCorrector
-from test_torch_simplex import assert_tables_agree, norm_err
+from test_torch_simplex import (  # noqa: F401  (a module fixture)
+    assert_tables_agree, norm_err, private_native_library,
+)
 
 ROCK = dict(rho=1000.0, cp=2000.0, cs=1100.0)
 #: (dim, L, n, k, jitter): two boxes sharing the plane x = k L / (n - 1)

@@ -44,7 +44,9 @@ from gcm_tpu_torch.solver import simplex_contact as tsc
 from gcm_tpu_torch.utils.checkpoint import (
     restore_checkpoint, save_checkpoint,
 )
-from test_torch_simplex import norm_err
+from test_torch_simplex import (  # noqa: F401  (a module fixture)
+    norm_err, private_native_library,
+)
 from test_torch_simplex_contact import assert_multi_agree
 
 ROCK = dict(rho=1000.0, cp=2000.0, cs=1100.0)

@@ -25,7 +25,9 @@ from gcm_tpu_torch.convert import foot_tables_from_numpy
 from gcm_tpu_torch.engine_simplex import SimplexEngine
 from gcm_tpu_torch.scenarios import get_scenario
 from gcm_tpu_torch.solver.correctors import MaxwellCorrector
-from test_torch_simplex import assert_tables_agree, norm_err
+from test_torch_simplex import (  # noqa: F401  (a module fixture)
+    assert_tables_agree, norm_err, private_native_library,
+)
 
 ENGINE_CASES = [("simplex3d_layered", 13, 9),
                 ("simplex2d_canyon_layered", 17, 15)]

@@ -56,7 +56,9 @@ from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.scenarios import get_scenario
 from gcm_tpu_torch.solver.simplex_contact import SimplexContactSpec
 from gcm_tpu_torch.solver.simplex_gcm import simplex_step
-from test_torch_simplex import assert_tables_agree
+from test_torch_simplex import (  # noqa: F401  (a module fixture)
+    assert_tables_agree, private_native_library,
+)
 from test_torch_simplex_contact import assert_multi_agree, split
 from test_torch_simplex_engine import assert_runs_agree
 
