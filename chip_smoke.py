@@ -183,6 +183,21 @@ Phases, each of which raises (exit code != 0) on failure:
    healing; the 2x2 run cut at step 51 of 100 through a checkpoint file
    equal to its uninterrupted run, and an unsharded engine's checkpoint
    resumed on the mesh (under 2e-6 of the unsharded run, masks equal).
+19. one run across two processes: two ranks of a gloo group at
+   ``tcp://127.0.0.1:<free port>`` (this script with ``--multiproc-rank``,
+   each bounded by ``MP_TIMEOUT``), both on cuda:0, one mesh row (two
+   shards) a rank, the slabs between them through pinned host memory: (a)
+   ``elastic3d_explosion`` n=256 fused on 2x2 x 100 steps, (b) the same
+   with ``kernel="sweep"`` x 50, (c) ``elastic2d_viscoelastic`` n=2048 on
+   sx=4 x 100; each rank launches its shards' kernels only, and the
+   gathered state and traces equal the one-process run on the same mesh
+   bit for bit ((a) also under 2e-6 of the unsharded fused run); each
+   path's points/s, the host ms of the exchange inside the step loop
+   (median of 20 steps, and its share of the loop's wall) and the card's
+   idle share (both ranks traced); rows 6a, 6b, 4 and 6c held against
+   their plain versions on rank 1's shard with the slabs rank 0 sent, and
+   timed. With two or more cards, (a) again under NCCL, one rank a card;
+   with one, ``nccl: not run (1 card)``.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -207,7 +222,10 @@ launches on the 2x2 contact mesh path, their error, times and bounds on
 its shard, its rate, idle share and the contact fixup's host ms in the
 step loop and alone (``contact_mesh_*``), and ``sweep_stage`` its
 launches, rate, error, times and bound on the per-sweep contact mesh
-path's shard blocks; the last line is ``{"ok": true,
+path's shard blocks; ``fused_spmd_interior``, ``fused_spmd_ring``,
+``sweep_stage`` and ``fused_spmd_2d`` carry their launches in a rank of
+phase 19 and their error, times and bound on rank 1's shard there
+(``multiproc_*``); the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -847,12 +865,10 @@ def _spmd_bytes(model, shape, r, which, nm):
     return nbytes, cells
 
 
-def _idle_share(run_steps, nsteps, step_ms):
-    """Device busy time over the host wall of ``nsteps`` steps under
-    torch.profiler (kernels and copies, overlaps counted once). The
-    profiler slows the host, so the traced idle share is an upper bound;
-    the busy time a step over the untraced step time ``step_ms`` (from the
-    path's own run) estimates the untraced one."""
+def _device_busy(run_steps):
+    """(host wall ms, device busy ms) of ``run_steps()`` under
+    torch.profiler: the union of this process's kernel and copy events,
+    overlaps counted once (None without device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -870,7 +886,17 @@ def _idle_share(run_steps, nsteps, step_ms):
         if b > end:
             busy += (b - max(a, end)) / 1e3
             end = b
-    if not spans:
+    return wall, busy if spans else None
+
+
+def _idle_share(run_steps, nsteps, step_ms):
+    """Device busy time over the host wall of ``nsteps`` steps under
+    torch.profiler (kernels and copies, overlaps counted once). The
+    profiler slows the host, so the traced idle share is an upper bound;
+    the busy time a step over the untraced step time ``step_ms`` (from the
+    path's own run) estimates the untraced one."""
+    wall, busy = _device_busy(run_steps)
+    if busy is None:
         print(f"  trace of {nsteps} steps: no device events recorded; idle "
               "share not measured")
         return None
@@ -1130,10 +1156,11 @@ def spmd_kernels_vs_plain():
 
 
 def _spmd_kernels_on_shard(tag, model, us, mexts, mesh, k, dt, h, order,
-                           bc, axes):
+                           bc, axes, slabs=None):
     """Both SPMD kernels on shard ``k`` of a path's own sharded state: each
     held against its plain version (``_hold_on_path_state``), then timed
-    beside it. Returns ``({name: {max_abs_err, ms, plain_ms, bound_ms,
+    beside it; ``slabs`` (default: exchanged here) are the shard's halo
+    slabs. Returns ``({name: {max_abs_err, ms, plain_ms, bound_ms,
     bound_by}}, the interior launch's arguments)``."""
     from gcm_tpu_torch.ops.fused_spmd import (
         fused_spmd_interior, fused_spmd_interior_reference, fused_spmd_ring,
@@ -1143,7 +1170,8 @@ def _spmd_kernels_on_shard(tag, model, us, mexts, mesh, k, dt, h, order,
 
     r = stencil_radius(order)
     u0, m0 = us[k], mexts[k]
-    slabs = exchange_slabs(us, mesh, r)[k]
+    if slabs is None:
+        slabs = exchange_slabs(us, mesh, r)[k]
     f0 = face_flags(mesh, k)
     where = f"{tag}shard {k} {tuple(u0.shape)}, axes {tuple(axes)}"
     iargs = (model, u0, m0, dt, h, order, bc, axes)
@@ -1184,16 +1212,86 @@ def _spmd_kernels_on_shard(tag, model, us, mexts, mesh, k, dt, h, order,
     return out, iargs
 
 
+def _spmd_2d_on_shard(where, eng, k, slabs):
+    """The 2D SPMD kernel in both modes on shard ``k`` of a sharded 2D
+    engine's state, with its halo ``slabs``: each mode held against its
+    plain version, then both timed beside it. Returns ``({max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, interior_ms, ring_ms}, the launch's
+    arguments)``."""
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_2d, fused_spmd_2d_reference)
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import face_flags
+
+    task, model = eng.task, eng.model
+    u2, me2 = eng.u[k], eng._carry[k]
+    f2 = face_flags(eng.mesh, k)[:2]
+    a2 = (model, u2, me2, eng.dt, task.grid.h, task.order, task.borders,
+          (0, 1))
+    e2 = 0.0
+    for which in ("interior", "ring"):
+        *_, e = _hold_on_path_state(
+            f"fused_spmd_2d {which} on {where} {tuple(u2.shape)}",
+            lambda *a, w=which: fused_spmd_2d(*a, w, slabs, f2,
+                                              torch.zeros_like(u2)),
+            lambda *a, w=which: fused_spmd_2d_reference(
+                *a, w, tuple(x.to(a[1].dtype) for x in slabs), f2,
+                torch.zeros_like(a[1])), a2)
+        e2 = max(e2, e)
+    b2 = torch.zeros_like(u2)
+
+    def both(fn):
+        return lambda: [fn(*a2, w, slabs, f2, b2) for w in ("interior",
+                                                             "ring")]
+
+    t2 = _time_ms(both(fused_spmd_2d), 50)
+    p2 = _time_ms(both(fused_spmd_2d_reference), 10)
+    t2w = {w: _time_ms(lambda w=w: fused_spmd_2d(*a2, w, slabs, f2, b2), 50)
+           for w in ("interior", "ring")}
+    print(f"fused_spmd_2d (interior + ring) at {where} {tuple(u2.shape)}: "
+          f"kernel {t2:.4f} ms (interior {t2w['interior']:.4f}, ring "
+          f"{t2w['ring']:.4f}), plain {p2:.4f} ms")
+    r = stencil_radius(task.order)
+    nb = sum(_spmd_bytes(model, u2.shape, r, w, me2.shape[0])[0]
+             for w in ("interior", "ring"))
+    bms, by = _bound(nb, _step_flops(model, task.order, u2[0].numel()))
+    return dict(max_abs_err=e2, ms=t2, plain_ms=p2, bound_ms=bms,
+                bound_by=by, interior_ms=t2w["interior"],
+                ring_ms=t2w["ring"]), a2
+
+
+def _sweep_on_block(where, model, u, mat, dt, h, axis, order):
+    """``sweep_stage`` on a path's own (halo-extended) block, held against
+    its plain version and timed beside it: ``{max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}``."""
+    from gcm_tpu_torch.ops.sweep import sweep_stage
+    from gcm_tpu_torch.solver.gcm import stage
+
+    a = (model, u, mat, dt, h, axis, order, None)
+    *_, e = _hold_on_path_state(
+        f"sweep_stage on {where} {tuple(u.shape)}, axis {axis}", sweep_stage,
+        lambda model, u, mat, *rest: stage(
+            model, u, _mat_as(mat, u.dtype), *rest), a)
+    npts = u[0].numel()
+    bms, by = _bound(B_SWEEP * npts, _step_flops(model, order, npts) / 3)
+    out = dict(max_abs_err=e, ms=_time_ms(lambda: sweep_stage(*a), 20),
+               plain_ms=_time_ms(lambda: stage(*a), 5), bound_ms=bms,
+               bound_by=by)
+    print(f"sweep_stage at {tuple(u.shape)} axis {axis}: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+          f"{bms:.4f} ms")
+    return out
+
+
 def sharded_paths(counts, result):
     """Phases 10-11: the sharded 3D, folded-corrector, 2D and per-sweep
     paths on meshes whose shards lie on cuda:0 together."""
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.ops.fused import fused_step, stack_mats
-    from gcm_tpu_torch.ops.fused_spmd import (
-        fused_spmd_2d, fused_spmd_2d_reference, fused_spmd_occupancy)
+    from gcm_tpu_torch.ops.fused_spmd import fused_spmd_occupancy
     from gcm_tpu_torch.ops.interp import stencil_radius
     from gcm_tpu_torch.parallel.fused_spmd import (
-        exchange_slabs, extended_mstack, face_flags, make_fused_spmd_step)
+        exchange_slabs, extended_mstack, make_fused_spmd_step)
     from gcm_tpu_torch.parallel.sharding import domain_mesh, gather_state
     from gcm_tpu_torch.scenarios import get_scenario
     from gcm_tpu_torch.solver.correctors import (
@@ -1338,44 +1436,13 @@ def sharded_paths(counts, result):
           f"({f2d.ring_launches} ring); vs unsharded normalized error "
           f"{err2:.3e} (limit 1e-4)")
     _idle_share(steps(eng2, 20), 20, _step_ms(res2, task2))
-    m2, r2 = eng2.model, stencil_radius(task2.order)
-    u2, me2 = eng2.u[1], eng2._carry[1]
-    sl2 = exchange_slabs(eng2.u, mesh2, r2, dim=2)[1]
-    f21 = face_flags(mesh2, 1)[:2]
-    a2 = (m2, u2, me2, eng2.dt, task2.grid.h, task2.order, task2.borders,
-          (0, 1))
-    e2 = 0.0
-    for which in ("interior", "ring"):
-        *_, e = _hold_on_path_state(
-            f"fused_spmd_2d {which} on shard 1 {tuple(u2.shape)}",
-            lambda *a, w=which: fused_spmd_2d(*a, w, sl2, f21,
-                                              torch.zeros_like(u2)),
-            lambda *a, w=which: fused_spmd_2d_reference(
-                *a, w, tuple(x.to(a[1].dtype) for x in sl2), f21,
-                torch.zeros_like(a[1])), a2)
-        e2 = max(e2, e)
-    b2 = torch.zeros_like(u2)
-
-    def both(fn):
-        return lambda: [fn(*a2, w, sl2, f21, b2) for w in ("interior",
-                                                            "ring")]
-
-    t2 = _time_ms(both(fused_spmd_2d), 50)
-    p2 = _time_ms(both(fused_spmd_2d_reference), 10)
-    t2w = {w: _time_ms(lambda w=w: fused_spmd_2d(*a2, w, sl2, f21, b2), 50)
-           for w in ("interior", "ring")}
-    print(f"fused_spmd_2d (interior + ring) at shard {tuple(u2.shape)}: "
-          f"kernel {t2:.4f} ms (interior {t2w['interior']:.4f}, ring "
-          f"{t2w['ring']:.4f}), plain {p2:.4f} ms")
-    nb = sum(_spmd_bytes(m2, u2.shape, r2, w, me2.shape[0])[0]
-             for w in ("interior", "ring"))
-    bms, by = _bound(nb, _step_flops(m2, task2.order, u2[0].numel()))
+    sl2 = exchange_slabs(eng2.u, mesh2, stencil_radius(task2.order),
+                         dim=2)[1]
+    entry, a2 = _spmd_2d_on_shard("shard 1", eng2, 1, sl2)
     result["fused_spmd_2d"] = dict(
-        launches=launched2["fused_spmd_2d"], max_abs_err=e2, ms=t2,
-        plain_ms=p2, bound_ms=bms, bound_by=by, library_ms=None,
-        interior_ms=t2w["interior"], ring_ms=t2w["ring"],
+        launches=launched2["fused_spmd_2d"], **entry, library_ms=None,
         **_occupancy(fused_spmd_occupancy(*a2)))
-    del eng2, res2, res2u, u2, me2, sl2, b2
+    del eng2, res2, res2u, sl2, a2
 
     # ---- 11. the sharded per-sweep path
     task7 = dataclasses.replace(get_scenario(
@@ -3159,10 +3226,8 @@ def contact_mesh_path(counts, result):
     from gcm_tpu_torch.scenarios import elastic3d_contact
     import gcm_tpu_torch.solver.multi as smulti
     from gcm_tpu_torch.ops.interp import stencil_radius
-    from gcm_tpu_torch.ops.sweep import sweep_stage
     from gcm_tpu_torch.parallel.halo import halo_exchange
     from gcm_tpu_torch.parallel.sharding import AXIS_OF
-    from gcm_tpu_torch.solver.gcm import stage
     from gcm_tpu_torch.solver.multi import apply_contact_fixups
 
     dev = torch.device("cuda", 0)
@@ -3360,30 +3425,18 @@ def contact_mesh_path(counts, result):
             mat = mats_k[f"ax{axis}"].mat
         else:
             u, mat = eng.us["upper"][k], mats_k["base"].mat
-        a = (eng.model, u, mat, eng.dt, eng.hs["upper"], axis, eng.order,
-             None)
-        *_, e = _hold_on_path_state(
-            f"sweep_stage on the per-sweep contact mesh path's upper shard "
-            f"{k} {tuple(u.shape)}, axis {axis}", sweep_stage,
-            lambda model, u, mat, *rest: stage(
-                model, u, _mat_as(mat, u.dtype), *rest), a)
-        npts_k = u[0].numel()
-        bms, by = _bound(B_SWEEP * npts_k, _step_flops(
-            eng.model, eng.order, npts_k) / 3)
-        sw.append((e, _time_ms(lambda: sweep_stage(*a), 20),
-                   _time_ms(lambda: stage(*a), 5), bms, by))
-        print(f"sweep_stage at {tuple(u.shape)} axis {axis}: kernel "
-              f"{sw[-1][1]:.4f} ms, plain {sw[-1][2]:.4f} ms, bound "
-              f"{bms:.4f} ms")
+        sw.append(_sweep_on_block(
+            f"the per-sweep contact mesh path's upper shard {k}", eng.model,
+            u, mat, eng.dt, eng.hs["upper"], axis, eng.order))
     result["sweep_stage"].update(
         contact_mesh_launches=ls["sweep_stage"],
         contact_mesh_points_per_s=rs.points_per_second,
-        contact_mesh_max_abs_err=max(x[0] for x in sw),
-        contact_mesh_ms=float(np.mean([x[1] for x in sw])),
-        contact_mesh_plain_ms=float(np.mean([x[2] for x in sw])),
-        contact_mesh_bound_ms=float(np.mean([x[3] for x in sw])),
-        contact_mesh_bound_by=sw[0][4],
-        contact_mesh_ms_by_axis=[x[1] for x in sw])
+        contact_mesh_max_abs_err=max(x["max_abs_err"] for x in sw),
+        contact_mesh_ms=float(np.mean([x["ms"] for x in sw])),
+        contact_mesh_plain_ms=float(np.mean([x["plain_ms"] for x in sw])),
+        contact_mesh_bound_ms=float(np.mean([x["bound_ms"] for x in sw])),
+        contact_mesh_bound_by=sw[0]["bound_by"],
+        contact_mesh_ms_by_axis=[x["ms"] for x in sw])
     del eng, rs, us_
 
     # ---- (d) orthotropic bodies on 2x2: the 13-field stacks, no canonical
@@ -3479,6 +3532,335 @@ def contact_mesh_path(counts, result):
               f"(limit 2e-6), masks equal")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------ multi-process paths
+
+#: phase 19: two ranks of a gloo group on cuda:0, one mesh row (two
+#: shards) a rank; the 3D fused and per-sweep runs and the 2D run, each
+#: against the same run in one process
+NSTEPS_MP, NSTEPS_MP_SWEEP = 100, 50
+#: seconds a rank may take, and waits for the other in an exchange
+MP_TIMEOUT = 420
+
+
+def _mp_cases():
+    """(tag, task, mesh dim, mesh shape) of phase 19's runs."""
+    from gcm_tpu_torch.scenarios import get_scenario
+
+    explosion = get_scenario("elastic3d_explosion", n=N_MAIN,
+                             nsteps=NSTEPS_MP)
+    return (("a", explosion, 3, (2, 2)),
+            ("b", dataclasses.replace(
+                explosion, kernel="sweep", time=dataclasses.replace(
+                    explosion.time, nsteps=NSTEPS_MP_SWEEP)), 3, (2, 2)),
+            ("c", get_scenario("elastic2d_viscoelastic", n=N_2D,
+                               nsteps=NSTEPS_MP), 2, None))
+
+
+def _short(task, n=2):
+    return dataclasses.replace(task, time=dataclasses.replace(task.time,
+                                                              nsteps=n))
+
+
+def _mp_mesh(dim, shape, devices, ranks=None):
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    return domain_mesh(dim, devices, shape, ranks)
+
+
+def _mp_spawn(workdir, backend):
+    """Run the two ranks (this script with ``--multiproc-rank``) at a free
+    local port; each writes its log under ``workdir``. Fails unless both
+    exit 0 within MP_TIMEOUT; stops both either way."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ)
+    if backend == "gloo":      # both ranks on cuda:0
+        env["CUDA_VISIBLE_DEVICES"] = env.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs, logs = [], []
+    try:
+        for rank in (0, 1):
+            log = open(os.path.join(workdir, f"rank{rank}_{backend}.log"),
+                       "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multiproc-rank", str(rank), coord, workdir, backend],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        for p in procs:
+            p.wait(timeout=max(MP_TIMEOUT - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(workdir, f"rank{rank}_{backend}.log")) as f:
+            text = f.read()
+        print(f"  rank {rank} ({backend}), exit {p.returncode}:")
+        for line in text.splitlines():
+            print(f"    {line}")
+        _check(p.returncode == 0, f"multi-process rank {rank} ({backend}) "
+               f"exited {p.returncode}")
+    return coord
+
+
+def multiproc_paths(counts, result):
+    """Phase 19: each path of ``_mp_cases`` run by two ranks on cuda:0
+    under gloo (the slabs between the ranks through host memory) equals the
+    same run in one process bit for bit; (a) also under 2e-6 of the
+    unsharded fused run. With two or more cards, (a) runs again under NCCL,
+    one rank a card."""
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch.engine import Engine
+
+    dev = torch.device("cuda", 0)
+    refs = {}
+    for tag, task, dim, shape in _mp_cases():
+        mesh = _mp_mesh(dim, shape, [dev] * 4)
+        Engine(_short(task), mesh=mesh).run()
+        refs[tag] = Engine(task, mesh=mesh).run()
+        print(f"one-process ({tag}) {task.name} {task.grid.shape} "
+              f"kernel={refs[tag].kernel} on {mesh.shape} shards of cuda:0 "
+              f"x {task.time.nsteps} steps: "
+              f"{refs[tag].points_per_second:.6g} points/s")
+        if tag == "a":
+            unsharded = Engine(task, device=dev).run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="multiproc_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        _mp_spawn(root, "gloo")
+        with open(os.path.join(root, "gloo.json")) as f:
+            got = json.load(f)
+        for tag, task, dim, shape in _mp_cases():
+            u = np.load(os.path.join(root, f"{tag}_u.npy"))
+            tr = np.load(os.path.join(root, f"{tag}_traces.npy"))
+            _check(np.array_equal(u, refs[tag].u)
+                   and np.array_equal(tr, refs[tag].traces),
+                   f"two ranks ({tag}) differ from one process: max "
+                   f"|difference| {np.abs(u - refs[tag].u).max():.3e}, "
+                   f"traces {np.abs(tr - refs[tag].traces).max():.3e}")
+            g = got[tag]
+            idle = ("not measured" if g["idle_share"] is None
+                    else f"{g['idle_share']:.4f}")
+            print(f"two ranks ({tag}) {task.name} {task.grid.shape} "
+                  f"kernel={refs[tag].kernel} x {task.time.nsteps} steps "
+                  f"under gloo, both on cuda:0: {g['points_per_s']:.6g} "
+                  f"points/s (one process "
+                  f"{refs[tag].points_per_second:.6g}); state and traces "
+                  f"equal to the one-process run bit for bit; launches a "
+                  f"rank {g['launches']}; cross-rank exchange "
+                  f"{g['exchange_host_ms']:.4f} host ms a step (median of "
+                  f"20), {g['exchange_share']:.4f} of the loop's wall; "
+                  f"device idle share {idle} (traced, both ranks' busy "
+                  f"time over the wall)")
+        err = _np_err(np.load(os.path.join(root, "a_u.npy")), unsharded.u)
+        _check(err < 2e-6, f"two ranks (a) vs unsharded fused: {err:.3e}")
+        print(f"two ranks (a) vs the unsharded fused run: normalized error "
+              f"{err:.3e} (limit 2e-6)")
+        for name, entry in got["kernels"].items():
+            result[name].update({f"multiproc_{k}": v
+                                 for k, v in entry.items()})
+        if torch.cuda.device_count() >= 2:
+            _mp_nccl(root, refs["a"])
+        else:
+            print("nccl: not run (1 card)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mp_nccl(root, want):
+    """(a) by two ranks under NCCL, one a card (cuda:0 and cuda:1),
+    against ``want``, its one-process run."""
+    _mp_spawn(root, "nccl")
+    with open(os.path.join(root, "nccl.json")) as f:
+        g = json.load(f)["a"]
+    u = np.load(os.path.join(root, "a_u.npy"))
+    tr = np.load(os.path.join(root, "a_traces.npy"))
+    _check(np.array_equal(u, want.u) and np.array_equal(tr, want.traces),
+           f"two ranks (a) under NCCL differ from one process: max "
+           f"|difference| {np.abs(u - want.u).max():.3e}")
+    print(f"nccl: two ranks (a), one a card: {g['points_per_s']:.6g} "
+          f"points/s (one process on one card {want.points_per_second:.6g})"
+          f", state and traces equal to the one-process run bit for bit; "
+          f"launches a rank {g['launches']}; cross-rank exchange "
+          f"{g['exchange_host_ms']:.4f} host ms a step (median of 20), "
+          f"{g['exchange_share']:.4f} of the loop's wall")
+
+
+def _mp_timed_steps(eng, calls, n):
+    """Host wall ms of ``n`` untraced steps of ``eng`` and the host ms of
+    the exchange in each (``calls`` collects them)."""
+    calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls.append(0.0)
+        eng._one_step_mesh(eng.u, eng.aux, i % eng.nsteps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _mp_worker(rank, coord, workdir, backend):
+    """One rank of phase 19: the runs of ``_mp_cases`` on its mesh row,
+    their launches, exchange host ms and idle share; rank 0 saves the
+    gathered states and traces. On gloo, rank 1 then holds rows 4, 6a, 6b
+    and 6c on its own shard blocks, with the slabs rank 0 sent, against
+    their plain versions and times them."""
+    import torch.distributed as dist
+
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.ops import _build
+    from gcm_tpu_torch.ops.fused_spmd import fused_spmd_2d
+    from gcm_tpu_torch.parallel import fused_spmd as pfs
+    from gcm_tpu_torch.parallel import halo, multihost
+
+    _check(multihost.initialize(coord, 2, rank, backend=backend,
+                                timeout=MP_TIMEOUT), "no process group")
+    _build.load()
+    dev = multihost.local_devices()[0]
+    info = multihost.process_info()
+    _check(info["process_count"] == 2 and info["global_devices"] == 2,
+           f"process info {info}")
+    print(f"rank {rank}: {backend} on {dev} ({torch.cuda.get_device_name(dev)}"
+          f"), {info}", flush=True)
+    counts = Counts()
+    out, kernels = {}, {}
+    calls = []
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            calls[-1] += (time.perf_counter() - t0) * 1e3
+            return r
+        return wrapper
+
+    cases = _mp_cases() if backend == "gloo" else _mp_cases()[:1]
+    for tag, task, dim, shape in cases:
+        devs = ([dev] * 4 if backend == "gloo"
+                else [torch.device("cuda", r) for r in (0, 0, 1, 1)])
+        mesh = _mp_mesh(dim, shape, devs, ranks=(0, 0, 1, 1))
+        Engine(_short(task), mesh=mesh).run()
+        eng = Engine(task, mesh=mesh)
+        dist.barrier()
+        counts.zero()
+        res = eng.run()
+        launched = counts.read()
+        want = {"a": dict(fused_spmd_interior=2 * task.time.nsteps,
+                          fused_spmd_ring=2 * task.time.nsteps),
+                "b": dict(sweep_stage=3 * 2 * task.time.nsteps),
+                "c": dict(fused_spmd_2d=2 * 2 * task.time.nsteps)}[tag]
+        counts.expect(f"rank {rank} ({tag})", launched, **want)
+        if tag == "c":
+            _check(fused_spmd_2d.ring_launches == 2 * task.time.nsteps,
+                   f"rank {rank} (c): {fused_spmd_2d.ring_launches} ring "
+                   "launches")
+        if rank == 0:
+            np.save(os.path.join(workdir, f"{tag}_u.npy"), res.u)
+            np.save(os.path.join(workdir, f"{tag}_traces.npy"), res.traces)
+        # the exchange inside the step loop: the slab exchange's call and
+        # wait (fused), the halo exchange of each sweep (per-sweep)
+        real = (pfs.SlabExchange.__call__, pfs.SlabExchange.wait,
+                halo.halo_exchange)
+        pfs.SlabExchange.__call__ = timed(real[0])
+        pfs.SlabExchange.wait = timed(real[1])
+        halo.halo_exchange = timed(real[2])
+        dist.barrier()      # rank 0 saved the states: start together
+        try:
+            loop_ms = _mp_timed_steps(eng, calls, 20)
+        finally:
+            (pfs.SlabExchange.__call__, pfs.SlabExchange.wait,
+             halo.halo_exchange) = real
+        steps = 20 if tag != "b" else 10
+
+        def run_steps(n=steps):
+            for i in range(n):
+                eng._one_step_mesh(eng.u, eng.aux, i % eng.nsteps)
+
+        dist.barrier()
+        wall, busy = _device_busy(run_steps)
+        walls = multihost.all_gather_object((wall, busy))
+        # two processes on one card take turns on it (no MPS), so the
+        # card is busy for the sum of the ranks' busy times
+        idle = (None if any(b is None for _, b in walls) or backend != "gloo"
+                else 1 - sum(b for _, b in walls) / max(w for w, _ in walls))
+        out[tag] = dict(
+            points_per_s=res.points_per_second,
+            launches={k: v for k, v in launched.items() if v},
+            exchange_host_ms=float(np.median(calls)),
+            exchange_share=sum(calls) / loop_ms, loop_ms=loop_ms,
+            idle_share=idle, traced_wall_ms=wall, busy_ms=busy)
+        print(f"rank {rank} ({tag}): {out[tag]}", flush=True)
+        if backend == "gloo":
+            kernels.update(_mp_hold(rank, tag, eng, launched))
+        del eng, res
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(workdir, f"{backend}.json"), "w") as f:
+            json.dump(dict(out, kernels=multihost.all_gather_object(
+                kernels)[1]), f)
+    else:
+        multihost.all_gather_object(kernels)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mp_hold(rank, tag, eng, launched):
+    """Rows 4, 6a, 6b, 6c on rank 1's first shard of the path ``tag``,
+    with its halo slabs from rank 0's shards (every rank takes part in the
+    exchange): each against its plain version under 2e-6 a step and timed
+    (rank 1; rank 0 waits). Returns the kernels' ``multiproc_*`` keys."""
+    import torch.distributed as dist
+
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs
+    from gcm_tpu_torch.parallel.halo import halo_exchange
+
+    task, mesh, model = eng.task, eng.mesh, eng.model
+    r, k = stencil_radius(task.order), 2
+    h, order, bc = task.grid.h, task.order, task.borders
+    where = f"rank 1's shard {k} of the two-rank path ({tag})"
+    if tag == "b":
+        ext = halo_exchange(eng.u, mesh, "sx", 1, r)[k]
+    else:
+        slabs = exchange_slabs(eng.u, mesh, r, dim=model.dim)[k]
+    out = {}
+    if rank == 1:
+        if tag == "a":
+            entries, _ = _spmd_kernels_on_shard(
+                f"{where}, ", model, eng.u, eng._carry, mesh, k, eng.dt, h,
+                order, bc, (0, 1, 2), slabs=slabs)
+            for name, e in entries.items():
+                out[name] = dict(e, launches=launched[name])
+        elif tag == "b":
+            out["sweep_stage"] = dict(
+                _sweep_on_block(f"{where} (x halo from rank 0)", model, ext,
+                                eng._carry[k]["ax0"].mat, eng.dt, h, 0,
+                                order), launches=launched["sweep_stage"])
+        else:
+            out["fused_spmd_2d"] = dict(
+                _spmd_2d_on_shard(where, eng, k, slabs)[0],
+                launches=launched["fused_spmd_2d"])
+        for name, e in out.items():
+            print(f"{name} on {where}: {e}", flush=True)
+    dist.barrier()
+    return out
 
 
 def _spmd_canonical_vs_plain(meshes):
@@ -3778,6 +4160,10 @@ def main() -> int:
     phase("contact mesh path")
     contact_mesh_path(counts, result)
 
+    # ---- 19. one run across two processes
+    phase("multi-process paths")
+    multiproc_paths(counts, result)
+
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",
                        "gcm_tpu/ops/pallas_fused.py:1162"),
@@ -3812,4 +4198,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multiproc-rank"]:   # a rank of phase 19
+        sys.exit(_mp_worker(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

@@ -13,7 +13,10 @@ across the shards as in the JAX engine's mesh path: the fused kernels'
 interior/ring split with overlapped slab exchange
 (``parallel.fused_spmd``) for ``kernel="fused"``, the per-sweep halo step
 (``parallel.halo``) for ``"sweep"`` (with the CUDA sweep kernel) and
-``"torch"`` (the plain sweep).
+``"torch"`` (the plain sweep). A mesh may span the processes of a run
+(``parallel.multihost``): each rank then steps its own shards, and
+``run()`` gives every rank the whole state and every receiver's trace,
+equal to the same run in one process.
 
 Isotropic media run on the compact material stack, orthotropic media
 (``OrthotropicMaterial`` regions, ``OrthotropicMaterialFields``) on the
@@ -54,6 +57,7 @@ from gcm_tpu_torch.parallel.fused_spmd import (
     extended_mstack, extended_mstack_2d, make_fused_spmd_step,
     make_fused_spmd_step_2d,
 )
+from gcm_tpu_torch.parallel import multihost
 from gcm_tpu_torch.parallel.halo import extend_mats_once, make_spmd_step
 from gcm_tpu_torch.parallel.sharding import (
     DomainMesh, block_shape, gather_state, place, shard_field, shard_mats,
@@ -96,33 +100,49 @@ def _disagree(device: torch.device, mesh_device: torch.device) -> bool:
 
 
 def mesh_device(mesh, device=None) -> torch.device:
-    """The first shard's device of ``mesh`` (a ``DomainMesh``), which holds
-    what an engine keeps whole; raises if a device of the mesh is a CUDA
-    device torch does not see, or if ``device`` disagrees with one."""
+    """The device of this process's first shard of ``mesh`` (a
+    ``DomainMesh``), which holds what an engine keeps whole; raises if a
+    device of this process's shards is a CUDA device torch does not see, or
+    if ``device`` disagrees with one."""
     if not isinstance(mesh, DomainMesh):
         raise TypeError(f"mesh must be a parallel.sharding.DomainMesh, not "
                         f"{type(mesh).__name__}")
-    for d in mesh.devices:
+    if not mesh.local:
+        raise ValueError(f"rank {multihost.rank()} holds no shard of the "
+                         f"mesh (ranks {mesh.ranks})")
+    devs = mesh.unique_devices()
+    for d in devs:
         check_device(d)
     if device is not None and any(
-            _disagree(torch.device(device), d) for d in mesh.devices):
+            _disagree(torch.device(device), d) for d in devs):
         raise ValueError(f"device {device} disagrees with the mesh's "
-                         f"devices {mesh.devices}")
-    return mesh.devices[0]
+                         f"devices {tuple(devs)}")
+    return devs[0]
+
+
+def spanning_refused(mesh, what: str) -> None:
+    """Raise if ``mesh`` spans processes: ``what`` has no form for it
+    yet."""
+    if mesh is not None and mesh.spans_processes:
+        raise NotImplementedError(
+            f"{what} on a mesh that spans processes: not ported yet "
+            "(ROADMAP.md queue A, the rest of A11)")
 
 
 def shard_sources(mesh, block, ncomp: int, nodes, amps: np.ndarray,
                   dtype: torch.dtype) -> Dict[int, tuple]:
-    """Per shard ``k`` holding a source, ``(flat, amps_k)``: the flat
-    indices into its state ``[ncomp, *block]`` of the source entries
-    ``nodes`` (``(comp, *node)`` each, global nodes) that lie on it, and
-    their columns of ``amps`` (``[nsteps, len(nodes)]``), on its device."""
+    """Per shard ``k`` of this process holding a source, ``(flat,
+    amps_k)``: the flat indices into its state ``[ncomp, *block]`` of the
+    source entries ``nodes`` (``(comp, *node)`` each, global nodes) that lie
+    on it, and their columns of ``amps`` (``[nsteps, len(nodes)]``), on its
+    device."""
     cshape = (ncomp,) + tuple(block)
     by_shard: Dict[int, list] = {}
     for col, (comp, *node) in enumerate(nodes):
         k, local = place(mesh, block, node)
-        by_shard.setdefault(k, []).append(
-            (np.ravel_multi_index((comp,) + local, cshape), col))
+        if mesh.is_local(k):
+            by_shard.setdefault(k, []).append(
+                (np.ravel_multi_index((comp,) + local, cshape), col))
     out = {}
     for k, items in by_shard.items():
         dev = mesh.devices[k]
@@ -133,13 +153,15 @@ def shard_sources(mesh, block, ncomp: int, nodes, amps: np.ndarray,
 
 
 def shard_detectors(mesh, block, nodes) -> Dict[int, tuple]:
-    """Per shard ``k`` holding a receiver, ``(flat, positions)``: the flat
-    spatial indices into its block of the receivers among the global
-    ``nodes`` that lie on it (on its device), and their positions in
-    ``nodes``."""
+    """Per shard ``k`` of this process holding a receiver, ``(flat,
+    positions)``: the flat spatial indices into its block of the receivers
+    among the global ``nodes`` that lie on it (on its device), and their
+    positions in ``nodes``."""
     det: Dict[int, tuple] = {}
     for pos, node in enumerate(nodes or ()):
         k, local = place(mesh, block, node)
+        if not mesh.is_local(k):
+            continue
         det.setdefault(k, ([], []))
         det[k][0].append(np.ravel_multi_index(local, tuple(block)))
         det[k][1].append(pos)
@@ -168,7 +190,8 @@ class Engine:
     shards' devices come from the mesh (a device may hold several shards),
     ``device`` may be left out and must agree with them if given;
     ``Engine.u`` and each ``Engine.aux`` entry are then lists of per-shard
-    blocks in mesh order, and ``run()`` returns the gathered global state.
+    blocks in mesh order (None for a shard another rank holds), and
+    ``run()`` returns the gathered global state (to every rank).
     """
 
     def __init__(self, task: Task, device=None, dtype=torch.float32,
@@ -335,13 +358,15 @@ class Engine:
                 return self._spmd_step(us, self._carry, axes), aux
             us, d = self._spmd_step(
                 us, self._carry, axes,
-                aux=[a.unsqueeze(0) for a in aux["damage"]])
-            return us, {**aux, "damage": [a[0] for a in d]}
+                aux=[None if a is None else a.unsqueeze(0)
+                     for a in aux["damage"]])
+            return us, {**aux, "damage": [None if a is None else a[0]
+                                          for a in d]}
         us = self._spmd_step(us, self._carry, axes)
         for k, (flat, amps) in self._src.items():
             us[k].view(-1).index_add_(0, flat, amps[n])
         if task.correctors:
-            for k in range(len(us)):
+            for k in self.mesh.local:
                 a = {name: v[k] for name, v in aux.items()}
                 for corr in task.correctors:
                     us[k], a = corr(model, us[k], a, self.dt)
@@ -392,6 +417,7 @@ class Engine:
         shards on a mesh). Called mid-run (from a ``run`` callback), it
         holds the state after the step the callback was given. One
         device-to-host copy of the state, recorded in ``host_copies``."""
+        spanning_refused(self.mesh, "state_dict")
         self.host_copies.append(self._done_step)
         if self.mesh is not None:
             u = gather_state(self.u, self.mesh, device="cpu").numpy()
@@ -410,6 +436,7 @@ class Engine:
         numpy arrays, ``utils.checkpoint.restore_checkpoint``'s output);
         ``run()`` then runs the steps ``step .. nsteps`` and its traces
         start with the restored rows."""
+        spanning_refused(self.mesh, "load_state")
         u = as_tensor(state["u"], self.device, self.dtype)
         aux = {k: as_tensor(v, self.device) for k, v in
                dict(state.get("aux", {})).items()}
@@ -499,13 +526,15 @@ class Engine:
         npts = int(np.prod(self.task.grid.shape))
         u = (gather_state(self.u, self.mesh, device="cpu")
              if self.mesh is not None else self.u.cpu())
+        spans = self.mesh is not None and self.mesh.spans_processes
         return RunResult(
             u=u.numpy(),
             t=nsteps * self.dt,
             nsteps=nsteps,
             dt=self.dt,
-            traces=self._trace.assemble() if self._trace is not None
-            else None,
+            traces=self._trace.assemble(
+                multihost.all_gather_object if spans else None)
+            if self._trace is not None else None,
             wall_seconds=wall,
             points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
             kernel=self.kernel,
@@ -524,6 +553,7 @@ class Engine:
         symmetrization period; the state is copied to the host once at
         each step where either fires, and at no other
         (``utils.checkpoint.output_callback``)."""
+        spanning_refused(self.mesh, "run_with_outputs")
         task = self.task
         os.makedirs(outdir, exist_ok=True)
         snapdir = os.path.join(outdir, task.snapshots.directory)

@@ -70,7 +70,7 @@ import torch
 
 from gcm_tpu_torch.engine import (
     as_tensor, check_device, mesh_device, resolve_kernel, shard_detectors,
-    shard_sources,
+    shard_sources, spanning_refused,
 )
 from gcm_tpu_torch.materials import AxisViewCache, MaterialFields
 from gcm_tpu_torch.models.spec import get_model
@@ -138,6 +138,8 @@ class MultiBodyEngine:
         self.symmetrize = t0.symmetrize_stages
         if mesh is not None:
             device = mesh_device(mesh, device)
+            # the contact fixups put face slabs together on one device
+            spanning_refused(mesh, "MultiBodyEngine")
         self.device = check_device("cuda" if device is None else device)
         self.dtype = dtype
         for t in bodies.values():

@@ -5,12 +5,16 @@ under ``build/kernels/`` at the root of the checkout, at first use and never
 at import: one ``nvcc -c`` per ``.cu`` file, all started together, then one
 link. The file name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads the library already built. A
-failed build raises with the compiler's output.
+failed build raises with the compiler's output. Processes started together
+on a fresh checkout (the ranks of a run) build once: the build holds an
+``fcntl`` lock on ``build/kernels/.lock``, and a process that waited for it
+loads the library the first one built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -67,6 +71,16 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if out.exists():
+            return out, ""
+        return out, _compile(out)
+
+
+def _compile(out: Path) -> str:
+    """Compile and link the library into ``out``; what the compiler
+    printed."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         # each compiler writes to a file of its own: through a pipe, read
@@ -104,7 +118,7 @@ def build() -> Tuple[Path, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(lib, out)
-    return out, log
+    return log
 
 
 def load() -> ctypes.CDLL:

@@ -18,7 +18,9 @@ Materials are static: engines pass per-shard material dicts prepared once
 by :func:`extend_mats_once`, so a step exchanges only the state and each
 sweep's per-axis view is computed once; plain per-shard material fields
 (isotropic or orthotropic) are extended at every sweep. A sharded field is
-the list of its per-shard blocks (``parallel.sharding``).
+the list of its per-shard blocks (``parallel.sharding``); on a mesh that
+spans processes each rank steps its own shards, and the halo slabs of
+another rank's shards come through ``parallel.p2p``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from gcm_tpu_torch.materials import AxisViewCache
 from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops.interp import stencil_radius
 from gcm_tpu_torch.ops.sweep import sweep_stage
-from gcm_tpu_torch.parallel.sharding import AXIS_OF, DomainMesh
+from gcm_tpu_torch.parallel.p2p import Move, Transport, tag
+from gcm_tpu_torch.parallel.sharding import AXIS_OF, DomainMesh, first_local
 from gcm_tpu_torch.solver.boundary import apply_borders_post
 from gcm_tpu_torch.solver.gcm import stage as torch_stage
 from gcm_tpu_torch.task import BorderSpec
@@ -55,20 +58,46 @@ def _neighbours(mesh: DomainMesh, name: str, k: int):
     return at(pos - 1), at(pos + 1)
 
 
-def halo_exchange(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
-                  name: str, ax: int, r: int) -> List[torch.Tensor]:
-    """Every block extended by r-deep neighbour slabs along tensor axis
-    ``ax`` (the one mesh axis ``name`` splits); a shard on a domain face
-    gets its edge row replicated. Each extended block has ``shape[ax] +
-    2r``."""
+def halo_exchange(blocks: Sequence[Optional[torch.Tensor]],
+                  mesh: DomainMesh, name: str, ax: int,
+                  r: int) -> List[Optional[torch.Tensor]]:
+    """Every block of this process extended by r-deep neighbour slabs
+    along tensor axis ``ax`` (the one mesh axis ``name`` splits); a shard
+    on a domain face gets its edge row replicated. Each extended block has
+    ``shape[ax] + 2r``. Slabs of another rank's shards are received (and
+    this rank's sent) through ``parallel.p2p``, every rank taking part."""
+    f0 = first_local(blocks)
+    n = f0.shape[ax]
+    slab = tuple(r if a == ax else s for a, s in enumerate(f0.shape))
+    lo_hi = [[None, None] for _ in blocks]
+    moves = []
+    for k in range(mesh.size):
+        for side, nb in enumerate(_neighbours(mesh, name, k)):
+            if nb is None:
+                continue
+            k_here, nb_here = mesh.is_local(k), mesh.is_local(nb)
+            view = (blocks[nb].narrow(ax, n - r if side == 0 else 0, r)
+                    if nb_here else None)
+            if k_here and nb_here:    # read in place
+                lo_hi[k][side] = view
+            elif k_here or nb_here:
+                buf = None
+                if k_here:
+                    buf = lo_hi[k][side] = torch.empty(
+                        slab, dtype=f0.dtype, device=blocks[k].device)
+                moves.append(Move(nb, k, view, buf,
+                                  tag(ax, side, k, mesh.size)))
+    if moves:
+        Transport(mesh).run(moves)
     out = []
-    for k, f in enumerate(blocks):
-        lo_k, hi_k = _neighbours(mesh, name, k)
-        n = f.shape[ax]
-        lo = (f.narrow(ax, 0, 1).expand_as(f.narrow(ax, 0, r))
-              if lo_k is None else blocks[lo_k].narrow(ax, n - r, r))
-        hi = (f.narrow(ax, n - 1, 1).expand_as(f.narrow(ax, 0, r))
-              if hi_k is None else blocks[hi_k].narrow(ax, 0, r))
+    for f, (lo, hi) in zip(blocks, lo_hi):
+        if f is None:
+            out.append(None)
+            continue
+        if lo is None:
+            lo = f.narrow(ax, 0, 1).expand_as(f.narrow(ax, 0, r))
+        if hi is None:
+            hi = f.narrow(ax, n - 1, 1).expand_as(f.narrow(ax, 0, r))
         out.append(torch.cat([lo.to(f.device), f, hi.to(f.device)], dim=ax))
     return out
 
@@ -93,10 +122,11 @@ def _extend(mats: Sequence, mesh: DomainMesh, name: str, a: int,
             r: int) -> List:
     """Every shard's material fields (of their own type) extended along
     axis ``a`` by r-deep halos of its neighbours'."""
-    leaves = {f.name: halo_exchange([getattr(m, f.name) for m in mats],
-                                    mesh, name, a, r)
-              for f in dataclasses.fields(mats[0])}
-    return [dataclasses.replace(m, **{n: v[k] for n, v in leaves.items()})
+    leaves = {f.name: halo_exchange(
+        [None if m is None else getattr(m, f.name) for m in mats],
+        mesh, name, a, r) for f in dataclasses.fields(first_local(mats))}
+    return [None if m is None else
+            dataclasses.replace(m, **{n: v[k] for n, v in leaves.items()})
             for k, m in enumerate(mats)]
 
 
@@ -107,12 +137,13 @@ def extend_mats_once(mats: Sequence, mesh: DomainMesh, dim: int,
     at setup, each an ``AxisViewCache`` so that a sweep's view is computed
     once too."""
     r = stencil_radius(order)
-    out = [{"base": AxisViewCache(m)} for m in mats]
+    out = [None if m is None else {"base": AxisViewCache(m)} for m in mats]
     for a, name in _spatial_names(dim, mesh).items():
         if name is None:
             continue
         for d, m in zip(out, _extend(mats, mesh, name, a, r)):
-            d[f"ax{a}"] = AxisViewCache(m)
+            if d is not None:
+                d[f"ax{a}"] = AxisViewCache(m)
     return out
 
 
@@ -128,16 +159,18 @@ def _raw_stage(model: Model, dt: float, h: Sequence[float], order: int,
 def _sweep_all(model: Model, mesh: DomainMesh, raw, names, r: int,
                us: Sequence[torch.Tensor], mats: Sequence, axis: int
                ) -> List[torch.Tensor]:
-    """One border-free sweep of every shard along ``axis``."""
-    prepared = isinstance(mats[0], dict)
-    base = [m["base"] if prepared else m for m in mats]
+    """One border-free sweep of every shard of this process along
+    ``axis`` (None for another rank's)."""
+    prepared = isinstance(first_local(mats), dict)
+    base = [m["base"] if prepared and m is not None else m for m in mats]
     name = names.get(axis)
     if name is None:
-        return [raw(u, m, axis) for u, m in zip(us, base)]
+        return [None if u is None else raw(u, m, axis)
+                for u, m in zip(us, base)]
     exts = halo_exchange(us, mesh, name, axis + 1, r)
-    mat_ext = ([m[f"ax{axis}"] for m in mats] if prepared
-               else _extend(base, mesh, name, axis, r))
-    return [_crop(raw(e, m, axis), axis + 1, r)
+    mat_ext = ([None if m is None else m[f"ax{axis}"] for m in mats]
+               if prepared else _extend(base, mesh, name, axis, r))
+    return [None if e is None else _crop(raw(e, m, axis), axis + 1, r)
             for e, m in zip(exts, mat_ext)]
 
 
@@ -186,11 +219,12 @@ def borders_post(model: Model, mesh: DomainMesh, us: Sequence[torch.Tensor],
     """The border post-fixup of a border-free sweep along ``axis`` across
     the shards (``solver.boundary.apply_borders_post``): ``us`` before the
     sweep, ``new`` after it, ``mats`` per shard (plain or from
-    :func:`extend_mats_once`). Only the shards on a domain face of
-    ``axis`` are corrected, on that face."""
+    :func:`extend_mats_once`). Only this process's shards on a domain face
+    of ``axis`` are corrected, on that face."""
     name = _spatial_names(model.dim, mesh).get(axis)
     out = list(new)
-    for k, m in enumerate(mats):
+    for k in mesh.local:
+        m = mats[k]
         lo_k, hi_k = ((None, None) if name is None
                       else _neighbours(mesh, name, k))
         if lo_k is None or hi_k is None:   # on a domain face

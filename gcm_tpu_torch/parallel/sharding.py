@@ -4,10 +4,19 @@ Counterpart of ``gcm_tpu/parallel/sharding.py``. The JAX package places one
 global array on a ``jax.sharding.Mesh`` and ``shard_map`` hands each device
 its block; here a :class:`DomainMesh` names the torch device of each shard,
 and a sharded field is the list of its blocks, one per shard in mesh order
-(row-major over ``('sx', 'sy')``). One process drives every shard, as JAX
-drives every local device. A device may hold several shards: a 2x2 mesh on
-``["cuda:0"] * 4`` runs the real exchange and kernels on one card, as the
-JAX tests run their meshes on virtual CPU devices.
+(row-major over ``('sx', 'sy')``). A device may hold several shards: a 2x2
+mesh on ``["cuda:0"] * 4`` runs the real exchange and kernels on one card,
+as the JAX tests run their meshes on virtual CPU devices.
+
+By default one process drives every shard, as JAX drives every local
+device. A mesh may also span the ranks of a process group
+(``parallel.multihost``): ``DomainMesh.ranks`` names the rank that holds
+each shard, and a sharded field is then, on each rank, the list indexed by
+shard with the blocks of that rank's shards and None for the others', so
+mesh indices keep their meaning. After ``multihost.initialize()``,
+:func:`domain_mesh` lays the mesh over every rank's devices in rank order,
+as ``jax.devices()`` lists a slice's chips; explicit ``devices`` and
+``ranks`` build any layout (one mesh row a process, several shards a card).
 
 Mesh axes are named after the spatial axes they split: ``'sx'`` splits the
 first, ``'sy'`` the second (3D only). The last spatial axis is never split.
@@ -21,6 +30,9 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from gcm_tpu_torch.parallel import multihost
+from gcm_tpu_torch.parallel.p2p import gather_blocks
 
 #: spatial axis each mesh axis splits
 AXIS_OF = {"sx": 0, "sy": 1}
@@ -37,16 +49,36 @@ def _factor2(n: int) -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class DomainMesh:
     """The devices of a grid of shards: ``devices[k]`` holds shard k, in
-    row-major order over ``shape`` (one entry per name in ``axis_names``)."""
+    row-major order over ``shape`` (one entry per name in ``axis_names``).
+    ``ranks[k]`` is the rank of the process that holds shard k (None: this
+    process holds every shard); ``devices[k]`` names the device as that
+    rank sees it. A process drives one device of a mesh that spans
+    processes (it may hold several shards there)."""
 
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
+    ranks: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         object.__setattr__(self, "devices",
                            tuple(torch.device(d) for d in self.devices))
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+        me = multihost.rank()
+        if self.ranks is not None:
+            object.__setattr__(self, "ranks",
+                               tuple(int(r) for r in self.ranks))
+            if len(self.ranks) != len(self.devices):
+                raise ValueError(f"{len(self.ranks)} ranks for "
+                                 f"{len(self.devices)} devices")
+        #: the shards this process holds, in mesh order
+        object.__setattr__(self, "local", tuple(
+            k for k in range(len(self.devices))
+            if self.ranks is None or self.ranks[k] == me))
+        if self.spans_processes and len(self.unique_devices()) > 1:
+            raise ValueError(f"rank {me} holds shards on "
+                             f"{self.unique_devices()}: a process drives one "
+                             "device of a mesh that spans processes")
         if len(self.shape) != len(self.axis_names):
             raise ValueError(f"mesh shape {self.shape} does not match axes "
                              f"{self.axis_names}")
@@ -76,33 +108,53 @@ class DomainMesh:
         """The shard at position (i, j) along 'sx' and 'sy'."""
         return i * self.axis_size("sy") + j
 
+    def is_local(self, k: int) -> bool:
+        """Whether this process holds shard k."""
+        return self.ranks is None or k in self.local
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process holds a shard of the mesh."""
+        return len(self.local) < len(self.devices)
+
     def unique_devices(self) -> List[torch.device]:
-        """The distinct devices of the mesh, in order of first use."""
-        return list(dict.fromkeys(self.devices))
+        """The distinct devices of this process's shards, in order of first
+        use."""
+        return list(dict.fromkeys(self.devices[k] for k in self.local))
 
 
 def domain_mesh(dim: int, devices: Optional[Sequence] = None,
-                shape: Optional[Tuple[int, ...]] = None) -> DomainMesh:
+                shape: Optional[Tuple[int, ...]] = None,
+                ranks: Optional[Sequence[int]] = None) -> DomainMesh:
     """A mesh over the shardable spatial axes of a ``dim``-D grid.
 
     dim 3 gives ``('sx', 'sy')``, near-square unless ``shape`` is given;
     dim 1 and 2 give ``('sx',)`` over the first axis. ``devices`` defaults
-    to every visible CUDA device; it may name a device more than once.
+    to every visible CUDA device, and in a process group to every rank's
+    device in rank order (each shard held by its device's rank); given, it
+    may name a device more than once, and ``ranks`` (default: this process
+    for every shard) names the rank that holds each.
     """
-    if devices is None:
+    if devices is None and multihost.in_group():
+        per = multihost.all_gather_object(
+            [str(d) for d in multihost.local_devices()])
+        devices = [d for ds in per for d in ds]
+        ranks = [r for r, ds in enumerate(per) for _ in ds]
+    elif devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("domain_mesh: torch sees no CUDA device; pass "
                                "the devices, e.g. ['cpu'] * 4")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-    devices = list(devices)
+    devices = tuple(devices)
+    ranks = None if ranks is None else tuple(ranks)
     n = len(devices)
     if dim >= 3:
         a, b = _factor2(n) if shape is None else shape
-        return DomainMesh(tuple(devices), (a, b), ("sx", "sy"))
+        return DomainMesh(devices, (a, b), ("sx", "sy"), ranks)
     if shape is not None and math.prod(shape) != n:
         raise ValueError(f"mesh shape {shape} for {n} devices")
-    return DomainMesh(tuple(devices), (n,), ("sx",))
+    return DomainMesh(devices, (n,), ("sx",), ranks)
 
 
 def block_shape(mesh: DomainMesh, spatial: Sequence[int]) -> Tuple[int, ...]:
@@ -122,12 +174,16 @@ def block_shape(mesh: DomainMesh, spatial: Sequence[int]) -> Tuple[int, ...]:
 
 
 def shard_field(f: torch.Tensor, mesh: DomainMesh,
-                lead: int = 1) -> List[torch.Tensor]:
-    """Per-shard contiguous blocks of ``f`` on their devices; ``lead``
-    leading axes (components) are not spatial."""
+                lead: int = 1) -> List[Optional[torch.Tensor]]:
+    """Per-shard contiguous blocks of ``f`` on their devices (None for the
+    shards another process holds); ``lead`` leading axes (components) are
+    not spatial."""
     nb = block_shape(mesh, f.shape[lead:])
     blocks = []
     for k, dev in enumerate(mesh.devices):
+        if not mesh.is_local(k):
+            blocks.append(None)
+            continue
         i, j = mesh.coords(k)
         idx = [slice(None)] * f.ndim
         idx[lead] = slice(i * nb[0], (i + 1) * nb[0])
@@ -144,17 +200,27 @@ def shard_state(u: torch.Tensor, mesh: DomainMesh) -> List[torch.Tensor]:
 
 def shard_mats(mat, mesh: DomainMesh) -> List:
     """Per-shard material fields, of ``mat``'s own type (isotropic or
-    orthotropic)."""
+    orthotropic); None for the shards another process holds."""
     leaves = {f.name: shard_field(getattr(mat, f.name), mesh, lead=0)
               for f in dataclasses.fields(mat)}
     return [dataclasses.replace(mat, **{k: v[s] for k, v in leaves.items()})
-            for s in range(mesh.size)]
+            if mesh.is_local(s) else None for s in range(mesh.size)]
 
 
-def gather_state(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
+def first_local(xs: Sequence):
+    """The first entry of a per-shard list that this process holds."""
+    return next(x for x in xs if x is not None)
+
+
+def gather_state(blocks: Sequence[Optional[torch.Tensor]], mesh: DomainMesh,
                  lead: int = 1, device=None) -> torch.Tensor:
     """Join per-shard blocks back into the global field, on ``device``
-    (default: the first block's)."""
+    (default: this process's first block's). On a mesh that spans
+    processes every rank takes part and gets the whole field."""
+    if mesh.spans_processes:
+        device = (first_local(blocks).device if device is None
+                  else torch.device(device))
+        blocks = gather_blocks(blocks, mesh, device)
     return _join(blocks, mesh, range(mesh.axis_size("sx")),
                  range(mesh.axis_size("sy")), lead, device)
 

@@ -141,13 +141,16 @@ class TraceRecord:
             buf[row] = v
         self.rows = row + 1
 
-    def assemble(self) -> np.ndarray:
+    def assemble(self, gather: Optional[Callable] = None) -> np.ndarray:
         """``[steps, ndet, ncomp]`` on the host: the restored rows, then
-        the filled rows of this run."""
+        the filled rows of this run. ``gather`` (a run that spans
+        processes: ``parallel.multihost.all_gather_object``) collects every
+        rank's filled buffers, each rank holding its own receivers."""
         parts = [] if self.head is None else [self.head]
-        if self.bufs:
-            filled = [(b[:self.rows].cpu().numpy(), pos)
-                      for b, pos in self.bufs]
+        filled = [(b[:self.rows].cpu().numpy(), pos) for b, pos in self.bufs]
+        if gather is not None:
+            filled = [f for part in gather(filled) for f in part]
+        if filled:
             rows = np.empty((self.rows, self.ndet, self.ncomp),
                             filled[0][0].dtype)
             for vals, pos in filled:

@@ -20,6 +20,7 @@ rtol 1e-5, atol 1e-6 (the atol absorbs threshold-crossing knife-edges in
 
 import dataclasses
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -926,6 +927,31 @@ def test_sharded_2d_engine_on_card(cuda):
             fs.fused_spmd_2d.ring_launches - before[1]) == (40, 20)
     want = Engine(task, device=cuda).run()
     assert norm_err(torch.from_numpy(got.u), torch.from_numpy(want.u)) < 2e-6
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_step_as_one_process(cuda, tmp_path):
+    """Two gloo ranks on cuda:0, one row of a 2x2 mesh each (the x slabs
+    pass between the ranks through host memory): two fused SPMD steps
+    equal the same steps in one process bit for bit, and each rank
+    launches the interior and ring kernels on its 2 shards a step."""
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+    from test_torch_multihost import _material, fused_card_steps, spawn
+
+    shape = (48, 64, 8)
+    rng, rho, lam, mu = _material(shape)
+    u0 = rng.standard_normal((9,) + shape).astype(np.float32)
+    u0[3:] *= 1e6
+    d = dict(u0=u0, rho=rho, lam=lam, mu=mu,
+             dt=0.6 / float(np.sqrt((lam + 2 * mu) / rho).max()))
+    np.savez(tmp_path / "in.npz", **d)
+    spawn(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "test_torch_multihost.py"), "card", tmp_path)
+    want, launches = fused_card_steps(domain_mesh(3, [cuda] * 4, (2, 2)), d)
+    assert launches == [8, 8]
+    np.testing.assert_array_equal(np.load(tmp_path / "out.npz")["u"], want)
+    for rank in (0, 1):
+        assert np.load(tmp_path / f"info_{rank}.npy").tolist() == [4, 4]
 
 
 @pytest.mark.gpu
