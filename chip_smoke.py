@@ -198,6 +198,29 @@ Phases, each of which raises (exit code != 0) on failure:
    their plain versions on rank 1's shard with the slabs rank 0 sent, and
    timed. With two or more cards, (a) again under NCCL, one rank a card;
    with one, ``nccl: not run (1 card)``.
+20. the contact path and the outputs across two processes, two gloo ranks
+   on cuda:0 as in phase 19 (``--multiproc-contact-rank``), one mesh row a
+   rank: (a) the contact bodies of phase 13 (with two receivers on shard
+   edges of the upper body) fused on 2x2 (``"fused_spmd"``) x 100 steps,
+   (b) ``kernel="sweep"`` on 2x2 (``"sweep_spmd"``) x 50, (c) the
+   canonical order on sx=4 (``"fused_canonical_spmd"``) x 50; each rank
+   launches its own shards' kernels only (4 interior + 4 ring, 12
+   ``sweep_stage``, 4 + 4 a step), and both ranks' bodies, bond masks and
+   traces equal the one-process run on the same mesh bit for bit; (d) the
+   partly broken n=32 interface through ``run_with_outputs`` (snapshots
+   every 16, checkpoints every 8) x 32, cut at 17 (its checkpoint saved by
+   rank 0 from ``state_dict``) and resumed on both ranks, no broken cell
+   healing; (e) ``elastic3d_explosion`` n=256 fused on 2x2 through
+   ``run_with_outputs`` (a vz snapshot and a checkpoint every 10) x 20, cut
+   at 10 and resumed; (d) and (e) equal their uninterrupted runs, every
+   file equal to the one-process run's (``.npz`` by their arrays), and the
+   two-rank checkpoints resume in one process bit for bit; each path's
+   points/s, the host ms of the cross-rank contact fixup inside the step
+   loop (median of 20 steps) and its share of the loop's wall (rank 0's
+   figures), the card's idle share (both ranks traced); rows 6a, 6b and 4
+   held against their plain versions on rank 1's shard of the lower body
+   (which holds the source) with the slabs rank 0 sent, both checked to be
+   nonzero first, and timed.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -225,7 +248,10 @@ launches, rate, error, times and bound on the per-sweep contact mesh
 path's shard blocks; ``fused_spmd_interior``, ``fused_spmd_ring``,
 ``sweep_stage`` and ``fused_spmd_2d`` carry their launches in a rank of
 phase 19 and their error, times and bound on rank 1's shard there
-(``multiproc_*``); the last line is ``{"ok": true,
+(``multiproc_*``), and ``fused_spmd_interior``, ``fused_spmd_ring`` and
+``sweep_stage`` the same on the contact path of phase 20 with its rate,
+fixup host ms and share and idle share (``multiproc_contact_*``); the
+last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3569,10 +3595,11 @@ def _mp_mesh(dim, shape, devices, ranks=None):
     return domain_mesh(dim, devices, shape, ranks)
 
 
-def _mp_spawn(workdir, backend):
-    """Run the two ranks (this script with ``--multiproc-rank``) at a free
-    local port; each writes its log under ``workdir``. Fails unless both
-    exit 0 within MP_TIMEOUT; stops both either way."""
+def _mp_spawn(workdir, backend, flag="--multiproc-rank"):
+    """Run the two ranks (this script with ``flag``: ``--multiproc-rank``
+    for phase 19, ``--multiproc-contact-rank`` for phase 20) at a free local
+    port; each writes its log under ``workdir``. Fails unless both exit 0
+    within MP_TIMEOUT; stops both either way."""
     import socket
 
     with socket.socket() as sock:
@@ -3589,8 +3616,8 @@ def _mp_spawn(workdir, backend):
                        "w")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--multiproc-rank", str(rank), coord, workdir, backend],
+                [sys.executable, os.path.abspath(__file__), flag, str(rank),
+                 coord, workdir, backend],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
         t0 = time.perf_counter()
         for p in procs:
@@ -3859,6 +3886,485 @@ def _mp_hold(rank, tag, eng, launched):
                 launches=launched["fused_spmd_2d"])
         for name, e in out.items():
             print(f"{name} on {where}: {e}", flush=True)
+    dist.barrier()
+    return out
+
+
+# ------------------------------------------- the contact path across ranks
+
+#: phase 20: two ranks of a gloo group on cuda:0, one mesh row (two shards)
+#: a rank, each run against the same run in one process on the same mesh:
+#: the contact bodies of phase 13 (with two receivers on shard edges of the
+#: upper body) fused on 2x2 for NSTEPS_MPC steps, per-sweep on 2x2 and in
+#: the canonical order on sx=4 for NSTEPS_MPC_SHORT; the partly broken n=32
+#: interface of phase 18 through run_with_outputs (snapshots every 16,
+#: checkpoints every 8) for NSTEPS_CONTACT32 steps, cut at CUT_CONTACT32;
+#: the 3D explosion fused on 2x2 through run_with_outputs (a vz snapshot
+#: and a checkpoint every EVERY_MPC_OUT), cut at EVERY_MPC_OUT and resumed
+#: to NSTEPS_MPC_OUT, against its uninterrupted run()
+NSTEPS_MPC, NSTEPS_MPC_SHORT = 100, 50
+NSTEPS_MPC_OUT, EVERY_MPC_OUT = 20, 10
+
+
+def _mpc_cases():
+    """(tag, bodies, contacts, mesh) of phase 20's contact runs (a)-(c)."""
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+    from gcm_tpu_torch.task import DetectorSpec
+
+    bodies, contacts = elastic3d_contact(n=N_CONTACT, nsteps=NSTEPS_MPC)
+    L = 1000.0
+    bodies = {k: dataclasses.replace(t, kernel="fused")
+              for k, t in bodies.items()}
+    bodies["upper"] = dataclasses.replace(
+        bodies["upper"], detectors=DetectorSpec(points=(
+            (L / 2, L / 2, 0.0), (0.1 * L, 0.9 * L, 50.0))))
+    short = dataclasses.replace(bodies["upper"].time,
+                                nsteps=NSTEPS_MPC_SHORT)
+
+    def with_(**kw):
+        return {k: dataclasses.replace(t, **kw) for k, t in bodies.items()}
+
+    return (("a", bodies, contacts, "2x2"),
+            ("b", with_(kernel="sweep", time=short), contacts, "2x2"),
+            ("c", with_(time=short), contacts, "sx4"))
+
+
+def _mpc_engine(bodies, contacts, mesh, ranks=None, mask=None):
+    """The contact engine on cuda:0 shards of ``mesh`` ("2x2" or "sx4",
+    ``ranks``: its shards' ranks), canonical_layout=True as the CLI asks
+    it, from the bond mask ``mask`` (default: intact)."""
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.parallel.sharding import DomainMesh
+
+    dev = torch.device("cuda", 0)
+    m = (_mp_mesh(3, (2, 2), [dev] * 4, ranks) if mesh == "2x2"
+         else DomainMesh((dev,) * 4, (4,), ("sx",), ranks))
+    eng = MultiBodyEngine(bodies, contacts, mesh=m, canonical_layout=True)
+    if mask is not None:
+        eng.bonded = bonded_from_numpy({0: mask}, device=dev)
+    return eng
+
+
+def _mpc_flat(res):
+    """A multi-body result's bodies, bond masks and traces (or a single
+    body's state and traces) by name."""
+    if hasattr(res, "bodies"):
+        out = {f"body_{k}": v for k, v in res.bodies.items()}
+        out.update({f"bonded_{k}": v for k, v in res.bonded.items()})
+        out.update({f"traces_{k}": v for k, v in (res.traces or {}).items()})
+        return out
+    return {"u": res.u, "traces": res.traces}
+
+
+def _digest(arrays):
+    import hashlib
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def _mask32():
+    return (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+        np.float32)
+
+
+def _mpc_contact32():
+    """The partly broken n=32 interface's bodies and contacts."""
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    bodies, contacts = elastic3d_contact(n=32, nsteps=NSTEPS_CONTACT32)
+    return {k: dataclasses.replace(t, kernel="fused")
+            for k, t in bodies.items()}, contacts
+
+
+def _mpc_explosion():
+    """(e)'s task: the 3D explosion with a vz snapshot every
+    EVERY_MPC_OUT steps."""
+    from gcm_tpu_torch.scenarios import get_scenario
+    from gcm_tpu_torch.task import SnapshotSpec
+
+    return dataclasses.replace(
+        get_scenario("elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_MPC_OUT),
+        kernel="fused",
+        snapshots=SnapshotSpec(every=EVERY_MPC_OUT, fields=("vz",)))
+
+
+def _mpc_outputs(root, ranks=None):
+    """(d) and (e) through run_with_outputs under ``root``: (d)
+    uninterrupted, each cut and resumed from its checkpoint directory
+    (every rank reads the file; (d)'s cut at an odd step is saved from
+    ``state_dict`` by the writing rank). Returns ``({tag: flat result}``
+    for "d_full", "d_resumed", "d_at_cut", "e_full" (``run()`` without
+    outputs), "e_resumed" and "e_host_copies", ``{tag: points/s}`` of
+    (d)'s uninterrupted run and (e)'s resumed one)."""
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.parallel.multihost import files_written, writes_files
+    from gcm_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    b32, c32 = _mpc_contact32()
+
+    def d_engine():
+        return _mpc_engine(b32, c32, "2x2", ranks, _mask32())
+
+    def d_out(eng, where):
+        return eng.run_with_outputs(os.path.join(root, where),
+                                    snapshot_every=16, checkpoint_every=8)
+
+    full = d_out(d_engine(), "d_full")
+    out, rates = {"d_full": _mpc_flat(full)}, {"d": full.points_per_second}
+    part = d_engine()
+    _check(part.path == "fused_spmd", f"(d) path {part.path!r}")
+    part.nsteps = CUT_CONTACT32
+    d_out(part, "d_cut")
+    ckdir = os.path.join(root, "d_cut", "checkpoints")
+    state = part.state_dict()
+    if writes_files(part.mesh):
+        save_checkpoint(ckdir, CUT_CONTACT32, state)
+    files_written(part.mesh)
+    again = d_engine()
+    again.load_state(restore_checkpoint(ckdir))
+    out["d_resumed"] = _mpc_flat(d_out(again, "d_cut"))
+    out["d_at_cut"] = {"bonded_0": np.asarray(state["bonded"]["0"])}
+
+    task = _mpc_explosion()
+    mesh = _mp_mesh(3, (2, 2), [torch.device("cuda", 0)] * 4, ranks)
+
+    def e_out(eng, where):
+        return eng.run_with_outputs(os.path.join(root, where),
+                                    checkpoint_every=EVERY_MPC_OUT)
+
+    # the uninterrupted run without outputs: its state and traces are what
+    # the resumed run must give
+    out["e_full"] = _mpc_flat(Engine(task, mesh=mesh).run())
+    part = Engine(task, mesh=mesh)
+    part.nsteps = EVERY_MPC_OUT
+    e_out(part, "e_cut")
+    again = Engine(task, mesh=mesh)
+    again.load_state(restore_checkpoint(os.path.join(root, "e_cut",
+                                                     "checkpoints")))
+    resumed = e_out(again, "e_cut")
+    out["e_resumed"], rates["e"] = (_mpc_flat(resumed),
+                                    resumed.points_per_second)
+    out["e_host_copies"] = {"part": np.asarray(part.host_copies),
+                            "again": np.asarray(again.host_copies)}
+    return out, rates
+
+
+def _same_files(tag, got_root, want_root):
+    """Fail unless the two trees hold the same files: ``.npz`` with equal
+    arrays (a zip member records its write time), every other file with
+    equal bytes. Returns the number of files."""
+    def tree(root):
+        return {os.path.relpath(os.path.join(d, n), root):
+                os.path.join(d, n) for d, _, ns in os.walk(root) for n in ns}
+
+    got, want = tree(got_root), tree(want_root)
+    _check(sorted(got) == sorted(want),
+           f"{tag}: files {sorted(got)} against {sorted(want)}")
+    for rel, path in got.items():
+        if rel.endswith(".npz"):
+            with np.load(path) as a, np.load(want[rel]) as b:
+                _check(sorted(a.files) == sorted(b.files) and all(
+                    np.array_equal(a[k], b[k]) for k in a.files),
+                    f"{tag}: {rel} holds other arrays")
+        else:
+            with open(path, "rb") as a, open(want[rel], "rb") as b:
+                _check(a.read() == b.read(), f"{tag}: {rel} differs")
+    return len(got)
+
+
+def multiproc_contact_paths(counts, result):
+    """Phase 20: the contact runs (a)-(c) and the outputs (d), (e) by two
+    ranks on cuda:0 under gloo, each against the same run in one process on
+    the same mesh bit for bit; the two-rank checkpoints resume in one
+    process exactly."""
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    refs, t0 = {}, time.perf_counter()
+    for tag, bodies, contacts, mesh in _mpc_cases():
+        _mpc_engine({k: _short(t) for k, t in bodies.items()}, contacts,
+                    mesh).run()
+        eng = _mpc_engine(bodies, contacts, mesh)
+        res = eng.run()
+        refs[tag] = (_mpc_flat(res), res.points_per_second, eng.path)
+        print(f"one-process ({tag}) contact 2 x {N_CONTACT}x{N_CONTACT}x"
+              f"{N_CONTACT // 2} {eng.path} on {mesh} shards of cuda:0 x "
+              f"{res.nsteps} steps: {res.points_per_second:.6g} points/s")
+        del eng, res
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="multiproc_contact_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t_refs, t0 = time.perf_counter() - t0, time.perf_counter()
+        one = os.path.join(root, "one")
+        outs, one_rates = _mpc_outputs(one)
+        torch.cuda.empty_cache()
+        ranks_dir = os.path.join(root, "ranks")
+        os.makedirs(ranks_dir)
+        t_outs, t0 = time.perf_counter() - t0, time.perf_counter()
+        _mp_spawn(ranks_dir, "gloo", "--multiproc-contact-rank")
+        t_ranks, t0 = time.perf_counter() - t0, time.perf_counter()
+        with open(os.path.join(ranks_dir, "gloo.json")) as f:
+            got = json.load(f)
+        for tag, want in list(refs.items()) + [
+                (k, (v, None, None)) for k, v in outs.items()]:
+            want = want[0]
+            with np.load(os.path.join(ranks_dir, f"{tag}.npz")) as z:
+                arrays = {k: z[k] for k in z.files}
+            _check(sorted(arrays) == sorted(want),
+                   f"two ranks ({tag}): {sorted(arrays)}")
+            for k, w in want.items():
+                _check(np.array_equal(arrays[k], w),
+                       f"two ranks ({tag}) {k} differs from one process: max "
+                       f"|difference| {np.abs(arrays[k] - w).max():.3e}")
+            for r in (0, 1):
+                _check(got["digests"][r][tag] == _digest(want),
+                       f"rank {r} ({tag}) differs from one process")
+        for tag, bodies, _, mesh in _mpc_cases():
+            g = got[tag]
+            idle = ("not measured" if g["idle_share"] is None
+                    else f"{g['idle_share']:.4f}")
+            print(f"two ranks ({tag}) contact {g['path']} on {mesh} x "
+                  f"{bodies['upper'].time.nsteps} steps under gloo, both on "
+                  f"cuda:0: {g['points_per_s']:.6g} points/s on rank 0 (one "
+                  f"process {refs[tag][1]:.6g}); bodies, masks and traces of "
+                  f"both ranks equal to the one-process run bit for bit (bond"
+                  f" mean {refs[tag][0]['bonded_0'].mean():.6f}); launches a "
+                  f"rank {g['launches']}; cross-rank contact fixup on rank 0 "
+                  f"{g['fixup_host_ms']:.4f} host ms a step (median of 20), "
+                  f"{g['fixup_share']:.4f} of the loop's wall; device idle "
+                  f"share {idle} (traced, both ranks' busy time over the "
+                  "wall)")
+        # (d): no broken cell heals across the resume
+        start, at_cut = _mask32(), outs["d_at_cut"]["bonded_0"]
+        end = outs["d_full"]["bonded_0"]
+        _check((at_cut <= start).all() and (end <= at_cut).all()
+               and end.mean() < at_cut.mean(),
+               "(d): a broken cell healed, or the interface did not break "
+               "further after the cut")
+        for tag in ("d", "e"):
+            for k, w in outs[f"{tag}_full"].items():
+                _check(np.array_equal(outs[f"{tag}_resumed"][k], w),
+                       f"({tag}) resumed {k} differs from the uninterrupted "
+                       "run")
+        nfiles = sum(_same_files(f"two ranks ({w})", os.path.join(
+            ranks_dir, w), os.path.join(one, w)) for w in (
+                "d_full", "d_cut", "e_cut"))
+        # the two ranks' checkpoints at the cuts resume in one process
+        b32, c32 = _mpc_contact32()
+        eng = _mpc_engine(b32, c32, "2x2")
+        eng.load_state(restore_checkpoint(os.path.join(
+            ranks_dir, "d_cut", "checkpoints"), step=CUT_CONTACT32))
+        _same_state("(d) two-rank checkpoint resumed in one process", [
+            (k, v, outs["d_full"][k])
+            for k, v in _mpc_flat(eng.run()).items()])
+        task = _mpc_explosion()
+        eng = Engine(task, mesh=_mp_mesh(3, (2, 2),
+                                         [torch.device("cuda", 0)] * 4))
+        eng.load_state(restore_checkpoint(os.path.join(
+            ranks_dir, "e_cut", "checkpoints"), step=EVERY_MPC_OUT))
+        _same_state("(e) two-rank checkpoint resumed in one process", [
+            (k, v, outs["e_full"][k])
+            for k, v in _mpc_flat(eng.run()).items()])
+        print(f"two ranks (d) n=32 contact x {NSTEPS_CONTACT32} through "
+              f"run_with_outputs, cut at {CUT_CONTACT32} and resumed on both "
+              f"ranks: equal to the uninterrupted run, bond mean "
+              f"{start.mean():.4f} at the start, {at_cut.mean():.4f} at the "
+              f"cut, {end.mean():.4f} at the end, no broken cell healed; (e) "
+              f"{task.name} {task.grid.shape} x {NSTEPS_MPC_OUT} with a "
+              f"snapshot and a checkpoint every {EVERY_MPC_OUT}, cut at "
+              f"{EVERY_MPC_OUT} and resumed: equal (host copies "
+              f"{outs['e_host_copies']['part'].tolist()} + "
+              f"{outs['e_host_copies']['again'].tolist()}); {nfiles} files "
+              f"equal to the one-process run's (one checkpoint file a step); "
+              f"the two-rank checkpoints of (d) and (e) resume in one process"
+              f" bit for bit; run_with_outputs on two ranks (d) "
+              f"{got['rates']['d']:.6g}, (e) resumed {got['rates']['e']:.6g}"
+              f" points/s (one process {one_rates['d']:.6g}, "
+              f"{one_rates['e']:.6g})")
+        print(f"phase 20: one-process runs {t_refs:.1f} s, one-process "
+              f"outputs {t_outs:.1f} s, two ranks {t_ranks:.1f} s, the "
+              f"comparisons {time.perf_counter() - t0:.1f} s")
+        # the kernels held on rank 1's shard, beside rank 0's rate, fixup
+        # and idle share of their path, as printed above
+        for name, entry in got["kernels"].items():
+            g = got["b" if name == "sweep_stage" else "a"]
+            entry = dict(entry, points_per_s=g["points_per_s"],
+                         fixup_host_ms=g["fixup_host_ms"],
+                         fixup_host_share=g["fixup_share"],
+                         idle_share=g["idle_share"])
+            result[name].update({f"multiproc_contact_{k}": v
+                                 for k, v in entry.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mpc_worker(rank, coord, workdir, backend):
+    """One rank of phase 20: the contact runs (a)-(c) on its mesh row, their
+    launches, cross-rank fixup host ms and idle share, then the outputs (d),
+    (e) under ``workdir``; rank 0 saves every result, each rank its
+    digests. Rank 1 then holds rows 6a and 6b on its shard of (a)'s lower
+    body and row 4 on its x-halo-extended block of (b)'s, with the slabs
+    rank 0 sent, against their plain versions and times them."""
+    import torch.distributed as dist
+
+    import gcm_tpu_torch.solver.multi as smulti
+    from gcm_tpu_torch.ops import _build
+    from gcm_tpu_torch.parallel import multihost
+    from gcm_tpu_torch.parallel.faces import ShardedFaces
+
+    _check(multihost.initialize(coord, 2, rank, backend=backend,
+                                timeout=MP_TIMEOUT), "no process group")
+    _build.load()
+    counts = Counts()
+    out, kernels, digests = {}, {}, {}
+    ranks = (0, 0, 1, 1)
+
+    def save(tag, arrays):
+        digests[tag] = _digest(arrays)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{tag}.npz"), **arrays)
+
+    calls = []
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            calls[-1] += (time.perf_counter() - t0) * 1e3
+            return r
+        return wrapper
+
+    for tag, bodies, contacts, mesh in _mpc_cases():
+        _mpc_engine({k: _short(t) for k, t in bodies.items()}, contacts,
+                    mesh, ranks).run()
+        eng = _mpc_engine(bodies, contacts, mesh, ranks)
+        nsteps = eng.nsteps
+        want = {"a": dict(fused_spmd_interior=4 * nsteps,
+                          fused_spmd_ring=4 * nsteps),
+                "b": dict(sweep_stage=12 * nsteps),
+                "c": dict(fused_spmd_interior=4 * nsteps,
+                          fused_spmd_ring=4 * nsteps)}[tag]
+        path = {"a": "fused_spmd", "b": "sweep_spmd",
+                "c": "fused_canonical_spmd"}[tag]
+        _check(eng.path == path, f"rank {rank} ({tag}): path {eng.path!r}")
+        dist.barrier()
+        counts.zero()
+        res = eng.run()
+        launched = counts.read()
+        counts.expect(f"rank {rank} ({tag})", launched, **want)
+        save(tag, _mpc_flat(res))
+        # the cross-rank contact fixup inside the step loop: the fused
+        # forms' face-row phase; the per-sweep form's face gathers, contact
+        # solves and row write-backs
+        names = ([(smulti, "apply_contact_fixups")] if tag != "b" else
+                 [(smulti, "apply_contact_post"), (ShardedFaces, "faces"),
+                  (ShardedFaces, "put_face")])
+        real = [getattr(o, n) for o, n in names]
+        for (o, n), fn in zip(names, real):
+            setattr(o, n, timed(fn))
+        calls.clear()
+        dist.barrier()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            us, bonded, auxs = eng.us, eng.bonded, eng.auxs
+            for i in range(20):
+                calls.append(0.0)
+                us, bonded, auxs = eng._one_step(us, bonded, auxs,
+                                                 i % eng.nsteps)
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for (o, n), fn in zip(names, real):
+                setattr(o, n, fn)
+        dist.barrier()
+        wall, busy = _device_busy(_multi_steps(eng, 20 if tag != "b"
+                                               else 10))
+        walls = multihost.all_gather_object((wall, busy))
+        idle = (None if any(b is None for _, b in walls)
+                else 1 - sum(b for _, b in walls) / max(w for w, _ in walls))
+        out[tag] = dict(
+            path=eng.path, points_per_s=res.points_per_second,
+            launches={k: v for k, v in launched.items() if v},
+            fixup_host_ms=float(np.median(calls)),
+            fixup_share=sum(calls) / loop_ms, loop_ms=loop_ms,
+            idle_share=idle, traced_wall_ms=wall, busy_ms=busy)
+        print(f"rank {rank} ({tag}): {out[tag]}", flush=True)
+        if tag in ("a", "b"):
+            kernels.update(_mpc_hold(rank, tag, eng, launched))
+        del eng, res
+        torch.cuda.empty_cache()
+    outs, out["rates"] = _mpc_outputs(workdir, ranks)
+    for tag, arrays in outs.items():
+        save(tag, arrays)
+    gathered = multihost.all_gather_object((digests, kernels))
+    if rank == 0:
+        with open(os.path.join(workdir, f"{backend}.json"), "w") as f:
+            json.dump(dict(out, digests=[d for d, _ in gathered],
+                           kernels=gathered[1][1]), f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mpc_hold(rank, tag, eng, launched):
+    """Rows 6a and 6b ((a)) or 4 ((b)) on rank 1's first shard of the lower
+    body, which holds the source (the wave reaches the upper body only
+    after about 60 steps), with its halo slabs from rank 0's shards (every
+    rank takes part in the exchange): each against its plain version under
+    2e-6 a step and timed (rank 1; rank 0 waits). Fails if the shard or
+    what rank 0 sent is all zero, where any kernel would agree. Returns the
+    kernels' ``multiproc_contact_*`` keys (without the prefix)."""
+    import torch.distributed as dist
+
+    from gcm_tpu_torch.ops.interp import stencil_radius
+    from gcm_tpu_torch.parallel.fused_spmd import exchange_slabs
+    from gcm_tpu_torch.parallel.halo import halo_exchange
+
+    mesh, model, k, body = eng.mesh, eng.model, 2, "lower"
+    r, us = stencil_radius(eng.order), eng.us[body]
+    where = (f"rank 1's shard {k} of the lower body on the two-rank contact"
+             f" path ({tag})")
+    if tag == "b":
+        ext = halo_exchange(us, mesh, "sx", 1, r)[k]
+    else:
+        slabs = exchange_slabs(us, mesh, r)[k]
+    out = {}
+    if rank == 1:
+        i, j = mesh.coords(k)
+        _check(mesh.ranks[k] == 1 and mesh.ranks[mesh.index(i - 1, j)] == 0,
+               f"({tag}): shard {k} is not rank 1's, or its x-low "
+               "neighbour not rank 0's")
+        # the x-low halo is shard 0's, which rank 0 sent
+        own, sent = ((ext[:, r:-r], ext[:, :r]) if tag == "b"
+                     else (us[k], slabs[0]))
+        for what, t in (("the block", own), ("the slab rank 0 sent", sent)):
+            _check(bool(t.abs().amax() > 0),
+                   f"{where}: {what} is all zero, so the kernel check "
+                   "could not fail")
+        print(f"{where}: max |u| {own.abs().amax().item():.6g} on the "
+              f"block, {sent.abs().amax().item():.6g} in the x-low slab "
+              "from rank 0", flush=True)
+        if tag == "a":
+            entries, _ = _spmd_kernels_on_shard(
+                f"{where}, ", model, us, eng._mstacks[body], mesh, k,
+                eng.dt, eng.hs[body], eng.order, eng._kernel_bcs[body],
+                eng._fwd, slabs=slabs)
+        else:
+            entries = {"sweep_stage": _sweep_on_block(
+                f"{where} (x halo from rank 0)", model, ext,
+                eng._sweep_mats[body][k]["ax0"].mat, eng.dt,
+                eng.hs[body], 0, eng.order)}
+        for name, e in entries.items():
+            out[name] = dict(e, launches=launched[name])
+            print(f"{name} on {where}: {out[name]}", flush=True)
     dist.barrier()
     return out
 
@@ -4164,6 +4670,10 @@ def main() -> int:
     phase("multi-process paths")
     multiproc_paths(counts, result)
 
+    # ---- 20. the contact path and the outputs across two processes
+    phase("multi-process contact paths")
+    multiproc_contact_paths(counts, result)
+
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",
                        "gcm_tpu/ops/pallas_fused.py:1162"),
@@ -4200,4 +4710,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multiproc-rank"]:   # a rank of phase 19
         sys.exit(_mp_worker(int(sys.argv[2]), *sys.argv[3:6]))
+    if sys.argv[1:2] == ["--multiproc-contact-rank"]:   # a rank of phase 20
+        sys.exit(_mpc_worker(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

@@ -15,8 +15,9 @@ interior/ring split with overlapped slab exchange
 (``parallel.halo``) for ``"sweep"`` (with the CUDA sweep kernel) and
 ``"torch"`` (the plain sweep). A mesh may span the processes of a run
 (``parallel.multihost``): each rank then steps its own shards, and
-``run()`` gives every rank the whole state and every receiver's trace,
-equal to the same run in one process.
+``run()``, ``state_dict()`` and ``run_with_outputs()`` give every rank the
+whole state and every receiver's trace, equal to the same run in one
+process; the first rank writes the files.
 
 Isotropic media run on the compact material stack, orthotropic media
 (``OrthotropicMaterial`` regions, ``OrthotropicMaterialFields``) on the
@@ -118,15 +119,6 @@ def mesh_device(mesh, device=None) -> torch.device:
         raise ValueError(f"device {device} disagrees with the mesh's "
                          f"devices {tuple(devs)}")
     return devs[0]
-
-
-def spanning_refused(mesh, what: str) -> None:
-    """Raise if ``mesh`` spans processes: ``what`` has no form for it
-    yet."""
-    if mesh is not None and mesh.spans_processes:
-        raise NotImplementedError(
-            f"{what} on a mesh that spans processes: not ported yet "
-            "(ROADMAP.md queue A, the rest of A11)")
 
 
 def shard_sources(mesh, block, ncomp: int, nodes, amps: np.ndarray,
@@ -292,6 +284,9 @@ class Engine:
         #: the completed step at each device-to-host copy of the state made
         #: by state_dict
         self.host_copies: List[int] = []
+        #: how the receivers of every rank come together (None: all here)
+        self._gather = (multihost.all_gather_object
+                        if multihost.spans(mesh) else None)
         if mesh is not None:
             self._setup_mesh(src_nodes, amps, det_nodes)
             return
@@ -416,8 +411,9 @@ class Engine:
         with detectors, the ``traces`` recorded so far (gathered from the
         shards on a mesh). Called mid-run (from a ``run`` callback), it
         holds the state after the step the callback was given. One
-        device-to-host copy of the state, recorded in ``host_copies``."""
-        spanning_refused(self.mesh, "state_dict")
+        device-to-host copy of the state, recorded in ``host_copies``. On a
+        mesh that spans processes every rank takes part and gets the whole
+        state."""
         self.host_copies.append(self._done_step)
         if self.mesh is not None:
             u = gather_state(self.u, self.mesh, device="cpu").numpy()
@@ -428,15 +424,15 @@ class Engine:
             aux = {k: v.cpu().numpy() for k, v in self.aux.items()}
         d = {"u": u, "aux": aux, "step": self._done_step}
         if self._trace is not None:
-            d["traces"] = self._trace.assemble()
+            d["traces"] = self._trace.assemble(self._gather)
         return d
 
     def load_state(self, state: Dict) -> None:
         """Restore a ``state_dict`` (this engine's, or the JAX engine's as
         numpy arrays, ``utils.checkpoint.restore_checkpoint``'s output);
         ``run()`` then runs the steps ``step .. nsteps`` and its traces
-        start with the restored rows."""
-        spanning_refused(self.mesh, "load_state")
+        start with the restored rows. On a mesh that spans processes every
+        rank gives the whole state and keeps its own shards' blocks."""
         u = as_tensor(state["u"], self.device, self.dtype)
         aux = {k: as_tensor(v, self.device) for k, v in
                dict(state.get("aux", {})).items()}
@@ -526,14 +522,12 @@ class Engine:
         npts = int(np.prod(self.task.grid.shape))
         u = (gather_state(self.u, self.mesh, device="cpu")
              if self.mesh is not None else self.u.cpu())
-        spans = self.mesh is not None and self.mesh.spans_processes
         return RunResult(
             u=u.numpy(),
             t=nsteps * self.dt,
             nsteps=nsteps,
             dt=self.dt,
-            traces=self._trace.assemble(
-                multihost.all_gather_object if spans else None)
+            traces=self._trace.assemble(self._gather)
             if self._trace is not None else None,
             wall_seconds=wall,
             points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
@@ -552,9 +546,13 @@ class Engine:
         seismograms at the end. Each cadence is rounded up to the
         symmetrization period; the state is copied to the host once at
         each step where either fires, and at no other
-        (``utils.checkpoint.output_callback``)."""
-        spanning_refused(self.mesh, "run_with_outputs")
+        (``utils.checkpoint.output_callback``). On a mesh that spans
+        processes every rank runs it with the same arguments: each takes
+        part in every copy, the first rank
+        (:func:`parallel.multihost.writes_files`) writes every file, and no
+        rank goes on past a file before it is written."""
         task = self.task
+        writer = multihost.writes_files(self.mesh)
         os.makedirs(outdir, exist_ok=True)
         snapdir = os.path.join(outdir, task.snapshots.directory)
         series = []
@@ -572,13 +570,14 @@ class Engine:
 
         cb, every = output_callback(
             outdir, 2 if task.symmetrize_stages else 1, task.snapshots.every,
-            checkpoint_every, self.state_dict, snapshot)
+            checkpoint_every, self.state_dict, snapshot, self.mesh)
         res = self.run(snapshot_cb=cb, cb_every=every)
-        if series:
+        if writer and series:
             write_pvd(os.path.join(snapdir, f"{task.name}.pvd"), series)
-        if res.traces is not None:
+        if writer and res.traces is not None:
             save_seismograms(outdir, task.name, res.traces, self.dt,
                              task.detectors.points, self.model.comp_names)
+        multihost.files_written(self.mesh)
         return res
 
 

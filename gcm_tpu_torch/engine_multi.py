@@ -39,7 +39,14 @@ engine's sharded forms, named with ``_spmd``:
 
 The contact phases read the faces they need put together on the first
 shard's device and write the rows they fix back into the shards' blocks
-(``parallel.faces.ShardedFaces``); the bond masks stay whole there.
+(``parallel.faces.ShardedFaces``); the bond masks stay whole there. A mesh
+may span the processes of a run (``parallel.multihost``): each rank then
+steps its own shards, gathers the whole slabs of each contact phase in one
+exchange, runs the contact algebra on them as one process would and writes
+back its own blocks' rows, so its bond masks are the same whole masks as
+every other rank's; ``run()``, ``state_dict()`` and ``run_with_outputs()``
+give every rank the whole state, masks and traces, equal to the same run in
+one process, and the first rank writes the files.
 
 Bodies may be isotropic or orthotropic (each body's fused stack is compact
 or orthotropic, ``ops.fused.stack_mats``). ``canonical_layout=True`` takes
@@ -70,14 +77,16 @@ import torch
 
 from gcm_tpu_torch.engine import (
     as_tensor, check_device, mesh_device, resolve_kernel, shard_detectors,
-    shard_sources, spanning_refused,
+    shard_sources,
 )
 from gcm_tpu_torch.materials import AxisViewCache, MaterialFields
 from gcm_tpu_torch.models.spec import get_model
 from gcm_tpu_torch.ops.fused import (
     fused_step, fused_step_2d, fused_step_slab, stack_mats,
 )
+from gcm_tpu_torch.ops.interp import stencil_radius
 from gcm_tpu_torch.ops.sweep import sweep_stage
+from gcm_tpu_torch.parallel import multihost
 from gcm_tpu_torch.parallel.faces import ShardedFaces
 from gcm_tpu_torch.parallel.fused_spmd import (
     extended_mstack, make_fused_spmd_step,
@@ -122,8 +131,9 @@ class MultiBodyEngine:
     CPU. With ``mesh=`` (a ``parallel.sharding.DomainMesh``) every body is
     held in per-shard blocks on the mesh's devices (``device`` may be left
     out and must agree with them if given); ``us[name]`` and each aux field
-    are then lists of blocks in mesh order, and the bond masks stay whole
-    on the first shard's device."""
+    are then lists of blocks in mesh order (None for a shard another rank
+    holds), and the bond masks stay whole on the first shard's device (on
+    every rank's own, on a mesh that spans processes)."""
 
     def __init__(self, bodies: Dict[str, Task],
                  contacts: Sequence[ContactSpec], device=None,
@@ -138,8 +148,6 @@ class MultiBodyEngine:
         self.symmetrize = t0.symmetrize_stages
         if mesh is not None:
             device = mesh_device(mesh, device)
-            # the contact fixups put face slabs together on one device
-            spanning_refused(mesh, "MultiBodyEngine")
         self.device = check_device("cuda" if device is None else device)
         self.dtype = dtype
         for t in bodies.values():
@@ -200,9 +208,13 @@ class MultiBodyEngine:
                 self._fwd = (ca,) + tuple(d for d in range(3) if d != ca)
                 self.canonical = True
                 if mesh is not None:
-                    mesh = DomainMesh(mesh.devices, (mesh.size,), ("sx",))
+                    mesh = DomainMesh(mesh.devices, (mesh.size,), ("sx",),
+                                      mesh.ranks)
         #: the mesh the bodies are held on (None: one tensor each)
         self.mesh = mesh
+        #: how the receivers of every rank come together (None: all here)
+        self._gather = (multihost.all_gather_object
+                        if multihost.spans(mesh) else None)
 
         shapes = {k: t.grid.shape for k, t in bodies.items()}
         full_faces = set()
@@ -366,6 +378,8 @@ class MultiBodyEngine:
 
             self._fused_multi = _fused_body
             self._faces = ShardedFaces(model, mesh, self.mats)
+            self._faces.prepare(self._contact_faces(
+                stencil_radius(self.order) + 1))
             return
         self._sweep_kernel = self.kernel in ("fused", "sweep")
         self._sweep_mats = {k: extend_mats_once(m, mesh, dim, self.order)
@@ -379,6 +393,12 @@ class MultiBodyEngine:
 
         self._raw_stage = _raw
         self._faces = ShardedFaces(model, mesh, self._sweep_mats)
+        self._faces.prepare(self._contact_faces(1))
+
+    def _contact_faces(self, depth: int) -> List[Tuple[str, int, int, int]]:
+        """``(body, axis, side, depth)`` of every contact's two faces."""
+        return [(name, c.axis, side, depth) for c in self.contacts
+                for name, side in ((c.body_a, 1), (c.body_b, 0))]
 
     def _shard(self, f: torch.Tensor, lead: int = 1):
         """``f`` (global, task layout) as the engine holds it: per-shard
@@ -432,7 +452,7 @@ class MultiBodyEngine:
                 continue
             blocks = self._blocks(us[name])
             aux = {k: self._blocks(v) for k, v in auxs[name].items()}
-            for s in range(len(blocks)):
+            for s in (self.mesh.local if self.mesh is not None else (0,)):
                 a = {k: v[s] for k, v in aux.items()}
                 for corr in task.correctors:
                     blocks[s], a = corr(self.model, blocks[s], a, self.dt)
@@ -450,7 +470,8 @@ class MultiBodyEngine:
         contact's per-side dict), per-body corrector ``aux``, the completed
         ``step`` and, with detectors, per-body ``traces``. Bond masks
         matter: a resume without them would heal every crack. One
-        device-to-host copy of the state (``host_copies``)."""
+        device-to-host copy of the state (``host_copies``). On a mesh that
+        spans processes every rank takes part and gets the whole state."""
         self.host_copies.append(self._done_step)
         d = {"us": {k: self._host(v) for k, v in self.us.items()},
              "bonded": {str(k): _to_host(v) for k, v in self.bonded.items()},
@@ -464,7 +485,8 @@ class MultiBodyEngine:
     def load_state(self, state: Dict) -> None:
         """Restore a ``state_dict`` (this engine's or the JAX engine's, as
         numpy arrays); ``run()`` then runs the steps ``step .. nsteps``,
-        from an odd step as well."""
+        from an odd step as well. On a mesh that spans processes every rank
+        gives the whole state and keeps its own shards' blocks."""
         dev, dt = self.device, self.dtype
         self.us = {k: self._shard(as_tensor(v, dev, dt))
                    for k, v in state["us"].items()}
@@ -491,7 +513,8 @@ class MultiBodyEngine:
     def _assemble_traces(self) -> Optional[Dict[str, np.ndarray]]:
         """Per body with detectors, every completed step's receivers; None
         without detectors."""
-        return ({name: r.assemble() for name, r in self._traces.items()}
+        return ({name: r.assemble(self._gather)
+                 for name, r in self._traces.items()}
                 if self._traces else None)
 
     # ------------------------------------------------------------------- run
@@ -546,10 +569,14 @@ class MultiBodyEngine:
     def write_snapshots(self, outdir: str, tag: str = "final") -> None:
         """Per body a ``<name>_<tag>.vti`` of the engine's current fields,
         and each bond mask as ``contact<i>_bonded[_<side>]_<tag>.npy``
-        (``write_body_snapshots`` on a copy of the state)."""
-        write_body_snapshots(outdir, tag, self.tasks, self.model,
-                             {k: self._host(v) for k, v in self.us.items()},
-                             {k: _to_host(v) for k, v in self.bonded.items()})
+        (``write_body_snapshots`` on a copy of the state). On a mesh that
+        spans processes every rank calls it, and the first writes."""
+        us = {k: self._host(v) for k, v in self.us.items()}
+        if multihost.writes_files(self.mesh):
+            write_body_snapshots(outdir, tag, self.tasks, self.model, us,
+                                 {k: _to_host(v)
+                                  for k, v in self.bonded.items()})
+        multihost.files_written(self.mesh)
 
     def run_with_outputs(self, outdir: str, snapshot_every: int = 0,
                          checkpoint_every: int = 0) -> MultiRunResult:
@@ -559,7 +586,10 @@ class MultiBodyEngine:
         every ``checkpoint_every`` steps in ``<outdir>/checkpoints``; each
         body's seismograms at the end. Each cadence is rounded up to the
         symmetrization period; the state is copied to the host once at
-        each step where either fires, and at no other."""
+        each step where either fires, and at no other. On a mesh that spans
+        processes every rank runs it with the same arguments, as
+        ``Engine.run_with_outputs``: the first rank writes every file."""
+        writer = multihost.writes_files(self.mesh)
         os.makedirs(outdir, exist_ok=True)
         snapdir = os.path.join(outdir, "snapshots")
         series = {name: [] for name in self.tasks}
@@ -572,15 +602,16 @@ class MultiBodyEngine:
 
         cb, every = output_callback(
             outdir, 2 if self.symmetrize else 1, snapshot_every,
-            checkpoint_every, self.state_dict, snapshot)
+            checkpoint_every, self.state_dict, snapshot, self.mesh)
         res = self.run(snapshot_cb=cb, snapshot_every=every)
         for name, entries in series.items():
-            if entries:
+            if writer and entries:
                 write_pvd(os.path.join(snapdir, f"{name}.pvd"), entries)
-        for name, tr in (res.traces or {}).items():
+        for name, tr in (res.traces or {}).items() if writer else ():
             task = self.tasks[name]
             save_seismograms(outdir, task.name, tr, res.dt,
                              task.detectors.points, self.model.comp_names)
+        multihost.files_written(self.mesh)
         return res
 
 

@@ -134,6 +134,32 @@ def all_gather_object(obj) -> list:
     return out
 
 
+def barrier() -> None:
+    """Wait for every rank of the group (nothing outside a group)."""
+    if in_group():
+        dist.barrier()
+
+
+def spans(mesh) -> bool:
+    """Whether ``mesh`` (None: one device) spans processes."""
+    return mesh is not None and mesh.spans_processes
+
+
+def writes_files(mesh) -> bool:
+    """Whether this process writes a run's files: on a mesh that spans
+    processes only the rank of its first shard does (rank 0 as
+    ``domain_mesh`` lays a mesh out), else every process."""
+    return not spans(mesh) or mesh.is_local(0)
+
+
+def files_written(mesh) -> None:
+    """On a mesh that spans processes, wait until the writing rank has
+    written what it writes at this point (every rank calls it there): no
+    rank reads a half-written file."""
+    if spans(mesh):
+        barrier()
+
+
 def process_info() -> Dict[str, int]:
     """This process's index and the group's size, with the devices this
     process drives and the devices of every rank together."""

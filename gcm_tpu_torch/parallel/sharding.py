@@ -32,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from gcm_tpu_torch.parallel import multihost
-from gcm_tpu_torch.parallel.p2p import gather_blocks
+from gcm_tpu_torch.parallel.p2p import Move, Transport, gather_blocks
 
 #: spatial axis each mesh axis splits
 AXIS_OF = {"sx": 0, "sy": 1}
@@ -266,31 +266,66 @@ def _face_slice(f: torch.Tensor, ax: int, side: int, depth: int):
     return f.narrow(ax, n - depth if side else 0, depth)
 
 
-def gather_face(blocks: Sequence[torch.Tensor], mesh: DomainMesh, axis: int,
-                side: int, depth: int, lead: int = 1,
-                device=None) -> torch.Tensor:
-    """The ``depth``-deep slab at the global face ``(axis, side)`` of a
-    sharded field (``side`` 0 the low face, 1 the high one), joined on
-    ``device`` (default: the first shard's). Along a split axis the face
-    lies on the edge shards, and ``depth`` must not exceed their blocks."""
-    xs, ys = _face_positions(mesh, axis, side)
-    parts = {mesh.index(i, j): _face_slice(blocks[mesh.index(i, j)],
-                                           lead + axis, side, depth)
-             for i in xs for j in ys}
-    return _join(parts, mesh, xs, ys, lead,
-                 mesh.devices[0] if device is None else device)
+def gather_faces(requests: Sequence[Tuple], mesh: DomainMesh, device=None,
+                 transport: Optional[Transport] = None) -> List[torch.Tensor]:
+    """For each request ``(blocks, axis, side, depth, lead)``, the
+    ``depth``-deep slab at the global face ``(axis, side)`` of a sharded
+    field (``side`` 0 the low face, 1 the high one; ``lead`` dimensions
+    before the spatial ones), joined on ``device`` (default: the first
+    shard's, on a mesh that spans processes this process's first). Along a
+    split axis the face lies on the edge shards, and ``depth`` must not
+    exceed their blocks. On a mesh that spans processes, the parts another
+    rank holds arrive in one exchange for them all (``parallel.p2p``: each
+    part is sent to every rank that lacks it; ``transport`` keeps its
+    buffers across calls), and every rank joins each slab as one process
+    would: in the same order and type, so what is computed from it is the
+    same on every rank."""
+    spans = mesh.spans_processes
+    if spans:
+        ranks = sorted(set(mesh.ranks))
+        #: the shard a rank's received parts are addressed to: its first
+        home = {q: mesh.ranks.index(q) for q in ranks}
+        me = mesh.ranks[mesh.local[0]]
+    moves, joins = [], []
+    for blocks, axis, side, depth, lead in requests:
+        xs, ys = _face_positions(mesh, axis, side)
+        if spans:
+            like = _face_slice(first_local(blocks), lead + axis, side, depth)
+            dev = like.device if device is None else torch.device(device)
+        else:
+            dev = mesh.devices[0] if device is None else device
+        parts = {}
+        for i in xs:
+            for j in ys:
+                k = mesh.index(i, j)
+                parts[k] = (_face_slice(blocks[k], lead + axis, side, depth)
+                            if mesh.is_local(k) else torch.empty(
+                                like.shape, dtype=like.dtype, device=dev))
+                for q in ranks if spans else ():
+                    if q != mesh.ranks[k]:
+                        moves.append(Move(
+                            k, home[q],
+                            parts[k] if mesh.is_local(k) else None,
+                            parts[k] if q == me else None, len(moves)))
+        joins.append((parts, xs, ys, lead, dev))
+    if moves:
+        (transport or Transport(mesh)).run(moves)
+    return [_join(parts, mesh, xs, ys, lead, dev)
+            for parts, xs, ys, lead, dev in joins]
 
 
-def scatter_face(blocks: Sequence[torch.Tensor], mesh: DomainMesh,
+def scatter_face(blocks: Sequence[Optional[torch.Tensor]], mesh: DomainMesh,
                  axis: int, side: int, rows: torch.Tensor,
                  lead: int = 1) -> None:
-    """Write the global face slab ``rows`` (as :func:`gather_face` gives
-    it, of any depth) into the blocks that hold face ``(axis, side)``, in
-    place."""
+    """Write the global face slab ``rows`` (as :func:`gather_faces` gives
+    it, of any depth) into this process's blocks that hold face ``(axis,
+    side)``, in place."""
     xs, ys = _face_positions(mesh, axis, side)
     depth = rows.shape[lead + axis]
     for i in xs:
         for j in ys:
+            if not mesh.is_local(mesh.index(i, j)):
+                continue
             b = blocks[mesh.index(i, j)]
             part = rows
             for name, p in (("sx", i), ("sy", j)):

@@ -171,24 +171,30 @@ class WholeFaces:
     def __init__(self, model: Model, mats: Dict[str, object]):
         self.model, self.mats = model, mats
 
-    def face(self, name: str, u, axis: int, side: int):
-        """What a post-fixup of face ``(axis, side)`` reads of ``u``."""
-        return u
+    def faces(self, requests):
+        """What a post-fixup phase reads of face ``(axis, side)`` of ``u``,
+        for each request ``(name, u, axis, side)``, fetched together: here
+        the whole ``u``."""
+        return [u for _, u, _, _ in requests]
 
     def face_view(self, name: str, axis: int, side: int):
-        """The material view along ``axis`` that goes with :meth:`face`."""
+        """The material view along ``axis`` that goes with :meth:`faces`."""
         return self.mats[name].axis_view(axis, self.model.stage(axis))
 
     def put_face(self, name: str, u, axis: int, side: int, new):
-        """``u`` with the post-fixed :meth:`face` ``new`` in place."""
+        """``u`` with the post-fixed face ``new`` (of :meth:`faces`) in
+        place."""
         return new
 
-    def slab(self, name: str, u, axis: int, side: int, depth: int):
-        """The ``depth``-deep slab of ``u`` at face ``(axis, side)``."""
-        return u[_slab_idx(self.model.dim, axis, side, depth)]
+    def slabs(self, requests):
+        """The ``depth``-deep slab of ``u`` at face ``(axis, side)`` for
+        each request ``(name, u, axis, side, depth)``: every slab a phase
+        reads, fetched together."""
+        return [u[_slab_idx(self.model.dim, axis, side, depth)]
+                for _, u, axis, side, depth in requests]
 
     def mat_slab(self, name: str, axis: int, side: int, depth: int):
-        """The material fields of :meth:`slab`."""
+        """The material fields of a slab of :meth:`slabs`."""
         return _mat_slice(self.mats[name],
                           _slab_idx(self.model.dim, axis, side, depth)[1:])
 
@@ -233,9 +239,8 @@ def stage_multi_fast(model: Model, us: BodyStates,
         if c.axis != axis:
             continue
         sides = ((c.body_a, 1), (c.body_b, 0))
-        (olda, newa), (oldb, newb) = (
-            (faces.face(n, us[n], axis, s), faces.face(n, out[n], axis, s))
-            for n, s in sides)
+        olda, newa, oldb, newb = faces.faces(
+            [(n, v[n], axis, s) for n, s in sides for v in (us, out)])
         va, vb = (faces.face_view(n, axis, s) for n, s in sides)
         if ci in ncmaps:
             ua, ub, nb = apply_contact_nc_post(
@@ -341,6 +346,11 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
     faces = faces or WholeFaces(model, mats)
     out = dict(out)
     new_bonded = dict(bonded)
+    # every slab of the pre-step states the phase reads, fetched at once:
+    # the phase writes only into ``out``
+    slabs = iter(faces.slabs([(name, us[name], c.axis, side, depth)
+                              for c in contacts for name, side in
+                              ((c.body_a, 1), (c.body_b, 0))]))
     for ci, c in enumerate(contacts):
         a = c.axis
         pos = axes.index(a)
@@ -348,7 +358,7 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
         st = model.stage(a)
         pre, swept, matsl = {}, {}, {}
         for name, side in ((c.body_a, 1), (c.body_b, 0)):
-            usl = faces.slab(name, us[name], a, side, depth)
+            usl = next(slabs)
             msl = faces.mat_slab(name, a, side, depth)
             bcs_t = {f: b for f, b in borders.get(name, {}).items()
                      if f[0] != a}

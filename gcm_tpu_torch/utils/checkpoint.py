@@ -24,6 +24,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 
+from gcm_tpu_torch.parallel import multihost
+
 _STEP_FILE = re.compile(r"step_(\d+)\.npz")
 
 
@@ -163,7 +165,7 @@ class TraceRecord:
 
 def output_callback(outdir: str, period: int, snapshot_every: int,
                     checkpoint_every: int, state_dict: Callable[[], Dict],
-                    snapshot: Callable[[int, Dict], None]):
+                    snapshot: Callable[[int, Dict], None], mesh=None):
     """The ``run()`` callback of an engine's ``run_with_outputs``, and its
     cadence: ``(callback, every)``, ``(None, 0)`` when both are off.
 
@@ -173,7 +175,11 @@ def output_callback(outdir: str, period: int, snapshot_every: int,
     a step where either is due it takes one ``state_dict()`` (one copy of
     the state to the host), hands it to ``snapshot(step, state)`` and saves
     it in ``<outdir>/checkpoints``, as due; at any other step it does
-    nothing, so the state stays on the device.
+    nothing, so the state stays on the device. A run on a ``mesh`` that
+    spans processes calls it on every rank: each takes the
+    ``state_dict()``, only the rank that ``multihost.writes_files`` names
+    writes, and ``multihost.files_written`` then holds every rank until the
+    files are complete.
     """
     snap, ck = (-(-c // period) * period if c else 0
                 for c in (snapshot_every, checkpoint_every))
@@ -181,6 +187,7 @@ def output_callback(outdir: str, period: int, snapshot_every: int,
     if not every:
         return None, 0
     ckdir = os.path.join(outdir, "checkpoints")
+    writer = multihost.writes_files(mesh)
 
     def callback(step: int, _u) -> None:
         due_snap = snap and step % snap == 0
@@ -188,9 +195,10 @@ def output_callback(outdir: str, period: int, snapshot_every: int,
         if not (due_snap or due_ck):
             return
         state = state_dict()
-        if due_snap:
+        if writer and due_snap:
             snapshot(step, state)
-        if due_ck:
+        if writer and due_ck:
             save_checkpoint(ckdir, step, state)
+        multihost.files_written(mesh)
 
     return callback, every

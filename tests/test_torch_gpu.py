@@ -954,6 +954,62 @@ def test_two_ranks_on_one_card_step_as_one_process(cuda, tmp_path):
         assert np.load(tmp_path / f"info_{rank}.npy").tolist() == [4, 4]
 
 
+@pytest.fixture(scope="module")
+def two_rank_contact_runs(tmp_path_factory):
+    """tests/test_torch_multihost_contact.py::card_runs by two gloo ranks
+    on cuda:0 (one row of the 2x2 mesh each), and in one process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_multihost import spawn
+    from test_torch_multihost_contact import card_runs
+
+    d = tmp_path_factory.mktemp("two_rank_contact")
+    spawn(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "test_torch_multihost_contact.py"), "card", d)
+    got = [dict(np.load(d / f"card_{r}.npz")) for r in (0, 1)]
+    return got, card_runs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused", "sweep"])
+def test_two_ranks_contact_on_one_card_as_one_process(two_rank_contact_runs,
+                                                      kernel):
+    """elastic3d_contact n=32 on 2x2 from a partly broken mask, two ranks on
+    cuda:0: the bodies, bond masks and form equal the one-process run bit
+    for bit, and each rank launches its own 2 shards' kernels a body and
+    step (the SPMD ring kernel, or the sweep kernel 3 times), half of what
+    one process launches. A 16x16x16 shard has no interior tile (every
+    tile lies on the ring), so the interior kernel never launches here;
+    chip_smoke.py phase 20 runs it on 128^3 shards."""
+    from test_torch_multihost_contact import CARD_STEPS, card_mask
+
+    got, want = two_rank_contact_runs
+    n = CARD_STEPS[kernel]
+    per_rank = [0, 4 * n, 0] if kernel == "fused" else [0, 0, 12 * n]
+    assert want[f"{kernel}/launches"].tolist() == [2 * x for x in per_rank]
+    assert str(want[f"{kernel}/path"]) == f"{kernel}_spmd"
+    for run in got:
+        assert run[f"{kernel}/launches"].tolist() == per_rank
+        for key, w in want.items():
+            if key.startswith(f"{kernel}/") and not key.endswith("launches"):
+                np.testing.assert_array_equal(run[key], w, err_msg=key)
+    mask, start = want[f"{kernel}/bonded_0_"], card_mask()
+    assert (mask <= start).all() and mask.mean() < start.mean()
+
+
+@pytest.mark.gpu
+def test_two_ranks_contact_resume_on_one_card(two_rank_contact_runs):
+    """The fused run cut at an odd step, its checkpoint written by rank 0
+    and read by both ranks, ends equal to the uninterrupted one-process
+    run, no broken cell healed."""
+    got, want = two_rank_contact_runs
+    for run in got:
+        for key, w in want.items():
+            if key.startswith("fused/") and not key.endswith("launches"):
+                np.testing.assert_array_equal(run["resumed/" + key[6:]], w,
+                                              err_msg=key)
+
+
 @pytest.mark.gpu
 def test_spmd_kernels_reject_what_they_do_not_take(cuda):
     from gcm_tpu_torch.ops import fused_spmd as fs

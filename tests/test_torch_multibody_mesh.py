@@ -46,7 +46,7 @@ from gcm_tpu.solver.correctors import MaxwellCorrector as JMaxwell
 from gcm_tpu_torch import cli
 from gcm_tpu_torch.engine_multi import MultiBodyEngine
 from gcm_tpu_torch.parallel.sharding import (
-    DomainMesh, domain_mesh, gather_face, gather_state, place, scatter_face,
+    DomainMesh, domain_mesh, gather_faces, gather_state, place, scatter_face,
     shard_state,
 )
 from gcm_tpu_torch.scenarios import elastic2d_basin_refined as tbasin
@@ -181,7 +181,7 @@ def pair_2d(nc: bool, n: int = 8, nsteps: int = 4):
 
 @pytest.mark.parametrize("mesh_name", ["2x2", "4x1", "sy4"])
 def test_face_slabs_gather_and_scatter_back(mesh_name):
-    """``gather_face`` is the global face slab, also along a split axis
+    """``gather_faces`` gives the global face slab, also along a split axis
     (there only the edge shards hold it); ``scatter_face`` writes a slab
     back as writing the global field would; ``place`` finds a node's
     shard and local index."""
@@ -194,7 +194,7 @@ def test_face_slabs_gather_and_scatter_back(mesh_name):
             for depth in (1, 2):
                 sl = [slice(None)] * 4
                 sl[1 + axis] = slice(-depth, None) if side else slice(depth)
-                got = gather_face(blocks, mesh, axis, side, depth)
+                got = gather_faces([(blocks, axis, side, depth, 1)], mesh)[0]
                 assert torch.equal(got, u[tuple(sl)])
                 want, bs = u.clone(), [b.clone() for b in blocks]
                 want[tuple(sl)] = -got - 1

@@ -362,6 +362,13 @@ def worker_main(argv, workers) -> None:
 
     mode, coord, nproc, rank, workdir = argv
     torch.set_num_threads(2)
+    # The first float32 torch.sqrt of a fresh process can come back at
+    # rsqrt precision (all of it ~3.5e-5 off) on x86 CPU builds of PyTorch
+    # under load (seen with 2.13.0+cpu on AVX-512, about one process in a
+    # hundred; later calls are exact). The engines take the wave speeds'
+    # sqrt at construction, and the ranks are held to one process bit for
+    # bit, so each rank makes that first call on a throwaway tensor.
+    torch.sqrt(torch.full((4096,), 2.0))
     assert multihost.initialize(coord, int(nproc), int(rank),
                                 backend="gloo", timeout=WORKER_TIMEOUT)
 

@@ -12,8 +12,10 @@ tests/test_torch_spmd_engine.py. The workers are this file
 (``python tests/test_torch_multihost_engine.py <mode> ...``, see
 tests/test_torch_multihost.py), and import no JAX.
 
-What has no form on such a mesh yet (outputs, checkpoints, multi-body
-contact) raises ``NotImplementedError``.
+On such a mesh each rank builds its own shards of ``Engine`` and
+``MultiBodyEngine``, and nothing refuses outputs, checkpoints or contact
+(tests/test_torch_multihost_resume.py and test_torch_multihost_contact.py
+hold what they give).
 """
 
 import dataclasses
@@ -74,23 +76,61 @@ def test_two_rank_engine_equals_one_process(two_rank_runs, case, kernel,
     assert np.abs(want.traces).max() > 0
 
 
-def test_what_has_no_form_across_processes_raises(tmp_path):
-    """A mesh whose shards 2 and 3 another rank holds: the engine builds
-    this rank's shards, and refuses outputs, checkpoints and contact."""
+def test_what_has_no_form_across_processes_raises(two_rank_runs):
+    """Nothing refuses a mesh whose shards two ranks hold (one mesh row
+    each): ``Engine`` and ``MultiBodyEngine`` build each rank's own shards
+    (None for the other rank's), and ``run_with_outputs``, ``state_dict``
+    and ``load_state`` run on both ranks (what they give is held by
+    tests/test_torch_multihost_resume.py and _contact.py)."""
+    for r, got in enumerate(two_rank_runs):
+        mine = [q == r for q in (0, 0, 1, 1)]
+        for key in ("engine_u", "engine_carry", "multibody_upper",
+                    "multibody_mats"):
+            assert got[f"held_{key}"].tolist() == mine, key
+        assert got["held_bonded"].tolist() == [12, 12]   # whole
+        assert int(got["state_step"]) == 2
+        assert got["state_u"].shape == (9, 24, 24, 12)
+        assert got["multibody_path"] == "torch_spmd"    # "auto" on CPUs
+        assert got["multibody_files"].tolist() == [
+            "contact0_bonded_final.npy", "lower_final.vti",
+            "upper_final.vti"]
+        assert got["outputs_files"].tolist() == (
+            ["checkpoints/step_2.npz", "elastic3d_explosion.bin",
+             "elastic3d_explosion.json", "elastic3d_explosion.npz"])
+
+
+def _worker_forms(mesh_of, d):
+    """What each rank holds of the engines on a mesh that spans both, and
+    what ``run_with_outputs``, ``state_dict`` and ``load_state`` give."""
     from gcm_tpu_torch.engine_multi import MultiBodyEngine
     from gcm_tpu_torch.scenarios import elastic3d_contact
 
-    mesh = _mesh(CASES[0], ranks=[0, 0, 1, 1])
-    assert mesh.spans_processes and mesh.local == (0, 1)
+    mesh = mesh_of(3, (2, 2))
     eng = _engine(CASES[0], "fused", "f32", mesh)
-    assert [u is None for u in eng.u] == [False, False, True, True]
-    assert [m is None for m in eng._carry] == [False, False, True, True]
-    for call in (lambda: eng.run_with_outputs(str(tmp_path)),
-                 eng.state_dict, lambda: eng.load_state({})):
-        with pytest.raises(NotImplementedError, match="A11"):
-            call()
-    with pytest.raises(NotImplementedError, match="spans processes"):
-        MultiBodyEngine(*elastic3d_contact(n=12, nsteps=2), mesh=mesh)
+    out = {"held_engine_u": [u is not None for u in eng.u],
+           "held_engine_carry": [m is not None for m in eng._carry]}
+    outdir = os.path.join(d["dir"], "forms")
+    eng.nsteps = 2
+    eng.run_with_outputs(outdir, checkpoint_every=2)
+    state = eng.state_dict()
+    eng.load_state(state)
+    out.update(state_step=state["step"], state_u=state["u"],
+               outputs_files=sorted(
+                   os.path.relpath(os.path.join(p, n), outdir)
+                   for p, _, ns in os.walk(outdir) for n in ns))
+    multi = MultiBodyEngine(*elastic3d_contact(n=12, nsteps=2), mesh=mesh)
+    multi.load_state(multi.state_dict())
+    multi.run()
+    snapdir = os.path.join(d["dir"], "forms_multi")
+    multi.write_snapshots(snapdir)
+    out.update(held_multibody_upper=[u is not None
+                                     for u in multi.us["upper"]],
+               held_multibody_mats=[m is not None
+                                    for m in multi.mats["upper"]],
+               held_bonded=list(multi.bonded[0].shape),
+               multibody_path=multi.path,
+               multibody_files=sorted(os.listdir(snapdir)))
+    return out
 
 
 def _worker_engine(mesh_of, d):
@@ -113,6 +153,7 @@ def _save_runs(mesh_of, d):
     import torch.distributed as dist
 
     out = _worker_engine(mesh_of, d)
+    out.update(_worker_forms(mesh_of, d))
     np.savez(os.path.join(d["dir"], f"runs_{dist.get_rank()}.npz"), **out)
     return np.zeros(0), []
 

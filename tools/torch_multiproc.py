@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Phase 19 of ``chip_smoke.py`` (one run across two processes) alone, on
-the cards this machine has, after building the kernels.
+"""Phase 19 or 20 of ``chip_smoke.py`` (one run across two processes)
+alone, on the cards this machine has, after building the kernels.
 
     python3 tools/torch_multiproc.py            # phase 19
+    python3 tools/torch_multiproc.py --contact  # phase 20
     python3 tools/torch_multiproc.py --nccl     # only (a) under NCCL
     python3 tools/torch_multiproc.py --probe    # what the backends take
 
 The default runs ``chip_smoke.multiproc_paths``: two gloo ranks on cuda:0
 for (a)-(c), each against its one-process run, and with two or more cards
-(a) again under NCCL, one rank a card. ``--nccl`` runs only the latter
-(needs two cards) against the one-process run of (a). ``--probe`` asks
+(a) again under NCCL, one rank a card. ``--contact`` runs
+``chip_smoke.multiproc_contact_paths`` instead: the contact path and the
+outputs across two gloo ranks on cuda:0. ``--nccl`` runs only phase 19's
+(a) under NCCL (needs two cards) against its one-process run. ``--probe`` asks
 each backend to move a CUDA tensor between two ranks on cuda:0 (an
 isend/irecv pair, a broadcast) and prints what it did: a refusal is a
 finding, not a failure of the script. Prints the cards' names and power
-limits first, and the kernels' ``multiproc_*`` entries last.
+limits first, and the kernels' ``multiproc_*`` (``multiproc_contact_*``)
+entries last.
 """
 
 import argparse
@@ -84,6 +88,7 @@ def probe():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nccl", action="store_true")
+    ap.add_argument("--contact", action="store_true")
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--probe-rank", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -127,6 +132,8 @@ def main():
             cs._mp_nccl(root, want)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    elif args.contact:
+        cs.multiproc_contact_paths(cs.Counts(), result)
     else:
         cs.multiproc_paths(cs.Counts(), result)
     print(f"done in {time.perf_counter() - t0:.1f} s")
