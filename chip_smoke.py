@@ -221,6 +221,24 @@ Phases, each of which raises (exit code != 0) on failure:
    held against their plain versions on rank 1's shard of the lower body
    (which holds the source) with the slabs rank 0 sent, both checked to be
    nonzero first, and timed.
+21. the benchmark: ``gcm_tpu_torch.bench.main`` in this process at
+   256x256x128 with every path (its 33^3 and 65^3 jittered unit boxes and
+   foot tables built on the host from phase 3 on, in a process of its own
+   on one thread at the lowest priority, phase 8's mesh being another;
+   phase 17's simplex contact bodies and tables reused), its line printed
+   as ``bench: {...}``; the bench holds each kernel form's end state to
+   its plain twin's (``sweep`` and ``fused`` to ``torch`` on the flagship,
+   each unit box's kernel sweeps to its plain sweeps, the simplex contact
+   kernel engine's bodies and bond masks to the plain engine's) under
+   ``PATH_TOL`` and fails the phase otherwise; the line's ``device`` ends
+   in the card's power limit in W; every rate finite and > 0; the kernels launched as the bench's step counts
+   say (``fused_step`` a step of the fused and visco paths,
+   ``sweep_stage`` 3, ``fused_step_slab`` 2 on the contact path,
+   ``simplex_sweep`` 6 a step pair of a body) and nothing else; no rate
+   above the points of a step over its launches' bounds (rows 1, 2, 4 and
+   5, as ``_bound`` counts them); the contact path ``fused_canonical`` and
+   the 65^3 and contact simplex forms the kernel's. Then the CLI's ``bench
+   --path fused``: its line, its launches and its bound.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -238,6 +256,8 @@ form (``ortho_launches``, ``ortho_max_abs_err``, ``ortho_ms``,
 (``fused_step_2d``, its two-step pass ``fused_step_2d_k2``,
 ``fused_spmd_2d`` with ``interior_ms`` and ``ring_ms``) carry their
 occupancy too, and ``simplex_sweep`` its blocks an SM and nodes a block;
+``fused_step``, ``fused_step_slab``, ``sweep_stage`` and ``simplex_sweep``
+carry their launches in phase 21's bench run (``bench_launches``);
 ``simplex_sweep`` also carries its launches, error, times and bound on the
 simplex contact path (``contact_*``) and that path's rate, idle share and
 host setup; ``fused_spmd_interior`` and ``fused_spmd_ring`` carry their
@@ -259,6 +279,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -824,8 +845,6 @@ def _print_ptxas(log):
     argument (the stencil order; taps for the simplex sweep) and model: the
     entry functions (sweep orders, stack types), their registers, and their
     largest stack frame and spill stores in bytes."""
-    import re
-
     groups, entry, frame = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2894,31 +2913,6 @@ NSTEPS_SC_NC = 40
 N_SC_ORTHO, NSTEPS_SC_ORTHO, NSTEPS_SC_ISO = 33, 130, 50
 
 
-def _bench_contact_bodies():
-    """The bodies and contact of bench.py's simplex contact case."""
-    from gcm_tpu_torch.engine_simplex import SimplexBody
-    from gcm_tpu_torch.grids.simplex import SimplexGrid
-    from gcm_tpu_torch.materials import IsotropicMaterial
-    from gcm_tpu_torch.solver.simplex_contact import SimplexContactSpec
-
-    rng = np.random.default_rng(0)
-    g_a = SimplexGrid.box((0, 0, 0), (0.5, 1, 1), (HALF_SC, N_SC, N_SC),
-                          jitter=0.12)
-    g_b = SimplexGrid.box((0.5, 0, 0), (1.0, 1, 1),
-                          (N_SC - HALF_SC + 1, N_SC, N_SC), jitter=0.12)
-    rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
-
-    def u0_of(g):
-        u = np.zeros((9, g.npoints), np.float32)
-        u[3:] = 1e5 * rng.standard_normal((6, g.npoints)).astype(np.float32)
-        return u
-
-    bodies = {"a": SimplexBody(g_a, rock, u0=u0_of(g_a)),
-              "b": SimplexBody(g_b, rock, u0=u0_of(g_b))}
-    return bodies, [SimplexContactSpec("a", "b", axis=0, kind="bonded",
-                                       tensile_strength=5e5)]
-
-
 def _mask_cells(mask):
     """A bond mask (per-side dict where non-conforming) as one array."""
     if isinstance(mask, dict):
@@ -2939,10 +2933,12 @@ def _simplex_steps(eng, n):
 def simplex_contact_path(counts, result):
     """Phase 17: SimplexMultiEngine on the simplex_sweep kernel, at bench.py's
     simplex contact configuration; a tensile pulse, a non-conforming pair,
-    orthotropic simplex media and a resume."""
+    orthotropic simplex media and a resume. Returns the bench configuration
+    ``(bodies, contacts, tables)`` for phase 21."""
     import shutil
     import tempfile
 
+    from gcm_tpu_torch.bench import simplex_contact_bodies
     from gcm_tpu_torch.engine_simplex import (
         SimplexBody, SimplexEngine, SimplexMultiEngine)
     from gcm_tpu_torch.grids.simplex import SimplexGrid
@@ -2955,7 +2951,7 @@ def simplex_contact_path(counts, result):
 
     # ---- (a) the bench configuration
     t0 = time.perf_counter()
-    bodies, contacts = _bench_contact_bodies()
+    bodies, contacts = simplex_contact_bodies(N_SC, HALF_SC)
     t_mesh = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = SimplexMultiEngine(bodies, contacts, "elastic3d", cfl=0.8,
@@ -3087,6 +3083,7 @@ def simplex_contact_path(counts, result):
               f"uninterrupted run")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    bench_setup = (bodies, contacts, eng.tables)
     del eng, full, part, resumed
 
     # ---- (b) a tensile pulse through two lattices
@@ -3215,6 +3212,7 @@ def simplex_contact_path(counts, result):
           f"{reach[0]:.1f} m, y {reach[1]:.1f} m; isotropic limit vs the "
           f"isotropic kernel path after {NSTEPS_SC_ISO} steps: normalized "
           f"error {lerr:.3e} (limit 1e-4)")
+    return bench_setup
 
 
 #: the contact path on a mesh (phase 18), every shard on cuda:0: the
@@ -4383,6 +4381,189 @@ def _spmd_canonical_vs_plain(meshes):
           "plain step under 2e-6")
 
 
+# ------------------------------------------------------------------- bench
+
+def _bench_bounds(model, shape, contact_shape, order, n_simplex, k_simplex,
+                  sc_nodes, k_sc):
+    """Phase 21: the most points/s each rate of the bench's line could
+    read: the points of a step over the bounds of the launches it makes
+    (rows 1, 2, 4 and 5 of the kernel table, their bytes and operations as
+    ``_bound`` counts them)."""
+    def simplex_ms(n_nodes, k):
+        flops = n_nodes * sum(len(st.pairs) * (8 * k + 20)
+                              for st in model.stages) / 3
+        return _bound(B_SIMPLEX * n_nodes, flops)[0]
+
+    npts = int(np.prod(shape))
+    nbody = int(np.prod(contact_shape))
+    flops = _step_flops(model, order, npts)
+    fused = _bound(B_FUSED3 * npts, flops)[0]
+    per_ms = {
+        "jnp_points_per_s": (npts, fused),
+        "pallas_points_per_s": (npts, 3 * _bound(B_SWEEP * npts,
+                                                 flops / 3)[0]),
+        "value": (npts, fused),
+        "visco_points_per_s": (npts, _bound((B_FUSED3 + 8) * npts,
+                                            flops)[0]),
+        "contact_points_per_s": (2 * nbody, 2 * _bound(
+            B_FUSED3 * nbody, _step_flops(model, order, nbody))[0]),
+        "simplex_points_per_s": (n_simplex[0], 3 * simplex_ms(
+            n_simplex[0], k_simplex)),
+        "simplex_points_per_s_n65": (n_simplex[1], 3 * simplex_ms(
+            n_simplex[1], k_simplex)),
+        "simplex_points_per_s_n65_jnp": (n_simplex[1], 3 * simplex_ms(
+            n_simplex[1], k_simplex)),
+        "simplex_contact_points_per_s": (sum(sc_nodes), 3 * sum(
+            simplex_ms(n, k_sc) for n in sc_nodes)),
+    }
+    return {k: pts / (ms * 1e-3) for k, (pts, ms) in per_ms.items()}
+
+
+def _bench_simplex_setups(conn):
+    """Send the bench's simplex setups, ``{n: (grid, tables, seconds)}``,
+    through ``conn``: host work only, run in a process of its own
+    (``BenchSetup``) on one thread at the lowest priority, so that it
+    takes no more than a spare core from the phases timed beside it."""
+    from gcm_tpu_torch import bench
+
+    os.nice(19)
+    torch.set_num_threads(1)
+    out = {}
+    for n in bench.SIMPLEX_SIZES:
+        t0 = time.perf_counter()
+        grid, tables = bench.simplex_setup(n)
+        out[n] = (grid, tables, time.perf_counter() - t0)
+    conn.send(out)
+    conn.close()
+
+
+class BenchSetup:
+    """Phase 21's simplex setups (the bench's 33^3 and 65^3 jittered unit
+    boxes: Delaunay and foot tables, ~80 s of host), built from phase 3 on
+    in a process of its own, one thread at the lowest priority, beside the
+    card's phases; ``get`` waits for
+    them (and raises if that process died), ``stop`` ends it."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_bench_simplex_setups, args=(send,),
+                                 daemon=True)
+        self._proc.start()
+        send.close()
+
+    def get(self, timeout=900):
+        if not self._conn.poll(timeout):
+            raise TimeoutError(f"bench setup: nothing after {timeout} s")
+        return self._conn.recv()
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+
+
+def bench_phase(counts, result, simplex_task, sc_setup, bench_setup):
+    """Phase 21: ``gcm_tpu_torch.bench.main`` in this process at
+    256x256x128 with every path; its launches and rates held to the
+    bench's step counts and the kernels' bounds; then the CLI's ``bench
+    --path fused``."""
+    import contextlib
+    import io
+
+    from gcm_tpu_torch import bench, cli
+    from gcm_tpu_torch.models.spec import get_model
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    n65 = bench.SIMPLEX_SIZES[1]
+    t0 = time.perf_counter()
+    built = bench_setup.get()
+    t_wait = time.perf_counter() - t0
+    bench_setup.stop()
+    grid, tables, _ = built[n65]
+    # phase 8's mesh is simplex3d_layered's 150 m box of layered media:
+    # neither its points nor (another medium, another dt) its tables are the
+    # bench's, so the bench's unit boxes and tables were built apart
+    same = (simplex_task.grid.points.shape == grid.points.shape
+            and np.array_equal(simplex_task.grid.points, grid.points))
+    print("bench setup: the jittered unit boxes and their foot tables, "
+          "built on the host in a process of its own (one thread, nice 19) "
+          "beside phases 3-20: "
+          + ", ".join(f"n={n} {sec:.1f} s ({g.npoints} nodes)"
+                      for n, (g, _, sec) in built.items())
+          + f"; waited {t_wait:.1f} s for them here. Phase 8's mesh "
+          f"({simplex_task.name}, points in [0, "
+          f"{simplex_task.grid.points.max():.4g}] m) "
+          f"{'has the same points' if same else 'has other points'} and "
+          f"tables for another medium; the simplex contact bodies and "
+          f"tables of phase 17 are reused")
+    calls = 1 + bench.REPS
+    want = dict(
+        fused_step=calls * (bench.K_STEPS + 2 * bench.K_PAIRS),
+        sweep_stage=3 * calls * bench.K_STEPS,
+        fused_step_slab=2 * calls * 2 * bench.K_PAIRS,
+        simplex_sweep=calls * bench.K_PAIRS * (
+            6 * len(bench.SIMPLEX_SIZES) + 12))
+    lines = []
+    counts.zero()
+    t0 = time.perf_counter()
+    line = bench.main(bench.SHAPE, "best", "cuda",
+                      simplex_setups={n: (g, t) for n, (g, t, _)
+                                      in built.items()},
+                      simplex_contact_setup=sc_setup, out=lines.append)
+    t_bench = time.perf_counter() - t0
+    launched = counts.read()
+    for text in lines[:-1]:
+        print(f"  {text}")
+    print(f"bench: {lines[-1]}")
+    counts.expect("bench", launched, **want)
+    _check(json.loads(lines[-1]) == line, "bench: printed line differs")
+    _check(re.fullmatch(re.escape(torch.cuda.get_device_name(0))
+                        + r", \d+(\.\d+)? W", line["device"]) is not None,
+           f"bench device {line['device']!r}: not the card's name and "
+           "power limit in W")
+    _check(line["contact_path"] == "fused_canonical"
+           and line["simplex_path_n65"] == "simplex"
+           and line["simplex_contact_path"] == "simplex",
+           f"bench paths {line}")
+    bodies, _ = elastic3d_contact(n=bench.CONTACT_N)
+    body = next(iter(bodies.values()))
+    k65 = next(iter(tables.values())).ids.shape[1]
+    k_sc = next(iter(sc_setup[2]["a"].values())).ids.shape[1]
+    bound = _bench_bounds(
+        get_model("elastic3d"), bench.SHAPE, body.grid.shape, body.order,
+        [n ** 3 for n in bench.SIMPLEX_SIZES], k65,
+        [b.grid.npoints for b in sc_setup[0].values()], k_sc)
+    rates = {k: line[k] for k in bound}
+    _check(all(np.isfinite(v) and v > 0 for v in rates.values()),
+           f"bench rates {rates}")
+    for k, v in rates.items():
+        print(f"  {k} {v:.6g} points/s, the bound allows {bound[k]:.6g} "
+              f"({v / bound[k]:.4f} of it)")
+        _check(v <= bound[k], f"bench {k} {v:.6g} above its bound "
+               f"{bound[k]:.6g}: a missing synchronize?")
+    print(f"bench: {t_bench:.1f} s; launches {launched}")
+    for name in ("fused_step", "fused_step_slab", "sweep_stage",
+                 "simplex_sweep"):
+        result[name]["bench_launches"] = launched[name]
+
+    buf = io.StringIO()
+    counts.zero()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--path", "fused"])
+    launched = counts.read()
+    text = buf.getvalue().strip()
+    print(f"bench --path fused (the CLI): {text}")
+    one = json.loads(text.splitlines()[-1])
+    counts.expect("bench --path fused", launched,
+                  fused_step=calls * bench.K_STEPS)
+    _check(rc == 0 and one["path"] == "fused" and 0 < one["value"]
+           <= bound["value"] and one["device"] == line["device"],
+           f"bench --path fused: rc {rc}, line {one}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4423,6 +4604,9 @@ def main() -> int:
         if line.startswith("nvcc "):
             print(f"  {line}")
     _print_ptxas(log)
+
+    # ---- 21's host setup, in a process of its own from here on
+    bench_setup = BenchSetup()
 
     # ---- 3. kernel vs plain on the card
     phase("kernels vs plain")
@@ -4660,7 +4844,7 @@ def main() -> int:
 
     # ---- 17. the simplex contact path
     phase("simplex contact path")
-    simplex_contact_path(counts, result)
+    sc_setup = simplex_contact_path(counts, result)
 
     # ---- 18. the contact path on a mesh
     phase("contact mesh path")
@@ -4673,6 +4857,11 @@ def main() -> int:
     # ---- 20. the contact path and the outputs across two processes
     phase("multi-process contact paths")
     multiproc_contact_paths(counts, result)
+
+    # ---- 21. the benchmark
+    phase("bench")
+    bench_phase(counts, result, simplex[0], sc_setup, bench_setup)
+    del sc_setup
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

@@ -7,6 +7,8 @@ Commands:
                  [--mesh NX[,NY]] [--canonical-layout|--no-canonical-layout]
                  [--outdir DIR] [--snapshot-every S] [--checkpoint-every C]
                  [--resume] [--profile]
+  bench [--shape 256,256,128] [--path torch|sweep|fused|best]
+        [--device cuda|cpu]
 
 ``run`` writes its artifacts under ``--outdir`` (default ``out``):
 snapshots every S steps in ``snapshots/`` (``<scenario>_<step>.vti``, a
@@ -18,6 +20,12 @@ newest checkpoint there, ``--profile`` writes a ``torch.profiler`` trace to
 ``trace/trace.json``. A simplex run ends with ``<scenario>_final.vtu``, a
 contact run with each body's ``<body>_final.vti`` and its bond masks as
 ``.npy``.
+
+``bench`` is the benchmark of record (``gcm_tpu_torch/bench.py``, the
+port of the JAX package's ``bench.py``): it times each compute path on the
+card and prints one JSON line of grid points a second; ``--path
+torch|sweep|fused`` times that structured path alone. On the CPU only
+``--path torch`` runs.
 
 ``run`` prints one JSON summary line: the resolved kernel, points per
 second, steps, dt, grid shape (``npoints`` for a simplex mesh), device,
@@ -84,6 +92,10 @@ def _build_parser():
     r.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace to "
                         "<outdir>/trace/trace.json")
+    from gcm_tpu_torch import bench
+
+    bench.add_arguments(sub.add_parser(
+        "bench", help="time the compute paths (the benchmark of record)"))
     return p
 
 
@@ -134,6 +146,11 @@ def _trace(args):
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    if args.cmd == "bench":
+        from gcm_tpu_torch import bench
+
+        bench.main(bench.parse_shape(args.shape), args.path, args.device)
+        return 0
     from gcm_tpu_torch.scenarios import get_scenario, list_scenarios
 
     if args.cmd == "list":

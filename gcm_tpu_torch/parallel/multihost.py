@@ -20,6 +20,7 @@ or with ``torchrun --nproc-per-node N``, whose environment
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Dict, List, Optional
@@ -106,7 +107,18 @@ def initialize(coordinator: Optional[str] = None,
                             world_size=int(num_processes),
                             rank=int(process_id),
                             timeout=datetime.timedelta(seconds=timeout), **kw)
+    atexit.register(shutdown)
     return True
+
+
+def shutdown() -> None:
+    """Leave the process group (nothing outside one). :func:`initialize`
+    registers it to run at exit, as ``jax.distributed.initialize`` does its
+    shutdown: a process that ends with its gloo group still up aborts now
+    and then (SIGABRT, "terminate called without an active exception") as
+    the group's threads are torn down."""
+    if in_group():
+        dist.destroy_process_group()
 
 
 def _local_rank(process_id: int) -> int:

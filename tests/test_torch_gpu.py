@@ -1688,3 +1688,58 @@ def test_contact_mesh_resumes_exactly_on_card(cuda, tmp_path):
         assert norm_err(torch.from_numpy(got.bodies[k]),
                         torch.from_numpy(whole.bodies[k])) < 2e-6
     np.testing.assert_array_equal(got.bonded[0], whole.bonded[0])
+
+
+@pytest.mark.gpu
+def test_bench_fused_path_on_card(cuda):
+    """``bench.main`` with ``only="fused"`` at 64x64x32: the one-path line,
+    a finite positive rate on this card, one ``fused_step`` launch a step
+    of the warm-up and the three timed calls."""
+    import json
+
+    from gcm_tpu_torch import bench
+
+    lines = []
+    fused_step.launches = 0
+    line = bench.main((64, 64, 32), "fused", out=lines.append)
+    assert fused_step.launches == (1 + bench.REPS) * bench.K_STEPS
+    assert json.loads(lines[-1]) == line
+    assert (line["path"], line["shape"]) == ("fused", [64, 64, 32])
+    assert np.isfinite(line["value"]) and line["value"] > 0
+    assert line["device"].startswith(torch.cuda.get_device_name(0))
+
+
+@pytest.mark.gpu
+def test_bench_every_path_on_card(cuda):
+    """``bench.main`` with every path at small sizes (flagship 64x64x32,
+    unit boxes 9^3 and 13^3, ``elastic3d_contact(n=32)``, simplex contact
+    bodies of 7 and 7 x 13 x 13 nodes): every rate finite and positive, the
+    kernel forms held to their plain twins inside ``main``, and each kernel
+    launched as the bench's step counts say."""
+    import json
+    import re
+
+    from gcm_tpu_torch import bench
+
+    calls = 1 + bench.REPS
+    kernels = (fused_step, fused_step_slab, sweep_stage, simplex_sweep)
+    for k in kernels:
+        k.launches = 0
+    lines = []
+    line = bench.main((64, 64, 32), "best", simplex_sizes=(9, 13),
+                      contact_n=32, simplex_contact_size=(13, 7),
+                      out=lines.append)
+    assert [k.launches for k in kernels] == [
+        calls * (bench.K_STEPS + 2 * bench.K_PAIRS),
+        2 * calls * 2 * bench.K_PAIRS, 3 * calls * bench.K_STEPS,
+        calls * bench.K_PAIRS * (6 * 2 + 12)]
+    assert json.loads(lines[-1]) == line
+    assert lines[-2].startswith("kernel forms against their plain twins")
+    rates = [v for k, v in line.items()
+             if k == "value" or "points_per_s" in k]
+    assert len(rates) == 9
+    assert all(np.isfinite(v) and v > 0 for v in rates)
+    assert line["shape"] == [64, 64, 32]
+    assert line["contact_path"] == "fused_canonical"
+    assert re.fullmatch(re.escape(torch.cuda.get_device_name(0))
+                        + r", \d+(\.\d+)? W", line["device"])

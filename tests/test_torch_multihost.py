@@ -20,6 +20,7 @@ This file is also the workers' program (``python tests/test_torch_multihost.py
 the JAX package: only the test functions do.
 """
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -33,30 +34,39 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT = 240
 
 
-def free_port() -> int:
+@contextlib.contextmanager
+def reserved_port():
+    """A free local port, held bound (not listening, ``SO_REUSEADDR``)
+    until the block ends. Meanwhile no other process's bind or outgoing
+    connection can take it, while rank 0's store, whose listener sets
+    ``SO_REUSEADDR`` too, binds it. A port picked and released at once
+    could be taken by another process before rank 0 binds it."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        yield s.getsockname()[1]
 
 
 def spawn(script: str, mode: str, workdir: str, nproc: int = 2,
           timeout: float = WORKER_TIMEOUT) -> None:
-    """Run ``script`` as ``nproc`` ranks of a gloo group at a free local
-    port; fails with their output unless every rank exits 0 in time."""
-    coord = f"127.0.0.1:{free_port()}"
+    """Run ``script`` as ``nproc`` ranks of a gloo group at a reserved
+    local port; fails with their output unless every rank exits 0 in
+    time."""
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs = [subprocess.Popen(
-        [sys.executable, script, mode, coord, str(nproc), str(rank),
-         str(workdir)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for rank in range(nproc)]
-    logs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            out = p.communicate()[0] + "\nTIMEOUT"
-        logs.append(out)
+    with reserved_port() as port:
+        procs = [subprocess.Popen(
+            [sys.executable, script, mode, f"127.0.0.1:{port}", str(nproc),
+             str(rank), str(workdir)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(nproc)]
+        logs = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out = p.communicate()[0] + "\nTIMEOUT"
+            logs.append(out)
     assert all(p.returncode == 0 for p in procs), "\n---\n".join(
         log[-3000:] for log in logs)
 
@@ -83,6 +93,13 @@ def test_world_size_one_does_not_trigger(monkeypatch):
     assert not multihost.in_group()
 
 
+def test_shutdown_outside_a_group_does_nothing():
+    from gcm_tpu_torch.parallel import multihost
+
+    multihost.shutdown()
+    assert not multihost.in_group()
+
+
 def test_process_info_single_process():
     from gcm_tpu_torch.parallel import multihost
 
@@ -95,20 +112,25 @@ def test_process_info_single_process():
 
 def test_torchrun_environment_joins_the_group(tmp_path):
     """Under ``torchrun --nproc-per-node 2`` a bare ``initialize()`` finds
-    the group in the environment."""
+    the group in the environment. ``--standalone``: torchrun's agent binds
+    a free port for its store and holds it, and ``initialize``'s
+    ``tcp://`` store attaches to that store as a client
+    (``TORCHELASTIC_USE_AGENT_STORE``). The script ends without leaving
+    the group: ``initialize`` registered ``shutdown`` to run at exit."""
     script = tmp_path / "ranks.py"
     script.write_text(
-        "import sys\n"
+        "import os, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "sys.modules['jax'] = None\n"
         "from gcm_tpu_torch.parallel import multihost\n"
+        "assert os.environ['TORCHELASTIC_USE_AGENT_STORE'] == 'True'\n"
         "assert multihost.initialize(backend='gloo')\n"
         "info = multihost.process_info()\n"
         f"open({str(tmp_path)!r} + f'/info_{{multihost.rank()}}', 'w')"
         ".write(repr(sorted(info.items())))\n")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-port", str(free_port()), str(script)],
+         "2", "--standalone", str(script)],
         cwd=ROOT, capture_output=True, text=True, timeout=WORKER_TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     for r in (0, 1):
@@ -127,10 +149,11 @@ def test_default_backend_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("WORLD_SIZE", "RANK", "NUM_PROCESSES", "PROCESS_ID"):
         monkeypatch.delenv(name, raising=False)
-    with pytest.raises(RuntimeError, match="backend='gloo'"):
-        multihost.initialize(f"127.0.0.1:{free_port()}", 2, 0)
-    with pytest.raises(ValueError, match="world size and rank"):
-        multihost.initialize(f"127.0.0.1:{free_port()}", backend="gloo")
+    with reserved_port() as port:
+        with pytest.raises(RuntimeError, match="backend='gloo'"):
+            multihost.initialize(f"127.0.0.1:{port}", 2, 0)
+        with pytest.raises(ValueError, match="world size and rank"):
+            multihost.initialize(f"127.0.0.1:{port}", backend="gloo")
 
 
 # ------------------------------------------------------------ two processes

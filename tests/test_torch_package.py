@@ -38,7 +38,8 @@ assert {"gcm_tpu_torch.ops.sweep", "gcm_tpu_torch.solver.correctors",
         "gcm_tpu_torch.snapshot.seismo", "gcm_tpu_torch.utils.checkpoint",
         "gcm_tpu_torch.utils.energy", "gcm_tpu_torch.utils.linal",
         "gcm_tpu_torch.utils.profiling",
-        "gcm_tpu_torch.solver.simplex_contact"} <= set(names), names
+        "gcm_tpu_torch.solver.simplex_contact",
+        "gcm_tpu_torch.bench"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 assert not any(k in ("jax", "gcm_tpu") or k.startswith(("jax.", "gcm_tpu."))
@@ -56,7 +57,7 @@ def _run(args, cwd=ROOT, timeout=300):
 def test_every_module_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 41
+    assert int(proc.stdout.split()[-1]) >= 42
 
 
 def _assert_refused(proc):
