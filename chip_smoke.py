@@ -51,7 +51,8 @@ Phases, each of which raises (exit code != 0) on failure:
    ``"simplex"``, launches the kernel 3 times a step, gives finite fields
    and non-zero receiver traces, and after 100 steps agrees with
    ``kernel="torch"`` (under 1e-4). The host setup (Delaunay, foot tables)
-   is timed and printed on its own.
+   is timed and printed on its own; the mesh, like phase 17's, is built in
+   a process of its own from before the build (``HostSetup``).
 9. the SPMD kernels (checked with phase 3, before the paths): the 3D
    interior and ring kernels against their plain versions on every shard
    of 2x2 and 4x1 meshes whose shards all lie on cuda:0 (orders 1-3, both
@@ -90,7 +91,7 @@ Phases, each of which raises (exit code != 0) on failure:
    2r halo, aligned and wider than one strip), ``fused_spmd_2d`` with bf16
    stacks;
 13. the contact path: ``MultiBodyEngine(*elastic3d_contact(n=256,
-   nsteps=300), canonical_layout=True)`` (two bodies of 256x256x128)
+   nsteps=200), canonical_layout=True)`` (two bodies of 256x256x128)
    resolves to ``fused_canonical``, launches ``fused_step_slab`` twice a
    step and ``fused_step`` never, moves the upper body and agrees with the
    plain multi-body path in the same order (under 1e-4; the bond mask cells
@@ -116,12 +117,12 @@ Phases, each of which raises (exit code != 0) on failure:
    fields (under 3e-6); then ``elastic3d_explosion`` n=256 on the fused
    path (300 steps, ``fused_step`` only, against ``kernel="torch"``, and the
    anisotropy of its wavefront after ``NSTEPS_ANISO`` steps), the per-sweep
-   path (100 steps against the fused one), ``elastic2d_viscoelastic``
-   n=2048 (300 steps against ``kernel="torch"``, and 100 on sx=4 shards
-   against the unsharded path), the 2x2 sharded path (100 steps, against
-   the unsharded fused path under 2e-6), the bf16 stack (100 steps, through
+   path (50 steps against the fused one), ``elastic2d_viscoelastic``
+   n=2048 (300 steps against ``kernel="torch"``, and 50 on sx=4 shards
+   against the unsharded path), the 2x2 sharded path (50 steps, against
+   the unsharded fused path under 2e-6), the bf16 stack (50 steps, through
    ``fused_step_slab``, against float32 under ``BF16_PATH_TOL``) and
-   ``elastic3d_contact`` n=256 asked for the canonical layout (300 steps,
+   ``elastic3d_contact`` n=256 asked for the canonical layout (200 steps,
    which stays on ``"fused"`` for orthotropic bodies, against the plain
    multi-body path); each kernel's orthotropic form timed on its path's
    state;
@@ -160,12 +161,12 @@ Phases, each of which raises (exit code != 0) on failure:
    x axis, and its isotropic limit agrees with the isotropic kernel path
    after 50 steps (under 1e-4).
 18. the contact path on a mesh, every shard on cuda:0: the contact bodies
-   of phase 13 with ``canonical_layout=True`` on 2x2 shards for 300 steps
+   of phase 13 with ``canonical_layout=True`` on 2x2 shards for 200 steps
    resolve to ``"fused_spmd"`` in (0, 1, 2) / (2, 1, 0) (a 2-axis mesh, as
    in JAX), launch ``fused_spmd_interior`` and ``fused_spmd_ring`` 8 times
    a step each (2 bodies x 4 shards) and no unsharded kernel, and agree
    with the unsharded path in the same order after 100 steps (under 2e-6,
-   bond masks equal; the error after 300 printed); its points/s, untraced
+   bond masks equal; the error after 200 printed); its points/s, untraced
    idle share, the host ms of the put-together contact fixup inside its
    step loop (and of one fixup called alone, with its device ms), and
    both SPMD kernels on its own shard beside their plain versions and
@@ -187,9 +188,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``tcp://127.0.0.1:<free port>`` (this script with ``--multiproc-rank``,
    each bounded by ``MP_TIMEOUT``), both on cuda:0, one mesh row (two
    shards) a rank, the slabs between them through pinned host memory: (a)
-   ``elastic3d_explosion`` n=256 fused on 2x2 x 100 steps, (b) the same
-   with ``kernel="sweep"`` x 50, (c) ``elastic2d_viscoelastic`` n=2048 on
-   sx=4 x 100; each rank launches its shards' kernels only, and the
+   ``elastic3d_explosion`` n=256 fused on 2x2 x 50 steps, (b) the same
+   with ``kernel="sweep"`` x 25, (c) ``elastic2d_viscoelastic`` n=2048 on
+   sx=4 x 50; each rank launches its shards' kernels only, and the
    gathered state and traces equal the one-process run on the same mesh
    bit for bit ((a) also under 2e-6 of the unsharded fused run); each
    path's points/s, the host ms of the exchange inside the step loop
@@ -220,7 +221,10 @@ Phases, each of which raises (exit code != 0) on failure:
    figures), the card's idle share (both ranks traced); rows 6a, 6b and 4
    held against their plain versions on rank 1's shard of the lower body
    (which holds the source) with the slabs rank 0 sent, both checked to be
-   nonzero first, and timed.
+   nonzero first, and timed. With two or more cards, (a)-(c) again under
+   NCCL, one rank a card (the contact faces gathered across the cards),
+   both ranks' bodies, masks and traces equal to the one-process runs bit
+   for bit; with one, ``nccl: contact not run (1 card)``.
 21. the benchmark: ``gcm_tpu_torch.bench.main`` in this process at
    256x256x128 with every path (its 33^3 and 65^3 jittered unit boxes and
    foot tables built on the host from phase 3 on, in a process of its own
@@ -239,6 +243,26 @@ Phases, each of which raises (exit code != 0) on failure:
    5, as ``_bound`` counts them); the contact path ``fused_canonical`` and
    the 65^3 and contact simplex forms the kernel's. Then the CLI's ``bench
    --path fused``: its line, its launches and its bound.
+22. one process, a mesh over distinct cards (one card a shard, as the JAX
+   package runs its meshes over ``jax.devices()``), with four or more
+   cards: (a) ``elastic3d_explosion`` n=256 fused on 2x2 cards x 300
+   (strong scaling; also under 2e-6 of the unsharded fused run), (b) n=512
+   (512x512x256, a 256x256x256 shard a card) x 100 (weak scaling, against
+   one card alone on such a shard), (c) the per-sweep path and the folded
+   Maxwell + damage path on 2x2 x 50 and ``elastic2d_viscoelastic`` n=2048
+   on sx=4 x 300, (d) the contact forms ``fused_spmd`` (2x2),
+   ``fused_canonical_spmd`` (sx=4) and ``sweep_spmd`` (2x2) at n=256 x 100
+   and the partly broken n=32 interface x 32, (e) ``python -m
+   gcm_tpu_torch run elastic3d_explosion|elastic3d_contact --n 256 --mesh
+   2,2 --device cuda`` (the summary's kernel or path, mesh and launches);
+   each run launches its kernels as often as on one card and equals bit
+   for bit the same mesh with every shard on cuda:0; the peer access
+   between the cards, each run's points/s, the host ms a step of its
+   exchange (slab or halo exchange, contact fixup) and share of the loop's
+   wall, each card's idle share (traced), the scaling efficiencies, and
+   rows 6a and 6b held and timed on the last card's shard. With two or
+   three cards (a) on 2x1 cards and the 2D path on sx=2; with one,
+   ``phase 22: not run (1 card)``.
 
 Each path's points/s and each kernel's ms against its plain version's at
 the path's own shape are printed, and the whole run's seconds. The line
@@ -270,7 +294,11 @@ path's shard blocks; ``fused_spmd_interior``, ``fused_spmd_ring``,
 phase 19 and their error, times and bound on rank 1's shard there
 (``multiproc_*``), and ``fused_spmd_interior``, ``fused_spmd_ring`` and
 ``sweep_stage`` the same on the contact path of phase 20 with its rate,
-fixup host ms and share and idle share (``multiproc_contact_*``); the
+fixup host ms and share and idle share (``multiproc_contact_*``);
+with two or more cards ``fused_spmd_interior`` and ``fused_spmd_ring``
+carry their launches in phase 22's (a), its rate and their error, times
+and bound on the last card's shard (``multicard_*``), ``sweep_stage`` and
+``fused_spmd_2d`` their launches and rate in (c); the
 last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -302,11 +330,12 @@ NSTEPS_SHARDED, NSTEPS_SHARDED_VISCO = 100, 50
 NSTEPS_SHARDED_2D, NSTEPS_SHARDED_SWEEP = 300, 50
 #: the contact path, BASELINE config 4 at bench.py's shape: two bodies of
 #: 256x256x128 (16,777,216 points). The lower body's Ricker source peaks at
-#: t0 = 0.12 s, 249 m below the interface (0.062 s at 4000 m/s), so by 300
-#: steps of dt = 0.8 h / 4000 m/s (0.235 s) the wave has crossed it. The
-#: bf16, non-canonical and pair-fused runs take 100 steps; the 2D
-#: non-conforming basin runs at n=1025 (1025^2 + 2049^2 points).
-N_CONTACT, NSTEPS_CONTACT, NSTEPS_CONTACT_SHORT = 256, 300, 100
+#: t0 = 0.12 s, 249 m below the interface (0.062 s at 4000 m/s); its
+#: leading lobe reaches the interface after ~100 steps of dt = 0.8 h /
+#: 4000 m/s, so by 200 steps (0.157 s) the wave has crossed it (its peak at
+#: ~230 steps). The bf16, non-canonical and pair-fused runs take 100 steps;
+#: the 2D non-conforming basin runs at n=1025 (1025^2 + 2049^2 points).
+N_CONTACT, NSTEPS_CONTACT, NSTEPS_CONTACT_SHORT = 256, 200, 100
 N_BASIN, NSTEPS_BASIN, NSTEPS_PAIR = 1025, 100, 100
 #: the bf16-stack contact run against the float32 one after 100 steps: the
 #: stacks round rho, c and kappa by up to 2e-3, which shifts the waves'
@@ -322,9 +351,10 @@ BF16_PATH_TOL = 3e-2
 #: engine's own dt = 0.6 h_min / 5200 m/s, several hundred (printed).
 N_SIMPLEX, T_SIMPLEX, NSTEPS_SIMPLEX_CMP = 65, 0.08, 100
 #: the orthotropic paths: the per-sweep, sharded, 2D sharded and bf16 runs
-#: take 100 steps; the contact run takes NSTEPS_CONTACT (300), since the
-#: lower body's wave reaches the interface only after ~250 steps.
-NSTEPS_ORTHO_SHORT = 100
+#: take 50 steps; the contact run takes NSTEPS_CONTACT (200), since the
+#: lower body's wave reaches the interface only after ~100 steps (its c33
+#: is the isotropic P modulus).
+NSTEPS_ORTHO_SHORT = 50
 #: the anisotropy check (the recipe of tests/test_orthotropic.py): the
 #: explosion sits at (1000, 1000, 400) m in the orthotropic sediments, whose
 #: P speed is 2394 m/s along x, 2203 m/s along y and 2100 m/s along z; its
@@ -707,25 +737,28 @@ def simplex_kernel_vs_plain():
           f"(limit 2e-6)")
 
 
-def simplex_path(counts, result):
-    """Phase 8, second part: the simplex main path at 65^3."""
+def simplex_path(counts, result, mesh_setup):
+    """Phase 8, second part: the simplex main path at 65^3, on the task
+    ``mesh_setup`` (a ``HostSetup`` of ``_simplex_task_setup``) built."""
     from gcm_tpu_torch.engine_simplex import SimplexEngine
     from gcm_tpu_torch.ops.simplex import (
         simplex_sweep, simplex_sweep_occupancy, simplex_sweep_reference)
-    from gcm_tpu_torch.scenarios import get_scenario
     from gcm_tpu_torch.task import TimeSpec
 
     t0 = time.perf_counter()
-    task = get_scenario("simplex3d_layered", n=N_SIMPLEX)
-    t_mesh = time.perf_counter() - t0
+    task, t_mesh = mesh_setup.get()
+    mesh_setup.stop()
+    t_wait = time.perf_counter() - t0
     task = dataclasses.replace(task, time=TimeSpec(cfl=task.time.cfl,
                                                    t_end=T_SIMPLEX))
     t0 = time.perf_counter()
     eng = SimplexEngine.from_task(task, device="cuda")
     t_tables = time.perf_counter() - t0
     grid = task.grid
-    print(f"simplex setup on the host CPU: Delaunay {t_mesh:.1f} s, foot "
-          f"tables and plan {t_tables:.1f} s ({grid.npoints} nodes, "
+    print(f"simplex setup on the host CPU: Delaunay {t_mesh:.1f} s (in a "
+          f"process of its own from before the build; waited {t_wait:.1f} "
+          f"s for it here), foot tables and plan {t_tables:.1f} s "
+          f"({grid.npoints} nodes, "
           f"{len(grid.cells)} cells, {len(eng.tables)} tables of K="
           f"{next(iter(eng.tables.values())).ids.shape[1]}); dt {eng.dt:.6g} s, {eng.nsteps} steps for "
           f"{T_SIMPLEX} s")
@@ -795,6 +828,9 @@ def simplex_path(counts, result):
 #: compulsory streams per node (4 tables of K=4 ids and weights, flags,
 #: materials, state in and out)
 B_FUSED3, B_FUSED2, B_SWEEP, B_SIMPLEX = 88, 56, 92, 216
+#: the 2D per-sweep kernel's: state in and out (5 components), cp cs zp zs
+#: kappa
+B_SWEEP2 = 60
 #: the same with a bf16 material stack: the slab step's 36 + 8 + 36 bytes,
 #: the 2D step's 20 + 8 + 20; a two-step pass moves the bytes of one step
 B_SLAB_BF16, B_FUSED2_BF16 = 80, 48
@@ -923,15 +959,20 @@ def _device_busy(run_steps):
         run_steps()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    busy, end = 0.0, -1.0
-    for a, b in spans:
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return wall, _union_ms(spans) if spans else None
+
+
+def _union_ms(spans):
+    """The ms that the intervals ``spans`` (profiler us) cover, overlaps
+    counted once."""
+    total, end = 0.0, -1.0
+    for a, b in sorted(spans):
         if b > end:
-            busy += (b - max(a, end)) / 1e3
+            total += (b - max(a, end)) / 1e3
             end = b
-    return wall, busy if spans else None
+    return total
 
 
 def _idle_share(run_steps, nsteps, step_ms):
@@ -2930,15 +2971,15 @@ def _simplex_steps(eng, n):
     return run
 
 
-def simplex_contact_path(counts, result):
+def simplex_contact_path(counts, result, mesh_setup):
     """Phase 17: SimplexMultiEngine on the simplex_sweep kernel, at bench.py's
-    simplex contact configuration; a tensile pulse, a non-conforming pair,
-    orthotropic simplex media and a resume. Returns the bench configuration
-    ``(bodies, contacts, tables)`` for phase 21."""
+    simplex contact configuration (its bodies from ``mesh_setup``, a
+    ``HostSetup`` of ``_simplex_contact_setup``); a tensile pulse, a
+    non-conforming pair, orthotropic simplex media and a resume. Returns
+    the bench configuration ``(bodies, contacts, tables)`` for phase 21."""
     import shutil
     import tempfile
 
-    from gcm_tpu_torch.bench import simplex_contact_bodies
     from gcm_tpu_torch.engine_simplex import (
         SimplexBody, SimplexEngine, SimplexMultiEngine)
     from gcm_tpu_torch.grids.simplex import SimplexGrid
@@ -2951,15 +2992,18 @@ def simplex_contact_path(counts, result):
 
     # ---- (a) the bench configuration
     t0 = time.perf_counter()
-    bodies, contacts = simplex_contact_bodies(N_SC, HALF_SC)
-    t_mesh = time.perf_counter() - t0
+    bodies, contacts, t_mesh = mesh_setup.get()
+    mesh_setup.stop()
+    t_wait = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = SimplexMultiEngine(bodies, contacts, "elastic3d", cfl=0.8,
                              device="cuda")
     t_setup = time.perf_counter() - t0
     npts = sum(b.grid.npoints for b in bodies.values())
     ia, ib = eng._pairs[0]
-    print(f"simplex contact setup on the host CPU: Delaunay {t_mesh:.1f} s; "
+    print(f"simplex contact setup on the host CPU: Delaunay {t_mesh:.1f} s "
+          f"(in a process of its own from before the build; waited "
+          f"{t_wait:.1f} s for it here); "
           f"foot tables, pairing and plans {t_setup:.1f} s ({npts} nodes, "
           f"{len(ia)} interface pairs); dt {eng.dt:.6g} s")
 
@@ -3309,9 +3353,9 @@ def contact_mesh_path(counts, result):
                           fused_spmd_ring=per_step * NSTEPS_CONTACT)
     v_up = float(np.abs(res.bodies["upper"][:3]).max())
     _check(v_up > 0, "2x2 contact mesh path: the upper body did not move")
-    ref300 = build(bodies, canon=False).run()   # the same order, unsharded
-    err300 = _bodies_err(res, ref300)
-    nd300 = int((res.bonded[0] != ref300.bonded[0]).sum())
+    ref_full = build(bodies, canon=False).run()   # the same order, unsharded
+    err_full = _bodies_err(res, ref_full)
+    nd_full = int((res.bonded[0] != ref_full.bonded[0]).sum())
     b100 = steps(bodies, NSTEPS_MESH_CMP)
     r100 = build(b100, mesh=mesh22).run()
     u100 = build(b100, canon=False).run()
@@ -3322,13 +3366,13 @@ def contact_mesh_path(counts, result):
     print(f"contact mesh path 2 x {N_CONTACT}x{N_CONTACT}x{N_CONTACT // 2} "
           f"on 2x2 shards of cuda:0 x {NSTEPS_CONTACT} steps (order "
           f"{eng._fwd}): {res.points_per_second:.6g} points/s (unsharded "
-          f"fused {ref300.points_per_second:.6g}); "
+          f"fused {ref_full.points_per_second:.6g}); "
           f"{launched['fused_spmd_interior']} interior + "
           f"{launched['fused_spmd_ring']} ring launches, 0 fused_step or "
           f"fused_step_slab; upper max|v| {v_up:.4e}; vs unsharded after "
           f"{NSTEPS_MESH_CMP} steps {err100:.3e} (limit 2e-6, masks equal), "
-          f"after {NSTEPS_CONTACT} {err300:.3e} (bond cells that differ "
-          f"{nd300}, bond mean {res.bonded[0].mean():.6f})")
+          f"after {NSTEPS_CONTACT} {err_full:.3e} (bond cells that differ "
+          f"{nd_full}, bond mean {res.bonded[0].mean():.6f})")
     # one put-together contact fixup on the path's state: the host's time
     # to enqueue a call, a call's wall time with the card synchronised
     # after it, and its device time queued behind a spin kernel
@@ -3392,7 +3436,7 @@ def contact_mesh_path(counts, result):
             contact_mesh_fixup_host_share=fix_share,
             contact_mesh_fixup_isolated_host_ms=fix_ms,
             **{f"contact_mesh_{k}": v for k, v in entry.items()})
-    del eng, res, ref300, out, fix
+    del eng, res, ref_full, out, fix
 
     # ---- (b) the SPMD kernels in the canonical orders, then the
     # canonical order on a one-axis mesh
@@ -3563,7 +3607,7 @@ def contact_mesh_path(counts, result):
 #: phase 19: two ranks of a gloo group on cuda:0, one mesh row (two
 #: shards) a rank; the 3D fused and per-sweep runs and the 2D run, each
 #: against the same run in one process
-NSTEPS_MP, NSTEPS_MP_SWEEP = 100, 50
+NSTEPS_MP, NSTEPS_MP_SWEEP = 50, 25
 #: seconds a rank may take, and waits for the other in an exchange
 MP_TIMEOUT = 420
 
@@ -3927,20 +3971,22 @@ def _mpc_cases():
             ("c", with_(time=short), contacts, "sx4"))
 
 
-def _mpc_engine(bodies, contacts, mesh, ranks=None, mask=None):
-    """The contact engine on cuda:0 shards of ``mesh`` ("2x2" or "sx4",
-    ``ranks``: its shards' ranks), canonical_layout=True as the CLI asks
-    it, from the bond mask ``mask`` (default: intact)."""
+def _mpc_engine(bodies, contacts, mesh, ranks=None, mask=None,
+                devices=None):
+    """The contact engine on the shards of ``mesh`` ("2x2" or "sx4",
+    ``ranks``: its shards' ranks) on ``devices`` (default: all on cuda:0),
+    canonical_layout=True as the CLI asks it, from the bond mask ``mask``
+    (default: intact)."""
     from gcm_tpu_torch.convert import bonded_from_numpy
     from gcm_tpu_torch.engine_multi import MultiBodyEngine
     from gcm_tpu_torch.parallel.sharding import DomainMesh
 
-    dev = torch.device("cuda", 0)
-    m = (_mp_mesh(3, (2, 2), [dev] * 4, ranks) if mesh == "2x2"
-         else DomainMesh((dev,) * 4, (4,), ("sx",), ranks))
+    devices = [torch.device("cuda", 0)] * 4 if devices is None else devices
+    m = (_mp_mesh(3, (2, 2), devices, ranks) if mesh == "2x2"
+         else DomainMesh(tuple(devices), (4,), ("sx",), ranks))
     eng = MultiBodyEngine(bodies, contacts, mesh=m, canonical_layout=True)
     if mask is not None:
-        eng.bonded = bonded_from_numpy({0: mask}, device=dev)
+        eng.bonded = bonded_from_numpy({0: mask}, device=eng.device)
     return eng
 
 
@@ -4077,25 +4123,16 @@ def multiproc_contact_paths(counts, result):
     """Phase 20: the contact runs (a)-(c) and the outputs (d), (e) by two
     ranks on cuda:0 under gloo, each against the same run in one process on
     the same mesh bit for bit; the two-rank checkpoints resume in one
-    process exactly."""
+    process exactly. With two or more cards, (f): (a)-(c) again under
+    NCCL, a card a rank (``_mpc_nccl``)."""
     import shutil
     import tempfile
 
     from gcm_tpu_torch.engine import Engine
     from gcm_tpu_torch.utils.checkpoint import restore_checkpoint
 
-    refs, t0 = {}, time.perf_counter()
-    for tag, bodies, contacts, mesh in _mpc_cases():
-        _mpc_engine({k: _short(t) for k, t in bodies.items()}, contacts,
-                    mesh).run()
-        eng = _mpc_engine(bodies, contacts, mesh)
-        res = eng.run()
-        refs[tag] = (_mpc_flat(res), res.points_per_second, eng.path)
-        print(f"one-process ({tag}) contact 2 x {N_CONTACT}x{N_CONTACT}x"
-              f"{N_CONTACT // 2} {eng.path} on {mesh} shards of cuda:0 x "
-              f"{res.nsteps} steps: {res.points_per_second:.6g} points/s")
-        del eng, res
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = _mpc_refs()
     root = tempfile.mkdtemp(prefix="multiproc_contact_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
     try:
@@ -4199,8 +4236,69 @@ def multiproc_contact_paths(counts, result):
                          idle_share=g["idle_share"])
             result[name].update({f"multiproc_contact_{k}": v
                                  for k, v in entry.items()})
+        if torch.cuda.device_count() >= 2:
+            _mpc_nccl(root, refs)
+        else:
+            print("nccl: contact not run (1 card)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _mpc_refs():
+    """Phase 20's contact runs (a)-(c) in one process on cuda:0: ``{tag:
+    (flat result, points/s, path)}``."""
+    refs = {}
+    for tag, bodies, contacts, mesh in _mpc_cases():
+        _mpc_engine({k: _short(t) for k, t in bodies.items()}, contacts,
+                    mesh).run()
+        eng = _mpc_engine(bodies, contacts, mesh)
+        res = eng.run()
+        refs[tag] = (_mpc_flat(res), res.points_per_second, eng.path)
+        print(f"one-process ({tag}) contact 2 x {N_CONTACT}x{N_CONTACT}x"
+              f"{N_CONTACT // 2} {eng.path} on {mesh} shards of cuda:0 x "
+              f"{res.nsteps} steps: {res.points_per_second:.6g} points/s")
+        del eng, res
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _mpc_nccl(root, refs):
+    """(f): phase 20's contact runs (a)-(c) by two ranks under NCCL, one a
+    card (cuda:0 and cuda:1), each against ``refs[tag]``, its one-process
+    run on cuda:0 (flat result, points/s, path): both ranks' bodies, bond
+    masks and traces bit for bit."""
+    work = os.path.join(root, "nccl")
+    os.makedirs(work)
+    _mp_spawn(work, "nccl", "--multiproc-contact-rank")
+    with open(os.path.join(work, "nccl.json")) as f:
+        got = json.load(f)
+    for tag, bodies, _, mesh in _mpc_cases():
+        want, rate, path = refs[tag]
+        with np.load(os.path.join(work, f"{tag}.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        _check(sorted(arrays) == sorted(want),
+               f"nccl ({tag}): {sorted(arrays)}")
+        for k, w in want.items():
+            _check(np.array_equal(arrays[k], w),
+                   f"nccl ({tag}) {k} differs from one process: max "
+                   f"|difference| {np.abs(arrays[k] - w).max():.3e}")
+        for r in (0, 1):
+            _check(got["digests"][r][tag] == _digest(want),
+                   f"nccl rank {r} ({tag}) differs from one process")
+        g = got[tag]
+        _check(g["path"] == path, f"nccl ({tag}): path {g['path']!r}")
+        idle = ("not measured" if g["idle_share"] is None else ", ".join(
+            f"cuda:{r} {v:.4f}" for r, v in enumerate(g["idle_share"])))
+        print(f"nccl: two ranks ({tag}) contact {g['path']} on {mesh} x "
+              f"{bodies['upper'].time.nsteps} steps, one card a rank: "
+              f"{g['points_per_s']:.6g} points/s on rank 0 (one process on "
+              f"cuda:0 {rate:.6g}); bodies, masks and traces of both ranks "
+              f"equal to the one-process run bit for bit; launches a rank "
+              f"{g['launches']}; cross-rank contact fixup on rank 0 "
+              f"{g['fixup_host_ms']:.4f} host ms a step (median of 20), "
+              f"{g['fixup_share']:.4f} of the loop's wall; idle share by "
+              f"card (traced) {idle}")
+    return got
 
 
 def _mpc_worker(rank, coord, workdir, backend):
@@ -4223,6 +4321,9 @@ def _mpc_worker(rank, coord, workdir, backend):
     counts = Counts()
     out, kernels, digests = {}, {}, {}
     ranks = (0, 0, 1, 1)
+    #: gloo: both ranks on cuda:0; NCCL: one card a rank
+    devs = (None if backend == "gloo"
+            else [torch.device("cuda", r) for r in ranks])
 
     def save(tag, arrays):
         digests[tag] = _digest(arrays)
@@ -4241,8 +4342,8 @@ def _mpc_worker(rank, coord, workdir, backend):
 
     for tag, bodies, contacts, mesh in _mpc_cases():
         _mpc_engine({k: _short(t) for k, t in bodies.items()}, contacts,
-                    mesh, ranks).run()
-        eng = _mpc_engine(bodies, contacts, mesh, ranks)
+                    mesh, ranks, devices=devs).run()
+        eng = _mpc_engine(bodies, contacts, mesh, ranks, devices=devs)
         nsteps = eng.nsteps
         want = {"a": dict(fused_spmd_interior=4 * nsteps,
                           fused_spmd_ring=4 * nsteps),
@@ -4286,8 +4387,11 @@ def _mpc_worker(rank, coord, workdir, backend):
         wall, busy = _device_busy(_multi_steps(eng, 20 if tag != "b"
                                                else 10))
         walls = multihost.all_gather_object((wall, busy))
+        # gloo: the ranks take turns on cuda:0, busy for the sum of their
+        # busy times; NCCL: each rank's card on its own
         idle = (None if any(b is None for _, b in walls)
-                else 1 - sum(b for _, b in walls) / max(w for w, _ in walls))
+                else 1 - sum(b for _, b in walls) / max(w for w, _ in walls)
+                if backend == "gloo" else [1 - b / w for w, b in walls])
         out[tag] = dict(
             path=eng.path, points_per_s=res.points_per_second,
             launches={k: v for k, v in launched.items() if v},
@@ -4295,13 +4399,14 @@ def _mpc_worker(rank, coord, workdir, backend):
             fixup_share=sum(calls) / loop_ms, loop_ms=loop_ms,
             idle_share=idle, traced_wall_ms=wall, busy_ms=busy)
         print(f"rank {rank} ({tag}): {out[tag]}", flush=True)
-        if tag in ("a", "b"):
+        if tag in ("a", "b") and backend == "gloo":
             kernels.update(_mpc_hold(rank, tag, eng, launched))
         del eng, res
         torch.cuda.empty_cache()
-    outs, out["rates"] = _mpc_outputs(workdir, ranks)
-    for tag, arrays in outs.items():
-        save(tag, arrays)
+    if backend == "gloo":
+        outs, out["rates"] = _mpc_outputs(workdir, ranks)
+        for tag, arrays in outs.items():
+            save(tag, arrays)
     gathered = multihost.all_gather_object((digests, kernels))
     if rank == 0:
         with open(os.path.join(workdir, f"{backend}.json"), "w") as f:
@@ -4422,7 +4527,7 @@ def _bench_bounds(model, shape, contact_shape, order, n_simplex, k_simplex,
 def _bench_simplex_setups(conn):
     """Send the bench's simplex setups, ``{n: (grid, tables, seconds)}``,
     through ``conn``: host work only, run in a process of its own
-    (``BenchSetup``) on one thread at the lowest priority, so that it
+    (``HostSetup``) on one thread at the lowest priority, so that it
     takes no more than a spare core from the phases timed beside it."""
     from gcm_tpu_torch import bench
 
@@ -4437,20 +4542,50 @@ def _bench_simplex_setups(conn):
     conn.close()
 
 
-class BenchSetup:
-    """Phase 21's simplex setups (the bench's 33^3 and 65^3 jittered unit
-    boxes: Delaunay and foot tables, ~80 s of host), built from phase 3 on
-    in a process of its own, one thread at the lowest priority, beside the
-    card's phases; ``get`` waits for
-    them (and raises if that process died), ``stop`` ends it."""
+def _simplex_task_setup(conn):
+    """Send phase 8's task and the seconds its mesh took through ``conn``:
+    ``simplex3d_layered`` at N_SIMPLEX, whose Delaunay mesh (~50-80 s of
+    host) is built in a process of its own (``HostSetup``) beside the
+    build."""
+    from gcm_tpu_torch.scenarios import get_scenario
 
-    def __init__(self):
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    task = get_scenario("simplex3d_layered", n=N_SIMPLEX)
+    conn.send((task, time.perf_counter() - t0))
+    conn.close()
+
+
+def _simplex_contact_setup(conn):
+    """Send phase 17's bench configuration, ``(bodies, contacts,
+    seconds)``: ``bench.simplex_contact_bodies(N_SC, HALF_SC)``, whose two
+    Delaunay meshes (~10-25 s of host) are built in a process of its own
+    (``HostSetup``) beside the build."""
+    from gcm_tpu_torch.bench import simplex_contact_bodies
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    bodies, contacts = simplex_contact_bodies(N_SC, HALF_SC)
+    conn.send((bodies, contacts, time.perf_counter() - t0))
+    conn.close()
+
+
+class HostSetup:
+    """Host work that needs no card, run by ``target(conn)`` in a process
+    of its own beside the card's phases: the meshes of phases 8 and 17
+    from before the build on (``_simplex_task_setup``,
+    ``_simplex_contact_setup``), phase 21's simplex setups (the
+    bench's 33^3 and 65^3 jittered unit boxes: Delaunay and foot tables,
+    ~80 s of host) from phase 3 on (``_bench_simplex_setups``, one thread
+    at the lowest priority); ``get`` waits for what it sends (and raises
+    if that process died), ``stop`` ends it."""
+
+    def __init__(self, target):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self._conn, send = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=_bench_simplex_setups, args=(send,),
-                                 daemon=True)
+        self._proc = ctx.Process(target=target, args=(send,), daemon=True)
         self._proc.start()
         send.close()
 
@@ -4564,6 +4699,485 @@ def bench_phase(counts, result, simplex_task, sc_setup, bench_setup):
            f"bench --path fused: rc {rc}, line {one}")
 
 
+# ------------------------------------ one process, a mesh over distinct cards
+
+#: phase 22: one process drives a mesh with one card a shard, as the JAX
+#: package runs its own multi-device mode (one process, a mesh over
+#: ``jax.devices()``): (a) the 3D fused path of phase 4 on 2x2 cards for
+#: NSTEPS_MC steps (strong scaling); (b) elastic3d_explosion at n =
+#: N_MC_WEAK, 512x512x256, so that each card holds 256x256x256, for
+#: NSTEPS_MC_WEAK (weak scaling); (c) the per-sweep and the folded Maxwell +
+#: damage paths on 2x2 and the 2D path on sx=4; (d) the contact forms of
+#: phase 18 at n=256 and the partly broken n=32 interface; (e) the CLI's
+#: ``--mesh 2,2 --device cuda``. Each run equals bit for bit the same mesh
+#: with every shard on cuda:0 (the same launches on the same bytes). With
+#: two or three cards, (a) on 2x1 cards and the 2D path on sx=2.
+NSTEPS_MC, N_MC_WEAK, NSTEPS_MC_WEAK = 300, 512, 100
+NSTEPS_MC_SWEEP, NSTEPS_MC_VISCO, NSTEPS_MC_2D = 50, 50, 300
+NSTEPS_MC_CONTACT, NSTEPS_MC_CLI = 100, 20
+#: each mesh is first warmed by two steps of its run's task at n =
+#: N_MC_WARM (the same kernels on shards with interior tiles), not at full
+#: size: a warm engine costs the host as much to build as the run's own
+N_MC_WARM = 64
+
+
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _busy_by_card(run_steps):
+    """(host wall ms, {card: device busy ms}) of ``run_steps()`` under
+    torch.profiler: for each card the union of its kernel and copy events,
+    overlaps counted once (a card without events is missing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync_all()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps()
+        _sync_all()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    return wall, {card: _union_ms(ss) for card, ss in spans.items()}
+
+
+def _mc_loop(step, n, groups):
+    """Host wall ms of ``n`` untraced ``step(i)`` and, for each group of
+    ``groups`` ({label: [(owner, name), ...]}, wrapped for the loop only),
+    the host ms spent in its functions in each step."""
+    calls = {g: [] for g in groups}
+    real = {g: [getattr(o, k) for o, k in fns] for g, fns in groups.items()}
+
+    def wrap(fn, g):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls[g][-1] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    for g, fns in groups.items():
+        for (o, k), fn in zip(fns, real[g]):
+            setattr(o, k, wrap(fn, g))
+    try:
+        _sync_all()
+        t0 = time.perf_counter()
+        for i in range(n):
+            for c in calls.values():
+                c.append(0.0)
+            step(i)
+        _sync_all()
+        loop = (time.perf_counter() - t0) * 1e3
+    finally:
+        for g, fns in groups.items():
+            for (o, k), fn in zip(fns, real[g]):
+                setattr(o, k, fn)
+    return loop, calls
+
+
+def _mc_measure(tag, step, step_ms, cards, groups, n=20):
+    """For each group of ``groups`` (``_mc_loop``) the host ms a step of
+    its functions (median of ``n`` untraced steps) and their share of the
+    loop's wall, then each card's idle share over ``n`` traced steps (1 -
+    its busy time over the wall; beside it the busy time a step over the
+    untraced step ``step_ms``)."""
+    loop, calls = _mc_loop(step, n, groups)
+    wall, busy = _busy_by_card(lambda: [step(i) for i in range(n)])
+    idle = {c: None if c not in busy else 1 - busy[c] / wall for c in cards}
+    est = {c: None if c not in busy else 1 - busy[c] / n / step_ms
+           for c in cards}
+    host = {g: dict(host_ms=float(np.median(c)), share=sum(c) / loop)
+            for g, c in calls.items()}
+
+    def fmt(d):
+        return ", ".join(f"cuda:{c} " + ("not measured" if v is None
+                                         else f"{v:.4f}")
+                         for c, v in d.items())
+
+    spent = "; ".join(f"{g} {h['host_ms']:.4f} host ms a step (median of "
+                      f"{n}), {h['share']:.4f} of the loop's wall"
+                      for g, h in host.items())
+    print(f"  {tag}: {spent} ({loop:.3f} ms for {n} steps); idle share by "
+          f"card over {n} traced steps ({wall:.3f} ms): {fmt(idle)}; "
+          f"untraced ~{fmt(est)} (step {step_ms:.4f} ms)")
+    return dict(host=host, loop_ms=loop, traced_wall_ms=wall,
+                idle_share=idle, idle_untraced=est,
+                busy_ms={c: busy.get(c) for c in cards})
+
+
+def _mc_run(tag, make, counts, want):
+    """``make()``'s engine run once, the counters zeroed just before and
+    read just after: (engine, result, launches)."""
+    eng = make()
+    counts.zero()
+    res = eng.run()
+    launched = counts.read()
+    counts.expect(tag, launched, **want)
+    return eng, res, launched
+
+
+def _mc_same(tag, got, want):
+    """Fail unless two flat results (``_mpc_flat``) are equal bit for
+    bit."""
+    _check(sorted(got) == sorted(want), f"{tag}: {sorted(got)}")
+    for k, w in want.items():
+        g = got[k]
+        _check(g.shape == w.shape, f"{tag}: {k} of shape {g.shape}, the "
+               f"co-resident run's {w.shape}")
+        _check(np.array_equal(g, w), f"{tag}: {k} differs from the "
+               f"co-resident run, max |difference| {np.abs(g - w).max()}")
+
+
+def _print_peer_access(n):
+    rows = [" ".join("-" if i == j else
+                     "y" if torch.cuda.can_device_access_peer(i, j) else "n"
+                     for j in range(n)) for i in range(n)]
+    print(f"peer access between the {n} cards (row: from, column: to; "
+          f"y can, n cannot): " + " | ".join(rows))
+
+
+def _shard_task(task, block):
+    """``task`` on a grid of one shard's extents, same spacing and origin
+    (the per-card work of a weak-scaling run, on one card)."""
+    return dataclasses.replace(task, grid=dataclasses.replace(
+        task.grid, shape=tuple(block)))
+
+
+def multicard_paths(counts, result):
+    """Phase 22: one process, a mesh over distinct cards (see
+    NSTEPS_MC): (a)-(e) with four or more cards, (a) and the 2D path on
+    two cards with two or three. Every run equals its co-resident run bit
+    for bit; each run's points/s, exchange host ms a step and share of the
+    loop's wall, each card's idle share, and the scaling efficiencies."""
+    import shutil
+    import tempfile
+
+    from gcm_tpu_torch.engine import Engine
+    from gcm_tpu_torch.parallel import fused_spmd as pfs
+    from gcm_tpu_torch.parallel import halo
+    from gcm_tpu_torch.parallel.faces import ShardedFaces
+    from gcm_tpu_torch.parallel.sharding import (
+        block_shape, domain_mesh, gather_state)
+    from gcm_tpu_torch.scenarios import elastic3d_contact, get_scenario
+    from gcm_tpu_torch.solver.correctors import (
+        DamageCorrector, MaxwellCorrector)
+    from gcm_tpu_torch.solver.gcm import cfl_dt
+    import gcm_tpu_torch.solver.multi as smulti
+
+    ncard = torch.cuda.device_count()
+    if ncard < 2:
+        print(f"phase 22: not run ({ncard} card)")
+        return
+    _print_peer_access(ncard)
+    full = ncard >= 4
+    nc = 4 if full else 2
+    devs = [torch.device("cuda", i) for i in range(nc)]
+    dev0 = devs[0]
+    cards = list(range(nc))
+    shape3 = (2, 2) if full else (2, 1)
+    slab = {"slab exchange": [(pfs.SlabExchange, "__call__"),
+                              (pfs.SlabExchange, "wait")]}
+    out = {}
+
+    def meshes(dim, shape=None):
+        return (domain_mesh(dim, devs, shape),
+                domain_mesh(dim, [dev0] * nc, shape))
+
+    def single(tag, task, dim, shape, want, warm=None, aux=False):
+        """``task`` on distinct cards and co-resident, each mesh first
+        warmed by the small task ``warm`` (the same kernels): both runs,
+        equal bit for bit (state, traces and, with ``aux``, the damage).
+        Returns (engine, result, launches, co-resident engine and
+        result)."""
+        mesh, co = meshes(dim, shape)
+        for m in (mesh, co) if warm is not None else ():
+            Engine(warm, mesh=m).run()
+        eng, res, launched = _mc_run(tag, lambda: Engine(task, mesh=mesh),
+                                     counts, want)
+        _check(np.isfinite(res.u).all() and np.abs(res.u).max() > 0,
+               f"{tag}: state not finite or zero")
+        got = _mpc_flat(res)
+        if aux:
+            got["damage"] = gather_state(eng.aux["damage"], mesh, lead=0,
+                                         device="cpu").numpy()
+        ref = Engine(task, mesh=co)
+        rres = ref.run()
+        want_flat = _mpc_flat(rres)
+        if aux:
+            want_flat["damage"] = gather_state(ref.aux["damage"], co, lead=0,
+                                               device="cpu").numpy()
+        _mc_same(f"{tag} on {mesh.shape} cards", got, want_flat)
+        return eng, res, launched, ref, rres
+
+    def measure(tag, step, ref_step, npts, res, rres, groups, n=20):
+        """``_mc_measure`` of a run on the cards, then of its co-resident
+        run on cuda:0 (the same exchange's host ms without copies
+        between cards)."""
+        m = _mc_measure(tag, step, npts / res.points_per_second * 1e3,
+                        cards, groups, n)
+        m["co_resident"] = _mc_measure(
+            f"{tag} every shard on cuda:0", ref_step,
+            npts / rres.points_per_second * 1e3, [0], groups, n)
+        return m
+
+    def one_step(eng):
+        return lambda i: eng._one_step_mesh(eng.u, eng.aux, i % eng.nsteps)
+
+    def multi_step(eng):
+        st = [eng.us, eng.bonded, eng.auxs]
+
+        def step(i):
+            st[:] = eng._one_step(*st, i % eng.nsteps)
+        return step
+
+    def step_npts(task):
+        return int(np.prod(task.grid.shape))
+
+    def report(tag, task, res, rres, m, extra=""):
+        print(f"{tag} {task.name} {task.grid.shape} kernel={res.kernel} on "
+              f"{nc} cards ({'x'.join(map(str, m))}) x {res.nsteps} steps: "
+              f"{res.points_per_second:.6g} points/s (all shards on cuda:0 "
+              f"{rres.points_per_second:.6g}); state and traces equal to "
+              f"the co-resident run bit for bit{extra}")
+
+    # ---- (a) strong scaling: the 3D fused path of phase 4
+    task = get_scenario("elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_MC)
+    eng, res, launched, ref, rres = single(
+        "(a)", task, 3, shape3, dict(fused_spmd_interior=nc * NSTEPS_MC,
+                                     fused_spmd_ring=nc * NSTEPS_MC),
+        warm=get_scenario("elastic3d_explosion", n=N_MC_WARM, nsteps=2))
+    one = Engine(task, device=dev0).run()
+    err = _np_err(res.u, one.u)
+    terr = float(np.abs(res.traces - one.traces).max()
+                 / np.abs(one.traces).max())
+    _check(err < 2e-6 and terr < 2e-6,
+           f"(a) vs the unsharded fused run: err {err:.3e}, traces "
+           f"{terr:.3e}")
+    eff = res.points_per_second / (nc * one.points_per_second)
+    report("(a)", task, res, rres, shape3,
+                     f"; vs the unsharded fused run on one card "
+                     f"{one.points_per_second:.6g} points/s: normalized "
+                     f"error {err:.3e}, traces {terr:.3e} (limit 2e-6); "
+                     f"strong-scaling efficiency {eff:.4f}")
+    m = measure("(a)", one_step(eng), one_step(ref), step_npts(task), res,
+                rres, slab)
+    out["a"] = dict(points_per_s=res.points_per_second,
+                    co_resident_points_per_s=rres.points_per_second,
+                    unsharded_points_per_s=one.points_per_second,
+                    strong_efficiency=eff, **m)
+    # rows 6a and 6b on the last card's shard, which the source touches
+    k = nc - 1
+    _check(eng.u[k].device == devs[k] and bool(eng.u[k].abs().amax() > 0),
+           f"(a): shard {k} is not on cuda:{k} or is all zero")
+    with torch.cuda.device(devs[k]):
+        entries, _ = _spmd_kernels_on_shard(
+            f"cuda:{k}'s ", eng.model, eng.u, eng._carry, eng.mesh, k,
+            eng.dt, task.grid.h, task.order, task.borders, (0, 1, 2))
+    for name, e in entries.items():
+        result[name].update({f"multicard_{key}": v for key, v in
+                             dict(e, launches=launched[name],
+                                  points_per_s=res.points_per_second,
+                                  card=k).items()})
+    del eng, ref, res, rres, one
+
+    # ---- (b) weak scaling: each card a 256x256x256 shard
+    if full:
+        taskw = get_scenario("elastic3d_explosion", n=N_MC_WEAK,
+                             nsteps=NSTEPS_MC_WEAK)
+        eng, res, _, ref, rres = single(
+            "(b)", taskw, 3, shape3,
+            dict(fused_spmd_interior=nc * NSTEPS_MC_WEAK,
+                 fused_spmd_ring=nc * NSTEPS_MC_WEAK))
+        block = block_shape(eng.mesh, taskw.grid.shape)
+        alone = Engine(_shard_task(taskw, block), device=dev0).run()
+        eff = res.points_per_second / (nc * alone.points_per_second)
+        report("(b)", taskw, res, rres, shape3,
+                         f"; one card alone on a {block} shard "
+                         f"{alone.points_per_second:.6g} points/s: "
+                         f"weak-scaling efficiency {eff:.4f}")
+        m = measure("(b)", one_step(eng), one_step(ref), step_npts(taskw),
+                    res, rres, slab)
+        out["b"] = dict(points_per_s=res.points_per_second,
+                        co_resident_points_per_s=rres.points_per_second,
+                        shard_alone_points_per_s=alone.points_per_second,
+                        weak_efficiency=eff, **m)
+        del eng, ref, res, rres, alone
+        torch.cuda.empty_cache()
+
+    # ---- (c) the per-sweep, folded and 2D sharded paths
+    if full:
+        tsw = dataclasses.replace(get_scenario(
+            "elastic3d_explosion", n=N_MAIN, nsteps=NSTEPS_MC_SWEEP),
+            kernel="sweep")
+        eng, res, launched, ref, rres = single(
+            "(c) per-sweep", tsw, 3, shape3,
+            dict(sweep_stage=3 * nc * NSTEPS_MC_SWEEP),
+            warm=dataclasses.replace(get_scenario(
+                "elastic3d_explosion", n=N_MC_WARM, nsteps=2),
+                kernel="sweep"))
+        report("(c) per-sweep", tsw, res, rres, shape3)
+        out["c_sweep"] = dict(
+            points_per_s=res.points_per_second,
+            co_resident_points_per_s=rres.points_per_second,
+            **measure("(c) per-sweep", one_step(eng), one_step(ref),
+                      step_npts(tsw), res, rres,
+                      {"halo exchanges": [(halo, "halo_exchange")]}, 10))
+        result["sweep_stage"].update(
+            multicard_launches=launched["sweep_stage"],
+            multicard_points_per_s=res.points_per_second)
+        del eng, ref, res, rres
+
+        def visco(n, nsteps):
+            base = get_scenario("elastic3d_layered", n=n, nsteps=nsteps)
+            dt6 = cfl_dt(base.material_fields(), base.grid.h,
+                         base.time.cfl)
+            return dataclasses.replace(base, correctors=(
+                MaxwellCorrector(tau=50 * dt6),
+                DamageCorrector(threshold=5e5, rate=0.1 / dt6)))
+
+        tv = visco(N_MAIN, NSTEPS_MC_VISCO)
+        eng, res, _, ref, rres = single(
+            "(c) folded", tv, 3, shape3,
+            dict(fused_spmd_interior=nc * NSTEPS_MC_VISCO,
+                 fused_spmd_ring=nc * NSTEPS_MC_VISCO),
+            warm=visco(N_MC_WARM, 2), aux=True)
+        _check(eng._fold_specs is not None and eng._fold_naux == 1,
+               "(c) folded: the correctors are not folded")
+        report("(c) folded", tv, res, rres, shape3,
+                         ", damage too")
+        out["c_folded"] = dict(
+            points_per_s=res.points_per_second,
+            co_resident_points_per_s=rres.points_per_second,
+            **measure("(c) folded", one_step(eng), one_step(ref),
+                      step_npts(tv), res, rres, slab))
+        del eng, ref, res, rres
+
+    t2 = get_scenario("elastic2d_viscoelastic", n=N_2D, nsteps=NSTEPS_MC_2D)
+    eng, res, launched, ref, rres = single(
+        "(c) 2D", t2, 2, None, dict(fused_spmd_2d=2 * nc * NSTEPS_MC_2D),
+        warm=get_scenario("elastic2d_viscoelastic", n=4 * N_MC_WARM,
+                          nsteps=2))
+    report("(c) 2D", t2, res, rres, (nc,))
+    out["c_2d"] = dict(
+        points_per_s=res.points_per_second,
+        co_resident_points_per_s=rres.points_per_second,
+        **measure("(c) 2D", one_step(eng), one_step(ref), step_npts(t2),
+                  res, rres, slab))
+    result["fused_spmd_2d"].update(
+        multicard_launches=launched["fused_spmd_2d"],
+        multicard_points_per_s=res.points_per_second)
+    del eng, ref, res, rres
+    if not full:
+        print(f"phase 22: (b), (c) per-sweep and folded, (d) and (e) not "
+              f"run ({ncard} cards; they take 2x2)")
+        print(f"phase 22: {json.dumps(out)}")
+        return
+
+    # ---- (d) contact: the forms of phase 18 at n=256, then n=32 broken
+    bodies, contacts = elastic3d_contact(n=N_CONTACT,
+                                         nsteps=NSTEPS_MC_CONTACT)
+    npts = sum(int(np.prod(t.grid.shape)) for t in bodies.values())
+
+    def sweep_of(b):
+        return {k: dataclasses.replace(t, kernel="sweep")
+                for k, t in b.items()}
+
+    small, small_contacts = elastic3d_contact(n=N_MC_WARM, nsteps=2)
+    per = 2 * nc * NSTEPS_MC_CONTACT
+    fused_groups = dict(slab, **{
+        "contact fixup": [(smulti, "apply_contact_fixups")]})
+    sweep_groups = {
+        "halo exchanges": [(halo, "halo_exchange")],
+        "contact fixup": [(smulti, "apply_contact_post"),
+                          (ShardedFaces, "faces"),
+                          (ShardedFaces, "put_face")]}
+    for form, b, warm, mesh_of, want, groups in (
+            ("fused_spmd", bodies, small, "2x2",
+             dict(fused_spmd_interior=per, fused_spmd_ring=per),
+             fused_groups),
+            ("fused_canonical_spmd", bodies, small, "sx4",
+             dict(fused_spmd_interior=per, fused_spmd_ring=per),
+             fused_groups),
+            ("sweep_spmd", sweep_of(bodies), sweep_of(small), "2x2",
+             dict(sweep_stage=3 * per), sweep_groups)):
+        def make(devices, b=b, mesh_of=mesh_of):
+            return _mpc_engine(b, contacts, mesh_of, devices=devices)
+
+        for d in (devs, [dev0] * 4):
+            _mpc_engine(warm, small_contacts, mesh_of, devices=d).run()
+        tag = f"(d) {form}"
+        eng, res, launched = _mc_run(tag, lambda: make(devs), counts, want)
+        _check(eng.path == form, f"{tag}: path {eng.path!r}")
+        ref = make([dev0] * 4)
+        rres = ref.run()
+        _mc_same(f"{tag} on {mesh_of} cards", _mpc_flat(res),
+                 _mpc_flat(rres))
+        print(f"{tag} contact 2 x {N_CONTACT}x{N_CONTACT}x{N_CONTACT // 2} "
+              f"on {mesh_of} cards x {res.nsteps} steps: "
+              f"{res.points_per_second:.6g} points/s (all shards on cuda:0 "
+              f"{rres.points_per_second:.6g}); bodies, bond masks and "
+              f"traces equal to the co-resident run bit for bit (bond mean "
+              f"{res.bonded[0].mean():.6f}); launches "
+              f"{ {k: v for k, v in launched.items() if v} }")
+        out[f"d_{form}"] = dict(
+            points_per_s=res.points_per_second,
+            co_resident_points_per_s=rres.points_per_second,
+            **measure(tag, multi_step(eng), multi_step(ref), npts, res,
+                      rres, groups))
+        del eng, ref, res, rres
+    b32, c32 = _mpc_contact32()
+    got32, want32 = (
+        _mpc_engine(b32, c32, "2x2", mask=_mask32(), devices=d).run()
+        for d in (devs, [dev0] * 4))
+    _mc_same("(d) n=32 from a partly broken mask", _mpc_flat(got32),
+             _mpc_flat(want32))
+    _check(got32.bonded[0].mean() < _mask32().mean(),
+           "(d) n=32: the interface did not break further")
+    print(f"(d) n=32 contact on 2x2 cards x {got32.nsteps} steps from a "
+          f"partly broken mask: equal to the co-resident run bit for bit, "
+          f"bond mean {_mask32().mean():.4f} at the start, "
+          f"{got32.bonded[0].mean():.4f} at the end")
+
+    # ---- (e) the CLI, one card a shard
+    root = tempfile.mkdtemp(prefix="multicard_cli_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        for scenario, key, want_val in (
+                ("elastic3d_explosion", "kernel", "fused"),
+                ("elastic3d_contact", "path", "fused_spmd")):
+            cmd = [sys.executable, "-m", "gcm_tpu_torch", "run", scenario,
+                   "--n", str(N_MAIN), "--nsteps", str(NSTEPS_MC_CLI),
+                   "--mesh", "2,2", "--device", "cuda", "--outdir",
+                   os.path.join(root, scenario)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600, cwd=os.path.dirname(
+                                      os.path.abspath(__file__)))
+            _check(proc.returncode == 0, f"(e) {' '.join(cmd[1:])} exited "
+                   f"{proc.returncode}: {proc.stderr[-2000:]}")
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            _check(summary[key] == want_val and summary["mesh"] == "2,2"
+                   and summary["points_per_second"] > 0,
+                   f"(e) {scenario}: {summary}")
+            if scenario == "elastic3d_contact":
+                _check(summary["launches"] == dict(
+                    fused_spmd_interior=8 * NSTEPS_MC_CLI,
+                    fused_spmd_ring=8 * NSTEPS_MC_CLI),
+                    f"(e) contact launches {summary['launches']}")
+            print(f"(e) python -m gcm_tpu_torch {' '.join(cmd[3:])}: "
+                  f"{key} {summary[key]}, mesh {summary['mesh']}, "
+                  f"{summary['points_per_second']:.6g} points/s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 22: {json.dumps(out)}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4595,6 +5209,10 @@ def main() -> int:
         DamageCorrector, MaxwellCorrector)
     from gcm_tpu_torch.solver.gcm import cfl_dt, stage
 
+    # ---- 8's and 17's meshes, in processes of their own from here on
+    mesh_setup = HostSetup(_simplex_task_setup)
+    contact_mesh_setup = HostSetup(_simplex_contact_setup)
+
     # ---- 2. build
     t0 = time.perf_counter()
     lib_path, log = _build.build()
@@ -4606,7 +5224,7 @@ def main() -> int:
     _print_ptxas(log)
 
     # ---- 21's host setup, in a process of its own from here on
-    bench_setup = BenchSetup()
+    bench_setup = HostSetup(_bench_simplex_setups)
 
     # ---- 3. kernel vs plain on the card
     phase("kernels vs plain")
@@ -4735,8 +5353,11 @@ def main() -> int:
             lambda model, u, mat, *rest: stage(
                 model, u, _mat_as(mat, u.dtype), *rest), a2)
         sw2_ms.append(_time_ms(lambda: sweep_stage(*a2), 50))
+        n2 = eng2.u[0].numel()
+        b2 = _bound(B_SWEEP2 * n2, _step_flops(eng2.model, task2.order, n2)
+                    / 2)[0]
         print(f"sweep_stage at {tuple(eng2.u.shape)} axis {axis}: kernel "
-              f"{sw2_ms[-1]:.4f} ms")
+              f"{sw2_ms[-1]:.4f} ms, bound {b2:.4f} ms")
     npts2 = int(np.prod(task2.grid.shape))
     result["fused_step_2d"] = dict(
         launches=launched2["fused_step_2d"], max_abs_err=max_abs, ms=ms2,
@@ -4820,7 +5441,7 @@ def main() -> int:
     # ---- 8. the simplex path
     phase("simplex path")
     simplex_kernel_vs_plain()
-    simplex = simplex_path(counts, result)
+    simplex = simplex_path(counts, result, mesh_setup)
 
     # ---- 10-11. the sharded paths
     phase("sharded paths")
@@ -4844,7 +5465,7 @@ def main() -> int:
 
     # ---- 17. the simplex contact path
     phase("simplex contact path")
-    sc_setup = simplex_contact_path(counts, result)
+    sc_setup = simplex_contact_path(counts, result, contact_mesh_setup)
 
     # ---- 18. the contact path on a mesh
     phase("contact mesh path")
@@ -4862,6 +5483,10 @@ def main() -> int:
     phase("bench")
     bench_phase(counts, result, simplex[0], sc_setup, bench_setup)
     del sc_setup
+
+    # ---- 22. one process, a mesh over distinct cards
+    phase("multi-card paths")
+    multicard_paths(counts, result)
 
     sources = {
         "fused_step": ("gcm_tpu_torch/csrc/fused_step_slab.cu",

@@ -100,7 +100,11 @@ def _build_parser():
 
 
 def _mesh(spec: str, dim: int, device: str):
-    """The DomainMesh of ``--mesh NX[,NY]``."""
+    """The DomainMesh of ``--mesh NX[,NY]``: with ``--device cuda`` one
+    card a shard (cuda:0, cuda:1, ... in mesh order), as the JAX CLI puts
+    one device a shard (``gcm_tpu/cli.py:130-139, 206-217``); a single
+    count is factored near-square on a 3D grid (``--mesh 4``: 2x2), as
+    there."""
     import math
 
     import torch
@@ -121,7 +125,7 @@ def _mesh(spec: str, dim: int, device: str):
                              f"sees {count}")
         devices = [torch.device("cuda", i) for i in range(n)]
     if dim == 3:
-        return domain_mesh(3, devices, shape + (1,) * (2 - len(shape)))
+        return domain_mesh(3, devices, shape if len(shape) > 1 else None)
     return domain_mesh(dim, devices)
 
 

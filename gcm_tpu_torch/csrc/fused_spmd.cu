@@ -218,7 +218,8 @@ int gcm_fused_spmd(const float* u, const float* mext, const float* aux_in,
                    const float* xhi, const float* ylo, const float* yhi,
                    const int* split, int ring, const GcmFusedParams* params,
                    int order, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     const Slabs sl{xlo, xhi, ylo, yhi};
     const TileSplit ts{split[0], split[1], split[2], split[3], split[4],
@@ -236,7 +237,8 @@ int gcm_fused_spmd(const float* u, const float* mext, const float* aux_in,
 // shared memory in bytes.
 int gcm_fused_spmd_occupancy(const GcmFusedParams* params, int order,
                              int ring, int device, int* out) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     const Slabs sl{nullptr, nullptr, nullptr, nullptr};
     const TileSplit ts{0, 0, 0, 0, 0, 0};

@@ -154,7 +154,8 @@ int gcm_fused_spmd_2d(const float* u, const void* mext, float* out,
                       const float* xlo, const float* xhi, int ix0, int ix1,
                       int ring, const GcmFusedParams* params, int order,
                       int mat_bf16, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
     if (ring)
@@ -171,7 +172,8 @@ int gcm_fused_spmd_2d(const float* u, const void* mext, float* out,
 // shared memory in bytes.
 int gcm_fused_spmd_2d_occupancy(const GcmFusedParams* params, int order,
                                 int ring, int device, int* out) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     StreamOccupancy occ{0, 0};
     err = ring ? dispatch_spmd_rows<true>(order, nullptr, nullptr, 0,

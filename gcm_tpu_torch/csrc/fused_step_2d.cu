@@ -212,7 +212,8 @@ int gcm_fused_step_2d(const float* u, const void* mstack,
                       const float* aux_in, float* out, float* aux_out,
                       const GcmFusedParams* params, int order, int mat_bf16,
                       int ksteps, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     return (int)step_2d(u, mstack, aux_in, out, aux_out, *params, order,
                         mat_bf16, ksteps, device, (cudaStream_t)stream,
@@ -225,7 +226,8 @@ int gcm_fused_step_2d(const float* u, const void* mstack,
 int gcm_fused_step_2d_occupancy(const GcmFusedParams* params, int order,
                                 int mat_bf16, int ksteps, int device,
                                 int* out) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     StreamOccupancy occ{0, 0};
     err = step_2d(nullptr, nullptr, nullptr, nullptr, nullptr, *params,

@@ -1494,6 +1494,34 @@ __host__ inline bool aligned16(const void* q) {
     return ((uintptr_t)q & 15) == 0;
 }
 
+// Makes `device` the calling thread's current device for the life of the
+// object and then restores the device that was current before. Every entry
+// point opens with one: an entry that left the device of its launch current
+// would send the caller's later work that names no device (PyTorch's
+// torch.cuda.synchronize(), torch.empty(..., device="cuda")) to the card of
+// the last shard launched.
+class DeviceScope {
+  public:
+    explicit DeviceScope(int device) {
+        err_ = cudaGetDevice(&prev_);
+        if (err_ == cudaSuccess && prev_ != device) {
+            err_ = cudaSetDevice(device);
+            restore_ = err_ == cudaSuccess;
+        }
+    }
+    ~DeviceScope() {
+        if (restore_) cudaSetDevice(prev_);
+    }
+    DeviceScope(const DeviceScope&) = delete;
+    DeviceScope& operator=(const DeviceScope&) = delete;
+    cudaError_t error() const { return err_; }
+
+  private:
+    int prev_ = 0;
+    bool restore_ = false;
+    cudaError_t err_ = cudaSuccess;
+};
+
 // What a launch of the streamed body would get: resident blocks an SM at
 // its shared memory, and that shared memory.
 struct StreamOccupancy {

@@ -353,7 +353,8 @@ extern "C" {
 int gcm_simplex_sweep(const float* u, float* out,
                       const GcmSimplexParams* params, int device,
                       void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     if (params->N <= 0) return 0;
     return (int)simplex(u, out, *params, device, (cudaStream_t)stream,
@@ -364,7 +365,8 @@ int gcm_simplex_sweep(const float* u, float* out,
 // out[1] the nodes each block takes.
 int gcm_simplex_occupancy(const GcmSimplexParams* params, int device,
                           int* out) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     int occ[2] = {0, 0};
     err = simplex(nullptr, nullptr, *params, device, nullptr, occ);

@@ -362,7 +362,8 @@ extern "C" {
 // material field pointers and the model against gcm_model_map.
 int gcm_sweep_stage(const float* u, float* out, const GcmSweepParams* params,
                     int order, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    const DeviceScope scope(device);
+    cudaError_t err = scope.error();
     if (err != cudaSuccess) return (int)err;
     return (int)sweep(u, out, *params, order, (cudaStream_t)stream);
 }

@@ -1743,3 +1743,119 @@ def test_bench_every_path_on_card(cuda):
     assert line["contact_path"] == "fused_canonical"
     assert re.fullmatch(re.escape(torch.cuda.get_device_name(0))
                         + r", \d+(\.\d+)? W", line["device"])
+
+
+# ------------------------------------------ one process, several cards
+
+@pytest.fixture
+def cards():
+    """The visible cards, at most four; skips with fewer than two."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def _on_cards(cards, n):
+    """n shard devices over ``cards``, one card after another."""
+    return [cards[i % len(cards)] for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused_step", "sweep_stage",
+                                    "fused_step_2d", "fused_spmd"])
+def test_multicard_launch_leaves_the_current_device(cards, kernel):
+    """A kernel launched on the last card's tensors runs there and leaves
+    cuda:0 the current device: work that names no device stays on cuda:0
+    (the entry points restore the device they found)."""
+    from gcm_tpu_torch.ops.fused_spmd import (
+        fused_spmd_interior, fused_spmd_interior_reference)
+
+    dev = cards[-1]
+    dim = 2 if kernel == "fused_step_2d" else 3
+    name = f"elastic{dim}d"
+    shape = (40, 48) if dim == 2 else (16, 24, 40)
+    model, u, mat, dt = card_problem(5, name, shape, dev, with_mat=True)
+    ms = stack_mats(model, mat)
+    h = (10.0,) * dim
+    bc = borders(dim)
+    torch.cuda.set_device(0)
+    if kernel == "fused_step":
+        got = fused_step(model, u, ms, dt, h, 2, bc, (0, 1, 2))
+        want = fused_step_reference(model, u, ms, dt, h, 2, bc, (0, 1, 2))
+    elif kernel == "fused_step_2d":
+        got = fused_step_2d(model, u, ms, dt, h, 2, bc, (0, 1))
+        want = fused_step_2d_reference(model, u, ms, dt, h, 2, bc, (0, 1))
+    elif kernel == "sweep_stage":
+        got = sweep_stage(model, u, mat, dt, h, 1, 2, bc)
+        want = stage(model, u, mat, dt, h, 1, 2, bc)
+    else:
+        from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
+        from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+        mext = extended_mstack(model, mat, domain_mesh(3, [dev], (1, 1)), 2)[0]
+        got = fused_spmd_interior(model, u, mext, dt, h, 2, bc, (0, 1, 2),
+                                  out=torch.zeros_like(u))
+        want = fused_spmd_interior_reference(model, u, mext, dt, h, 2, bc,
+                                             (0, 1, 2),
+                                             out=torch.zeros_like(u))
+    assert torch.cuda.current_device() == 0
+    assert got.device == dev and torch.empty(1, device="cuda").device == \
+        torch.device("cuda", 0)
+    torch.cuda.synchronize(dev)
+    assert norm_err(got, want) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dim,shape", [
+    ("fused", 3, (2, 2)), ("sweep", 3, (2, 2)), ("fused", 2, (4,))])
+def test_multicard_engine_equals_its_co_resident_run(cards, kernel, dim,
+                                                     shape):
+    """Engine(mesh=) with its shards spread over the cards equals, bit for
+    bit, the same mesh with every shard on cuda:0: the same launches on
+    the same bytes (state and traces)."""
+    from gcm_tpu_torch.parallel.sharding import domain_mesh
+
+    task = (get_scenario("elastic3d_explosion", n=64, nsteps=8) if dim == 3
+            else get_scenario("elastic2d_viscoelastic", n=256, nsteps=8))
+    task = dataclasses.replace(task, kernel=kernel)
+    got = Engine(task, mesh=domain_mesh(dim, _on_cards(cards, 4),
+                                        shape)).run()
+    want = Engine(task, mesh=domain_mesh(
+        dim, [torch.device("cuda", 0)] * 4, shape)).run()
+    np.testing.assert_array_equal(got.u, want.u)
+    np.testing.assert_array_equal(got.traces, want.traces)
+    assert np.abs(got.u).max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_name,kernel", [
+    ("2x2", "auto"), ("sx4", "auto"), ("2x2", "sweep")])
+def test_multicard_contact_equals_its_co_resident_run(cards, mesh_name,
+                                                      kernel):
+    """MultiBodyEngine with its shards spread over the cards (the contact
+    faces put together on cuda:0) equals the same mesh on cuda:0 bit for
+    bit, bond masks included, as the interface breaks further."""
+    from gcm_tpu_torch.convert import bonded_from_numpy
+    from gcm_tpu_torch.engine_multi import MultiBodyEngine
+    from gcm_tpu_torch.parallel.sharding import DomainMesh, domain_mesh
+    from gcm_tpu_torch.scenarios import elastic3d_contact
+
+    bodies, contacts = elastic3d_contact(n=32, nsteps=32)
+    bodies = {k: dataclasses.replace(t, kernel=kernel)
+              for k, t in bodies.items()}
+    mask = (np.random.default_rng(3).random((32, 32)) > 0.3).astype(
+        np.float32)
+    runs = []
+    for devs in (_on_cards(cards, 4), [torch.device("cuda", 0)] * 4):
+        mesh = (domain_mesh(3, devs, (2, 2)) if mesh_name == "2x2"
+                else DomainMesh(tuple(devs), (4,), ("sx",)))
+        eng = MultiBodyEngine(bodies, contacts, mesh=mesh,
+                              canonical_layout=True)
+        eng.bonded = bonded_from_numpy({0: mask}, device=eng.device)
+        runs.append(eng.run())
+    got, want = runs
+    for k in want.bodies:
+        np.testing.assert_array_equal(got.bodies[k], want.bodies[k])
+    np.testing.assert_array_equal(got.bonded[0], want.bonded[0])
+    assert got.bonded[0].mean() < mask.mean()
