@@ -17,7 +17,9 @@ simplex mesh's ``.vtu``, a ``.pvd`` collection of them), the seismograms
 checkpoints every C steps in ``checkpoints/step_<n>.npz``; cadences are
 rounded up to the symmetrization period. ``--resume`` continues from the
 newest checkpoint there, ``--profile`` writes a ``torch.profiler`` trace to
-``trace/trace.json``. A simplex run ends with ``<scenario>_final.vtu``, a
+``trace/trace.json``, the program's ``gcm.*`` spans among its events, and
+each span's calls, total and self ms and the program's counters to
+``trace/spans.json``. A simplex run ends with ``<scenario>_final.vtu``, a
 contact run with each body's ``<body>_final.vti`` and its bond masks as
 ``.npy``.
 
@@ -91,7 +93,8 @@ def _build_parser():
                    help="resume from the newest checkpoint in outdir")
     r.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace to "
-                        "<outdir>/trace/trace.json")
+                        "<outdir>/trace/trace.json and the spans' and "
+                        "counters' totals to <outdir>/trace/spans.json")
     from gcm_tpu_torch import bench
 
     bench.add_arguments(sub.add_parser(
@@ -189,12 +192,13 @@ def main(argv=None) -> int:
         if args.mesh:
             raise SystemExit("--mesh runs structured scenarios only")
         return _run_simplex(task, args)
-    if args.mesh:
-        eng = Engine(task, mesh=_mesh(args.mesh, task.grid.dim, args.device))
-    else:
-        eng = Engine(task, device=args.device)
-    resumed = _resume(eng, args)
     with _trace(args):
+        if args.mesh:
+            eng = Engine(task, mesh=_mesh(args.mesh, task.grid.dim,
+                                          args.device))
+        else:
+            eng = Engine(task, device=args.device)
+        resumed = _resume(eng, args)
         res = eng.run_with_outputs(args.outdir,
                                    checkpoint_every=args.checkpoint_every)
     print(json.dumps({
@@ -242,13 +246,13 @@ def _run_contact(args, kw) -> int:
     if args.mesh:
         dim = next(iter(bodies.values())).grid.dim
         mesh = _mesh(args.mesh, dim, args.device)
-    eng = MultiBodyEngine(bodies, contacts,
-                          device=None if mesh else args.device,
-                          canonical_layout=canon, mesh=mesh)
-    resumed = _resume(eng, args)
-    counters = _launch_counters()
-    before = {k: f.launches for k, f in counters.items()}
     with _trace(args):
+        eng = MultiBodyEngine(bodies, contacts,
+                              device=None if mesh else args.device,
+                              canonical_layout=canon, mesh=mesh)
+        resumed = _resume(eng, args)
+        counters = _launch_counters()
+        before = {k: f.launches for k, f in counters.items()}
         res = eng.run_with_outputs(args.outdir,
                                    snapshot_every=args.snapshot_every or 0,
                                    checkpoint_every=args.checkpoint_every)

@@ -72,6 +72,7 @@ from gcm_tpu_torch.snapshot import (
 )
 from gcm_tpu_torch.task import Task, apply_initial
 from gcm_tpu_torch.utils.checkpoint import TraceRecord, output_callback
+from gcm_tpu_torch.utils.profiling import span
 
 
 def check_device(device) -> torch.device:
@@ -188,6 +189,10 @@ class Engine:
 
     def __init__(self, task: Task, device=None, dtype=torch.float32,
                  mesh=None):
+        with span("gcm.setup"):
+            self._build(task, device, dtype, mesh)
+
+    def _build(self, task: Task, device, dtype: torch.dtype, mesh) -> None:
         self.task = task
         self.model: Model = get_model(task.model)
         if self.model.dim != task.grid.dim:
@@ -204,7 +209,8 @@ class Engine:
             raise ValueError(f"kernel={self.kernel!r} runs 2D and 3D tasks "
                              "in float32")
 
-        self.mat = task.material_fields(device=self.device, dtype=dtype)
+        with span("gcm.setup.materials"):
+            self.mat = task.material_fields(device=self.device, dtype=dtype)
         self.dt = cfl_dt(self.mat, task.grid.h, task.time.cfl)
         self.nsteps = task.time.steps_for(self.dt)
         #: the splitting order of even steps (reversed on odd ones): the
@@ -221,9 +227,11 @@ class Engine:
                            else None)
         #: material stack of the fused kernel (compact or orthotropic),
         #: built once
-        self._mstack = (stack_mats(self.model, self.mat,
-                                   dtype=self._mat_dtype)
-                        if self.kernel == "fused" and mesh is None else None)
+        with span("gcm.setup.stack"):
+            self._mstack = (stack_mats(self.model, self.mat,
+                                       dtype=self._mat_dtype)
+                            if self.kernel == "fused" and mesh is None
+                            else None)
         #: the per-sweep path's materials: each axis's view computed once
         self._sweep_mat = AxisViewCache(self.mat)
         if self.model.dim == 2:
@@ -255,25 +263,29 @@ class Engine:
                 self._fold_specs = specs
                 self._fold_naux = naux
 
-        u0 = np.zeros((self.model.ncomp,) + task.grid.shape, dtype=np.float64)
-        apply_initial(u0, self.model, task.grid, task.initial)
-        self.u = torch.as_tensor(u0, device=self.device).to(dtype)
+        with span("gcm.setup.state"):
+            u0 = np.zeros((self.model.ncomp,) + task.grid.shape,
+                          dtype=np.float64)
+            apply_initial(u0, self.model, task.grid, task.initial)
+            self.u = torch.as_tensor(u0, device=self.device).to(dtype)
 
         # sources: flat indices into u, and every step's amplitude evaluated
         # in float64 at once, cast once to the engine dtype
-        src_nodes, amps = [], []
-        times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
-        for src in task.sources:
-            node = task.grid.index_of(src.position)
-            for cname in src.components:
-                src_nodes.append((self.model.comp(cname),) + node)
-                amps.append(np.broadcast_to(
-                    np.asarray(src.wavelet(times), np.float64),
-                    times.shape) * self.dt)
-        amps = (np.asarray(amps, np.float64).T if amps
-                else np.zeros((self.nsteps, 0)))
-        det_nodes = ([task.grid.index_of(p) for p in task.detectors.points]
-                     if task.detectors is not None else None)
+        with span("gcm.setup.sources"):
+            src_nodes, amps = [], []
+            times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
+            for src in task.sources:
+                node = task.grid.index_of(src.position)
+                for cname in src.components:
+                    src_nodes.append((self.model.comp(cname),) + node)
+                    amps.append(np.broadcast_to(
+                        np.asarray(src.wavelet(times), np.float64),
+                        times.shape) * self.dt)
+            amps = (np.asarray(amps, np.float64).T if amps
+                    else np.zeros((self.nsteps, 0)))
+            det_nodes = ([task.grid.index_of(p)
+                          for p in task.detectors.points]
+                         if task.detectors is not None else None)
         #: the first step run() executes (set by load_state on a resume),
         #: and the steps completed so far
         self.start_step = 0
@@ -290,19 +302,22 @@ class Engine:
         if mesh is not None:
             self._setup_mesh(src_nodes, amps, det_nodes)
             return
-        shape = (self.model.ncomp,) + task.grid.shape
-        self._src_flat = torch.as_tensor(
-            np.asarray([np.ravel_multi_index(n, shape) for n in src_nodes],
-                       np.int64), device=self.device)
-        self._src_amps = torch.as_tensor(amps, device=self.device).to(dtype)
-
-        # detectors: flat spatial indices of the receiver nodes
-        self._det_flat = None
-        if det_nodes is not None:
-            self._det_flat = torch.as_tensor(
-                np.ravel_multi_index(tuple(np.asarray(det_nodes).T),
-                                     task.grid.shape).astype(np.int64),
+        with span("gcm.setup.sources"):
+            shape = (self.model.ncomp,) + task.grid.shape
+            self._src_flat = torch.as_tensor(
+                np.asarray([np.ravel_multi_index(n, shape)
+                            for n in src_nodes], np.int64),
                 device=self.device)
+            self._src_amps = torch.as_tensor(amps,
+                                             device=self.device).to(dtype)
+
+            # detectors: flat spatial indices of the receiver nodes
+            self._det_flat = None
+            if det_nodes is not None:
+                self._det_flat = torch.as_tensor(
+                    np.ravel_multi_index(tuple(np.asarray(det_nodes).T),
+                                         task.grid.shape).astype(np.int64),
+                    device=self.device)
 
         # corrector aux state (the "damage" field)
         self.aux: Dict[str, torch.Tensor] = {}
@@ -317,32 +332,36 @@ class Engine:
         task, model, mesh = self.task, self.model, self.mesh
         bshape = block_shape(mesh, task.grid.shape)
         self._block = bshape
-        self.u = shard_state(self.u, mesh)
-        self.aux = {}
-        for corr in task.correctors:
-            for name, f in corr.init_aux(model, task.grid.shape,
-                                         device=self.device).items():
-                self.aux[name] = shard_field(f, mesh, lead=0)
+        with span("gcm.setup.shard"):
+            self.u = shard_state(self.u, mesh)
+            self.aux = {}
+            for corr in task.correctors:
+                for name, f in corr.init_aux(model, task.grid.shape,
+                                             device=self.device).items():
+                    self.aux[name] = shard_field(f, mesh, lead=0)
         args = (model, mesh, self.dt, task.grid.h, task.order, task.borders)
-        if self.kernel == "fused" and model.dim == 3:
-            self._carry = extended_mstack(model, self.mat, mesh, task.order)
-            self._spmd_step = make_fused_spmd_step(
-                *args, correctors=self._fold_specs)
-        elif self.kernel == "fused":
-            self._carry = extended_mstack_2d(model, self.mat, mesh,
-                                             task.order, self._mat_dtype)
-            self._spmd_step = make_fused_spmd_step_2d(*args)
-        else:
-            self._carry = extend_mats_once(shard_mats(self.mat, mesh), mesh,
-                                           model.dim, task.order)
-            self._spmd_step = make_spmd_step(
-                *args, use_kernel=self.kernel == "sweep")
+        with span("gcm.setup.stack"):
+            if self.kernel == "fused" and model.dim == 3:
+                self._carry = extended_mstack(model, self.mat, mesh,
+                                              task.order)
+                self._spmd_step = make_fused_spmd_step(
+                    *args, correctors=self._fold_specs)
+            elif self.kernel == "fused":
+                self._carry = extended_mstack_2d(model, self.mat, mesh,
+                                                 task.order, self._mat_dtype)
+                self._spmd_step = make_fused_spmd_step_2d(*args)
+            else:
+                self._carry = extend_mats_once(shard_mats(self.mat, mesh),
+                                               mesh, model.dim, task.order)
+                self._spmd_step = make_spmd_step(
+                    *args, use_kernel=self.kernel == "sweep")
 
         # each source node and detector belongs to exactly one shard: its
         # local flat index there, mapped once
-        self._src = shard_sources(mesh, bshape, model.ncomp, src_nodes, amps,
-                                  self.dtype)
-        self._det = shard_detectors(mesh, bshape, det_nodes)
+        with span("gcm.setup.sources"):
+            self._src = shard_sources(mesh, bshape, model.ncomp, src_nodes,
+                                      amps, self.dtype)
+            self._det = shard_detectors(mesh, bshape, det_nodes)
 
     def _one_step_mesh(self, us, aux, n: int):
         task, model = self.task, self.model
@@ -358,8 +377,9 @@ class Engine:
             return us, {**aux, "damage": [None if a is None else a[0]
                                           for a in d]}
         us = self._spmd_step(us, self._carry, axes)
-        for k, (flat, amps) in self._src.items():
-            us[k].view(-1).index_add_(0, flat, amps[n])
+        with span("gcm.step.sources"):
+            for k, (flat, amps) in self._src.items():
+                us[k].view(-1).index_add_(0, flat, amps[n])
         if task.correctors:
             for k in self.mesh.local:
                 a = {name: v[k] for name, v in aux.items()}
@@ -394,7 +414,8 @@ class Engine:
         if len(self._src_flat):
             # every source lands after the sweep, as in the JAX engine;
             # index_add_ accumulates repeated nodes like sequential adds
-            u.view(-1).index_add_(0, self._src_flat, self._src_amps[n])
+            with span("gcm.step.sources"):
+                u.view(-1).index_add_(0, self._src_flat, self._src_amps[n])
         for corr in task.correctors:
             u, aux = corr(model, u, aux, self.dt)
         return u, aux
@@ -415,16 +436,18 @@ class Engine:
         mesh that spans processes every rank takes part and gets the whole
         state."""
         self.host_copies.append(self._done_step)
-        if self.mesh is not None:
-            u = gather_state(self.u, self.mesh, device="cpu").numpy()
-            aux = {k: gather_state(v, self.mesh, lead=0, device="cpu").numpy()
-                   for k, v in self.aux.items()}
-        else:
-            u = self.u.cpu().numpy()
-            aux = {k: v.cpu().numpy() for k, v in self.aux.items()}
-        d = {"u": u, "aux": aux, "step": self._done_step}
-        if self._trace is not None:
-            d["traces"] = self._trace.assemble(self._gather)
+        with span("gcm.run.gather"):
+            if self.mesh is not None:
+                u = gather_state(self.u, self.mesh, device="cpu").numpy()
+                aux = {k: gather_state(v, self.mesh, lead=0,
+                                       device="cpu").numpy()
+                       for k, v in self.aux.items()}
+            else:
+                u = self.u.cpu().numpy()
+                aux = {k: v.cpu().numpy() for k, v in self.aux.items()}
+            d = {"u": u, "aux": aux, "step": self._done_step}
+            if self._trace is not None:
+                d["traces"] = self._trace.assemble(self._gather)
         return d
 
     def load_state(self, state: Dict) -> None:
@@ -461,12 +484,15 @@ class Engine:
             self.u, self.aux = self._one_step_mesh(self.u, self.aux, n)
             if self._trace is not None:
                 C = self.model.ncomp
-                self._trace.put(row, *(self.u[k].reshape(C, -1)[:, flat].T
-                                       for k, (flat, _) in self._det.items()))
+                with span("gcm.step.receivers"):
+                    self._trace.put(row, *(
+                        self.u[k].reshape(C, -1)[:, flat].T
+                        for k, (flat, _) in self._det.items()))
             return
         self.u, self.aux = self._one_step(self.u, self.aux, n)
         if self._trace is not None:
-            self._trace.put(row, self._detect(self.u))
+            with span("gcm.step.receivers"):
+                self._trace.put(row, self._detect(self.u))
 
     def run(self, snapshot_cb: Optional[Callable] = None,
             cb_every: Optional[int] = None) -> RunResult:
@@ -504,31 +530,36 @@ class Engine:
         t0 = _time.perf_counter()
         n = start
         while n < nsteps:
-            if self._pair_fused and n % 2 == 0 and n + 2 <= nsteps:
-                self.u = self._fused_fn(self.model, self.u, self._mstack,
-                                        self.dt, self.task.grid.h,
-                                        self.task.order, self.task.borders,
-                                        axes_seq=pair)
-                n += 2
-            else:
-                self._advance(n, n - start)
-                n += 1
-            self._done_step = n
-            if every and n % every == 0:
-                snapshot_cb(n, self.u)
+            # a two-step pass is one span, numbered by its first step
+            with span("gcm.step", step=n):
+                if self._pair_fused and n % 2 == 0 and n + 2 <= nsteps:
+                    self.u = self._fused_fn(self.model, self.u, self._mstack,
+                                            self.dt, self.task.grid.h,
+                                            self.task.order,
+                                            self.task.borders, axes_seq=pair)
+                    n += 2
+                else:
+                    self._advance(n, n - start)
+                    n += 1
+                self._done_step = n
+                if every and n % every == 0:
+                    with span("gcm.callback"):
+                        snapshot_cb(n, self.u)
         self._sync()
         wall = _time.perf_counter() - t0
 
         npts = int(np.prod(self.task.grid.shape))
-        u = (gather_state(self.u, self.mesh, device="cpu")
-             if self.mesh is not None else self.u.cpu())
+        with span("gcm.run.gather"):
+            u = (gather_state(self.u, self.mesh, device="cpu")
+                 if self.mesh is not None else self.u.cpu()).numpy()
+            traces = (self._trace.assemble(self._gather)
+                      if self._trace is not None else None)
         return RunResult(
-            u=u.numpy(),
+            u=u,
             t=nsteps * self.dt,
             nsteps=nsteps,
             dt=self.dt,
-            traces=self._trace.assemble(self._gather)
-            if self._trace is not None else None,
+            traces=traces,
             wall_seconds=wall,
             points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
             kernel=self.kernel,

@@ -109,6 +109,7 @@ from gcm_tpu_torch.snapshot import (
 )
 from gcm_tpu_torch.task import Task, apply_initial
 from gcm_tpu_torch.utils.checkpoint import TraceRecord, output_callback
+from gcm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -139,6 +140,13 @@ class MultiBodyEngine:
                  contacts: Sequence[ContactSpec], device=None,
                  dtype=torch.float32, canonical_layout: bool = False,
                  mesh=None):
+        with span("gcm.setup"):
+            self._build(bodies, contacts, device, dtype, canonical_layout,
+                        mesh)
+
+    def _build(self, bodies: Dict[str, Task],
+               contacts: Sequence[ContactSpec], device, dtype: torch.dtype,
+               canonical_layout: bool, mesh) -> None:
         names = list(bodies)
         self.tasks = bodies
         self.contacts = tuple(contacts)
@@ -167,13 +175,16 @@ class MultiBodyEngine:
         self.borders = {}
         dts = []
         for name, task in bodies.items():
-            mat = task.material_fields(device=self.device, dtype=dtype)
+            with span("gcm.setup.materials"):
+                mat = task.material_fields(device=self.device, dtype=dtype)
             self.mats[name] = mat
             self.hs[name] = task.grid.h
             self.borders[name] = dict(task.borders)
-            u0 = np.zeros((self.model.ncomp,) + task.grid.shape)
-            apply_initial(u0, self.model, task.grid, task.initial)
-            self.us[name] = torch.as_tensor(u0, device=self.device).to(dtype)
+            with span("gcm.setup.state"):
+                u0 = np.zeros((self.model.ncomp,) + task.grid.shape)
+                apply_initial(u0, self.model, task.grid, task.initial)
+                self.us[name] = torch.as_tensor(u0,
+                                                device=self.device).to(dtype)
             dts.append(task.time.cfl * min(task.grid.h) / mat.max_cp())
         self.dt = float(min(dts))
         self.nsteps = t0.time.steps_for(self.dt)
@@ -238,11 +249,13 @@ class MultiBodyEngine:
         elif fused_ok:
             # the fused composition: one fused pass per body, contacts as
             # face rows; else the per-sweep kernel with fixups; else plain
-            self._mstacks = {
-                name: stack_mats(self.model, self.mats[name],
-                                 dtype=(torch.bfloat16
-                                        if task.mat_dtype == "bf16" else None))
-                for name, task in bodies.items()}
+            with span("gcm.setup.stack"):
+                self._mstacks = {
+                    name: stack_mats(self.model, self.mats[name],
+                                     dtype=(torch.bfloat16
+                                            if task.mat_dtype == "bf16"
+                                            else None))
+                    for name, task in bodies.items()}
             if self.model.dim == 2:
                 ffn = fused_step_2d
             else:
@@ -315,24 +328,25 @@ class MultiBodyEngine:
         times = (np.arange(self.nsteps, dtype=np.float64) + 1.0) * self.dt
         self._srcs: Dict[str, Dict[int, tuple]] = {}
         self._det: Dict[str, Dict[int, tuple]] = {}
-        for name, task in bodies.items():
-            block = block_shape(layout, task.grid.shape)
-            nodes, amps = [], []
-            for src in task.sources:
-                node = task.grid.index_of(src.position)
-                for cname in src.components:
-                    nodes.append((self.model.comp(cname),) + tuple(node))
-                    amps.append(np.broadcast_to(
-                        np.asarray(src.wavelet(times), np.float64),
-                        times.shape) * self.dt)
-            if nodes:
-                self._srcs[name] = shard_sources(
-                    layout, block, self.model.ncomp, nodes,
-                    np.asarray(amps).T, dtype)
-            if task.detectors is not None:
-                self._det[name] = shard_detectors(
-                    layout, block, [task.grid.index_of(p)
-                                    for p in task.detectors.points])
+        with span("gcm.setup.sources"):
+            for name, task in bodies.items():
+                block = block_shape(layout, task.grid.shape)
+                nodes, amps = [], []
+                for src in task.sources:
+                    node = task.grid.index_of(src.position)
+                    for cname in src.components:
+                        nodes.append((self.model.comp(cname),) + tuple(node))
+                        amps.append(np.broadcast_to(
+                            np.asarray(src.wavelet(times), np.float64),
+                            times.shape) * self.dt)
+                if nodes:
+                    self._srcs[name] = shard_sources(
+                        layout, block, self.model.ncomp, nodes,
+                        np.asarray(amps).T, dtype)
+                if task.detectors is not None:
+                    self._det[name] = shard_detectors(
+                        layout, block, [task.grid.index_of(p)
+                                        for p in task.detectors.points])
         #: the detector record across a resume, per body with detectors
         self._traces = {name: TraceRecord(len(task.detectors.points),
                                           self.model.ncomp)
@@ -359,16 +373,18 @@ class MultiBodyEngine:
                     "its shards, and the field sharding never splits the "
                     "last spatial axis)") from None
         glob = self.mats
-        self.mats = {k: shard_mats(m, mesh) for k, m in glob.items()}
-        self.us = {k: shard_state(u, mesh) for k, u in self.us.items()}
+        with span("gcm.setup.shard"):
+            self.mats = {k: shard_mats(m, mesh) for k, m in glob.items()}
+            self.us = {k: shard_state(u, mesh) for k, u in self.us.items()}
         unsplit = {a for a in range(dim)
                    if all(AXIS_OF[n] != a or mesh.axis_size(n) == 1
                           for n in mesh.axis_names)}
         if fused_ok and dim == 3 and all(c.axis in unsplit
                                          for c in self.contacts):
-            self._mstacks = {
-                name: extended_mstack(model, glob[name], mesh, self.order)
-                for name in self.tasks}
+            with span("gcm.setup.stack"):
+                self._mstacks = {
+                    name: extended_mstack(model, glob[name], mesh, self.order)
+                    for name in self.tasks}
             steps = {name: make_fused_spmd_step(
                 model, mesh, self.dt, self.hs[name], self.order,
                 self._kernel_bcs[name]) for name in self.tasks}
@@ -437,14 +453,15 @@ class MultiBodyEngine:
                 self.model, us, self.mats, self.dt, self.hs, self.order,
                 self.borders, self.contacts, bonded, axes, self.ncmaps)
         us = dict(us)
-        for name, src in self._srcs.items():
-            # a fresh tensor of this step: index_add_ in place accumulates
-            # repeated nodes like sequential adds
-            blocks = self._blocks(us[name])
-            for k, (flat, amps) in src.items():
-                blocks[k] = blocks[k].contiguous()
-                blocks[k].view(-1).index_add_(0, flat, amps[n])
-            us[name] = self._unblocks(blocks)
+        with span("gcm.step.sources"):
+            for name, src in self._srcs.items():
+                # a fresh tensor of this step: index_add_ in place
+                # accumulates repeated nodes like sequential adds
+                blocks = self._blocks(us[name])
+                for k, (flat, amps) in src.items():
+                    blocks[k] = blocks[k].contiguous()
+                    blocks[k].view(-1).index_add_(0, flat, amps[n])
+                us[name] = self._unblocks(blocks)
         new_auxs = {}
         for name, task in self.tasks.items():
             if not task.correctors:
@@ -473,13 +490,16 @@ class MultiBodyEngine:
         device-to-host copy of the state (``host_copies``). On a mesh that
         spans processes every rank takes part and gets the whole state."""
         self.host_copies.append(self._done_step)
-        d = {"us": {k: self._host(v) for k, v in self.us.items()},
-             "bonded": {str(k): _to_host(v) for k, v in self.bonded.items()},
-             "aux": {k: {ak: self._host(av, lead=0) for ak, av in a.items()}
-                     for k, a in self.auxs.items()},
-             "step": self._done_step}
-        if self._traces:
-            d["traces"] = self._assemble_traces()
+        with span("gcm.run.gather"):
+            d = {"us": {k: self._host(v) for k, v in self.us.items()},
+                 "bonded": {str(k): _to_host(v)
+                            for k, v in self.bonded.items()},
+                 "aux": {k: {ak: self._host(av, lead=0)
+                             for ak, av in a.items()}
+                         for k, a in self.auxs.items()},
+                 "step": self._done_step}
+            if self._traces:
+                d["traces"] = self._assemble_traces()
         return d
 
     def load_state(self, state: Dict) -> None:
@@ -542,27 +562,33 @@ class MultiBodyEngine:
         self._sync()
         t0 = _time.perf_counter()
         for n in range(start, nsteps):
-            self.us, self.bonded, self.auxs = self._one_step(
-                self.us, self.bonded, self.auxs, n)
-            for name, det in self._det.items():
-                blocks = self._blocks(self.us[name])
-                self._traces[name].put(n - start, *(
-                    blocks[k].reshape(C, -1)[:, flat].T
-                    for k, (flat, _) in det.items()))
-            self._done_step = n + 1
-            if every and (n + 1) % every == 0:
-                snapshot_cb(n + 1, self.us)
+            with span("gcm.step", step=n):
+                self.us, self.bonded, self.auxs = self._one_step(
+                    self.us, self.bonded, self.auxs, n)
+                if self._det:
+                    with span("gcm.step.receivers"):
+                        for name, det in self._det.items():
+                            blocks = self._blocks(self.us[name])
+                            self._traces[name].put(n - start, *(
+                                blocks[k].reshape(C, -1)[:, flat].T
+                                for k, (flat, _) in det.items()))
+                self._done_step = n + 1
+                if every and (n + 1) % every == 0:
+                    with span("gcm.callback"):
+                        snapshot_cb(n + 1, self.us)
         self._sync()
         wall = _time.perf_counter() - t0
         npts = sum(int(np.prod(t.grid.shape)) for t in self.tasks.values())
+        with span("gcm.run.gather"):
+            bodies = {k: self._host(v) for k, v in self.us.items()}
+            bonded = {k: _to_host(v) for k, v in self.bonded.items()}
+            traces = self._assemble_traces()
         return MultiRunResult(
-            bodies={k: self._host(v) for k, v in self.us.items()},
-            bonded={k: _to_host(v) for k, v in self.bonded.items()},
+            bodies=bodies, bonded=bonded,
             t=nsteps * self.dt, nsteps=nsteps, dt=self.dt,
             wall_seconds=wall,
             points_per_second=npts * (nsteps - start) / max(wall, 1e-12),
-            traces=self._assemble_traces(),
-            path=self.path)
+            traces=traces, path=self.path)
 
     # ------------------------------------------------------------- outputs
 

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Tuple
 
+from gcm_tpu_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -122,11 +124,16 @@ def _compile(out: Path) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with every function typed."""
+    """The kernel library, built if needed, with every function typed; the
+    tracer counts ``gcm.kernels.built`` when this process compiled it."""
     global _lib
     if _lib is not None:
         return _lib
-    _lib = bind(ctypes.CDLL(str(build()[0])))
+    with span("gcm.kernels.load"):
+        path, log = build()
+        if log:
+            count("gcm.kernels.built", 1)
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib
 
 

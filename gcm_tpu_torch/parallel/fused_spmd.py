@@ -45,6 +45,7 @@ from gcm_tpu_torch.parallel.p2p import Move, Transport, tag
 from gcm_tpu_torch.parallel.sharding import (
     DomainMesh, block_shape, first_local)
 from gcm_tpu_torch.task import BorderSpec
+from gcm_tpu_torch.utils.profiling import span
 
 Borders = Dict[Tuple[int, int], BorderSpec]
 
@@ -169,25 +170,27 @@ class SlabExchange:
         rank's); returns them, one tuple per shard. On a mesh that spans
         processes this starts the x phase, and :meth:`wait` completes the
         fill."""
-        self._barrier(0, torch.cuda.current_stream)
-        x = self._tr.start(self._x_moves(blocks))
-        if self.mesh.spans_processes:
-            self._pending = (blocks, x)
-        else:
-            self._y_phase(blocks)
-        return self.slabs
+        with span("gcm.exchange.fill"):
+            self._barrier(0, torch.cuda.current_stream)
+            x = self._tr.start(self._x_moves(blocks))
+            if self.mesh.spans_processes:
+                self._pending = (blocks, x)
+            else:
+                self._y_phase(blocks)
+            return self.slabs
 
     def wait(self) -> None:
         """Complete the fill, and make each card's current stream wait for
         it."""
-        if self._pending is not None:
-            blocks, x = self._pending
-            self._pending = None
-            self._tr.finish(x)
-            self._y_phase(blocks)
-        for d in self._devs:
-            self._ev[d][2].record(self._side[d])
-            torch.cuda.current_stream(d).wait_event(self._ev[d][2])
+        with span("gcm.exchange.wait"):
+            if self._pending is not None:
+                blocks, x = self._pending
+                self._pending = None
+                self._tr.finish(x)
+                self._y_phase(blocks)
+            for d in self._devs:
+                self._ev[d][2].record(self._side[d])
+                torch.cuda.current_stream(d).wait_event(self._ev[d][2])
 
 
 def exchange_slabs(blocks: Sequence[Optional[torch.Tensor]],

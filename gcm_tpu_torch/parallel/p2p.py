@@ -30,6 +30,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from gcm_tpu_torch.utils.profiling import count, enabled
+
 #: tags a phase: sides (and parts of a side) of a destination shard
 SIDES = 8
 
@@ -95,6 +97,8 @@ class Transport:
         through host memory, which :meth:`finish` posts once the staging
         copies are done. Returns what :meth:`finish` takes."""
         local = self.mesh.is_local
+        if enabled():
+            self._count(moves)
         ops, recvs, dev = [], [], None
         for m in moves:
             if local(m.src) and local(m.dst):
@@ -119,6 +123,27 @@ class Transport:
         works = (None if not ops or self._staged(dev)
                  else self._post(ops, dev))
         return ops, works, recvs, dev
+
+    def _count(self, moves: Sequence[Move]) -> None:
+        """The tracer's counters of a phase: the copies made in this
+        process, their bytes on one device and between two, and the bytes
+        sent to other ranks."""
+        local = self.mesh.is_local
+        copies = same = peer = sent = 0
+        for m in moves:
+            if local(m.src) and local(m.dst):
+                copies += 1
+                n = m.view.numel() * m.view.element_size()
+                if m.view.device == m.buf.device:
+                    same += n
+                else:
+                    peer += n
+            elif local(m.src):
+                sent += m.view.numel() * m.view.element_size()
+        count("gcm.exchange.copies", copies)
+        count("gcm.exchange.local_bytes", same)
+        count("gcm.exchange.peer_bytes", peer)
+        count("gcm.exchange.sent_bytes", sent)
 
     def _post(self, ops, dev) -> List:
         with self._on(dev):

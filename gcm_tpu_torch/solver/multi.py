@@ -41,6 +41,7 @@ from gcm_tpu_torch.solver.contact import (
 from gcm_tpu_torch.solver.contact_nc import apply_contact_nc_post
 from gcm_tpu_torch.solver.gcm import stage
 from gcm_tpu_torch.task import BorderSpec
+from gcm_tpu_torch.utils.profiling import count, enabled, span
 
 BodyStates = Dict[str, torch.Tensor]
 BondedState = Dict[int, object]     # contact index -> interface mask(s)
@@ -340,56 +341,66 @@ def apply_contact_fixups(model: Model, us: BodyStates, out: BodyStates,
     back (default: whole tensors, :class:`WholeFaces` of ``mats``; on a
     mesh ``parallel.faces.ShardedFaces`` gathers the slabs from the shards and
     scatters the rows into them), so only it knows how a body is held."""
-    axes = tuple(axes)
-    depth = stencil_radius(order) + 1
-    dim = model.dim
-    faces = faces or WholeFaces(model, mats)
-    out = dict(out)
-    new_bonded = dict(bonded)
-    # every slab of the pre-step states the phase reads, fetched at once:
-    # the phase writes only into ``out``
-    slabs = iter(faces.slabs([(name, us[name], c.axis, side, depth)
-                              for c in contacts for name, side in
-                              ((c.body_a, 1), (c.body_b, 0))]))
-    for ci, c in enumerate(contacts):
-        a = c.axis
-        pos = axes.index(a)
-        before, after = axes[:pos], axes[pos + 1:]
-        st = model.stage(a)
-        pre, swept, matsl = {}, {}, {}
-        for name, side in ((c.body_a, 1), (c.body_b, 0)):
-            usl = next(slabs)
-            msl = faces.mat_slab(name, a, side, depth)
-            bcs_t = {f: b for f, b in borders.get(name, {}).items()
-                     if f[0] != a}
-            for b_ax in before:
-                usl = stage(model, usl, msl, dt, hs[name], b_ax, order, bcs_t)
-            pre[name], matsl[name] = usl, msl
-            # the contact-axis sweep: only the face row is used; a partial
-            # overlap applies the face's own border first (stage_multi's
-            # order: the border, then the contact solve on the overlap)
-            bc_face = borders.get(name, {}).get((a, side))
-            bcs_a = ({(a, side): bc_face}
-                     if bc_face is not None and c.span is not None else None)
-            swept[name] = stage(model, usl, msl, dt, hs[name], a, order, bcs_a)
+    with span("gcm.contact.fixups"):
+        axes = tuple(axes)
+        depth = stencil_radius(order) + 1
+        dim = model.dim
+        faces = faces or WholeFaces(model, mats)
+        out = dict(out)
+        new_bonded = dict(bonded)
+        # every slab of the pre-step states the phase reads, fetched at
+        # once: the phase writes only into ``out``
+        slabs = list(faces.slabs([(name, us[name], c.axis, side, depth)
+                                  for c in contacts for name, side in
+                                  ((c.body_a, 1), (c.body_b, 0))]))
+        if enabled():
+            count("gcm.contact.face_nodes",
+                  sum(t.numel() // (t.shape[0] * depth) for t in slabs))
+            count("gcm.contact.slab_bytes",
+                  sum(t.numel() * t.element_size() for t in slabs))
+        slabs = iter(slabs)
+        for ci, c in enumerate(contacts):
+            a = c.axis
+            pos = axes.index(a)
+            before, after = axes[:pos], axes[pos + 1:]
+            st = model.stage(a)
+            pre, swept, matsl = {}, {}, {}
+            for name, side in ((c.body_a, 1), (c.body_b, 0)):
+                usl = next(slabs)
+                msl = faces.mat_slab(name, a, side, depth)
+                bcs_t = {f: b for f, b in borders.get(name, {}).items()
+                         if f[0] != a}
+                for b_ax in before:
+                    usl = stage(model, usl, msl, dt, hs[name], b_ax, order,
+                                bcs_t)
+                pre[name], matsl[name] = usl, msl
+                # the contact-axis sweep: only the face row is used; a
+                # partial overlap applies the face's own border first
+                # (stage_multi's order: the border, then the contact solve on
+                # the overlap)
+                bc_face = borders.get(name, {}).get((a, side))
+                bcs_a = ({(a, side): bc_face} if bc_face is not None
+                         and c.span is not None else None)
+                swept[name] = stage(model, usl, msl, dt, hs[name], a, order,
+                                    bcs_a)
 
-        ua_fix, ub_fix, nb = apply_contact_post(
-            c, model, pre[c.body_a], swept[c.body_a], pre[c.body_b],
-            swept[c.body_b], matsl[c.body_a].axis_view(a, st),
-            matsl[c.body_b].axis_view(a, st), bonded.get(ci))
-        if nb is not None:
-            new_bonded[ci] = nb
-        for name, ufix in ((c.body_a, ua_fix), (c.body_b, ub_fix)):
-            side = 1 if name == c.body_a else 0
-            # the face row of the slab: its last row on body_a's high face,
-            # its first on body_b's low face
-            fidx = _slab_idx(dim, a, side, 1)
-            frow = ufix[fidx]
-            mrow = _mat_slice(matsl[name], fidx[1:])
-            bcs_t = {f: b for f, b in borders.get(name, {}).items()
-                     if f[0] != a}
-            for b_ax in after:
-                frow = stage(model, frow, mrow, dt, hs[name], b_ax, order,
-                             bcs_t)
-            out[name] = faces.put_row(name, out[name], a, side, frow)
+            ua_fix, ub_fix, nb = apply_contact_post(
+                c, model, pre[c.body_a], swept[c.body_a], pre[c.body_b],
+                swept[c.body_b], matsl[c.body_a].axis_view(a, st),
+                matsl[c.body_b].axis_view(a, st), bonded.get(ci))
+            if nb is not None:
+                new_bonded[ci] = nb
+            for name, ufix in ((c.body_a, ua_fix), (c.body_b, ub_fix)):
+                side = 1 if name == c.body_a else 0
+                # the face row of the slab: its last row on body_a's high
+                # face, its first on body_b's low face
+                fidx = _slab_idx(dim, a, side, 1)
+                frow = ufix[fidx]
+                mrow = _mat_slice(matsl[name], fidx[1:])
+                bcs_t = {f: b for f, b in borders.get(name, {}).items()
+                         if f[0] != a}
+                for b_ax in after:
+                    frow = stage(model, frow, mrow, dt, hs[name], b_ax,
+                                 order, bcs_t)
+                out[name] = faces.put_row(name, out[name], a, side, frow)
     return out, new_bonded

@@ -295,21 +295,23 @@ def test_fluid_jacobian_drops_the_shear_pairs():
 
 
 def test_profiling_helpers(tmp_path):
-    from gcm_tpu_torch.utils.profiling import (
-        ThroughputMeter, annotate, trace)
+    from gcm_tpu_torch.utils.profiling import count, span, trace
 
     with trace(None):
         pass
     assert not os.listdir(tmp_path)
-    meter = ThroughputMeter(npoints=1000)
-    with trace(str(tmp_path / "t")), meter.section(nsteps=3):
-        with annotate("gcm_step_region"):
+    assert span("gcm_step_region") is span("other")   # off: one no-op
+    with trace(str(tmp_path / "t")):
+        with span("gcm_step_region"):
             torch.ones(8).sum()
+            count("gcm_items", 3)
     with open(tmp_path / "t" / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "gcm_step_region" in names
-    assert meter.steps == 3 and meter.points_per_second > 0
-    assert json.loads(meter.report())["steps"] == 3
+    with open(tmp_path / "t" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["spans"]["gcm_step_region"]["calls"] == 1
+    assert spans["counters"] == {"gcm_items": 3} and spans["dropped"] == 0
 
 
 def _cli(args, tmp_path):
@@ -345,7 +347,12 @@ def test_cli_outputs_resume_and_profile(tmp_path):
     np.testing.assert_array_equal(got, want)
     _cli(run + ["--nsteps", "2", "--outdir", "prof", "--profile"], tmp_path)
     with open(tmp_path / "prof" / "trace" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"gcm.setup", "gcm.step", "gcm.run.gather"} <= names
+    with open(tmp_path / "prof" / "trace" / "spans.json") as f:
+        spans = json.load(f)["spans"]
+    assert spans["gcm.step"]["calls"] == 2
+    assert spans["gcm.setup"]["calls"] == 1
 
 
 def test_cli_simplex_and_contact_outputs(tmp_path, capsys):
