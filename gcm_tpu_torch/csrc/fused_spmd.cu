@@ -5,10 +5,12 @@
 // _make_interior_call and _make_ring_call (both built by _pallas_build). Their
 // plain PyTorch versions are gcm_tpu_torch/ops/fused_spmd.py::
 // fused_spmd_interior_reference and fused_spmd_ring_reference, which they
-// must match. The step itself (three sweeps walking x through a ring of
-// planes, border algebra, folded correctors) is the single-card kernel's
-// (gcm_common.cuh::stream_step); only the sources of the planes and the
-// materials differ.
+// must match. The step itself (three sweeps walking x plane by plane,
+// border algebra, folded correctors) is the single-card kernel's, on the
+// body its form compiles to (gcm_common.cuh: stream_step_owned for
+// elastic3d at orders 1-2 on a compact stack, stream_step otherwise; see
+// fused_step_slab.cu for what bounds each); only the sources of the
+// planes and the materials differ.
 //
 // What bounds it on an H100: memory, as fused_step. Per point of the shard
 // and step it reads the 9 state components and 4 compact material fields and
@@ -27,11 +29,12 @@
 //   plane r or more from the shard's x faces, times the y tiles whose r-halo
 //   lies inside the block (ops/fused_spmd.py::tile_split; the binding passes
 //   the rectangle [ix0, ix1) x [iy0, iy1)). A block walks a chunk of the
-//   interior's x range through stream_step, so the ring is r planes thick
-//   along x and one 8-row tile along y: ~14% of a 128^2 shard's cells at
-//   r = 1 (8x8 box tiles would make it ~23%). The interior launch reads
-//   only the local block (staged with cp.async) and the materials, so it
-//   runs while the slabs travel; its x/y reads never reach the clamp.
+//   interior's x range through the one-step body, so the ring is r
+//   planes thick along x and one 8-row tile along y: ~14% of a 128^2
+//   shard's cells at r = 1 (8x8 box tiles would make it ~23%). The
+//   interior launch reads only the local block (staged with cp.async)
+//   and the materials, so it runs while the slabs travel; its x/y reads
+//   never reach the clamp.
 // - The ring launch walks three bands of x: the planes before ix0 and from
 //   ix1 on, all y tiles, and the planes between, the y tiles outside
 //   [iy0, iy1); a block finds its band, chunk and y tile from its index in
@@ -105,9 +108,9 @@ __device__ inline void ring_block(const TileSplit& t, int ch, int k, int* xa,
     *iy = k % t.nty;
 }
 
-template <int ORDER, class M, bool RING, class AX>
+template <int ORDER, class M, bool RING, class AX, bool OWNED>
 __global__ void __launch_bounds__(STREAM_NT,
-                                  StreamLayout<ORDER, M, AX>::MINB)
+                                  StreamBody<ORDER, M, AX, OWNED>::MINB)
 fused_spmd_kernel(const float* __restrict__ u, const float* __restrict__ mext,
                   const float* __restrict__ aux_in, float* __restrict__ out,
                   float* __restrict__ aux_out, Slabs sl, TileSplit ts,
@@ -128,26 +131,29 @@ fused_spmd_kernel(const float* __restrict__ u, const float* __restrict__ mext,
                             (long long)(n0 + 2 * R) * (n1 + 2 * R) * n2};
     const StepOut so{out, aux_in, aux_out, N};
     const int y0 = iy * STREAM_TY, z0 = (int)blockIdx.x * STREAM_TZ;
-    if constexpr (RING) {
-        const SlabSrc src{u, sl.xlo, sl.xhi, sl.ylo, sl.yhi,
-                          n0, n1, n2, R, N};
-        stream_step<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0, smem, so);
-    } else {
-        const GlobalSrc src{u, n0, n1, n2, N};
-        stream_step<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0, smem, so);
-    }
+    const auto body = [&](const auto& src) {
+        if constexpr (OWNED)
+            stream_step_owned<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0,
+                                            smem, so);
+        else
+            stream_step<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0, smem, so);
+    };
+    if constexpr (RING)
+        body(SlabSrc{u, sl.xlo, sl.xhi, sl.ylo, sl.yhi, n0, n1, n2, R, N});
+    else
+        body(GlobalSrc{u, n0, n1, n2, N});
 }
 
 // Launches one of the two launches (occ == nullptr), or reports the
 // occupancy it gets.
-template <int ORDER, class M, bool RING, class AX>
-cudaError_t launch_spmd(const float* u, const float* mext,
+template <int ORDER, class M, bool RING, class AX, bool OWNED>
+cudaError_t launch_body(const float* u, const float* mext,
                         const float* aux_in, float* out, float* aux_out,
                         const Slabs& sl, const TileSplit& ts,
                         const GcmFusedParams& p, int device,
                         cudaStream_t stream, StreamOccupancy* occ) {
-    using L = StreamLayout<ORDER, M, AX>;
-    const auto kernel = fused_spmd_kernel<ORDER, M, RING, AX>;
+    using L = StreamBody<ORDER, M, AX, OWNED>;
+    const auto kernel = fused_spmd_kernel<ORDER, M, RING, AX, OWNED>;
     int bps = 0;
     cudaError_t err = stream_blocks_per_sm(kernel, L::BYTES, &bps);
     if (err != cudaSuccess) return err;
@@ -180,6 +186,23 @@ cudaError_t launch_spmd(const float* u, const float* mext,
             u, mext, aux_in, out, aux_out, sl, ts, ch, p);
     }
     return cudaGetLastError();
+}
+
+// One of the two launches on the body its form compiles to (stream_body).
+template <int ORDER, class M, bool RING, class AX>
+cudaError_t launch_spmd(const float* u, const float* mext,
+                        const float* aux_in, float* out, float* aux_out,
+                        const Slabs& sl, const TileSplit& ts,
+                        const GcmFusedParams& p, int device,
+                        cudaStream_t stream, StreamOccupancy* occ) {
+    if constexpr (owned_form<ORDER, M>()) {
+        if (compact_rows(p))
+            return launch_body<ORDER, M, RING, AX, true>(
+                u, mext, aux_in, out, aux_out, sl, ts, p, device, stream,
+                occ);
+    }
+    return launch_body<ORDER, M, RING, AX, false>(
+        u, mext, aux_in, out, aux_out, sl, ts, p, device, stream, occ);
 }
 
 template <bool RING>

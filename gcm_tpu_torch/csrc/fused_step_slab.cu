@@ -35,7 +35,8 @@
 // arithmetic (few resident warps, long dependent chains, local memory).
 //
 // One step a pass (K = 1: fused_step, the slab step on the contact path)
-// is gcm_common.cuh::stream_step:
+// walks x the same way in both of its bodies (gcm_common.cuh), which the
+// form picks at compile time (stream_body, gcm_stream_body):
 // - Not the TPU's slab tiling: its full (y, z) plane per x-tile is
 //   256 * 128 * 9 * 4 B = 1.2 MB at the contact shape, far over the 227 KB
 //   of shared memory a block has. A block owns an 8 x 32 tile of the (y, z)
@@ -44,37 +45,57 @@
 //   any sweep of a plane window, up to 10 x 34 cells, in one pass, so no
 //   warp idles at the barrier while others take a second pass. The chunks
 //   are cut by occupancy (stream_chunk): as few waves of blocks as the
-//   card holds, the fewest planes each; at 256x256x128 that is one wave.
+//   card holds, the fewest planes each.
 // - Each incoming plane window (the tile with an r halo in y and z) is
-//   staged into shared memory with cp.async while the previous plane
-//   computes, as the TPU kernel double-buffers its windows with DMA
-//   semaphores. The in-plane sweeps that precede x in the sweep order run
-//   on it and put it into a ring of 2r + 1 planes; the x sweep of the
-//   plane r behind reads the ring; the in-plane sweeps after x run on its
-//   result, and the last one stores the tile after the folded correctors.
-//   Any sweep order takes the same path. Only the (y, z) halo is
-//   recomputed (and 2r planes of in-plane sweeps a chunk), and the state
-//   is read once and written once a pass.
-// - Shared memory is a few planes: 57-73 KB at r = 1 for elastic3d, so
-//   three blocks (33 warps) share an SM, at 56 registers a thread (ptxas
-//   spills 4-24 bytes a thread in the order 1-2 forms, which still run
-//   faster than two blocks without spills); 91-123 KB at r = 2.
+//   staged into shared memory with cp.async ahead of the plane computing,
+//   as the TPU kernel double-buffers its windows with DMA semaphores. The
+//   in-plane sweeps that precede x run on it; the x sweep of the plane r
+//   behind reads the 2r + 1 planes they leave; the in-plane sweeps after x
+//   run on its result, and the last one stores the tile after the folded
+//   correctors. Only the (y, z) halo is recomputed (and 2r planes of
+//   in-plane sweeps a chunk), and the state is read once and written once
+//   a pass.
+// - What bounded the first body (stream_step, the ring body) on the card
+//   (PERF.md, 512x512x256, order 2): 4.5-5.1 ms a step against a bound of
+//   1.76. Variants that compute wrong numbers split it: with the cell's
+//   materials made constant a step took 2.5-3.3 ms; with the x sweep's
+//   ring reads made register reads, 2-4% less; without the barriers
+//   between a plane's sweeps, 4-6% less. The cell's material path set the
+//   pace: seven loads a cell and sweep through L1, the first of a plane a
+//   miss to memory on the critical path, and three IEEE divisions.
+// - The owned body (stream_step_owned: elastic3d at orders 1-2 on a
+//   compact stack, the main path) gives each thread one cell of the
+//   window in every sweep of every plane. The cell's four material values
+//   are loaded a plane ahead into registers and its impedances and
+//   half-reciprocals derived once a plane for all of its sweeps there; the
+//   thread stages its own cell with cp.async; the x sweep's three planes
+//   are its own slots of shared memory, which no other thread touches, so
+//   the x sweep waits at no barrier and the ring's barriers go: two a
+//   plane. 3.1-3.3 ms a step at 512x512x256 in every sweep order, 75-80
+//   registers a thread and two blocks an SM, no spills. The three planes
+//   held in registers instead spilled 4-12 bytes at the 80 registers that
+//   two 11-warp blocks leave, and ran no faster.
+// - The ring body (stream_step: orders 3-4, where the x sweep's five
+//   planes would not fit a thread, acoustic3d, and orthotropic stacks,
+//   whose speeds and ratios differ by axis) keeps the x sweep's planes in
+//   a ring of shared memory that the block shares, and reads each cell's
+//   materials from global memory at each sweep (GlobalMat<T>, float or
+//   __nv_bfloat16, upcast in registers). 57-73 KB of shared memory at r =
+//   1, three blocks an SM at 56 registers; 91-123 KB at r = 2.
 // - The component map of the model (elastic3d, acoustic3d) and the tile
-//   extents are compile-time: a cell's components stay in registers (no
-//   stack frame, no spills) and the cell loops divide by constants; each
-//   sweep order is its own instantiation. The stack rows stay runtime, so
-//   the compact and orthotropic layouts share one code path.
+//   extents are compile-time: a cell's components stay in registers and
+//   the cell loops divide by constants; each sweep order is its own
+//   instantiation. The stack rows stay runtime, so the compact and
+//   orthotropic layouts share the ring body's code.
 // - Edge replication is index clamping: window cell g of state and
 //   materials is read from clamp(g, 0, n-1) (a plane outside the domain is
 //   the edge plane), so a recomputed halo row outside the domain equals the
 //   swept edge row (the edge_pad of the plain step). Borders stay keyed on
 //   the global row index (0 or n-1), ragged tiles are masked at the store,
 //   and any extent works, thinner than the halo included.
-// - Materials are read from global memory at each cell (GlobalMat<T>,
-//   float or __nv_bfloat16, L1-resident reuse across the sweeps of a
-//   plane) and upcast in registers; z = rho*c and 0.5/z are derived from
-//   the upcast values, as the plain version derives them from the rounded
-//   stack.
+// - z = rho*c and 0.5/z are derived from the upcast material values, as
+//   the plain version derives them from the rounded stack (the owned body
+//   as 0.5 * rcp_rn(z), the same float).
 // Two steps a pass (K = 2, temporal blocking, opt-in) run the two-step
 // form of that body (gcm_common.cuh::stream_pair), compiled one stencil
 // order a source (fused_pair_stream.cuh) and launched from here.
@@ -89,10 +110,10 @@ GCM_PAIR_STREAM_ENTRY(4);
 namespace {
 
 // One step: output planes [ch * blockIdx.z, +ch) of the (y, z) tile
-// (blockIdx.y, blockIdx.x).
-template <int ORDER, class M, class MatT, class AX>
+// (blockIdx.y, blockIdx.x), on the owned body (OWNED) or the ring body.
+template <int ORDER, class M, class MatT, class AX, bool OWNED>
 __global__ void __launch_bounds__(STREAM_NT,
-                                  StreamLayout<ORDER, M, AX>::MINB)
+                                  StreamBody<ORDER, M, AX, OWNED>::MINB)
 fused_step_stream_kernel(const float* __restrict__ u,
                          const MatT* __restrict__ m,
                          const float* __restrict__ aux_in,
@@ -105,21 +126,25 @@ fused_step_stream_kernel(const float* __restrict__ u,
     const int xb = min(xa + ch, n0);
     const GlobalSrc src{u, n0, n1, n2, N};
     const GlobalMat<MatT> mat{m, n0, n1, n2, N};
-    stream_step<ORDER, M, AX>(p, src, mat, xa, xb,
-                              (int)blockIdx.y * STREAM_TY,
-                              (int)blockIdx.x * STREAM_TZ, smem,
-                              StepOut{out, aux_in, aux_out, N});
+    const int y0 = (int)blockIdx.y * STREAM_TY;
+    const int z0 = (int)blockIdx.x * STREAM_TZ;
+    const StepOut so{out, aux_in, aux_out, N};
+    if constexpr (OWNED)
+        stream_step_owned<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0, smem,
+                                        so);
+    else
+        stream_step<ORDER, M, AX>(p, src, mat, xa, xb, y0, z0, smem, so);
 }
 
-// Launches one step (occ == nullptr), or reports the occupancy such a
-// launch gets.
-template <int ORDER, class M, class MatT, class AX>
-cudaError_t launch_stream(const float* u, const void* m, const float* aux_in,
-                          float* out, float* aux_out, const GcmFusedParams& p,
-                          int device, cudaStream_t stream,
-                          StreamOccupancy* occ) {
-    using L = StreamLayout<ORDER, M, AX>;
-    const auto kernel = fused_step_stream_kernel<ORDER, M, MatT, AX>;
+// Launches one step on the body OWNED (occ == nullptr), or reports the
+// occupancy such a launch gets.
+template <int ORDER, class M, class MatT, class AX, bool OWNED>
+cudaError_t launch_body(const float* u, const void* m, const float* aux_in,
+                        float* out, float* aux_out, const GcmFusedParams& p,
+                        int device, cudaStream_t stream,
+                        StreamOccupancy* occ) {
+    using L = StreamBody<ORDER, M, AX, OWNED>;
+    const auto kernel = fused_step_stream_kernel<ORDER, M, MatT, AX, OWNED>;
     int bps = 0;
     cudaError_t err = stream_blocks_per_sm(kernel, L::BYTES, &bps);
     if (err != cudaSuccess) return err;
@@ -135,6 +160,21 @@ cudaError_t launch_stream(const float* u, const void* m, const float* aux_in,
     kernel<<<grid, STREAM_NT, L::BYTES, stream>>>(
         u, (const MatT*)m, aux_in, out, aux_out, ch, p);
     return cudaGetLastError();
+}
+
+// One step on the body its form compiles to (stream_body).
+template <int ORDER, class M, class MatT, class AX>
+cudaError_t launch_stream(const float* u, const void* m, const float* aux_in,
+                          float* out, float* aux_out, const GcmFusedParams& p,
+                          int device, cudaStream_t stream,
+                          StreamOccupancy* occ) {
+    if constexpr (owned_form<ORDER, M>()) {
+        if (compact_rows(p))
+            return launch_body<ORDER, M, MatT, AX, true>(
+                u, m, aux_in, out, aux_out, p, device, stream, occ);
+    }
+    return launch_body<ORDER, M, MatT, AX, false>(u, m, aux_in, out, aux_out,
+                                                  p, device, stream, occ);
 }
 
 template <class MatT>
@@ -219,6 +259,15 @@ int gcm_fused_step_slab_occupancy(const GcmFusedParams* params, int order,
     out[0] = occ.blocks_per_sm;
     out[1] = occ.smem_bytes;
     return (int)err;
+}
+
+// The body a one-step launch (ksteps = 1) of `order` with these parameters
+// runs, from the form alone (no device is asked): 1 the owned body
+// (gcm_common.cuh::stream_step_owned: elastic3d at orders 1-2 on a compact
+// stack), 0 the ring body (stream_step). The SPMD launches (fused_spmd.cu)
+// make the same choice.
+int gcm_stream_body(const GcmFusedParams* params, int order) {
+    return stream_body(order, *params);
 }
 
 // Fills the component map compiled for `model` (STREAM_MODEL_*,

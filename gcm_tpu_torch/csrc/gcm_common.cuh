@@ -2,10 +2,12 @@
 // block of the fused steps, Lagrange stencil weights, the border algebra,
 // material stacks stored as float or bf16 (upcast at the load), the
 // component maps fixed at compile time (the streamed bodies, the per-sweep
-// kernel and the simplex sweep), the one-step 3D body that walks x plane by
-// plane through a ring of planes in shared memory (stream_step: the 3D
-// fused, slab and SPMD kernels), its two-step form (stream_pair: the slab
-// kernel's two steps a pass), the one-step 2D body that walks x row by row
+// kernel and the simplex sweep), the two one-step 3D bodies of the 3D
+// fused, slab and SPMD kernels, which walk x plane by plane (stream_step,
+// the ring body: the x sweep's planes in a ring of shared memory;
+// stream_step_owned, the owned body: each thread owns a cell in every
+// sweep), the ring body's two-step form (stream_pair: the slab kernel's
+// two steps a pass), the one-step 2D body that walks x row by row
 // through a ring of rows in registers (stream_rows: the 2D fused and SPMD
 // kernels), and its two-step form (stream_rows_pair: the 2D kernel's two
 // steps a pass).
@@ -170,6 +172,13 @@ struct GlobalSrc {
     __device__ const float* row(int c, int x) const {
         return u + c * N + (long long)min(max(x, 0), n0 - 1) * n1;
     }
+    // component 0 of cell (x, y, z) at clamped coordinates; *cs is the
+    // distance from one component to the next
+    __device__ const float* cell(int x, int y, int z, long long* cs) const {
+        *cs = N;
+        return u + ((long long)min(max(x, 0), n0 - 1) * n1 +
+                    min(max(y, 0), n1 - 1)) * n2 + min(max(z, 0), n2 - 1);
+    }
     // Starts the copy of the C components of plane x, cells [ylo, ylo+EY)
     // x [zlo, zlo+EZ) at clamped coordinates, into dst (C, EY, EZ), by a
     // block of NT threads: neighbouring threads copy neighbouring z, so
@@ -205,23 +214,32 @@ struct SlabSrc {
     const float* __restrict__ yhi;
     int n0, n1, n2, R;
     long long N;
-    // the address that holds component c of cell (x, y, z)
-    __device__ const float* at(int c, int x, int y, int z) const {
+    // component 0 of cell (x, y, z) in the block or the slab that holds
+    // it; *cs is the distance from one component to the next there
+    __device__ const float* cell(int x, int y, int z, long long* cs) const {
         z = min(max(z, 0), n2 - 1);
         x = min(max(x, -R), n0 - 1 + R);
         if (ylo == nullptr) y = min(max(y, 0), n1 - 1);
         else y = min(max(y, -R), n1 - 1 + R);
-        if (y < 0)
-            return ylo + (((long long)c * (n0 + 2 * R) + x + R) * R + y + R)
-                             * n2 + z;
-        if (y >= n1)
-            return yhi + (((long long)c * (n0 + 2 * R) + x + R) * R + y - n1)
-                             * n2 + z;
-        if (x < 0)
-            return xlo + (((long long)c * R + x + R) * n1 + y) * n2 + z;
-        if (x >= n0)
-            return xhi + (((long long)c * R + x - n0) * n1 + y) * n2 + z;
-        return u + c * N + ((long long)x * n1 + y) * n2 + z;
+        if (y < 0 || y >= n1) {
+            *cs = (long long)(n0 + 2 * R) * R * n2;
+            return (y < 0 ? ylo : yhi) +
+                   ((long long)(x + R) * R + (y < 0 ? y + R : y - n1)) * n2 +
+                   z;
+        }
+        if (x < 0 || x >= n0) {
+            *cs = (long long)R * n1 * n2;
+            return (x < 0 ? xlo : xhi) +
+                   ((long long)(x < 0 ? x + R : x - n0) * n1 + y) * n2 + z;
+        }
+        *cs = N;
+        return u + ((long long)x * n1 + y) * n2 + z;
+    }
+    // the address that holds component c of cell (x, y, z)
+    __device__ const float* at(int c, int x, int y, int z) const {
+        long long cs;
+        const float* const a = cell(x, y, z, &cs);
+        return a + c * cs;
     }
     // GlobalSrc::row of a 2D shard, x reaching R rows into the slabs
     __device__ const float* row(int c, int x) const { return at(c, x, 0, 0); }
@@ -232,9 +250,11 @@ struct SlabSrc {
                                           int zlo) const {
         for (int e = threadIdx.x; e < EY * EZ; e += STREAM_NT) {
             const int j = e / EZ, k = e - j * EZ;
+            long long cs;
+            const float* const s = cell(x, ylo + j, zlo + k, &cs);
 #pragma unroll
             for (int c = 0; c < C; ++c)
-                cp_async4(dst + c * EY * EZ + e, at(c, x, ylo + j, zlo + k));
+                cp_async4(dst + c * EY * EZ + e, s + c * cs);
         }
     }
 };
@@ -575,14 +595,26 @@ __device__ __forceinline__ void store_cell(const GcmFusedParams& p,
     for (int c = 0; c < M::C; ++c) so.u[c * so.N + off] = nw[c];
 }
 
+// 1 / x rounded to nearest (0.5f * rcp_rn(z) is 0.5f / z bit for bit
+// wherever the quotient is a normal float: scaling by 0.5 is exact).
+__device__ __forceinline__ float rcp_rn(float x) {
+#if defined(__CUDA_ARCH__)
+    return __frcp_rn(x);
+#else
+    return 1.0f / x;
+#endif
+}
+
 // One cell of a sweep along axis A (sweep's term for term, with the
-// component map of M): ld(c, o) reads component c at offset o along A, mp
-// and moff address the cell's materials, ga is its row along A.
-template <int ORDER, class M, int A, class Ld, class Mat, class MP>
-__device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
-                                           const Ld& ld, const Mat& mat,
-                                           MP mp, int moff, int ga,
-                                           float (&nw)[M::C]) {
+// component map of M): ld(c, o) reads component c at offset o along A,
+// co(q, c, z, rz) gives pair q's wave speed, impedance rho*c and 0.5/z (0
+// where z is 0), ka(j) zero j's coupling ratio; ga is the cell's row along
+// A.
+template <int ORDER, class M, int A, class Ld, class Co, class Ka>
+__device__ __forceinline__ void cell_core(const GcmFusedParams& p,
+                                          const Ld& ld, const Co& co,
+                                          const Ka& ka, int ga,
+                                          float (&nw)[M::C]) {
     using S = Stencil<ORDER>;
     float old[M::C];
 #pragma unroll
@@ -590,13 +622,11 @@ __device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
         old[c] = ld(c, 0);
         nw[c] = old[c];
     }
-    const float rho = mat.ld(mp, p.rho_idx, moff);
 #pragma unroll
     for (int q = 0; q < M::NPAIRS; ++q) {
         const int sg = M::sigma(A, q), vl = M::vel(A, q);
-        const float c = mat.ld(mp, p.pair_c[A][q], moff);
-        const float z = rho * c;
-        const float rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
+        float c, z, rz;
+        co(q, c, z, rz);
         float w[S::NP];
         S::weights(c * p.dtoh[A], w);
         float Ap = 0.f, Bp = 0.f, Am = 0.f, Bm = 0.f;
@@ -623,9 +653,27 @@ __device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
 #pragma unroll
     for (int j = 0; j < M::NZEROS; ++j) {
         const int zc = M::zcomp(A, j), zsr = M::zsrc(A);
-        nw[zc] = old[zc] + mat.ld(mp, p.zero_kappa[A][j], moff) *
-                               (nw[zsr] - old[zsr]);
+        nw[zc] = old[zc] + ka(j) * (nw[zsr] - old[zsr]);
     }
+}
+
+// cell_core with the cell's materials read at each sweep: mp and moff
+// address them in the stack.
+template <int ORDER, class M, int A, class Ld, class Mat, class MP>
+__device__ __forceinline__ void cell_sweep(const GcmFusedParams& p,
+                                           const Ld& ld, const Mat& mat,
+                                           MP mp, int moff, int ga,
+                                           float (&nw)[M::C]) {
+    const float rho = mat.ld(mp, p.rho_idx, moff);
+    const auto co = [&](int q, float& c, float& z, float& rz) {
+        c = mat.ld(mp, p.pair_c[A][q], moff);
+        z = rho * c;
+        rz = z > 0.0f ? 0.5f / fmaxf(z, 1e-30f) : 0.0f;
+    };
+    const auto ka = [&](int j) {
+        return mat.ld(mp, p.zero_kappa[A][j], moff);
+    };
+    cell_core<ORDER, M, A>(p, ld, co, ka, ga, nw);
 }
 
 // One sweep along the in-plane axis A (1 = y, 2 = z) of plane x, by a
@@ -701,7 +749,14 @@ __device__ __forceinline__ void x_sweep(
 // the x sweep of plane xi - R reads the 2R + 1 ring planes around it, the
 // in-plane sweeps that follow x run on its result, and the last sweep
 // stores the tile's cells, after the folded correctors. Called by every
-// thread of a STREAM_NT-thread block.
+// thread of a STREAM_NT-thread block. Any cell of a sweep goes to any
+// thread, so the ring is shared by the block (a barrier on each side of
+// each sweep) and each cell reads its materials from global memory at
+// each sweep: on the card the material path set its pace (2.5-3.3 ms of
+// its 4.5-5.1 at 512x512x256, PERF.md). The ring body remains for the
+// forms the owned body (stream_step_owned) is not compiled for: orders
+// 3-4 (r = 2, five planes a cell), acoustic3d, and orthotropic stacks,
+// whose speed and ratio rows differ by axis.
 template <int ORDER, class M, class AX, class Src, class Mat>
 __device__ __forceinline__ void stream_step(const GcmFusedParams& p,
                                             const Src& src, const Mat& mat,
@@ -770,6 +825,331 @@ __device__ __forceinline__ void stream_step(const GcmFusedParams& p,
                 __syncthreads();
                 plane_sweep<ORDER, M, AX::A2, Post, typename L::Out, true,
                             STREAM_NT>(p, tmp2, nullptr, mat, xo, y0, z0, so);
+            }
+        }
+    }
+}
+
+// ------------------------------- the one-step 3D body, cells owned by threads
+
+// Whether the one-step form of (ORDER, M) has the owned body compiled
+// (stream_step_owned): elastic3d at r = 1, orders 1 and 2. Orders 3-4 (a
+// 45-float queue a thread) and acoustic3d keep the ring body, as does an
+// orthotropic stack (compact_rows).
+template <int ORDER, class M>
+constexpr bool owned_form() {
+    return Stencil<ORDER>::R == 1 && M::ID == STREAM_MODEL_ELASTIC3D;
+}
+
+// Whether the stack rows of p are the compact layout's: pair 0 reads one
+// speed row and pairs 1-2 another, every zero one coupling row, the same
+// along every axis (an orthotropic stack has a speed row per axis and
+// pair, and a ratio row per axis and zero).
+__host__ inline bool compact_rows(const GcmFusedParams& p) {
+    for (int a = 0; a < 3; ++a) {
+        if (p.npairs[a] != 3 || p.nzeros[a] != 2) return false;
+        if (p.pair_c[a][0] != p.pair_c[0][0] ||
+            p.pair_c[a][1] != p.pair_c[0][1] ||
+            p.pair_c[a][2] != p.pair_c[0][1])
+            return false;
+        if (p.zero_kappa[a][0] != p.zero_kappa[0][0] ||
+            p.zero_kappa[a][1] != p.zero_kappa[0][0])
+            return false;
+    }
+    return true;
+}
+
+// The body a one-step 3D launch of stencil order `order` with parameters p
+// runs: 1 the owned body (stream_step_owned), 0 the ring body
+// (stream_step).
+__host__ inline int stream_body(int order, const GcmFusedParams& p) {
+    return (order == 1 || order == 2) &&
+           p.model == STREAM_MODEL_ELASTIC3D && compact_rows(p);
+}
+
+// Shared memory of stream_step_owned for one (order, model, sweep order),
+// in floats from the start of the block's buffer. Planes the owners alone
+// read are stored in the owners' layout (C, 10 x 34 window cells: thread
+// t's cell, component c, at c * 340 + t):
+// - RAW: the incoming raw planes, each thread copying its own cell. When
+//   x is swept first (P = 0) the x sweep reads its three planes here: five
+//   planes, two of them staged ahead. Else two, one staged ahead, which the
+//   first in-plane sweep reads at its neighbours;
+// - Q (P > 0): the x sweep's three planes, each the last in-plane sweep
+//   before x of a plane, a slot a plane;
+// - T1: the x sweep's output (P = 0, 1) or the first in-plane sweep's (P
+//   = 2), in its window's layout, read by the next sweep at neighbours;
+// - T2: the first sweep after x when two follow it (P = 0).
+template <int ORDER, class M, class AX>
+struct OwnedLayout {
+    static_assert(owned_form<ORDER, M>(), "the owned body's forms");
+    static constexpr int R = 1, C = M::C, P = AX::P;
+    using Raw = Win<R, false, false>;
+    using Mid = Win<R, AX::ys(1), AX::zs(1)>;
+    using Post = Win<R, AX::ys(2), AX::zs(2)>;
+    using Out = Win<R, true, true>;
+    // planes staged ahead of the one computing, and raw planes held
+    static constexpr int AHEAD = P == 0 ? 2 : 1;
+    static constexpr int NRAW = P == 0 ? 2 * R + 1 + AHEAD : AHEAD + 1;
+    static constexpr int PL = C * Raw::VOL;
+    static constexpr int RAW = 0;
+    static constexpr int Q = RAW + NRAW * PL;
+    static constexpr int T1 = Q + (P == 0 ? 0 : (2 * R + 1) * PL);
+    static constexpr int T2 = T1 + C * (P == 0 ? Raw::VOL : Mid::VOL);
+    static constexpr int FLOATS = T2 + (P == 0 ? C * Post::VOL : 0);
+    static constexpr int BYTES = (int)sizeof(float) * FLOATS;
+    // blocks an SM for __launch_bounds__: two, at up to 80 registers a
+    // thread (the cell's materials of two planes, in registers); ptxas
+    // reports no spills (PERF.md)
+    static constexpr int MINB = 2;
+};
+
+// The layout of a one-step launch's body (OWNED: stream_step_owned).
+template <int ORDER, class M, class AX, bool OWNED>
+using StreamBody = std::conditional_t<OWNED, OwnedLayout<ORDER, M, AX>,
+                                      StreamLayout<ORDER, M, AX>>;
+
+// A cell's materials for every sweep of one plane, from a compact stack:
+// the two wave speeds (pair 0's, pairs 1-2's), their impedances rho*c and
+// half-reciprocals 0.5/z (0 where z is 0), and the coupling ratio.
+struct CellMat {
+    float c[2], z[2], rz[2], kap;
+};
+
+// Loads rho, the two speeds and the ratio of the cell at moff of plane mp.
+template <class Mat, class MP>
+__device__ __forceinline__ void mat_fetch(const GcmFusedParams& p,
+                                          const Mat& mat, MP mp, int moff,
+                                          float (&f)[4]) {
+    f[0] = mat.ld(mp, p.rho_idx, moff);
+    f[1] = mat.ld(mp, p.pair_c[0][0], moff);
+    f[2] = mat.ld(mp, p.pair_c[0][1], moff);
+    f[3] = mat.ld(mp, p.zero_kappa[0][0], moff);
+}
+
+__device__ __forceinline__ CellMat cell_mat(const float (&f)[4]) {
+    CellMat m;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        m.c[s] = f[1 + s];
+        m.z[s] = f[0] * m.c[s];
+        m.rz[s] =
+            m.z[s] > 0.0f ? 0.5f * rcp_rn(fmaxf(m.z[s], 1e-30f)) : 0.0f;
+    }
+    m.kap = f[3];
+    return m;
+}
+
+// cell_core on materials computed once a plane.
+template <int ORDER, class M, int A, class Ld>
+__device__ __forceinline__ void cell_owned(const GcmFusedParams& p,
+                                           const Ld& ld, const CellMat& m,
+                                           int ga, float (&nw)[M::C]) {
+    const auto co = [&](int q, float& c, float& z, float& rz) {
+        const int s = q == 0 ? 0 : 1;
+        c = m.c[s];
+        z = m.z[s];
+        rz = m.rz[s];
+    };
+    const auto ka = [&](int) { return m.kap; };
+    cell_core<ORDER, M, A>(p, ld, co, ka, ga, nw);
+}
+
+// Cell (j, k) of the raw window (halo r = 1) in window W: whether it lies
+// there, and its index there.
+template <class W>
+__device__ __forceinline__ bool in_win(int j, int k) {
+    const int a = j - (1 - W::HY), b = k - (1 - W::HZ);
+    return a >= 0 && a < W::EY && b >= 0 && b < W::EZ;
+}
+template <class W>
+__device__ __forceinline__ int win_idx(int j, int k) {
+    return (j - (1 - W::HY)) * W::EZ + k - (1 - W::HZ);
+}
+
+// The in-plane sweep along A (1 = y, 2 = z) of the owned cell (j, k) of
+// the raw window, at global (gy, gz), when it lies in window Out: in(c, a,
+// b) reads component c of cell (a, b) of window In, the sweep's input;
+// put(nw) takes the new values.
+template <int ORDER, class M, int A, class In, class Out, class InF,
+          class Put>
+__device__ __forceinline__ void owned_sweep(const GcmFusedParams& p,
+                                            const InF& in, const CellMat& m,
+                                            int j, int k, int gy, int gz,
+                                            const Put& put) {
+    static_assert(A == 1 || A == 2, "an in-plane axis");
+    if (!in_win<Out>(j, k)) return;
+    const int a = j - (1 - In::HY), b = k - (1 - In::HZ);
+    const auto ld = [&](int c, int o) {
+        return in(c, a + (A == 1 ? o : 0), b + (A == 2 ? o : 0));
+    };
+    float nw[M::C];
+    cell_owned<ORDER, M, A>(p, ld, m, A == 1 ? gy : gz, nw);
+    put(nw);
+}
+
+// One full 3D step (sweeps along AX::A0, A1, A2) of output planes [xa, xb)
+// of the (y, z) tile at (y0, z0), walking x, by every thread of a
+// STREAM_NT-thread block, each thread owning one cell of the tile's
+// window with its r = 1 halo (10 x 34 cells, threads 0-339) in every sweep
+// of every plane:
+// - each incoming plane xi (from xa - 1 to xb, clamped by the source,
+//   which replicates the edge) is staged into shared memory ahead of the
+//   one computing, each thread copying its own cell (OwnedLayout::AHEAD);
+// - the in-plane sweeps that precede x run on it, each cell reading its
+//   neighbours from shared memory, and the cell's last value before x (at
+//   P = 0 the raw cell) is its slot of the x sweep's three planes;
+// - the x sweep of plane xo = xi - 1 reads the thread's own three slots,
+//   which no other thread reads or writes: no barrier; the in-plane
+//   sweeps that follow x run on its result through shared memory, and the
+//   last sweep stores the tile's cells after the folded correctors;
+// - the cell's materials are loaded a plane ahead into registers, and its
+//   speeds, impedances and half-reciprocals computed once a plane for all
+//   of its sweeps there (at P > 0 those of xi and of xo are both held).
+// Two barriers a plane. The state is read once and written once; the (y,
+// z) halo and 2 planes of in-plane sweeps a chunk are recomputed, as in
+// stream_step.
+template <int ORDER, class M, class AX, class Src, class Mat>
+__device__ __forceinline__ void stream_step_owned(
+        const GcmFusedParams& p, const Src& src, const Mat& mat, int xa,
+        int xb, int y0, int z0, float* smem, const StepOut& so) {
+    using L = OwnedLayout<ORDER, M, AX>;
+    using Raw = typename L::Raw;
+    using Mid = typename L::Mid;
+    using Post = typename L::Post;
+    using Out = typename L::Out;
+    constexpr int R = 1, C = M::C, P = L::P, V = Raw::VOL;
+    const int n1 = p.n[1], n2 = p.n[2];
+    const int t = threadIdx.x;
+    const bool own = t < V;
+    const int j = t / Raw::EZ, k = t - j * Raw::EZ;
+    const int gy = y0 - R + j, gz = z0 - R + k;
+    const int moff = mat.cell(gy, gz);
+    float* const t1 = smem + L::T1;
+    float* const t2 = smem + L::T2;
+    // incoming plane number `it` (x = xa - R + it), and slot `it` of the
+    // x sweep's planes (P > 0)
+    const auto raw = [&](int it) {
+        return smem + L::RAW + (it % L::NRAW) * L::PL;
+    };
+    const auto slot = [&](int it) {
+        return smem + L::Q + (it % (2 * R + 1)) * L::PL;
+    };
+    const auto stage = [&](int it) {
+        if (!own) return;
+        long long cs;
+        const float* const s = src.cell(xa - R + it, gy, gz, &cs);
+        float* const d = raw(it) + t;
+#pragma unroll
+        for (int c = 0; c < C; ++c) cp_async4(d + c * V, s + c * cs);
+    };
+    // window W's cells (a, e) in buffer b, in the owners' layout or in W's
+    const auto owners = [](const float* b) {
+        return [b](int c, int a, int e) { return b[c * V + a * Raw::EZ + e]; };
+    };
+    const auto view = [](const float* b, auto w) {
+        using W = decltype(w);
+        return [b](int c, int a, int e) {
+            return b[c * W::VOL + a * W::EZ + e];
+        };
+    };
+    const auto to_t = [&](float* b, auto w) {
+        using W = decltype(w);
+        return [b, j, k](float (&nw)[M::C]) {
+            const int i = win_idx<W>(j, k);
+#pragma unroll
+            for (int c = 0; c < C; ++c) b[c * W::VOL + i] = nw[c];
+        };
+    };
+    const auto to_global = [&](int x) {
+        const long long off = ((long long)x * n1 + gy) * n2 + gz;
+        const bool in = gy < n1 && gz < n2;
+        return [&p, &so, off, in](float (&nw)[M::C]) {
+            if (in) store_cell<M>(p, nw, so, off);
+        };
+    };
+    // the x sweep of the thread's cell on its three planes, b(it) holding
+    // the one of incoming plane it
+    const auto x_cell = [&](auto b, int it, const CellMat& m, int xo,
+                            float (&nw)[M::C]) {
+        const float* const q0 = b(it - 2) + t;
+        const float* const q1 = b(it - 1) + t;
+        const float* const q2 = b(it) + t;
+        const auto ld = [&](int c, int o) {
+            return (o < 0 ? q0 : (o == 0 ? q1 : q2))[c * V];
+        };
+        cell_owned<ORDER, M, 0>(p, ld, m, xo, nw);
+    };
+    const int nin = xb - xa + 2 * R;
+    // the materials of the next plane that needs them: at P = 0 the next
+    // output plane, else the next incoming one
+    float f[4];
+    mat_fetch(p, mat, mat.plane(P == 0 ? xa : xa - R), moff, f);
+    CellMat cur{}, prv{};
+#pragma unroll
+    for (int it = 0; it < L::AHEAD; ++it) {
+        if (it < nin) stage(it);
+        cp_async_commit();
+    }
+    for (int it = 0; it < nin; ++it) {
+        const int xi = xa - R + it;
+        const int xo = xi - R;
+        // plane it has landed (each thread's own copies); at P > 0 every
+        // thread is then done with plane it - 1, whose buffer takes plane
+        // it + 1; at P = 0 the buffer that takes plane it + 2 was last
+        // read by its owner before the previous plane's barriers
+        cp_async_wait<L::AHEAD - 1>();
+        if constexpr (P > 0) __syncthreads();
+        if (it + L::AHEAD < nin) stage(it + L::AHEAD);
+        cp_async_commit();
+        if constexpr (P == 0) {
+            if (it < 2 * R) continue;
+            cur = cell_mat(f);
+            if (xo + 1 < xb) mat_fetch(p, mat, mat.plane(xo + 1), moff, f);
+            if (own) {
+                float nw[C];
+                x_cell(raw, it, cur, xo, nw);
+                to_t(t1, Raw{})(nw);
+            }
+            __syncthreads();
+            owned_sweep<ORDER, M, AX::A1, Raw, Post>(
+                p, view(t1, Raw{}), cur, j, k, gy, gz, to_t(t2, Post{}));
+            __syncthreads();
+            owned_sweep<ORDER, M, AX::A2, Post, Out>(
+                p, view(t2, Post{}), cur, j, k, gy, gz, to_global(xo));
+        } else {
+            prv = cur;
+            cur = cell_mat(f);
+            if (it + 1 < nin) mat_fetch(p, mat, mat.plane(xi + 1), moff, f);
+            float* const q = slot(it) + t;
+            const auto to_q = [q](float (&nw)[M::C]) {
+#pragma unroll
+                for (int c = 0; c < C; ++c) q[c * V] = nw[c];
+            };
+            if constexpr (P == 1) {
+                owned_sweep<ORDER, M, AX::A0, Raw, Mid>(
+                    p, owners(raw(it)), cur, j, k, gy, gz, to_q);
+                if (it < 2 * R) continue;
+                if (own && in_win<Mid>(j, k)) {
+                    float nw[C];
+                    x_cell(slot, it, prv, xo, nw);
+                    to_t(t1, Mid{})(nw);
+                }
+                __syncthreads();
+                owned_sweep<ORDER, M, AX::A2, Mid, Out>(
+                    p, view(t1, Mid{}), prv, j, k, gy, gz, to_global(xo));
+            } else {
+                owned_sweep<ORDER, M, AX::A0, Raw, Mid>(
+                    p, owners(raw(it)), cur, j, k, gy, gz, to_t(t1, Mid{}));
+                __syncthreads();
+                owned_sweep<ORDER, M, AX::A1, Mid, Out>(
+                    p, view(t1, Mid{}), cur, j, k, gy, gz, to_q);
+                if (it < 2 * R) continue;
+                if (own && in_win<Out>(j, k)) {
+                    float nw[C];
+                    x_cell(slot, it, prv, xo, nw);
+                    to_global(xo)(nw);
+                }
             }
         }
     }

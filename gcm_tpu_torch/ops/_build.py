@@ -163,6 +163,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, i32, i32, i32, i32, vp]
         fn.restype = i32
+    # params, order: the one-step 3D body (1 owned, 0 ring)
+    lib.gcm_stream_body.argtypes = [vp, i32]
+    lib.gcm_stream_body.restype = i32
     # params, order, ring, device, out[2]
     for name in ("gcm_fused_spmd_occupancy", "gcm_fused_spmd_2d_occupancy"):
         fn = getattr(lib, name)

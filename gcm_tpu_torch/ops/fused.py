@@ -25,7 +25,10 @@ CUDA tensor they launch or raise, they never fall back. ``fused_step``
 hands bf16 stacks and two-step sequences to ``fused_step_slab``.
 ``fused_step.launches``, ``fused_step_slab.launches`` and
 ``fused_step_2d.launches`` count the kernel launches (``.pair_launches``
-of the last two those of two steps a pass).
+of the last two those of two steps a pass). While a recording is on
+(``utils.profiling``), each one-step 3D launch, here and in
+``ops.fused_spmd``, also counts the body it runs (:func:`stream_body`):
+``gcm.kernels.stream.owned`` or ``gcm.kernels.stream.ring``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from gcm_tpu_torch.solver.correctors import (
 )
 from gcm_tpu_torch.solver.gcm import step
 from gcm_tpu_torch.task import BorderSpec
+from gcm_tpu_torch.utils import profiling
 
 Borders = Dict[Tuple[int, int], BorderSpec]
 
@@ -486,6 +490,25 @@ def _params(model: Model, shape, nm: int, dt: float, h: Sequence[float],
     return p
 
 
+def stream_body(lib, params: _Params, order: int) -> str:
+    """The body a one-step 3D launch with ``params`` at stencil ``order``
+    runs, as the library compiles it (``gcm_stream_body``, which asks no
+    device): "owned" (elastic3d at orders 1-2 on a compact stack: a thread
+    owns its cells in every sweep, ``csrc/gcm_common.cuh::
+    stream_step_owned``) or "ring" (``stream_step``: the other orders and
+    models, and orthotropic stacks)."""
+    return ("owned" if lib.gcm_stream_body(ctypes.addressof(params), order)
+            else "ring")
+
+
+def count_stream_body(lib, params: _Params, order: int) -> None:
+    """Count one launch of the one-step 3D body under
+    ``gcm.kernels.stream.<body>`` while a recording is on."""
+    if profiling.enabled():
+        body = stream_body(lib, params, order)
+        profiling.count(f"gcm.kernels.stream.{body}", 1)
+
+
 def _check(model: Model, dim: int, u: torch.Tensor, mstack: torch.Tensor,
            order: int, specs, aux: Optional[torch.Tensor]) -> None:
     """Raise on anything the kernels do not take (the sweep orders are
@@ -573,6 +596,8 @@ def _fused(dim: int, entry: str, model: Model, u: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err} ({lib.gcm_error_string(err).decode()})")
+    if dim == 3 and len(seq) == 1:
+        count_stream_body(lib, params, order)
     return (out, aux_out), True
 
 

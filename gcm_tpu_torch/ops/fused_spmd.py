@@ -29,7 +29,8 @@ the extension, and keep the cells of the interior or the ring tiles.
 
 ``fused_spmd_interior.launches``, ``fused_spmd_ring.launches`` and
 ``fused_spmd_2d.launches`` count kernel launches (``fused_spmd_2d.
-ring_launches`` those of its ring mode).
+ring_launches`` those of its ring mode); the 3D launches also count their
+body (``ops.fused.count_stream_body``) while a recording is on.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from gcm_tpu_torch.models.spec import Model
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.fused import (
     _MAXC, _MAXP, _MAXSPEC, _MAXZ, _Params, _params, check_compiled_map,
-    corrector_epilogue_reference, fused_step_reference, infer_layout,
+    corrector_epilogue_reference, count_stream_body, fused_step_reference,
+    infer_layout,
 )
 from gcm_tpu_torch.ops.interp import stencil_radius
 from gcm_tpu_torch.solver.correctors import _diag_stress_indices
@@ -331,6 +333,7 @@ def _launch_3d(model, u, mext, dt, h, order, borders, axes, correctors,
         _ptr(aux_out), *sl, split, int(ring), ctypes.addressof(params),
         order, u.device.index, torch.cuda.current_stream(u.device).cuda_stream)
     _raise(lib, "fused_spmd_ring" if ring else "fused_spmd_interior", err)
+    count_stream_body(lib, params, order)
 
 
 def fused_spmd_interior(model: Model, u: torch.Tensor, mext: torch.Tensor,

@@ -43,6 +43,7 @@ from gcm_tpu_torch.solver.correctors import DamageCorrector, MaxwellCorrector
 from gcm_tpu_torch.solver.gcm import stage
 from gcm_tpu_torch.solver.simplex_gcm import build_node_borders
 from gcm_tpu_torch.task import AreaLayer, BorderSpec
+from gcm_tpu_torch.utils import profiling
 
 BORDERS = {
     (0, 0): BorderSpec("free"),
@@ -84,6 +85,20 @@ def card_problem(seed, name, shape, device, with_mat=False):
     return model, u, (mat if with_mat else stack_mats(model, mat)), dt
 
 
+def owned(name, order, ortho=False):
+    """The one-step 3D body a form compiles to: the owned one for elastic3d
+    at orders 1-2 on a compact stack, else the ring body."""
+    return ("owned" if name == "elastic3d" and order <= 2 and not ortho
+            else "ring")
+
+
+def bodies(rec):
+    """The one-step 3D launches a recording counted, by body."""
+    pre = "gcm.kernels.stream."
+    return {k[len(pre):]: n for k, n in rec.counters.items()
+            if k.startswith(pre)}
+
+
 def norm_err(got, want):
     c = want.shape[0]
     scale = want.abs().reshape(c, -1).amax(1) + 1e-30
@@ -98,8 +113,9 @@ def seqs_2d(ksteps):
             else list(itertools.product(orders, orders)))
 
 
-#: 3D sweep orders with x first, last and in the middle
-AXES_3D = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
+#: every 3D sweep order: x first, in the middle and last, each with y
+#: before z and after it (each is an instantiation of the one-step body)
+AXES_3D = list(itertools.permutations(range(3)))
 #: 3D extents: a tile multiple along none of the axes, ragged against the
 #: 8 x 32 (y, z) tile in every axis, thinner than an x chunk and than the
 #: halo (nx = 1, 2; nz = 2)
@@ -116,9 +132,11 @@ def test_kernel_matches_plain_on_card(cuda, order, axes, name, shape):
     model, u, ms, dt = card_problem(order, name, shape, cuda)
     h = (10.0, 12.0, 9.0)
     before = fused_step.launches
-    got = fused_step(model, u, ms, dt, h, order, BORDERS, axes)
+    with profiling.recording() as rec:
+        got = fused_step(model, u, ms, dt, h, order, BORDERS, axes)
     torch.cuda.synchronize()
     assert fused_step.launches == before + 1
+    assert bodies(rec) == {owned(name, order): 1}
     want = fused_step_reference(model, u, ms, dt, h, order, BORDERS, axes)
     assert norm_err(got, want) < 2e-6
 
@@ -490,7 +508,9 @@ SPMD_CASES = [((64, 48, 16), (2, 2), 1, (0, 1, 2)),
               ((64, 48, 16), (2, 2), 2, (2, 1, 0)),
               ((50, 38, 20), (2, 2), 3, (0, 1, 2)),
               ((96, 20, 16), (4, 1), 2, (2, 1, 0)),
-              ((32, 16, 16), (4, 1), 2, (0, 1, 2))]
+              ((32, 16, 16), (4, 1), 2, (0, 1, 2)),
+              ((70, 38, 45), (2, 2), 2, (2, 0, 1)),
+              ((50, 38, 20), (2, 2), 1, (1, 2, 0))]
 
 
 def _card_mesh(cuda, dim, shape):
@@ -521,13 +541,15 @@ def test_spmd_kernels_match_plain_on_card(cuda, case):
     for k, uk in enumerate(us):
         before = (fs.fused_spmd_interior.launches, fs.fused_spmd_ring.launches)
         args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
-        got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
-        ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
-                                  face_flags(mesh, k), torch.zeros_like(uk),
-                                  *args[3:])
+        with profiling.recording() as rec:
+            got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
+            ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
+                                      face_flags(mesh, k),
+                                      torch.zeros_like(uk), *args[3:])
         torch.cuda.synchronize()
         assert (fs.fused_spmd_interior.launches,
                 fs.fused_spmd_ring.launches) == (before[0] + 1, before[1] + 1)
+        assert bodies(rec) == {owned("elastic3d", order): 2}
         want = fs.fused_spmd_interior_reference(*args,
                                                 out=torch.zeros_like(uk))
         assert norm_err(got, want) < 2e-6
@@ -600,12 +622,18 @@ def test_spmd_launches_cover_every_cell_once_on_card(cuda, case):
     assert norm_err(gather_state(outs, mesh), want) < 2e-6
 
 
+#: blocks an SM of the owned one-step body (its register budget)
+OWNED_BLOCKS = 2
+
+
 @pytest.mark.gpu
 def test_stream_occupancy_on_card(cuda):
-    """The one-step body's shared memory leaves at least two blocks an SM
-    at r = 1 for elastic3d, in every sweep order, float and bf16 stacks,
-    single-card and SPMD launches; the two-step body holds three blocks an
-    SM in every order pair at r = 1 and fits one at r = 2."""
+    """The owned one-step body (elastic3d, r = 1) holds OWNED_BLOCKS blocks
+    an SM on 69-85 KB of shared memory (the raw planes, the x sweep's three
+    planes and one or two temporaries), in every sweep order, float and
+    bf16 stacks, single-card and SPMD launches; the two-step body holds
+    three blocks an SM in every order pair at r = 1 and fits one at r =
+    2."""
     from gcm_tpu_torch.ops import fused_spmd as fs
     from gcm_tpu_torch.ops.fused import fused_step_slab_occupancy
     from gcm_tpu_torch.parallel.fused_spmd import extended_mstack
@@ -615,15 +643,15 @@ def test_stream_occupancy_on_card(cuda):
     ms = stack_mats(model, mat)
     mext = extended_mstack(model, mat, _card_mesh(cuda, 3, (1, 1)), 2)[0]
     h = (1.0, 1.0, 1.0)
-    for axes in AXES_3D + [(0, 2, 1), (1, 2, 0)]:
+    for axes in AXES_3D:
         for stack in (ms, ms.to(torch.bfloat16)):
             bps, smem = fused_step_slab_occupancy(model, u, stack, dt, h, 2,
                                                   BORDERS, axes)
-            assert bps >= 2 and 0 < smem < 100_000
+            assert bps == OWNED_BLOCKS and 69_000 < smem < 85_000
         for ring in (False, True):
             bps, smem = fs.fused_spmd_occupancy(model, u, mext, dt, h, 2,
                                                 BORDERS, axes, ring=ring)
-            assert bps >= 2 and 0 < smem < 100_000
+            assert bps == OWNED_BLOCKS and 69_000 < smem < 85_000
     for order in (2, 4):
         for seq in slab_seqs(2):
             bps, smem = fused_step_slab_occupancy(model, u, ms, dt, h, order,
@@ -717,11 +745,14 @@ def test_kernels_refuse_a_model_without_a_compiled_map_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(20, 19, 45), (67, 1, 45)])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
+def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16, shape):
     """Maxwell + damage folded into the one-step body, a step in each of
-    the six sweep orders, against the plain steps with the epilogue."""
-    model, u, ms, dt = card_problem(4, "elastic3d", (20, 19, 45), cuda)
+    the six sweep orders, against the plain steps with the epilogue; the
+    second shape divides by neither tile extent, spans many x chunks and
+    has one row along y, thinner than the halo."""
+    model, u, ms, dt = card_problem(4, "elastic3d", shape, cuda)
     for a in range(1, 4):   # a smooth state, off the damage knife-edges
         u = 0.25 * u.roll(1, a) + 0.5 * u + 0.25 * u.roll(-1, a)
     if bf16:
@@ -730,11 +761,13 @@ def test_folded_correctors_in_every_sweep_order_on_card(cuda, bf16):
         (MaxwellCorrector(tau=40 * dt),
          DamageCorrector(threshold=2e5, rate=0.5 / dt)), dt)
     h = (10.0, 11.0, 9.0)
-    got, gaux = u, torch.zeros((1, 20, 19, 45), device=cuda)
+    got, gaux = u, torch.zeros((1,) + shape, device=cuda)
     want, waux = u, gaux
     for axes in itertools.permutations(range(3)):
-        got, gaux = fused_step_slab(model, got, ms, dt, h, 2, BORDERS, axes,
-                                    correctors=specs, aux=gaux)
+        with profiling.recording() as rec:
+            got, gaux = fused_step_slab(model, got, ms, dt, h, 2, BORDERS,
+                                        axes, correctors=specs, aux=gaux)
+        assert bodies(rec) == {"owned": 1}
         want, waux = fused_step_slab_reference(model, want, ms, dt, h, 2,
                                                BORDERS, axes,
                                                correctors=specs, aux=waux)
@@ -1035,15 +1068,17 @@ SLAB_AXES = [(0, 1, 2), (2, 1, 0), (2, 0, 1), (1, 0, 2)]
 
 
 def slab_seqs(ksteps, nx=2):
-    """The sweep-order sequences of a pass: the orders of SLAB_AXES one at
-    a time, or every pair of the six orders. On a single x plane (nx = 1)
+    """The sweep-order sequences of a pass: every order one at a time, or
+    every pair of the six orders. On a single x plane (nx = 1)
     two steps take each order of SLAB_AXES and its reverse: there a first
     step ending with x and a second beginning with x apply both x borders
     to the one row twice in a row, which leaves a stress component zero up
     to round-off (sxz after (1, 2, 0) + (0, 2, 1)), and a normalized error
     on it would weigh the kernel's round-off against the plain version's."""
-    if ksteps == 1 or nx == 1:
-        return [(ax,) if ksteps == 1 else (ax, ax[::-1]) for ax in SLAB_AXES]
+    if ksteps == 1:
+        return [(ax,) for ax in AXES_3D]
+    if nx == 1:
+        return [(ax, ax[::-1]) for ax in SLAB_AXES]
     orders = list(itertools.permutations(range(3)))
     return list(itertools.product(orders, orders))
 
@@ -1067,11 +1102,14 @@ def test_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16, shape):
     h = (10.0, 12.0, 9.0)
     for seq in slab_seqs(ksteps, shape[0]):
         before = (fused_step_slab.launches, fused_step_slab.pair_launches)
-        got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
-                              axes_seq=seq)
+        with profiling.recording() as rec:
+            got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
+                                  axes_seq=seq)
         torch.cuda.synchronize()
         assert (fused_step_slab.launches - before[0],
                 fused_step_slab.pair_launches - before[1]) == (1, ksteps - 1)
+        assert bodies(rec) == ({owned("elastic3d", order): 1} if ksteps == 1
+                               else {})
         want = fused_step_slab_reference(model, u, ms, dt, h, order, BORDERS,
                                          axes_seq=seq)
         assert norm_err(got, want) < 2e-6 * ksteps
@@ -1256,9 +1294,11 @@ def test_ortho_kernel_matches_plain_on_card(cuda, order, axes, shape):
     assert ms.shape[0] == 13
     h = (10.0, 12.0, 9.0)
     before = fused_step.launches
-    got = fused_step(model, u, ms, dt, h, order, BORDERS, axes)
+    with profiling.recording() as rec:
+        got = fused_step(model, u, ms, dt, h, order, BORDERS, axes)
     torch.cuda.synchronize()
     assert fused_step.launches == before + 1
+    assert bodies(rec) == {"ring": 1}
     assert norm_err(got, fused_step_reference(model, u, ms, dt, h, order,
                                               BORDERS, axes)) < 2e-6
     exact = step(model, u.double(), _f64(mat), dt, h, order, BORDERS, axes)
@@ -1279,10 +1319,12 @@ def test_ortho_slab_kernel_matches_plain_on_card(cuda, order, ksteps, bf16,
     h = (10.0, 12.0, 9.0)
     for seq in slab_seqs(ksteps, shape[0]):
         before = fused_step_slab.launches
-        got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
-                              axes_seq=seq)
+        with profiling.recording() as rec:
+            got = fused_step_slab(model, u, ms, dt, h, order, BORDERS,
+                                  axes_seq=seq)
         torch.cuda.synchronize()
         assert fused_step_slab.launches == before + 1
+        assert bodies(rec) == ({"ring": 1} if ksteps == 1 else {})
         want = fused_step_slab_reference(model, u, ms, dt, h, order, BORDERS,
                                          axes_seq=seq)
         assert norm_err(got, want) < 2e-6 * ksteps
@@ -1361,11 +1403,13 @@ def test_ortho_spmd_kernels_match_plain_on_card(cuda, order, axes):
     slabs = exchange_slabs(us, mesh, fs.stencil_radius(order))
     for k, uk in enumerate(us):
         args = (model, uk, mext[k], dt, h, order, BORDERS, axes)
-        got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
-        ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
-                                  face_flags(mesh, k), torch.zeros_like(uk),
-                                  *args[3:])
+        with profiling.recording() as rec:
+            got = fs.fused_spmd_interior(*args, out=torch.zeros_like(uk))
+            ring = fs.fused_spmd_ring(model, uk, mext[k], slabs[k],
+                                      face_flags(mesh, k),
+                                      torch.zeros_like(uk), *args[3:])
         torch.cuda.synchronize()
+        assert bodies(rec) == {"ring": 2}
         assert norm_err(got, fs.fused_spmd_interior_reference(
             *args, out=torch.zeros_like(uk))) < 2e-6
         assert norm_err(ring, fs.fused_spmd_ring_reference(

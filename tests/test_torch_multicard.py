@@ -21,6 +21,7 @@ and runs nothing) and called through ctypes.
 import concurrent.futures
 import ctypes
 import dataclasses
+import itertools
 import re
 import subprocess
 
@@ -364,6 +365,27 @@ def _entries():
 
 
 ENTRY_NAMES = [name for name, _, _ in _entries()[0]]
+
+
+@pytest.mark.parametrize("name,order,layout,body", [
+    ("elastic3d", 1, "compact", 1), ("elastic3d", 2, "compact", 1),
+    ("elastic3d", 3, "compact", 0), ("elastic3d", 4, "compact", 0),
+    ("elastic3d", 1, "ortho", 0), ("elastic3d", 2, "ortho", 0),
+    ("acoustic3d", 1, "compact", 0), ("acoustic3d", 2, "compact", 0)])
+def test_stream_body_follows_the_form(stub_lib, name, order, layout, body):
+    """``gcm_stream_body`` names the one-step 3D body a form compiles to,
+    asking no device: the owned body (1) for elastic3d at orders 1-2 on a
+    compact stack, float or bf16 alike (the stored type is not a
+    parameter), the ring body (0) for orders 3-4, orthotropic stacks and
+    acoustic3d, in every sweep order."""
+    model = get_model(name)
+    nm = len(ofu.layout_names(model, layout))
+    for axes in itertools.permutations(range(3)):
+        p = ofu._params(model, (16, 16, 32), nm, 1e-3, (1.0,) * 3, None,
+                        axes, ())
+        assert stub_lib.gcm_stream_body(ctypes.addressof(p), order) == body
+        assert ofu.stream_body(stub_lib, p, order) == ("owned" if body
+                                                       else "ring")
 
 
 @pytest.mark.parametrize("entry", ENTRY_NAMES)
